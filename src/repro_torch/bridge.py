@@ -1,0 +1,113 @@
+"""Bridge between the JAX package's pytrees and the port's tensors.
+
+The parity tests build the JAX package's weights, caches and KV blobs,
+hand them over as numpy arrays, and hold the port against the reference
+on the same state.  Nothing here imports JAX: inputs are numpy arrays
+(``bfloat16`` arrays from ``ml_dtypes`` are read through float32, which
+is exact), and outputs going back are numpy arrays, with bfloat16
+leaves widened to float32 and their dtype named beside them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import (DeviceLike, dtype_name, resolve_device,
+                                torch_dtype)
+from repro_torch.engine.engine import KVBlob
+from repro_torch.models.transformer import init_cache
+
+
+def to_tensor(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """numpy array (any float/int dtype, bfloat16 included) -> tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy; bfloat16 widens to float32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
+                    dtype=None) -> dict:
+    """The JAX package's ``init_params`` tree (as numpy) -> the port's
+    params.  The stacked ``(L, ...)`` layer leaves become per-layer
+    weights.  Matrices and the embedding are stored once in ``dtype``
+    (default ``cfg.dtype``) and norms in f32: exact, because the JAX
+    forward casts every weight to the activation dtype where it uses it
+    (``lin``, the embed gather and the tied unembed)."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    dev = resolve_device(device)
+    wdt = torch_dtype(dtype or cfg.dtype)
+
+    def mat(a):
+        return to_tensor(a, dev, wdt)
+
+    def vec(a):
+        return to_tensor(a, dev, torch.float32)
+
+    la, lm = tree["layers"]["attn"], tree["layers"]["mlp"]
+    layers = []
+    for i in range(cfg.num_layers):
+        layers.append({
+            "attn": {"ln": vec(la["ln"][i]), "wq": mat(la["wq"][i]),
+                     "wk": mat(la["wk"][i]), "wv": mat(la["wv"][i]),
+                     "wo": mat(la["wo"][i])},
+            "mlp": {"ln": vec(lm["ln"][i]), "wg": mat(lm["wg"][i]),
+                    "wu": mat(lm["wu"][i]), "wd": mat(lm["wd"][i])},
+        })
+    out = {"embed": mat(tree["embed"]), "final_ln": vec(tree["final_ln"]),
+           "layers": layers}
+    if not cfg.tie_embeddings:
+        out["unembed"] = mat(tree["unembed"])
+    return out
+
+
+def cache_from_jax(cfg: ModelConfig, cache: Dict[str, np.ndarray],
+                   device: DeviceLike = None) -> dict:
+    """A reference cache (``k``/``v`` (L,B,S,Hk,D), ``slot_pos`` (B,S))
+    -> a port cache with the same contents."""
+    dev = resolve_device(device)
+    _, B, S = cache["k"].shape[:3]
+    dt = np.asarray(cache["k"]).dtype.name
+    out = init_cache(cfg, B, S, dtype=dt, device=dev)
+    for k, v in cache.items():
+        out[k].copy_(to_tensor(v, dev))
+    return out
+
+
+def cache_to_numpy(cache: dict) -> Dict[str, np.ndarray]:
+    return {k: to_numpy(v) for k, v in cache.items()}
+
+
+def blob_from_jax(blob, device: DeviceLike = None) -> KVBlob:
+    """A reference ``KVBlob`` (arrays as numpy) -> a port ``KVBlob`` with
+    the same header (req_id, next_pos, nbytes, shapes, dtypes) and
+    checksum stamp."""
+    dev = resolve_device(device)
+    arrays = {k: to_tensor(v, dev) for k, v in blob.arrays.items()}
+    return KVBlob(blob.req_id, arrays, int(blob.next_pos), int(blob.nbytes),
+                  blob.checksum)
+
+
+def blob_to_numpy(blob: KVBlob) -> dict:
+    """A port ``KVBlob`` -> its fields with numpy arrays; ``dtypes``
+    names each leaf's dtype (bfloat16 leaves arrive as float32)."""
+    return {"req_id": blob.req_id, "next_pos": blob.next_pos,
+            "nbytes": blob.nbytes, "checksum": blob.checksum,
+            "arrays": {k: to_numpy(v) for k, v in blob.arrays.items()},
+            "dtypes": {k: dtype_name(v.dtype)
+                       for k, v in blob.arrays.items()}}

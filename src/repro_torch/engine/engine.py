@@ -1,0 +1,928 @@
+"""Inference engine: one Seer "inference instance", in PyTorch.
+
+Counterpart of ``repro.engine.engine`` on the path the rollout runs:
+``prefill_mode="batched"``, ``spec_mode="linear"``,
+``migration_mode="batched"``, one device, no tensor parallelism.  The
+engine behaviour is the JAX package's, decision for decision — the same
+mixed prefill/decode/verify batches, the same bucketing of gamma, T and
+export extents, the same admission, release, takeover and crash rules —
+so step shapes, step counts and sampled tokens match the reference.
+
+What changes with PyTorch:
+
+* **In-place cache.**  JAX donates the cache to each jitted step; here
+  ``forward`` writes K/V rows and slot positions into the cache tensors
+  in place and the fused step rolls back rejected drafts with an
+  in-place ``masked_fill_``.  Exports gather into fresh tensors
+  (``index_select``), never views of the cache the next step overwrites.
+* **One host sync per step.**  ``dispatch_step`` uploads the host batch
+  with a single non-blocking copy from pinned memory, enqueues the
+  forward, sampling and acceptance, and enqueues one non-blocking copy of
+  the packed (sampled, logprobs, n_accepted) block into pinned host
+  memory.  ``commit_step`` waits for that copy — the step's one host
+  sync, counted in ``StepFunctions.host_syncs``.
+* **Device.**  Instances live on ``cuda`` unless built with
+  ``device="cpu"``; there attention runs the kernel's plain version.
+
+The tree-speculation path (``spec_mode="tree"``), the sync oracle
+(``prefill_mode="sync"``), per-slot migration and tensor parallelism are
+later slices and raise ``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import time
+import zlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, dtype_name, resolve_device
+from repro_torch.engine.sampling import (draft_acceptance, position_keys,
+                                         prng_key, sample_tokens,
+                                         token_logprobs_at)
+from repro_torch.models import forward, init_cache
+
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+def _later(what: str, slice_name: str):
+    return NotImplementedError(f"{what} arrives with the {slice_name} slice "
+                               "of the PyTorch port")
+
+
+# ---------------------------------------------------------------------------
+# step functions (shared per config)
+# ---------------------------------------------------------------------------
+
+
+class StepFunctions:
+    """Per-config holder of the engine's device functions.
+
+    Every returned step callable counts its calls in ``invocations`` and
+    ``invocations_by_kind`` ("fused:T"); ``host_syncs`` counts blocking
+    device->host reads of step results; ``migration_calls`` counts the
+    batched KV export/import calls (and per-leaf ops of an immediate
+    per-slot ``release``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self._step_cache: dict = {}
+        self.invocations = 0
+        self.invocations_by_kind: Dict[str, int] = {}
+        self.host_syncs = 0
+        self.migration_calls = 0
+        self.migration_calls_by_kind: Dict[str, int] = {}
+
+    def count_migration(self, kind: str, n: int = 1) -> None:
+        self.migration_calls += n
+        self.migration_calls_by_kind[kind] = \
+            self.migration_calls_by_kind.get(kind, 0) + n
+
+    def _counted(self, fn, kind: str):
+        def wrapper(*args):
+            self.invocations += 1
+            self.invocations_by_kind[kind] = \
+                self.invocations_by_kind.get(kind, 0) + 1
+            return fn(*args)
+        return wrapper
+
+    def fused_step(self, T: int):
+        """Device-resident step with on-device accept/commit:
+
+        (params, cache, tokens(B,T), positions, mask, keys, temps,
+        sample_rows(B,), anchor(B,), n_drafts(B,)) ->
+        (sampled(B,T), logprobs(B,T), n_accepted(B,), cache)
+
+        Column ``anchor[i]`` holds the row's pending token, columns
+        ``anchor+1 .. anchor+n_drafts`` its drafts.  The cache comes back
+        updated in place with every slot past the accepted chain
+        invalidated (``slot_pos`` rollback)."""
+        key = ("fused", T)
+        if key in self._step_cache:
+            return self._step_cache[key]
+        cfg = self.cfg
+
+        @torch.no_grad()
+        def fn(params, cache, tokens, positions, mask, keys, temps,
+               sample_rows, anchor, n_drafts):
+            logits, cache, _ = forward(cfg, params, tokens, positions, cache,
+                                       token_mask=mask)
+            logits = logits.float()
+            sampled = sample_tokens(logits, keys, temps, sample_rows)
+            lp = token_logprobs_at(logits, sampled)
+            n_acc = draft_acceptance(sampled, tokens, anchor, n_drafts)
+            anchor_pos = positions.gather(1, anchor.long()[:, None])[:, 0]
+            committed_end = torch.where(sample_rows, anchor_pos + n_acc + 1,
+                                        _INT32_MAX)
+            sp = cache["slot_pos"]
+            sp.masked_fill_(sp >= committed_end[:, None], -1)
+            return sampled, lp, n_acc, cache
+
+        counted = self._counted(fn, f"fused:{T}")
+        self._step_cache[key] = counted
+        return counted
+
+    def export_batch(self, lives: Tuple[int, ...]):
+        """Multi-slot KV gather: ``(cache, slots(n,)) -> [blob leaf dict]
+        * n``.  Each cache leaf is read by one gather (limited to the
+        widest live extent) however many slots migrate; blob ``i``'s
+        position-indexed leaves are then trimmed to ``lives[i]``.  The
+        outputs are fresh tensors, never views of the cache."""
+        max_live = max(lives)
+
+        @torch.no_grad()
+        def fn(cache, slots):
+            gathered = {}
+            for k, v in cache.items():
+                pax = _pos_axis(k)
+                if pax is not None:
+                    v = v.narrow(pax + 1, 0, min(max_live, v.shape[pax + 1]))
+                sax = _slot_slice(k)
+                gathered[k] = v.index_select(sax, slots).movedim(sax, 0)
+            out = []
+            for i, live in enumerate(lives):
+                leaves = {}
+                for k, g in gathered.items():
+                    row = g[i]
+                    ax = _pos_axis(k)
+                    if ax is not None:
+                        row = row.narrow(ax, 0, min(live, row.shape[ax]))
+                    leaves[k] = row
+                out.append(leaves)
+            return out
+
+        return fn
+
+    @staticmethod
+    @torch.no_grad()
+    def import_batch(cache: dict, slots: torch.Tensor,
+                     blobs: List[dict]) -> dict:
+        """Multi-slot KV scatter, in place: blobs are stacked, padded back
+        to the cache's position extent (``slot_pos`` with -1, K/V with
+        zeros) and written with one indexed copy per leaf."""
+        for k, dst in cache.items():
+            src = torch.stack([b[k] for b in blobs])
+            pax = _pos_axis(k)
+            if pax is not None:
+                pad = dst.shape[pax + 1] - src.shape[pax + 1]
+                if pad > 0:
+                    shape = list(src.shape)
+                    shape[pax + 1] = pad
+                    fill = torch.full(shape, -1 if k == "slot_pos" else 0,
+                                      dtype=src.dtype, device=src.device)
+                    src = torch.cat([src, fill], dim=pax + 1)
+            sax = _slot_slice(k)
+            idx = [slice(None)] * dst.dim()
+            idx[sax] = slots
+            dst[tuple(idx)] = src.movedim(0, sax).to(dst.dtype)
+        return cache
+
+
+# ---------------------------------------------------------------------------
+# per-request engine state
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class EngineSeq:
+    req_id: str
+    group_id: str
+    prompt: List[int]
+    seed: int
+    temperature: float = 1.0
+    max_new_tokens: int = 256
+    stop_token: Optional[int] = None
+    # mutable generation state
+    generated: List[int] = field(default_factory=list)
+    logprobs: List[float] = field(default_factory=list)
+    last_token: int = -1          # pending token (fed on next step)
+    next_pos: int = 0             # position of the pending token
+    finished: bool = False
+    # queued prefill work: tokens not yet written to the KV cache, and the
+    # absolute position of the first of them
+    prefill_queue: List[int] = field(default_factory=list)
+    prefill_pos: int = 0
+    # prefix-revalidation queue (truncate-mode weight refresh, replay
+    # recovery): old tokens replayed as verify drafts
+    reval_queue: List[int] = field(default_factory=list)
+
+    @property
+    def prefilling(self) -> bool:
+        return bool(self.prefill_queue)
+
+    @property
+    def total_len(self) -> int:
+        return len(self.prompt) + len(self.generated)
+
+    def finish_reason(self) -> str:
+        if self.stop_token is not None and self.generated and \
+                self.generated[-1] == self.stop_token:
+            return "stop"
+        return "length"
+
+
+def _dtype_str(dtype) -> str:
+    return dtype_name(dtype) if isinstance(dtype, torch.dtype) else str(dtype)
+
+
+@dataclass
+class KVBlob:
+    """Exported per-request cache state (what the global pool stores).
+
+    Position-indexed leaves (k/v/slot_pos) are trimmed to the live
+    prefix; ``nbytes`` counts the live prefix ``[0, next_pos)`` only.
+    ``checksum`` is a CRC32 over the blob *header* (req_id, next_pos,
+    nbytes and every leaf's name/shape/dtype, dtypes printed with numpy's
+    names), so a blob's CRC is the same in the JAX package and the port;
+    a content checksum would cost a device->host sync per blob."""
+    req_id: str
+    arrays: dict                  # cache leaves sliced at the slot
+    next_pos: int
+    nbytes: int
+    checksum: Optional[int] = None
+
+    def header_crc(self) -> int:
+        parts = [self.req_id, str(self.next_pos), str(self.nbytes)]
+        for name in sorted(self.arrays):
+            leaf = self.arrays[name]
+            parts.append(f"{name}:{tuple(leaf.shape)}:"
+                         f"{_dtype_str(leaf.dtype)}")
+        return zlib.crc32("|".join(parts).encode()) & 0xFFFFFFFF
+
+    def stamp_checksum(self) -> "KVBlob":
+        """Idempotent: (re)stamps ``checksum`` from the current header."""
+        self.checksum = self.header_crc()
+        return self
+
+    def verify_checksum(self) -> None:
+        """Raise :class:`BlobCorruptionError` on a stamp/header mismatch
+        (unstamped blobs pass)."""
+        if self.checksum is not None and self.checksum != self.header_crc():
+            raise BlobCorruptionError(
+                f"KV blob for {self.req_id!r} failed checksum validation "
+                f"(stored 0x{self.checksum:08x} != computed "
+                f"0x{self.header_crc():08x}); refusing to import at "
+                f"possibly-garbage positions")
+
+
+class BlobCorruptionError(RuntimeError):
+    """A pooled KV blob's checksum no longer matches its header."""
+
+
+def _slot_slice(key: str) -> int:
+    """Cache leaves carry the slot (batch) dim at 0 or 1."""
+    return 0 if key == "slot_pos" else 1
+
+
+def _pos_axis(key: str) -> Optional[int]:
+    """Axis of the cache-position dim in a per-slot blob leaf."""
+    return {"k": 1, "v": 1, "slot_pos": 0}.get(key)
+
+
+def _live_nbytes(leaves: dict, next_pos: int) -> int:
+    """Bytes of a blob counting only the live prefix ``[0, next_pos)``."""
+    total = 0
+    for k, v in leaves.items():
+        n = v.numel()
+        ax = _pos_axis(k)
+        if ax is not None and v.shape[ax]:
+            n = n // v.shape[ax] * min(next_pos, v.shape[ax])
+        total += n * v.element_size()
+    return total
+
+
+@dataclass
+class StepTicket:
+    """In-flight device step.  ``block`` is the packed (sampled,
+    logprobs, n_accepted) result, in pinned host memory on the card
+    (filled by a non-blocking copy that ``ready`` marks) or a CPU
+    tensor; reading it is the step's one host sync."""
+    block: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    B: int
+    T: int
+    sample_slots: List[int]           # decode rows + tail-fused rows
+    anchors: Dict[int, int]           # slot -> column of its pending token
+
+
+# ---------------------------------------------------------------------------
+# instance
+# ---------------------------------------------------------------------------
+
+
+class Instance:
+    """One inference instance (a model replica with its own KV buffer)."""
+
+    def __init__(self, cfg: ModelConfig, params, steps: StepFunctions, *,
+                 tp: Optional[int] = None,
+                 max_slots: int = 8, cache_len: int = 4096,
+                 prefill_chunk: int = 64, gamma_max: int = 8,
+                 prefill_mode: str = "batched",
+                 prefill_budget: Optional[int] = None,
+                 migration_mode: Optional[str] = None,
+                 spec_mode: str = "linear",
+                 cost_model=None, prefill_latency_factor: float = 2.0,
+                 instance_id: str = "inst0", node: str = "n0",
+                 admit_into_draining: Optional[bool] = None,
+                 base_seed: int = 0,
+                 device: DeviceLike = None):
+        if prefill_mode == "sync":
+            raise _later("prefill_mode='sync' (the host-accept oracle)",
+                         "sync/perslot oracle")
+        if prefill_mode != "batched":
+            raise ValueError(f"prefill_mode={prefill_mode!r}")
+        if spec_mode == "tree":
+            raise _later("spec_mode='tree'", "tree-speculation (K2)")
+        if spec_mode != "linear":
+            raise ValueError(f"spec_mode={spec_mode!r}")
+        if migration_mode == "perslot":
+            raise _later("migration_mode='perslot'", "sync/perslot oracle")
+        if migration_mode not in (None, "batched"):
+            raise ValueError(f"migration_mode={migration_mode!r}")
+        if tp is not None:
+            raise _later("tensor parallelism (tp)", "tensor-parallel")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params on {params['embed'].device}, instance "
+                             f"on {self.device}")
+        self.params = params
+        self.steps = steps
+        self.max_slots = max_slots
+        self.cache_len = cache_len
+        self.prefill_chunk = prefill_chunk
+        self.gamma_max = gamma_max
+        self.prefill_mode = prefill_mode
+        self.migration_mode = "batched"
+        self.spec_mode = spec_mode
+        self.prefill_budget = prefill_budget
+        self.cost_model = cost_model
+        self.prefill_latency_factor = prefill_latency_factor
+        self.instance_id = instance_id
+        self.node = node
+        # flight-recorder hook of the JAX package; tracing is a later
+        # slice, so it stays None (every hook below is guarded on it)
+        self.tracer = None
+        # admit-into-draining: a draining slot counts as admittable one
+        # tick early; the new seq's import/clear is deferred until the
+        # next dispatch snapshots (exports) the draining rows first
+        self.admit_into_draining = True if admit_into_draining is None \
+            else admit_into_draining
+        self.tp = None
+        self.base_key = prng_key(base_seed)
+        self.cache = init_cache(cfg, max_slots, cache_len, device=self.device)
+        self.slots: List[Optional[EngineSeq]] = [None] * max_slots
+        self._inflight: Optional[StepTicket] = None
+        self.alive = True
+        self._draining: Dict[int, EngineSeq] = {}
+        self._pending_imports: List[Tuple[int, KVBlob]] = []
+        self._takeovers: Dict[int, EngineSeq] = {}
+        self._pending_clears: List[int] = []
+        self._export_buffer: Dict[str, KVBlob] = {}
+        # stats
+        self.crashes = 0
+        self.tokens_generated = 0
+        self.steps_run = 0
+        self.prefill_tokens = 0
+        self.admits = 0
+        self.admit_seconds = 0.0
+        self.slots_exported = 0
+        self.slots_imported = 0
+        self.takeover_admits = 0
+        self.export_overlapped_slots = 0
+        self.migration_bytes_out = 0
+        self.migration_bytes_in = 0
+        self.migration_host_seconds = 0.0
+        self.row_slots_total = 0
+        self.row_slots_active = 0
+        self.prefill_rows_packed = 0
+        self.tail_fused_rows = 0
+
+    # -- host <-> device -----------------------------------------------------
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without a host sync: staged in
+        pinned memory and copied non-blocking on the current stream."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _index(self, slots: List[int]) -> torch.Tensor:
+        return self._upload(np.asarray(slots, np.int64))
+
+    # -- capacity ------------------------------------------------------------
+
+    def free_slots(self) -> int:
+        if not self.alive:
+            return 0
+        free = sum(s is None for s in self.slots)
+        if self.admit_into_draining:
+            free += sum(1 for i in self._draining
+                        if i not in self._takeovers)
+        return free
+
+    def pending_takeovers(self) -> List[int]:
+        return sorted(self._takeovers)
+
+    def active_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots)
+                if s is not None and i not in self._draining]
+
+    def draining_slots(self) -> List[int]:
+        return sorted(self._draining)
+
+    def decode_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots)
+                if s is not None and not s.prefilling
+                and i not in self._draining]
+
+    def prefilling_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots)
+                if s is not None and s.prefilling
+                and i not in self._draining]
+
+    def queued_prefill_tokens(self) -> int:
+        return sum(len(s.prefill_queue)
+                   for s in self.slots if s is not None)
+
+    def kv_used_tokens(self) -> int:
+        return sum(min(s.next_pos, self.cache_len)
+                   for s in self.slots if s is not None)
+
+    def kv_capacity_tokens(self) -> int:
+        return self.max_slots * self.cache_len
+
+    def kv_headroom(self) -> float:
+        return 1.0 - self.kv_used_tokens() / max(self.kv_capacity_tokens(), 1)
+
+    # -- admission / release --------------------------------------------------
+
+    def admit(self, seq: EngineSeq, blob: Optional[KVBlob] = None) -> int:
+        """Place ``seq`` in a free (or draining) slot.  Only *queues* the
+        prefill work or the blob import; legal with a step in flight
+        (every cache write is deferred to the next dispatch)."""
+        if not self.alive:
+            raise RuntimeError("admit() on a crashed instance")
+        if blob is not None and blob.next_pos == seq.next_pos:
+            blob.verify_checksum()
+        t0 = time.perf_counter()
+        takeover = False
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if free:
+            slot = free[0]
+        else:
+            cands = [i for i in self.draining_slots()
+                     if i not in self._takeovers]
+            if not (self.admit_into_draining and cands):
+                raise ValueError("no admittable slot")
+            slot, takeover = cands[0], True
+            self._takeovers[slot] = seq
+            self.takeover_admits += 1
+        self.slots[slot] = seq
+        if takeover:
+            self._pending_clears.append(slot)
+        else:
+            self._clear_slot_cache(slot)
+        seq.prefill_queue = []
+        seq.prefill_pos = 0
+        if blob is not None and blob.next_pos == seq.next_pos:
+            self._check_blob_fits(blob)
+            self.slots_imported += 1
+            self.migration_bytes_in += blob.nbytes
+            self._pending_imports.append((slot, blob))
+        elif seq.next_pos > 0:
+            # no blob (pool miss): re-prefill everything up to next_pos
+            tokens = (seq.prompt + seq.generated)[:seq.next_pos]
+            self._queue_prefill(seq, tokens, start_pos=0)
+        else:
+            tokens = seq.prompt[:-1]
+            seq.last_token = seq.prompt[-1]
+            seq.next_pos = len(seq.prompt) - 1
+            self._queue_prefill(seq, tokens, start_pos=0)
+        if takeover and self._inflight is not None:
+            # snapshot the draining rows now, behind the in-flight step
+            self._export_buffer.update(self._gather_exports({slot}))
+        self.admits += 1
+        self.admit_seconds += time.perf_counter() - t0
+        return slot
+
+    def release(self, slot: int, export: bool = True) -> Optional[KVBlob]:
+        """Immediate release: export (per-slot gather) and free the slot."""
+        if self._inflight is not None:
+            raise RuntimeError("release() while a step ticket is in flight")
+        if slot in self._draining:
+            raise RuntimeError(f"slot {slot} is already draining")
+        self._flush_imports(exclude=set(self._takeovers)
+                            | set(self._pending_clears))
+        seq = self.slots[slot]
+        self._check_exportable(slot, seq, export)
+        blob = None
+        if export and seq:
+            t0 = time.perf_counter()
+            blob = self._export_kv(slot, seq)
+            self.slots_exported += 1
+            self.migration_bytes_out += blob.nbytes
+            self.migration_host_seconds += time.perf_counter() - t0
+        self.slots[slot] = None
+        return blob
+
+    def release_async(self, slot: int) -> None:
+        """Mark a slot draining; its export waits for the next
+        :meth:`flush_exports`."""
+        if self._inflight is not None:
+            raise RuntimeError(
+                "release_async() while a step ticket is in flight")
+        seq = self.slots[slot]
+        if seq is None or slot in self._draining:
+            raise RuntimeError(f"slot {slot} holds no releasable seq")
+        self._check_exportable(slot, seq, export=True)
+        self._draining[slot] = seq
+
+    def flush_exports(self) -> Dict[str, KVBlob]:
+        """Materialise every draining slot's blob (one batched gather)
+        and free the slots; also returns blobs a dispatch snapshotted
+        early for a takeover."""
+        out = dict(self._export_buffer)
+        self._export_buffer.clear()
+        out.update(self._gather_exports())
+        return out
+
+    def cancel_pending_imports(self) -> List[int]:
+        """Drop every queued blob import (weight refresh)."""
+        slots = [s for s, _ in self._pending_imports]
+        self._pending_imports.clear()
+        return slots
+
+    def crash(self) -> List[EngineSeq]:
+        """Lose the worker; returns the seqs that were live here."""
+        victims: List[EngineSeq] = []
+        seen = set()
+        for s in list(self.slots) + list(self._draining.values()):
+            if s is not None and id(s) not in seen:
+                seen.add(id(s))
+                victims.append(s)
+        self.alive = False
+        self.crashes += 1
+        self._inflight = None
+        self.slots = [None] * self.max_slots
+        self._draining.clear()
+        self._takeovers.clear()
+        self._pending_imports.clear()
+        self._pending_clears.clear()
+        self._export_buffer.clear()
+        return victims
+
+    @property
+    def step_in_flight(self) -> bool:
+        return self._inflight is not None
+
+    def _gather_exports(self, only: Optional[set] = None
+                        ) -> Dict[str, KVBlob]:
+        """Gather draining slots (all, or just ``only``) in one call."""
+        slots = [i for i in self.draining_slots()
+                 if only is None or i in only]
+        if not slots:
+            return {}
+        t0 = time.perf_counter()
+        if self._inflight is None:
+            self._flush_imports(exclude=set(self._takeovers)
+                                | set(self._pending_clears))
+        seqs = [self._draining[i] for i in slots]
+        overlapped = self._inflight is not None
+        out: Dict[str, KVBlob] = {}
+        max_ext = self.cache["slot_pos"].shape[1]
+        lives = []
+        for s in seqs:
+            live = min(s.next_pos, max_ext)
+            b = max(self.prefill_chunk, 1)
+            while b < live:
+                b <<= 1
+            lives.append(min(b, max_ext))
+        order = sorted(range(len(slots)), key=lambda j: (lives[j], slots[j]))
+        slots = [slots[j] for j in order]
+        seqs = [seqs[j] for j in order]
+        fn = self.steps.export_batch(tuple(lives[j] for j in order))
+        leaf_dicts = fn(self.cache, self._index(slots))
+        self.steps.count_migration(f"export:{len(slots)}")
+        for seq, leaves in zip(seqs, leaf_dicts):
+            out[seq.req_id] = KVBlob(seq.req_id, leaves, seq.next_pos,
+                                     _live_nbytes(leaves, seq.next_pos))
+        for i in slots:
+            if i not in self._takeovers:
+                self.slots[i] = None
+            self._draining.pop(i, None)
+            self._takeovers.pop(i, None)
+        n = len(slots)
+        self.slots_exported += n
+        self.export_overlapped_slots += n if overlapped else 0
+        self.migration_bytes_out += sum(b.nbytes for b in out.values())
+        self.migration_host_seconds += time.perf_counter() - t0
+        return out
+
+    def _check_exportable(self, slot: int, seq: Optional[EngineSeq],
+                          export: bool) -> None:
+        if export and seq is not None and seq.prefilling:
+            raise RuntimeError(
+                f"slot {slot} ({seq.req_id}) still has queued prefill; "
+                "cannot export its KV blob")
+
+    def _check_blob_fits(self, blob: KVBlob) -> None:
+        """A blob whose position extent exceeds the target cache would
+        lose live positions on import — refuse it."""
+        for k, src in blob.arrays.items():
+            pax = _pos_axis(k)
+            if pax is None or k not in self.cache:
+                continue
+            tgt = self.cache[k].shape[pax + 1]
+            if src.shape[pax] > tgt:
+                raise ValueError(
+                    f"KV blob {blob.req_id!r}: leaf {k!r} covers "
+                    f"{src.shape[pax]} positions but the target cache "
+                    f"holds {tgt}; importing would drop live positions "
+                    "— re-prefill instead of importing this blob")
+
+    # -- KV migration ---------------------------------------------------------
+
+    def _export_kv(self, slot: int, seq: EngineSeq) -> KVBlob:
+        """Copy the slot's cache state, trimmed to the live prefix."""
+        arrays = {}
+        nbytes = 0
+        for k, v in self.cache.items():
+            sl = v.select(_slot_slice(k), slot)
+            self.steps.count_migration("export_perslot")
+            ax = _pos_axis(k)
+            if ax is not None:
+                sl = sl.narrow(ax, 0, min(seq.next_pos, sl.shape[ax]))
+                self.steps.count_migration("export_perslot")
+            arrays[k] = sl.clone()
+            nbytes += sl.numel() * sl.element_size()
+        return KVBlob(seq.req_id, arrays, seq.next_pos, nbytes)
+
+    def _flush_imports(self, exclude: Optional[set] = None) -> None:
+        """Scatter every pending admitted blob into the cache: one batched
+        call per distinct source extent.  Imports for slots in
+        ``exclude`` stay pending."""
+        if not self._pending_imports:
+            return
+        t0 = time.perf_counter()
+        pending, self._pending_imports = self._pending_imports, []
+        if exclude:
+            held = [(s, b) for s, b in pending if s in exclude]
+            pending = [(s, b) for s, b in pending if s not in exclude]
+            self._pending_imports.extend(held)
+            if not pending:
+                return
+        by_extent: Dict[tuple, List[Tuple[int, KVBlob]]] = {}
+        for slot, blob in pending:
+            ext = tuple(sorted(
+                (k, v.shape[_pos_axis(k)]) for k, v in blob.arrays.items()
+                if _pos_axis(k) is not None))
+            by_extent.setdefault(ext, []).append((slot, blob))
+        for group in by_extent.values():
+            blobs = [{k: v.to(self.device) for k, v in b.arrays.items()}
+                     for _, b in group]
+            self.steps.import_batch(self.cache,
+                                    self._index([s for s, _ in group]),
+                                    blobs)
+            self.steps.count_migration(f"import:{len(group)}")
+        self.migration_host_seconds += time.perf_counter() - t0
+
+    def _clear_slot_cache(self, slot: int) -> None:
+        self.cache["slot_pos"][slot].fill_(-1)
+
+    # -- prefill --------------------------------------------------------------
+
+    def _queue_prefill(self, seq: EngineSeq, tokens: List[int],
+                       start_pos: int) -> None:
+        if tokens:
+            seq.prefill_queue = list(tokens)
+            seq.prefill_pos = start_pos
+
+    # -- the mixed prefill / decode / verify step -----------------------------
+
+    def _resolve_prefill_budget(self) -> int:
+        """Per-step prefill token budget: explicit int, or adaptive from
+        the cost model (largest chunk multiple whose modeled mixed-step
+        latency stays within ``prefill_latency_factor`` x the decode-only
+        step), or one chunk per slot."""
+        if self.prefill_budget is not None:
+            return self.prefill_budget
+        cap_tokens = self.max_slots * self.prefill_chunk
+        cm = self.cost_model
+        decode = self.decode_slots() if cm is not None else []
+        if cm is None or not decode:
+            return cap_tokens
+        B = len(decode)
+        mean_ctx = sum(min(self.slots[i].next_pos, self.cache_len)
+                       for i in decode) / B
+        cap = self.prefill_latency_factor * cm.step_time(B, 1, mean_ctx)
+        budget = self.prefill_chunk
+        while budget + self.prefill_chunk <= cap_tokens:
+            nxt = budget + self.prefill_chunk
+            if cm.mixed_step_time(B, 1, nxt, mean_ctx) > cap:
+                break
+            budget = nxt
+        return budget
+
+    def _prefill_plan(self) -> Dict[int, int]:
+        """slot -> queued prefill tokens to pack this step: decode-starved
+        groups first, then shortest remaining prefill."""
+        plan: Dict[int, int] = {}
+        budget = max(self._resolve_prefill_budget(), 1)
+        decode_groups = {self.slots[i].group_id
+                         for i in self.decode_slots()}
+        order = sorted(
+            self.prefilling_slots(),
+            key=lambda i: (self.slots[i].group_id in decode_groups,
+                           len(self.slots[i].prefill_queue), i))
+        for i in order:
+            if budget <= 0:
+                break
+            n = min(len(self.slots[i].prefill_queue), self.prefill_chunk,
+                    budget)
+            if n > 0:
+                plan[i] = n
+                budget -= n
+        return plan
+
+    def run_step(self, drafts: Optional[Dict[int, List[int]]] = None
+                 ) -> Dict[int, Tuple[List[int], List[float], int]]:
+        """One engine iteration over all active slots: dispatch + commit."""
+        return self.commit_step(self.dispatch_step(drafts))
+
+    def dispatch_step(self, drafts: Optional[Dict[int, List[int]]] = None):
+        """Enqueue one engine step on the device without a host sync and
+        return its :class:`StepTicket` (None if there is nothing to do).
+
+        Each row of the (max_slots, T) batch is a decode/verify row
+        (pending token + drafts) or the next prefill chunk of a
+        prefilling slot; a tail chunk that fits T with a column to spare
+        also carries the pending token and samples its first decode
+        token in the same forward."""
+        if self._inflight is not None:
+            raise RuntimeError("dispatch_step() with a ticket in flight")
+        if not self.alive:
+            raise RuntimeError("dispatch_step() on a crashed instance")
+        drafts = drafts or {}
+        if self._takeovers:
+            self._export_buffer.update(
+                self._gather_exports(set(self._takeovers)))
+        for slot in self._pending_clears:
+            self._clear_slot_cache(slot)
+        self._pending_clears.clear()
+        self._flush_imports()
+        if not self.active_slots():
+            return None
+        decode = self.decode_slots()
+        plan = self._prefill_plan()
+        if not decode and not plan:
+            return None
+        gamma = max((len(drafts.get(i, [])) for i in decode), default=0)
+        gamma = min(gamma, self.gamma_max)
+        # bucket gamma to bound the number of step shapes
+        for b in (0, 1, 2, 4, 8, 16, 32):
+            if gamma <= b:
+                gamma = b
+                break
+        T = gamma + 1
+        if plan:
+            need = max(plan.values())
+            b = 1
+            while b < need:
+                b <<= 1
+            T = max(T, min(b, self.prefill_chunk))
+        B = self.max_slots
+        fused = [i for i, n in plan.items()
+                 if n == len(self.slots[i].prefill_queue) and n + 1 <= T]
+
+        tokens = np.zeros((B, T), np.int32)
+        positions = np.zeros((B, T), np.int32)
+        mask = np.zeros((B, T), np.int32)
+        temps = np.zeros((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        sample_rows = np.zeros((B,), np.int32)
+        anchor = np.zeros((B,), np.int32)
+        n_drafts = np.zeros((B,), np.int32)
+        anchors: Dict[int, int] = {}
+        for i in decode:
+            seq = self.slots[i]
+            d = list(drafts.get(i, []))[:gamma]
+            n_drafts[i] = len(d)
+            row = [seq.last_token] + d
+            tokens[i, :len(row)] = row
+            positions[i, :len(row)] = seq.next_pos + np.arange(len(row))
+            mask[i, :len(row)] = 1
+            temps[i] = seq.temperature
+            seeds[i] = seq.seed
+            sample_rows[i] = 1
+            anchors[i] = 0
+        for i, n in plan.items():
+            seq = self.slots[i]
+            tokens[i, :n] = seq.prefill_queue[:n]
+            positions[i, :n] = seq.prefill_pos + np.arange(n)
+            mask[i, :n] = 1
+            if i in fused:
+                tokens[i, n] = seq.last_token
+                positions[i, n] = seq.next_pos
+                mask[i, n] = 1
+                temps[i] = seq.temperature
+                seeds[i] = seq.seed
+                sample_rows[i] = 1
+                anchor[i] = n
+                anchors[i] = n
+
+        # one upload of the whole host batch
+        BT = B * T
+        packed = self._upload(np.concatenate([
+            tokens.ravel(), positions.ravel(), mask.ravel(), seeds,
+            sample_rows, anchor, n_drafts, temps.view(np.int32)]))
+        cut = np.cumsum([BT, BT, BT, B, B, B, B])
+        parts = torch.tensor_split(packed, cut.tolist())
+        tok_d = parts[0].view(B, T)
+        pos_d = parts[1].view(B, T)
+        mask_d = parts[2].view(B, T).bool()
+        rows_d = parts[4].bool()
+        keys = position_keys(self.base_key, parts[3], pos_d)
+        fn = self.steps.fused_step(T)
+        sampled, lps, n_acc, self.cache = fn(
+            self.params, self.cache, tok_d, pos_d, mask_d, keys,
+            parts[7].view(torch.float32), rows_d, parts[5], parts[6])
+        block = torch.cat([sampled.reshape(-1),
+                           lps.reshape(-1).view(torch.int32), n_acc])
+        ready = None
+        if self.device.type == "cuda":
+            host = torch.empty(block.shape, dtype=block.dtype,
+                               pin_memory=True)
+            host.copy_(block, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            block = host
+        self.row_slots_total += B
+        self.row_slots_active += len(decode) + len(plan)
+        self.prefill_rows_packed += len(plan)
+        self.tail_fused_rows += len(fused)
+        for i, n in plan.items():
+            seq = self.slots[i]
+            del seq.prefill_queue[:n]
+            seq.prefill_pos += n
+            self.prefill_tokens += n
+        self.steps_run += 1
+        ticket = StepTicket(block=block, ready=ready, B=B, T=T,
+                            sample_slots=decode + fused, anchors=anchors)
+        self._inflight = ticket
+        return ticket
+
+    def commit_step(self, ticket) -> Dict[int, Tuple[List[int],
+                                                     List[float], int]]:
+        """Fold a dispatched step's results into host state, after the
+        step's one host sync (waiting for the result block's copy)."""
+        if ticket is None:
+            return {}
+        if ticket is not self._inflight:
+            raise RuntimeError("commit_step(): ticket is not the "
+                               "instance's in-flight step")
+        self._inflight = None
+        if ticket.ready is not None:
+            ticket.ready.synchronize()
+        arr = ticket.block.numpy()
+        self.steps.host_syncs += 1
+        BT = ticket.B * ticket.T
+        sampled = arr[:BT].reshape(ticket.B, ticket.T)
+        lps = arr[BT:2 * BT].view(np.float32).reshape(ticket.B, ticket.T)
+        n_acc = arr[2 * BT:]
+        out = {}
+        for i in ticket.sample_slots:
+            seq = self.slots[i]
+            a = int(n_acc[i])
+            off = ticket.anchors[i]
+            new_toks = [int(sampled[i, off + j]) for j in range(a + 1)]
+            new_lps = [float(lps[i, off + j]) for j in range(a + 1)]
+            out[i] = self._commit_row(seq, new_toks, new_lps, a)
+        return out
+
+    def _commit_row(self, seq: EngineSeq, new_toks: List[int],
+                    new_lps: List[float], a: int):
+        """Host bookkeeping for one sample row's step result."""
+        room = seq.max_new_tokens - len(seq.generated)
+        cut = new_toks[:room]
+        if seq.stop_token is not None and seq.stop_token in cut:
+            cut = cut[:cut.index(seq.stop_token) + 1]
+        new_toks, new_lps = cut, new_lps[:len(cut)]
+        seq.generated.extend(new_toks)
+        seq.logprobs.extend(new_lps)
+        self.tokens_generated += len(new_toks)
+        committed_hi = seq.next_pos + a
+        seq.last_token = new_toks[-1] if new_toks else seq.last_token
+        seq.next_pos = committed_hi + 1
+        if seq.stop_token is not None and new_toks and \
+                new_toks[-1] == seq.stop_token:
+            seq.finished = True
+        if len(seq.generated) >= seq.max_new_tokens:
+            seq.finished = True
+        if seq.next_pos >= self.cache_len - 1 and not self.cfg.sliding_window:
+            seq.finished = True   # cache exhausted (engine-tier guard)
+        return (new_toks, new_lps, a)

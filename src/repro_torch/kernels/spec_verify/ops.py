@@ -1,0 +1,167 @@
+"""Wrapper of the spec-verify CUDA kernel (K1): build, checks, launch.
+
+``spec_verify(q, k, v, q_pos, k_pos, window=)`` computes the function of
+``ref.spec_verify_ref``.  A CPU tensor goes to that plain version; a
+CUDA tensor goes to the hand-written kernel in ``csrc/spec_verify.cu``
+or the wrapper raises — there is no fallback.
+
+The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes``, into
+``repro_torch/kernels/_build/`` (listed in ``.gitignore``).  Nothing is
+compiled or loaded when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.spec_verify.ref import f32_scale, spec_verify_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "spec_verify.cu"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HEAD_DIMS = (32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the kernel since the last reset (the wrapper adds one where
+# it launches, and nowhere else)
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+class _Build:
+    lib: Optional[ctypes.CDLL] = None
+    seconds: float = 0.0
+    log: str = ""
+
+
+_build = _Build()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the spec-verify kernel is "
+                           "built from source at first use on the card")
+    return path
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source digest) and load the kernel library."""
+    if _build.lib is not None:
+        return _build.lib
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"spec_verify_{digest[:12]}.so"
+    t0 = time.perf_counter()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _build.log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{_build.log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.spec_verify_launch.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i64,
+        i32, ctypes.c_float, vp]
+    lib.spec_verify_launch.restype = i32
+    lib.spec_verify_error_string.argtypes = [i32]
+    lib.spec_verify_error_string.restype = ctypes.c_char_p
+    _build.seconds = time.perf_counter() - t0
+    _build.lib = lib
+    return lib
+
+
+def build_info() -> dict:
+    """Seconds the last ``build`` took (0 when the library was cached)
+    and nvcc's output (register / shared-memory use per instance)."""
+    return {"seconds": _build.seconds, "log": _build.log}
+
+
+def check_inputs(q, k, v, q_pos, k_pos) -> None:
+    """Raise on what the kernel does not take: mixed devices, a dtype
+    other than float32 / bfloat16 (int32 positions), mismatched shapes,
+    a head dim it was not built for, non-contiguous or unaligned rows."""
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos)):
+        if t.device != dev:
+            raise ValueError(f"spec_verify: {name} on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"spec_verify: q/k/v dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; want one of float32, bfloat16")
+    if q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
+        raise TypeError("spec_verify: q_pos and k_pos must be int32")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"spec_verify: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    B, T, Hq, D = q.shape
+    _, S, Hk, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hq % Hk:
+        raise ValueError(f"spec_verify: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
+    if tuple(q_pos.shape) != (B, T) or tuple(k_pos.shape) != (B, S):
+        raise ValueError(f"spec_verify: q_pos {tuple(q_pos.shape)}, k_pos "
+                         f"{tuple(k_pos.shape)}; want {(B, T)}, {(B, S)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"spec_verify: head dim {D} not in {HEAD_DIMS}")
+    if not q.is_contiguous() or not q_pos.is_contiguous():
+        raise ValueError("spec_verify: q and q_pos must be contiguous")
+    if k.stride()[1:] != (Hk * D, D, 1) or v.stride() != k.stride():
+        raise ValueError("spec_verify: k/v need contiguous (S, Hk, D) rows "
+                         f"and equal strides; got {k.stride()}, "
+                         f"{v.stride()}")
+    if k_pos.stride(1) != 1:
+        raise ValueError("spec_verify: k_pos rows must be contiguous")
+    # the kernel reads K/V rows as 16-byte vectors
+    if (k.data_ptr() % 16 or v.data_ptr() % 16
+            or k.stride(0) * k.element_size() % 16):
+        raise ValueError("spec_verify: k/v rows must be 16-byte aligned")
+
+
+def spec_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                window: int = 0) -> torch.Tensor:
+    """q (B,T,Hq,D); k, v (B,S,Hk,D); q_pos (B,T), k_pos (B,S) int32."""
+    global launches
+    if q.device.type == "cpu":
+        return spec_verify_ref(q, k, v, q_pos, k_pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"spec_verify: no kernel for device {q.device}")
+    check_inputs(q, k, v, q_pos, k_pos)
+    lib = build()
+    B, T, Hq, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    scale = f32_scale(D)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.spec_verify_launch(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(), B, T, S, Hq,
+            Hk, D, k.stride(0), k_pos.stride(0), int(window), scale, stream)
+    if err:
+        raise RuntimeError("spec_verify launch failed: "
+                           + lib.spec_verify_error_string(err).decode())
+    launches += 1
+    return out

@@ -1,0 +1,37 @@
+"""Attention over the slot cache.
+
+Counterpart of ``repro.models.attention`` on the path the engine runs:
+every cached forward attends T query tokens to a slot-indexed KV cache
+masked by each slot's absolute position.  The JAX package computes it
+with ``_plain`` (its forward never calls the Pallas kernel); in the port
+the hand-written spec-verify kernel (K1) *is* that attention on the
+card, and its plain version — which follows ``_plain`` op for op — runs
+on a CPU tensor.  The cache-free forward (training, cross-attention)
+belongs to the flash-attention kernel (K3), a later slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.spec_verify.ops import spec_verify
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+              window: int = 0, softcap: float = 0.0,
+              allowed_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B,T,Hq,D); k,v: (B,S,Hk,D) slot cache; q_pos (B,T) and k_pos
+    (B,S) absolute positions (-1 = empty slot) -> (B,T,Hq,D).
+
+    The mask is (k_pos >= 0) & (k_pos <= q_pos) & window — the JAX
+    package's causal mask with ``kv_valid = k_pos >= 0``."""
+    if softcap:
+        raise NotImplementedError(
+            "attention softcap is not on this slice's path")
+    if allowed_mask is not None:
+        raise NotImplementedError(
+            "allowed_mask (tree speculation, K2) arrives with the tree "
+            "slice")
+    return spec_verify(q, k, v, q_pos, k_pos, window=window)

@@ -1,0 +1,108 @@
+"""Shared building blocks: norms, RoPE, the weight-casting matmul and the
+seeded parameter init.
+
+Counterpart of ``repro.models.common``.  The dtype steps are kept
+exactly: RMSNorm runs in f32 and casts back, RoPE angles are f32, and
+``lin`` casts the weight to the activation dtype on every call, so a
+weight stored once in the activation dtype computes the same result as
+the JAX package's f32 master weights.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+
+
+def lin(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Matmul with the weight cast to the activation dtype."""
+    return x @ w.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    """f32 ``1 / theta ** (2i / head_dim)``, built on ``device`` by
+    kernels alone (``torch.full``, not a host copy, which would sync) and
+    kept per (head_dim, theta, device)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., T, H, D); positions: broadcastable to (..., T)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                     # (D/2,)
+    angles = positions[..., :, None, None].float() * freqs     # (...,T,1,D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# seeded init (the port's own; the parity tests bridge the JAX package's)
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> dict:
+    """Random dense-transformer weights at the JAX package's scales
+    (``repro.models.transformer._init_attn`` / ``_init_mlp`` and
+    ``Builder.param``): normals scaled by 1/sqrt(fan_in), the embedding
+    by 0.02, norms at one.  Matrices and the embedding are stored in
+    ``cfg.dtype`` (``lin`` casts to it on every call anyway), norms in
+    f32.  ``generator`` must live on ``device``."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    dev = resolve_device(device)
+    wdt = torch_dtype(cfg.dtype)
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(wdt)
+
+    def ones(n):
+        return torch.ones(n, device=dev, dtype=torch.float32)
+
+    params = {"embed": normal((cfg.vocab_size, d), 0.02),
+              "final_ln": ones(d), "layers": []}
+    if not cfg.tie_embeddings:
+        params["unembed"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+    for _ in range(cfg.num_layers):
+        params["layers"].append({
+            "attn": {
+                "ln": ones(d),
+                "wq": normal((d, cfg.num_heads * hd), 1.0 / math.sqrt(d)),
+                "wk": normal((d, cfg.num_kv_heads * hd), 1.0 / math.sqrt(d)),
+                "wv": normal((d, cfg.num_kv_heads * hd), 1.0 / math.sqrt(d)),
+                "wo": normal((cfg.num_heads * hd, d),
+                             1.0 / math.sqrt(cfg.num_heads * hd)),
+            },
+            "mlp": {
+                "ln": ones(d),
+                "wg": normal((d, f), 1.0 / math.sqrt(d)),
+                "wu": normal((d, f), 1.0 / math.sqrt(d)),
+                "wd": normal((f, d), 1.0 / math.sqrt(f)),
+            },
+        })
+    return params

@@ -1,0 +1,155 @@
+"""Dense decoder-only transformer with a slot-indexed KV cache.
+
+Counterpart of the dense parts of ``repro.models.transformer``:
+``init_cache``, ``_project_qkv``, the slot-scatter branch of
+``_self_attn``, ``_mlp``, ``_dense_layer``, ``_decoder_stack`` (a Python
+loop over layers instead of ``lax.scan``) and ``forward`` with a cache.
+One forward covers chunked prefill, decode (T=1) and speculative verify
+(T=gamma+1), and mixes them row by row under ``token_mask``.
+
+The cache is updated in place, which replaces JAX's buffer donation:
+``forward`` writes this step's K/V rows and slot positions into the
+tensors of ``cache`` and returns the same dict.
+
+Masked (padding) tokens: the JAX package sends them to slot ``S`` and
+drops the write (``.at[...].set(mode="drop")``).  Torch has no drop mode
+and boolean indexing would sync the host, so ``init_cache`` allocates
+one scratch slot past the last real one in every row; the cache holds
+views that hide it, and masked writes (and writes past the end of a
+non-ring cache, which the JAX package drops too) land there and are
+never read.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models.attention import attention
+from repro_torch.models.common import apply_rope, lin, rms_norm
+
+
+def cache_len_for(cfg: ModelConfig, requested: int) -> int:
+    if cfg.sliding_window:
+        return min(requested, cfg.sliding_window)
+    return requested
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device: DeviceLike = None) -> dict:
+    """Zero K/V ``(L,B,S,Hk,D)`` and ``slot_pos (B,S)`` filled with -1,
+    the JAX package's layout, each a view of a buffer one slot wider
+    (the scratch slot of masked writes)."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    S = cache_len_for(cfg, max_len)
+    shape = (cfg.num_layers, batch, S + 1, cfg.num_kv_heads, cfg.head_dim)
+    k = torch.zeros(shape, dtype=dt, device=dev)
+    v = torch.zeros(shape, dtype=dt, device=dev)
+    sp = torch.full((batch, S + 1), -1, dtype=torch.int32, device=dev)
+    return {"k": k[:, :, :S], "v": v[:, :, :S], "slot_pos": sp[:, :S]}
+
+
+def with_scratch(t: torch.Tensor, pos_dim: int) -> torch.Tensor:
+    """``t`` (a cache view from :func:`init_cache`) widened by the
+    scratch slot along ``pos_dim``."""
+    size = list(t.shape)
+    if pos_dim == 0 or t.stride(pos_dim - 1) != \
+            (size[pos_dim] + 1) * t.stride(pos_dim):
+        raise ValueError("cache tensor has no scratch slot; build caches "
+                         "with init_cache")
+    size[pos_dim] += 1
+    return t.as_strided(size, t.stride(), t.storage_offset())
+
+
+def _project_qkv(p, xn, cfg, positions):
+    B, T, _ = xn.shape
+    hd = cfg.head_dim
+    q = lin(xn, p["wq"]).reshape(B, T, cfg.num_heads, hd)
+    k = lin(xn, p["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
+    v = lin(xn, p["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _self_attn(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos):
+    """Slot-scatter branch: write this step's K/V rows in place, then
+    attend over the whole slot cache."""
+    B, T = x.shape[:2]
+    xn = rms_norm(x, p["ln"], cfg.rms_eps)
+    q, k, v = _project_qkv(p, xn, cfg, positions)
+    with_scratch(ck, 1)[bidx, slots] = k.to(ck.dtype)
+    with_scratch(cv, 1)[bidx, slots] = v.to(cv.dtype)
+    o = attention(q, ck, cv, positions, slot_pos, window=cfg.sliding_window,
+                  softcap=cfg.attn_logit_softcap)
+    return x + lin(o.reshape(B, T, -1), p["wo"])
+
+
+def _mlp(p, x, cfg):
+    xn = rms_norm(x, p["ln"], cfg.rms_eps)
+    g = lin(xn, p["wg"])
+    h = g * torch.sigmoid(g) * lin(xn, p["wu"])
+    return x + lin(h, p["wd"])
+
+
+def _dense_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos):
+    x = _self_attn(p["attn"], x, cfg, positions, bidx, slots, ck, cv,
+                   slot_pos)
+    return _mlp(p["mlp"], x, cfg)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            positions: torch.Tensor, cache: Optional[dict] = None, *,
+            token_mask: Optional[torch.Tensor] = None,
+            contiguous_update: bool = False,
+            slot_index: Optional[torch.Tensor] = None,
+            within_mask: Optional[torch.Tensor] = None):
+    """tokens/positions (B,T) int32 -> (logits (B,T,V), cache, aux_loss).
+
+    The cache is updated in place and returned.  Slots come from
+    positions (``positions % S`` on a ring cache for sliding-window
+    configs)."""
+    if cache is None:
+        raise NotImplementedError(
+            "the cache-free forward (training, K3) is a later slice")
+    if contiguous_update:
+        raise NotImplementedError(
+            "contiguous_update (launch/steps.py prefill) is not ported")
+    if slot_index is not None or within_mask is not None:
+        raise NotImplementedError(
+            "tree-verify inputs arrive with the tree-speculation slice")
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    B, T = tokens.shape
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+
+    slot_pos = cache["slot_pos"]
+    S = slot_pos.shape[1]
+    slots = positions.long()
+    if cfg.sliding_window:
+        slots = slots % S
+    keep = slots < S
+    if token_mask is not None:
+        keep = keep & token_mask
+    slots = torch.where(keep, slots, S)
+    bidx = torch.arange(B, device=tokens.device)[:, None]
+    with_scratch(slot_pos, 1)[bidx, slots] = positions
+
+    for i, p in enumerate(params["layers"]):
+        x = _dense_layer(p, x, cfg, positions, bidx, slots, cache["k"][i],
+                         cache["v"][i], slot_pos)
+
+    x = rms_norm(x, params["final_ln"], cfg.rms_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T.to(dtype)
+    else:
+        logits = x @ params["unembed"].to(dtype)
+    return logits, cache, 0.0

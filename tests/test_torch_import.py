@@ -1,0 +1,111 @@
+"""The PyTorch port stands alone: it imports with ``jax`` and ``repro``
+blocked, names neither in an import, and its entry points refuse to run
+quietly on the CPU when no card is there and none was asked for."""
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+torch.set_num_threads(2)
+
+
+def _port_modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(m.name)
+    return sorted(names)
+
+
+def test_imports_with_jax_and_repro_blocked():
+    mods = _port_modules()
+    assert len(mods) > 20
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m, mod in sys.modules.items() if mod is not None "
+            "and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), \
+            f"{path.name} imports {name}"
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    """No card and no ``device="cpu"``: every entry point raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the entry points use it")
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core import SeerRollout
+    from repro_torch.engine import Instance, StepFunctions
+    from repro_torch.models import init_cache, init_params
+    cfg = get_tiny_config("granite-3-8b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(cfg, {})
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Instance(cfg, params, StepFunctions(cfg), max_slots=1, cache_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeerRollout(cfg, params, max_slots=1, cache_len=8)
+
+
+def _smoke(cwd: Path, env=None):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_without_the_repo(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = _smoke(tmp_path, env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,70 @@
+"""``SeerRollout.run`` of the port against the JAX package's on
+granite-3-8b tiny at f32 with the reference's weights: two instances, a
+chunk size small enough that requests migrate through the pool, grouped
+speculative decoding on.  Responses, step, chunk and migration counts,
+draft statistics and host syncs are equal at temperatures 0 and 1."""
+from dataclasses import replace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_tiny_config as jget_tiny
+from repro.core import SeerRollout as JRollout
+from repro.core import make_groups as jmake_groups
+from repro.models import init_params as jinit_params
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_tiny_config
+from repro_torch.core import SeerRollout, make_groups
+
+torch.set_num_threads(2)
+ARCH = "granite-3-8b"
+PROMPTS = [[3, 1, 4, 1, 5, 9, 2, 6], [5, 9, 2, 6, 5, 3],
+           [2, 7, 1, 8, 2, 8, 1, 8, 2, 8]]
+ROLLOUT = dict(n_instances=2, max_slots=2, cache_len=128, chunk_size=8,
+               policy="seer", spec_decode=True, prefill_chunk=4)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = replace(jget_tiny(ARCH), dtype="float32")
+    tcfg = replace(get_tiny_config(ARCH), dtype="float32")
+    jp, _ = jinit_params(jcfg, jax.random.PRNGKey(1))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, jp, tcfg, tp
+
+
+def _summary(ro, res):
+    st = res.stats
+    return {"responses": res.responses(), "steps": st.steps,
+            "tokens": st.tokens, "chunks": st.chunks,
+            "migrations": st.migrations, "drafted": st.drafted,
+            "accepted": st.accepted, "pool_hits": st.pool_hits,
+            "host_syncs": ro.steps.host_syncs,
+            "fused": dict(ro.steps.invocations_by_kind)}
+
+
+@pytest.mark.parametrize("temp", [0.0, 1.0])
+def test_rollout_matches_reference(models, temp):
+    jcfg, jp, tcfg, tp = models
+    kw = dict(group_size=2, max_new_tokens=24, seed=5, temperature=temp)
+    jro = JRollout(jcfg, jp, **ROLLOUT)
+    want = _summary(jro, jro.run(jmake_groups(PROMPTS, **kw)))
+    tro = SeerRollout(tcfg, tp, device="cpu", **ROLLOUT)
+    res = tro.run(make_groups(PROMPTS, **kw))
+    got = _summary(tro, res)
+    assert got == want
+    assert all(g.all_finished for g in res.groups)
+    assert got["migrations"] > 0 and got["chunks"] > 0
+    assert got["host_syncs"] == got["steps"]
+    if temp == 0.0:
+        assert got["accepted"] > 0
+
+
+def test_tracer_and_tp_raise(models):
+    _, _, tcfg, tp = models
+    with pytest.raises(NotImplementedError):
+        SeerRollout(tcfg, tp, device="cpu", tracer=object(), **ROLLOUT)
+    with pytest.raises(NotImplementedError):
+        SeerRollout(tcfg, tp, device="cpu", tp=2, **ROLLOUT)
