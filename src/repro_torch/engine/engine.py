@@ -1,12 +1,14 @@
 """Inference engine: one Seer "inference instance", in PyTorch.
 
-Counterpart of ``repro.engine.engine`` on the path the rollout runs:
-``prefill_mode="batched"``, ``spec_mode="linear"``,
-``migration_mode="batched"``, one device, no tensor parallelism.  The
-engine behaviour is the JAX package's, decision for decision — the same
-mixed prefill/decode/verify batches, the same bucketing of gamma, T and
-export extents, the same admission, release, takeover and crash rules —
-so step shapes, step counts and sampled tokens match the reference.
+Counterpart of ``repro.engine.engine`` on one device, without tensor
+parallelism: ``prefill_mode`` "batched" (the device-resident hot path)
+or "sync" (the host-accept oracle), ``spec_mode`` "linear" or "tree",
+``migration_mode`` "batched" or "perslot".  The engine behaviour is the
+JAX package's, decision for decision — the same mixed
+prefill/decode/verify batches, the same bucketing of gamma, T and export
+extents, the same tree layout, the same admission, release, takeover and
+crash rules — so step shapes, step counts and sampled tokens match the
+reference.
 
 What changes with PyTorch:
 
@@ -20,13 +22,17 @@ What changes with PyTorch:
   forward, sampling and acceptance, and enqueues one non-blocking copy of
   the packed (sampled, logprobs, n_accepted) block into pinned host
   memory.  ``commit_step`` waits for that copy — the step's one host
-  sync, counted in ``StepFunctions.host_syncs``.
+  sync, counted in ``StepFunctions.host_syncs``.  The sync oracle reads
+  the full sampled and logprob blocks instead (two syncs per step).
+* **Tree speculation.**  Draft trees are laid out after the anchor in
+  distinct cache slots; every layer attends under one allowed-mask
+  through the tree-verify kernel (K2); acceptance of the longest path
+  and the compaction of the winning branch into canonical slots run on
+  the device, where JAX's dropped scatters land in the scratch slot.
 * **Device.**  Instances live on ``cuda`` unless built with
-  ``device="cpu"``; there attention runs the kernel's plain version.
+  ``device="cpu"``; there attention runs the kernels' plain versions.
 
-The tree-speculation path (``spec_mode="tree"``), the sync oracle
-(``prefill_mode="sync"``), per-slot migration and tensor parallelism are
-later slices and raise ``NotImplementedError`` here.
+Tensor parallelism is a later slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,15 +48,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_name, resolve_device
 from repro_torch.engine.sampling import (draft_acceptance, position_keys,
                                          prng_key, sample_tokens,
-                                         token_logprobs_at)
+                                         token_logprobs_at, tree_acceptance)
+from repro_torch.engine.token_tree import TokenTree, bucket_pow2, chain_tree
 from repro_torch.models import forward, init_cache
+from repro_torch.models.transformer import with_scratch
 
 _INT32_MAX = np.iinfo(np.int32).max
-
-
-def _later(what: str, slice_name: str):
-    return NotImplementedError(f"{what} arrives with the {slice_name} slice "
-                               "of the PyTorch port")
 
 
 # ---------------------------------------------------------------------------
@@ -62,10 +65,11 @@ class StepFunctions:
     """Per-config holder of the engine's device functions.
 
     Every returned step callable counts its calls in ``invocations`` and
-    ``invocations_by_kind`` ("fused:T"); ``host_syncs`` counts blocking
+    ``invocations_by_kind`` ("fused:T", "tree:T", and on the sync oracle
+    "step:T", "tree_ref:T", "prefill:T"); ``host_syncs`` counts blocking
     device->host reads of step results; ``migration_calls`` counts the
-    batched KV export/import calls (and per-leaf ops of an immediate
-    per-slot ``release``)."""
+    batched KV export/import calls (and per-leaf ops of the per-slot
+    paths)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -125,6 +129,122 @@ class StepFunctions:
         self._step_cache[key] = counted
         return counted
 
+    def fused_tree_step(self, T: int):
+        """Device-resident *tree*-verify step:
+
+        (params, cache, tokens(B,T), positions, slot_index(B,T), mask,
+        within(B,T,T), keys, temps, sample_rows(B,), anchor(B,),
+        parent(B,T), depth(B,T)) ->
+        (sampled(B,T), logprobs(B,T), n_accepted(B,), cache)
+
+        Column ``anchor[i]`` holds the row's pending token; tree nodes
+        follow in topological order, each written to cache slot
+        ``slot_index`` and attending its ancestors only (``within``).  On
+        the device: longest accepted path (:func:`tree_acceptance`),
+        compaction of the winning branch into the canonical
+        position-indexed slots, and a path-major relayout of the outputs,
+        so the host commits columns ``0..n_accepted`` as on the linear
+        path.  Dense caches only: the recurrent-state replay of the JAX
+        package waits for the SSM slice."""
+        key = ("tree", T)
+        if key in self._step_cache:
+            return self._step_cache[key]
+        cfg = self.cfg
+        ring = cfg.sliding_window > 0
+
+        @torch.no_grad()
+        def fn(params, cache, tokens, positions, slot_index, mask, within,
+               keys, temps, sample_rows, anchor, parent, depth):
+            if "ssm" in cache:
+                raise NotImplementedError(
+                    "tree steps on a recurrent cache arrive with the SSM "
+                    "slice of the port")
+            logits, cache, _ = forward(cfg, params, tokens, positions, cache,
+                                       token_mask=mask,
+                                       slot_index=slot_index,
+                                       within_mask=within)
+            logits = logits.float()
+            sampled = sample_tokens(logits, keys, temps, sample_rows)
+            lp = token_logprobs_at(logits, sampled)
+            n_acc, path_col, _ = tree_acceptance(sampled, tokens, parent,
+                                                 depth, within, mask, anchor)
+            n_acc = torch.where(sample_rows, n_acc, 0)
+            pc = path_col.long()
+            S = cache["slot_pos"].shape[1]
+            anchor_pos = positions.gather(1, anchor.long()[:, None])
+            node_slots = torch.where((depth > 0) & mask, slot_index, S)
+            dcols = torch.arange(T, dtype=torch.int32,
+                                 device=tokens.device)[None, :]
+            dvalid = (dcols >= 1) & (dcols <= n_acc[:, None]) \
+                & sample_rows[:, None]
+            src = torch.where(dvalid, slot_index.gather(1, pc), S)
+            dst_pos = anchor_pos + dcols
+            dst = torch.where(dvalid, dst_pos % S if ring else dst_pos, S)
+            compact_tree(cache, node_slots, src, dst, dst_pos)
+            return sampled.gather(1, pc), lp.gather(1, pc), n_acc, cache
+
+        counted = self._counted(fn, f"tree:{T}")
+        self._step_cache[key] = counted
+        return counted
+
+    def step(self, T: int):
+        """Reference step of the sync oracle (acceptance on the host):
+        (params, cache, tokens(B,T), positions, mask, keys, temps,
+        sample_rows(B,)) -> (sampled(B,T), logprobs(B,T), cache)."""
+        return self._plain_step("step", T)
+
+    def tree_step(self, T: int):
+        """Reference *tree* step: :meth:`fused_tree_step`'s forward and
+        sampling, with acceptance and the winning-branch compaction left
+        to the host (``_run_step_sync_tree``): :meth:`step`'s arguments
+        plus slot_index(B,T) and within(B,T,T)."""
+        return self._plain_step("tree_ref", T)
+
+    def _plain_step(self, kind: str, T: int):
+        key = (kind, T)
+        if key in self._step_cache:
+            return self._step_cache[key]
+        cfg = self.cfg
+
+        @torch.no_grad()
+        def fn(params, cache, tokens, positions, mask, keys, temps,
+               sample_rows, slot_index=None, within=None):
+            logits, cache, _ = forward(cfg, params, tokens, positions, cache,
+                                       token_mask=mask,
+                                       slot_index=slot_index,
+                                       within_mask=within)
+            logits = logits.float()
+            sampled = sample_tokens(logits, keys, temps, sample_rows)
+            return sampled, token_logprobs_at(logits, sampled), cache
+
+        counted = self._counted(fn, f"{kind}:{T}")
+        self._step_cache[key] = counted
+        return counted
+
+    def prefill(self, T: int):
+        """Admit-time prefill of the sync oracle: (params, cache,
+        tokens(B,T), positions, mask) -> cache."""
+        key = ("prefill", T)
+        if key in self._step_cache:
+            return self._step_cache[key]
+        cfg = self.cfg
+
+        @torch.no_grad()
+        def fn(params, cache, tokens, positions, mask):
+            return forward(cfg, params, tokens, positions, cache,
+                           token_mask=mask)[1]
+
+        counted = self._counted(fn, f"prefill:{T}")
+        self._step_cache[key] = counted
+        return counted
+
+    @staticmethod
+    @torch.no_grad()
+    def rollback(slot_pos: torch.Tensor, from_pos: torch.Tensor) -> None:
+        """Invalidate, in place, every slot holding a position >=
+        ``from_pos`` of its row."""
+        slot_pos.masked_fill_(slot_pos >= from_pos[:, None], -1)
+
     def export_batch(self, lives: Tuple[int, ...]):
         """Multi-slot KV gather: ``(cache, slots(n,)) -> [blob leaf dict]
         * n``.  Each cache leaf is read by one gather (limited to the
@@ -179,6 +299,32 @@ class StepFunctions:
             idx[sax] = slots
             dst[tuple(idx)] = src.movedim(0, sax).to(dst.dtype)
         return cache
+
+
+@torch.no_grad()
+def compact_tree(cache: dict, node_slots: torch.Tensor, src: torch.Tensor,
+                 dst: torch.Tensor, dst_pos: torch.Tensor) -> None:
+    """Commit the winning branch of a tree step in place, in the JAX
+    package's order: (a) every tree-node slot of the step (``node_slots``)
+    gets ``slot_pos = -1``; (b) ``slot_pos = dst_pos`` at ``dst``; (c) the
+    K/V rows at ``src`` are gathered into a fresh tensor, then written at
+    ``dst`` (``dst <= src``: the two overlap).  All (B,T); an entry equal
+    to S (the cache length) or past it is a dropped write and lands in
+    the scratch slot."""
+    S = cache["slot_pos"].shape[1]
+    sp = with_scratch(cache["slot_pos"], 1)
+    bidx = torch.arange(sp.shape[0], device=sp.device)[:, None]
+    dst = torch.where(dst < S, dst, S).long()
+    # a tensor, not the scalar -1: indexed assignment of a Python scalar
+    # copies it to the device, a host sync
+    sp[bidx, node_slots.long().clamp(max=S)] = torch.full(
+        node_slots.shape, -1, dtype=sp.dtype, device=sp.device)
+    sp[bidx, dst] = dst_pos.to(sp.dtype)
+    src = src.long().clamp(0, S - 1)
+    for name in ("k", "v"):
+        kv = with_scratch(cache[name], 2)             # (L, B, S+1, H, D)
+        rows = kv[:, bidx, src]                       # a copy, not a view
+        kv[:, bidx, dst] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +454,35 @@ class StepTicket:
     anchors: Dict[int, int]           # slot -> column of its pending token
 
 
+@dataclass
+class _SyncTicket:
+    """Already-committed result of the sync reference path."""
+    out: Dict[int, Tuple[List[int], List[float], int]]
+
+
+@dataclass
+class _TreeBatch:
+    """One built tree-verify step batch (host arrays), shared by the fused
+    device path and the sync reference path, so the two verify the
+    identical batch."""
+    T: int
+    fused: List[int]
+    anchors: Dict[int, int]
+    trees: Dict[int, TokenTree]
+    n_tree_nodes: int
+    tokens: np.ndarray
+    positions: np.ndarray
+    slot_index: np.ndarray
+    mask: np.ndarray
+    within: np.ndarray
+    temps: np.ndarray
+    seeds: np.ndarray
+    sample_rows: np.ndarray
+    anchor: np.ndarray
+    parent: np.ndarray
+    depth: np.ndarray
+
+
 # ---------------------------------------------------------------------------
 # instance
 # ---------------------------------------------------------------------------
@@ -329,21 +504,20 @@ class Instance:
                  admit_into_draining: Optional[bool] = None,
                  base_seed: int = 0,
                  device: DeviceLike = None):
-        if prefill_mode == "sync":
-            raise _later("prefill_mode='sync' (the host-accept oracle)",
-                         "sync/perslot oracle")
-        if prefill_mode != "batched":
+        if prefill_mode not in ("batched", "sync"):
             raise ValueError(f"prefill_mode={prefill_mode!r}")
-        if spec_mode == "tree":
-            raise _later("spec_mode='tree'", "tree-speculation (K2)")
-        if spec_mode != "linear":
+        if spec_mode not in ("linear", "tree"):
             raise ValueError(f"spec_mode={spec_mode!r}")
-        if migration_mode == "perslot":
-            raise _later("migration_mode='perslot'", "sync/perslot oracle")
-        if migration_mode not in (None, "batched"):
+        if migration_mode is None:
+            # the sync reference path keeps the per-slot moves
+            migration_mode = "perslot" if prefill_mode == "sync" \
+                else "batched"
+        if migration_mode not in ("batched", "perslot"):
             raise ValueError(f"migration_mode={migration_mode!r}")
         if tp is not None:
-            raise _later("tensor parallelism (tp)", "tensor-parallel")
+            raise NotImplementedError("tensor parallelism (tp) arrives with "
+                                      "the tensor-parallel slice of the "
+                                      "PyTorch port")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -356,7 +530,7 @@ class Instance:
         self.prefill_chunk = prefill_chunk
         self.gamma_max = gamma_max
         self.prefill_mode = prefill_mode
-        self.migration_mode = "batched"
+        self.migration_mode = migration_mode
         self.spec_mode = spec_mode
         self.prefill_budget = prefill_budget
         self.cost_model = cost_model
@@ -368,9 +542,17 @@ class Instance:
         self.tracer = None
         # admit-into-draining: a draining slot counts as admittable one
         # tick early; the new seq's import/clear is deferred until the
-        # next dispatch snapshots (exports) the draining rows first
-        self.admit_into_draining = True if admit_into_draining is None \
-            else admit_into_draining
+        # next dispatch snapshots (exports) the draining rows first.  The
+        # sync and per-slot paths write the slot at admit, before a
+        # draining slot's rows could be snapshotted, so they never do it
+        batched = migration_mode == "batched" and prefill_mode == "batched"
+        if admit_into_draining is None:
+            admit_into_draining = batched
+        elif admit_into_draining and not batched:
+            raise ValueError(
+                "admit_into_draining requires prefill_mode='batched' "
+                "and migration_mode='batched'")
+        self.admit_into_draining = admit_into_draining
         self.tp = None
         self.base_key = prng_key(base_seed)
         self.cache = init_cache(cfg, max_slots, cache_len, device=self.device)
@@ -400,6 +582,11 @@ class Instance:
         self.row_slots_active = 0
         self.prefill_rows_packed = 0
         self.tail_fused_rows = 0
+        # tree speculation: steps that verified >= 1 tree node, nodes
+        # verified, and nodes of branching (non-chain) trees
+        self.tree_steps = 0
+        self.tree_nodes = 0
+        self.tree_branch_nodes = 0
 
     # -- host <-> device -----------------------------------------------------
 
@@ -413,6 +600,30 @@ class Instance:
 
     def _index(self, slots: List[int]) -> torch.Tensor:
         return self._upload(np.asarray(slots, np.int64))
+
+    def _upload_int32(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Several int32-sized host arrays -> device tensors of their
+        shapes, in one upload (float32 and bool arrays travel as int32
+        bits and 0/1; the caller views / casts them back)."""
+        flat = [np.ascontiguousarray(a).view(np.int32) if a.dtype ==
+                np.float32 else np.asarray(a, np.int32) for a in arrays]
+        packed = self._upload(np.concatenate([a.ravel() for a in flat]))
+        parts = torch.tensor_split(
+            packed, np.cumsum([a.size for a in flat])[:-1].tolist())
+        return [p.view(a.shape) for p, a in zip(parts, flat)]
+
+    def _result_block(self, sampled, lps, n_acc):
+        """Enqueue the copy of a step's (sampled, logprobs, n_accepted)
+        block to the host: (block, event to wait on, None on the CPU)."""
+        block = torch.cat([sampled.reshape(-1),
+                           lps.reshape(-1).view(torch.int32), n_acc])
+        if self.device.type != "cuda":
+            return block, None
+        host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+        host.copy_(block, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
 
     # -- capacity ------------------------------------------------------------
 
@@ -465,6 +676,9 @@ class Instance:
         """Place ``seq`` in a free (or draining) slot.  Only *queues* the
         prefill work or the blob import; legal with a step in flight
         (every cache write is deferred to the next dispatch)."""
+        if self._inflight is not None and self.prefill_mode != "batched":
+            # the sync path writes the cache inside admit
+            raise RuntimeError("admit() while a step ticket is in flight")
         if not self.alive:
             raise RuntimeError("admit() on a crashed instance")
         if blob is not None and blob.next_pos == seq.next_pos:
@@ -493,19 +707,28 @@ class Instance:
             self._check_blob_fits(blob)
             self.slots_imported += 1
             self.migration_bytes_in += blob.nbytes
-            self._pending_imports.append((slot, blob))
+            if self.migration_mode == "batched" \
+                    and self.prefill_mode == "batched":
+                self._pending_imports.append((slot, blob))
+            else:
+                tm = time.perf_counter()
+                self._import_kv(slot, blob)
+                self.migration_host_seconds += time.perf_counter() - tm
         elif seq.next_pos > 0:
             # no blob (pool miss): re-prefill everything up to next_pos
             tokens = (seq.prompt + seq.generated)[:seq.next_pos]
-            self._queue_prefill(seq, tokens, start_pos=0)
+            self._queue_prefill(slot, seq, tokens, start_pos=0)
         else:
             tokens = seq.prompt[:-1]
             seq.last_token = seq.prompt[-1]
             seq.next_pos = len(seq.prompt) - 1
-            self._queue_prefill(seq, tokens, start_pos=0)
+            self._queue_prefill(slot, seq, tokens, start_pos=0)
         if takeover and self._inflight is not None:
             # snapshot the draining rows now, behind the in-flight step
             self._export_buffer.update(self._gather_exports({slot}))
+        if self.prefill_mode == "sync" and self.device.type == "cuda":
+            # the timer should cover the chunk forwards, not their launch
+            torch.cuda.synchronize(self.device)
         self.admits += 1
         self.admit_seconds += time.perf_counter() - t0
         return slot
@@ -536,6 +759,9 @@ class Instance:
         if self._inflight is not None:
             raise RuntimeError(
                 "release_async() while a step ticket is in flight")
+        if self.migration_mode != "batched":
+            raise RuntimeError("release_async() requires "
+                               "migration_mode='batched'; use release()")
         seq = self.slots[slot]
         if seq is None or slot in self._draining:
             raise RuntimeError(f"slot {slot} holds no releasable seq")
@@ -662,6 +888,27 @@ class Instance:
             nbytes += sl.numel() * sl.element_size()
         return KVBlob(seq.req_id, arrays, seq.next_pos, nbytes)
 
+    def _import_kv(self, slot: int, blob: KVBlob) -> None:
+        """Per-slot import: each leaf padded back to the cache's position
+        extent (``slot_pos`` with -1, K/V with zeros) and copied into the
+        slot."""
+        blob.verify_checksum()
+        self._check_blob_fits(blob)
+        for k, dst in self.cache.items():
+            ax = _slot_slice(k)
+            src = blob.arrays[k].to(self.device)
+            row = dst.select(ax, slot)
+            pax = _pos_axis(k)
+            if pax is not None and src.shape[pax] != row.shape[pax]:
+                shape = list(src.shape)
+                shape[pax] = row.shape[pax] - src.shape[pax]
+                fill = torch.full(shape, -1 if k == "slot_pos" else 0,
+                                  dtype=src.dtype, device=src.device)
+                src = torch.cat([src, fill], dim=pax)
+                self.steps.count_migration("import_perslot")
+            row.copy_(src)
+            self.steps.count_migration("import_perslot")
+
     def _flush_imports(self, exclude: Optional[set] = None) -> None:
         """Scatter every pending admitted blob into the cache: one batched
         call per distinct source extent.  Imports for slots in
@@ -696,11 +943,34 @@ class Instance:
 
     # -- prefill --------------------------------------------------------------
 
-    def _queue_prefill(self, seq: EngineSeq, tokens: List[int],
+    def _queue_prefill(self, slot: int, seq: EngineSeq, tokens: List[int],
                        start_pos: int) -> None:
-        if tokens:
+        if not tokens:
+            return
+        if self.prefill_mode == "sync":
+            self._prefill_slot(slot, tokens, start_pos)
+        else:
             seq.prefill_queue = list(tokens)
             seq.prefill_pos = start_pos
+
+    def _prefill_slot(self, slot: int, tokens: List[int], start_pos: int):
+        """Sync oracle: one single-row forward per chunk, at admit."""
+        B, c = self.max_slots, self.prefill_chunk
+        fn = self.steps.prefill(c)
+        for off in range(0, len(tokens), c):
+            chunk = tokens[off:off + c]
+            buf = np.zeros((B, c), np.int32)
+            pos = np.zeros((B, c), np.int32)
+            mask = np.zeros((B, c), np.int32)
+            buf[slot, :len(chunk)] = chunk
+            pos[slot, :len(chunk)] = start_pos + off + np.arange(len(chunk))
+            mask[slot, :len(chunk)] = 1
+            tok_d, pos_d, mask_d = self._upload_int32(buf, pos, mask)
+            fn(self.params, self.cache, tok_d, pos_d, mask_d.bool())
+            self.prefill_tokens += len(chunk)
+            self.row_slots_total += B
+            self.row_slots_active += 1
+            self.prefill_rows_packed += 1
 
     # -- the mixed prefill / decode / verify step -----------------------------
 
@@ -754,20 +1024,24 @@ class Instance:
         """One engine iteration over all active slots: dispatch + commit."""
         return self.commit_step(self.dispatch_step(drafts))
 
-    def dispatch_step(self, drafts: Optional[Dict[int, List[int]]] = None):
+    def dispatch_step(self, drafts: Optional[Dict[int, object]] = None):
         """Enqueue one engine step on the device without a host sync and
-        return its :class:`StepTicket` (None if there is nothing to do).
+        return its ticket (None if there is nothing to do).
 
         Each row of the (max_slots, T) batch is a decode/verify row
         (pending token + drafts) or the next prefill chunk of a
         prefilling slot; a tail chunk that fits T with a column to spare
         also carries the pending token and samples its first decode
-        token in the same forward."""
+        token in the same forward.  Under ``spec_mode="tree"`` drafts may
+        be :class:`TokenTree` values; under ``prefill_mode="sync"`` the
+        step runs (and commits) at once on the oracle path."""
         if self._inflight is not None:
             raise RuntimeError("dispatch_step() with a ticket in flight")
         if not self.alive:
             raise RuntimeError("dispatch_step() on a crashed instance")
         drafts = drafts or {}
+        if self.prefill_mode == "sync":
+            return _SyncTicket(self._run_step_sync(drafts))
         if self._takeovers:
             self._export_buffer.update(
                 self._gather_exports(set(self._takeovers)))
@@ -781,6 +1055,8 @@ class Instance:
         plan = self._prefill_plan()
         if not decode and not plan:
             return None
+        if self.spec_mode == "tree":
+            return self._dispatch_tree(decode, plan, drafts)
         gamma = max((len(drafts.get(i, [])) for i in decode), default=0)
         gamma = min(gamma, self.gamma_max)
         # bucket gamma to bound the number of step shapes
@@ -836,45 +1112,173 @@ class Instance:
                 anchors[i] = n
 
         # one upload of the whole host batch
-        BT = B * T
-        packed = self._upload(np.concatenate([
-            tokens.ravel(), positions.ravel(), mask.ravel(), seeds,
-            sample_rows, anchor, n_drafts, temps.view(np.int32)]))
-        cut = np.cumsum([BT, BT, BT, B, B, B, B])
-        parts = torch.tensor_split(packed, cut.tolist())
-        tok_d = parts[0].view(B, T)
-        pos_d = parts[1].view(B, T)
-        mask_d = parts[2].view(B, T).bool()
-        rows_d = parts[4].bool()
-        keys = position_keys(self.base_key, parts[3], pos_d)
+        tok_d, pos_d, mask_d, seeds_d, rows_d, anchor_d, nd_d, temps_d = \
+            self._upload_int32(tokens, positions, mask, seeds, sample_rows,
+                               anchor, n_drafts, temps)
+        keys = position_keys(self.base_key, seeds_d, pos_d)
         fn = self.steps.fused_step(T)
         sampled, lps, n_acc, self.cache = fn(
-            self.params, self.cache, tok_d, pos_d, mask_d, keys,
-            parts[7].view(torch.float32), rows_d, parts[5], parts[6])
-        block = torch.cat([sampled.reshape(-1),
-                           lps.reshape(-1).view(torch.int32), n_acc])
-        ready = None
-        if self.device.type == "cuda":
-            host = torch.empty(block.shape, dtype=block.dtype,
-                               pin_memory=True)
-            host.copy_(block, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            block = host
+            self.params, self.cache, tok_d, pos_d, mask_d.bool(), keys,
+            temps_d.view(torch.float32), rows_d.bool(), anchor_d, nd_d)
+        return self._book_step(B, T, sampled, lps, n_acc, decode, plan,
+                               fused, anchors)
+
+    def _book_step(self, B, T, sampled, lps, n_acc, decode, plan, fused,
+                   anchors) -> StepTicket:
+        """Book a dispatched step (host counters, consumed prefill) and
+        return its ticket, whose result block is on its way to the host."""
+        block, ready = self._result_block(sampled, lps, n_acc)
         self.row_slots_total += B
         self.row_slots_active += len(decode) + len(plan)
         self.prefill_rows_packed += len(plan)
         self.tail_fused_rows += len(fused)
-        for i, n in plan.items():
-            seq = self.slots[i]
-            del seq.prefill_queue[:n]
-            seq.prefill_pos += n
-            self.prefill_tokens += n
+        self._consume_plan(plan)
         self.steps_run += 1
         ticket = StepTicket(block=block, ready=ready, B=B, T=T,
                             sample_slots=decode + fused, anchors=anchors)
         self._inflight = ticket
         return ticket
+
+    def _consume_plan(self, plan: Dict[int, int]) -> None:
+        """Host bookkeeping of the prefill chunks a step wrote."""
+        for i, n in plan.items():
+            seq = self.slots[i]
+            del seq.prefill_queue[:n]
+            seq.prefill_pos += n
+            self.prefill_tokens += n
+
+    # -- tree speculation -----------------------------------------------------
+
+    def _dispatch_tree(self, decode: List[int], plan: Dict[int, int],
+                       drafts) -> StepTicket:
+        """Build and launch one fused tree step.  Drafts may be
+        :class:`TokenTree` values or token lists (single-path trees,
+        bit-identical to the linear path)."""
+        bt = self._build_tree_batch(decode, plan, drafts)
+        B, T = self.max_slots, bt.T
+        (tok_d, pos_d, slot_d, mask_d, within_d, seeds_d, rows_d, anchor_d,
+         parent_d, depth_d, temps_d) = self._upload_int32(
+            bt.tokens, bt.positions, bt.slot_index, bt.mask, bt.within,
+            bt.seeds, bt.sample_rows, bt.anchor, bt.parent, bt.depth,
+            bt.temps)
+        keys = position_keys(self.base_key, seeds_d, pos_d)
+        fn = self.steps.fused_tree_step(T)
+        sampled, lps, n_acc, self.cache = fn(
+            self.params, self.cache, tok_d, pos_d, slot_d, mask_d.bool(),
+            within_d.bool(), keys, temps_d.view(torch.float32),
+            rows_d.bool(), anchor_d, parent_d, depth_d)
+        self.tree_steps += 1 if bt.n_tree_nodes else 0
+        return self._book_step(B, T, sampled, lps, n_acc, decode, plan,
+                               bt.fused, bt.anchors)
+
+    def _build_tree_batch(self, decode: List[int], plan: Dict[int, int],
+                          drafts) -> _TreeBatch:
+        """Tree-step batch layout, shared by the fused and the sync path.
+        Column 0 of a decode row holds its pending token; node ``j`` of its
+        tree (topological order) sits at column ``1+j``, cache slot
+        ``next_pos+1+j`` and position ``next_pos+depth[j]``: siblings share
+        a position (and a sampling key) but not a slot.  Trees are cut to
+        ``min(gamma_max, cache_len-2-next_pos)`` nodes; T follows the
+        linear ladder, ``bucket_pow2(widest, 32) + 1``."""
+        trees: Dict[int, TokenTree] = {}
+        widest = 0
+        for i in decode:
+            d = drafts.get(i)
+            t = d if isinstance(d, TokenTree) else chain_tree(d or [])
+            cap = min(self.gamma_max,
+                      max(0, self.cache_len - 2 - self.slots[i].next_pos))
+            if len(t) > cap:
+                # topological order: a node-count prefix is a valid tree
+                t = TokenTree(tokens=t.tokens[:cap],
+                              parent=t.parent[:cap], depth=t.depth[:cap],
+                              paths=[p[:cap] for p in t.paths if p[:cap]])
+            trees[i] = t
+            widest = max(widest, len(t))
+        if "ssm" in self.cache and \
+                any(not t.is_chain() for t in trees.values()):
+            raise ValueError(
+                "branching draft trees require an attention-only arch; "
+                "SSM/hybrid instances verify single-path trees only")
+        T = bucket_pow2(widest, 32) + 1
+        if plan:
+            T = max(T, bucket_pow2(max(plan.values()), self.prefill_chunk))
+        B = self.max_slots
+        fused = [i for i, n in plan.items()
+                 if n == len(self.slots[i].prefill_queue) and n + 1 <= T]
+        S = self.cache["slot_pos"].shape[1]
+        ring = self.cfg.sliding_window > 0
+
+        def to_slot(p):
+            return p % S if ring else p
+
+        tokens = np.zeros((B, T), np.int32)
+        positions = np.zeros((B, T), np.int32)
+        slot_index = np.zeros((B, T), np.int32)
+        mask = np.zeros((B, T), bool)
+        within = np.zeros((B, T, T), bool)
+        temps = np.zeros((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        sample_rows = np.zeros((B,), bool)
+        anchor = np.zeros((B,), np.int32)
+        parent = np.full((B, T), -1, np.int32)
+        depth = np.zeros((B, T), np.int32)
+        anchors: Dict[int, int] = {}
+        n_tree_nodes = 0
+        for i in decode:
+            seq = self.slots[i]
+            t = trees[i]
+            tokens[i, 0] = seq.last_token
+            positions[i, 0] = seq.next_pos
+            slot_index[i, 0] = to_slot(seq.next_pos)
+            mask[i, 0] = True
+            within[i, 0, 0] = True
+            anc = t.ancestors_or_self()
+            for j, tok in enumerate(t.tokens):
+                c = 1 + j
+                tokens[i, c] = tok
+                positions[i, c] = seq.next_pos + t.depth[j]
+                slot_index[i, c] = to_slot(seq.next_pos + 1 + j)
+                mask[i, c] = True
+                parent[i, c] = 0 if t.parent[j] < 0 else 1 + t.parent[j]
+                depth[i, c] = t.depth[j]
+                within[i, c, 0] = True
+                for a in anc[j]:
+                    within[i, c, 1 + a] = True
+            temps[i] = seq.temperature
+            seeds[i] = seq.seed
+            sample_rows[i] = True
+            anchors[i] = 0
+            n_tree_nodes += len(t)
+            self.tree_nodes += len(t)
+            if len(t) and not t.is_chain():
+                self.tree_branch_nodes += len(t)
+        for i, n in plan.items():
+            seq = self.slots[i]
+            tokens[i, :n] = seq.prefill_queue[:n]
+            pos = seq.prefill_pos + np.arange(n)
+            positions[i, :n] = pos
+            slot_index[i, :n] = to_slot(pos)
+            mask[i, :n] = True
+            k = n
+            if i in fused:
+                tokens[i, n] = seq.last_token
+                positions[i, n] = seq.next_pos
+                slot_index[i, n] = to_slot(seq.next_pos)
+                mask[i, n] = True
+                temps[i] = seq.temperature
+                seeds[i] = seq.seed
+                sample_rows[i] = True
+                anchor[i] = n
+                anchors[i] = 0      # outputs are path-major: offset 0
+                k = n + 1
+            # prefill chunks are chains by position: plain causal order
+            within[i, :k, :k] = np.tril(np.ones((k, k), bool))
+        return _TreeBatch(
+            T=T, fused=fused, anchors=anchors, trees=trees,
+            n_tree_nodes=n_tree_nodes, tokens=tokens, positions=positions,
+            slot_index=slot_index, mask=mask, within=within, temps=temps,
+            seeds=seeds, sample_rows=sample_rows, anchor=anchor,
+            parent=parent, depth=depth)
 
     def commit_step(self, ticket) -> Dict[int, Tuple[List[int],
                                                      List[float], int]]:
@@ -882,6 +1286,8 @@ class Instance:
         step's one host sync (waiting for the result block's copy)."""
         if ticket is None:
             return {}
+        if isinstance(ticket, _SyncTicket):
+            return ticket.out
         if ticket is not self._inflight:
             raise RuntimeError("commit_step(): ticket is not the "
                                "instance's in-flight step")
@@ -926,3 +1332,183 @@ class Instance:
         if seq.next_pos >= self.cache_len - 1 and not self.cfg.sliding_window:
             seq.finished = True   # cache exhausted (engine-tier guard)
         return (new_toks, new_lps, a)
+
+    # -- sync reference path (losslessness oracle) ----------------------------
+
+    def _run_step_sync(self, drafts) -> Dict[int, Tuple[List[int],
+                                                        List[float], int]]:
+        """Oracle step: acceptance on the host over the full sample block,
+        rollback from the host.  Chain-only tree drafts are flattened to
+        token lists (node ``j`` sits at column/position/slot ``1+j``
+        either way); a step carrying a branching tree goes to
+        :meth:`_run_step_sync_tree`."""
+        if self.spec_mode == "tree" or \
+                any(isinstance(d, TokenTree) for d in drafts.values()):
+            flat: Dict[int, List[int]] = {}
+            for i, d in drafts.items():
+                if isinstance(d, TokenTree):
+                    if not d.is_chain():
+                        return self._run_step_sync_tree(drafts)
+                    flat[i] = list(d.tokens)
+                else:
+                    flat[i] = list(d or [])
+            drafts = flat
+        if not self.active_slots():
+            return {}
+        decode = self.decode_slots()
+        plan = self._prefill_plan()
+        if not decode and not plan:
+            return {}
+        gamma = max((len(drafts.get(i, [])) for i in decode), default=0)
+        gamma = min(gamma, self.gamma_max)
+        for b in (0, 1, 2, 4, 8, 16, 32):
+            if gamma <= b:
+                gamma = b
+                break
+        T = gamma + 1
+        if plan:
+            need = max(plan.values())
+            b = 1
+            while b < need:
+                b <<= 1
+            T = max(T, min(b, self.prefill_chunk))
+        B = self.max_slots
+
+        tokens = np.zeros((B, T), np.int32)
+        positions = np.zeros((B, T), np.int32)
+        mask = np.zeros((B, T), np.int32)
+        temps = np.zeros((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        sample_rows = np.zeros((B,), np.int32)
+        ndraft = {}
+        for i in decode:
+            seq = self.slots[i]
+            d = list(drafts.get(i, []))[:gamma]
+            ndraft[i] = len(d)
+            row = [seq.last_token] + d
+            tokens[i, :len(row)] = row
+            positions[i, :len(row)] = seq.next_pos + np.arange(len(row))
+            mask[i, :len(row)] = 1
+            temps[i] = seq.temperature
+            seeds[i] = seq.seed
+            sample_rows[i] = 1
+        for i, n in plan.items():
+            seq = self.slots[i]
+            tokens[i, :n] = seq.prefill_queue[:n]
+            positions[i, :n] = seq.prefill_pos + np.arange(n)
+            mask[i, :n] = 1
+
+        tok_d, pos_d, mask_d, seeds_d, rows_d, temps_d = self._upload_int32(
+            tokens, positions, mask, seeds, sample_rows, temps)
+        keys = position_keys(self.base_key, seeds_d, pos_d)
+        fn = self.steps.step(T)
+        sampled_d, lps_d, self.cache = fn(
+            self.params, self.cache, tok_d, pos_d, mask_d.bool(), keys,
+            temps_d.view(torch.float32), rows_d.bool())
+        sampled = sampled_d.cpu().numpy()
+        lps = lps_d.cpu().numpy()
+        self.steps.host_syncs += 2   # full sample + logprob blocks
+        self.row_slots_total += B
+        self.row_slots_active += len(decode) + len(plan)
+        self.prefill_rows_packed += len(plan)
+        self._consume_plan(plan)
+
+        out = {}
+        rollback_from = np.full((B,), _INT32_MAX, np.int32)
+        for i in decode:
+            seq = self.slots[i]
+            d = list(drafts.get(i, []))[:ndraft[i]]
+            # acceptance: longest prefix of drafts matching sampled chain
+            a = 0
+            while a < len(d) and d[a] == int(sampled[i, a]):
+                a += 1
+            new_toks = [int(sampled[i, j]) for j in range(a + 1)]
+            new_lps = [float(lps[i, j]) for j in range(a + 1)]
+            rollback_from[i] = seq.next_pos + a + 1
+            out[i] = self._commit_row(seq, new_toks, new_lps, a)
+        if gamma > 0:
+            self.steps.rollback(self.cache["slot_pos"],
+                                self._upload(rollback_from))
+        self.steps_run += 1
+        return out
+
+    def _run_step_sync_tree(self, drafts
+                            ) -> Dict[int, Tuple[List[int], List[float],
+                                                 int]]:
+        """Oracle *tree* step: :meth:`StepFunctions.tree_step`'s forward,
+        then acceptance in numpy (the closed form of
+        :func:`tree_acceptance`) and the winning-branch compaction from
+        host-computed indices.  It verifies the batch the fused path would
+        (:meth:`_build_tree_batch`), so the two can be held equal."""
+        if not self.active_slots():
+            return {}
+        decode = self.decode_slots()
+        plan = self._prefill_plan()
+        if not decode and not plan:
+            return {}
+        bt = self._build_tree_batch(decode, plan, drafts)
+        B, T = self.max_slots, bt.T
+        (tok_d, pos_d, slot_d, mask_d, within_d, seeds_d, rows_d,
+         temps_d) = self._upload_int32(
+            bt.tokens, bt.positions, bt.slot_index, bt.mask, bt.within,
+            bt.seeds, bt.sample_rows, bt.temps)
+        keys = position_keys(self.base_key, seeds_d, pos_d)
+        fn = self.steps.tree_step(T)
+        sampled_d, lps_d, self.cache = fn(
+            self.params, self.cache, tok_d, pos_d, mask_d.bool(), keys,
+            temps_d.view(torch.float32), rows_d.bool(), slot_d,
+            within_d.bool())
+        sampled = sampled_d.cpu().numpy()
+        lps = lps_d.cpu().numpy()
+        self.steps.host_syncs += 2   # full sample + logprob blocks
+        self.row_slots_total += B
+        self.row_slots_active += len(decode) + len(plan)
+        self.prefill_rows_packed += len(plan)
+        self.tail_fused_rows += len(bt.fused)
+        self.tree_steps += 1 if bt.n_tree_nodes else 0
+        self._consume_plan(plan)
+
+        # longest accepted path: a node is accepted iff every ancestor
+        # edge token matches its parent's sample
+        node = (bt.depth > 0) & bt.mask
+        par = np.clip(bt.parent, 0, T - 1)
+        edge_ok = np.where(
+            bt.parent >= 0,
+            bt.tokens == np.take_along_axis(sampled, par, axis=1), True)
+        acc = node & np.all(edge_ok[:, None, :] | ~bt.within, axis=2)
+        n_acc = np.max(np.where(acc, bt.depth, 0), axis=1).astype(np.int32)
+        n_acc = np.where(bt.sample_rows, n_acc, 0)
+        dd = np.arange(T, dtype=np.int32)[None, :]
+        hit = acc[:, None, :] & (bt.depth[:, None, :] == dd[:, :, None]) \
+            & (dd[:, :, None] > 0)
+        path_col = np.where(np.any(hit, axis=2), np.argmax(hit, axis=2),
+                            bt.anchor[:, None]).astype(np.int32)
+        anchor_pos = np.take_along_axis(
+            bt.positions, bt.anchor[:, None], axis=1)
+
+        out = {}
+        for i in decode + bt.fused:
+            seq = self.slots[i]
+            a = int(n_acc[i])
+            new_toks = [int(sampled[i, path_col[i, j]])
+                        for j in range(a + 1)]
+            new_lps = [float(lps[i, path_col[i, j]])
+                       for j in range(a + 1)]
+            out[i] = self._commit_row(seq, new_toks, new_lps, a)
+
+        if bt.n_tree_nodes:
+            S = self.cache["slot_pos"].shape[1]
+            ring = self.cfg.sliding_window > 0
+            node_slots = np.where(node, bt.slot_index, S)
+            dcols = np.arange(T, dtype=np.int32)[None, :]
+            dvalid = (dcols >= 1) & (dcols <= n_acc[:, None]) \
+                & bt.sample_rows[:, None]
+            src = np.where(
+                dvalid, np.take_along_axis(bt.slot_index, path_col, axis=1),
+                S)
+            dst_pos = anchor_pos + dcols
+            dst = np.where(dvalid, dst_pos % S if ring else dst_pos, S)
+            compact_tree(self.cache, *self._upload_int32(
+                node_slots, src, dst, dst_pos))
+        self.steps_run += 1
+        return out

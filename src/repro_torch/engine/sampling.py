@@ -128,6 +128,41 @@ def draft_acceptance(sampled: torch.Tensor, tokens: torch.Tensor,
         torch.int32)
 
 
+def tree_acceptance(sampled: torch.Tensor, tokens: torch.Tensor,
+                    parent: torch.Tensor, depth: torch.Tensor,
+                    within: torch.Tensor, mask: torch.Tensor,
+                    anchor: torch.Tensor):
+    """Longest accepted *path* through a draft token tree, on the device.
+
+    ``parent[b,c]`` is the column of node c's parent (-1 for non-node
+    columns), ``depth[b,c]`` its depth below the anchor (0 = anchor or no
+    node) and ``within[b,c,c']`` the ancestor-or-self mask of the step.
+    A node is accepted iff the edge into it and into every ancestor
+    matches the token sampled at the parent — in closed form through the
+    ancestor mask, no sequential scan.  Children of one node carry
+    distinct tokens, so accepted nodes form one chain.
+
+    Returns ``(n_accepted (B,) int32, path_col (B,T) int32, accepted
+    (B,T) bool)``: ``path_col[b,d]`` is the column of the accepted node
+    at depth d (the anchor for d = 0 or d > n_accepted)."""
+    B, T = tokens.shape
+    node = (depth > 0) & mask
+    par = parent.clamp(0, T - 1).long()
+    edge_ok = torch.where(parent >= 0, tokens == sampled.gather(1, par),
+                          True)
+    acc = node & (edge_ok[:, None, :] | ~within).all(dim=2)
+    n_acc = torch.where(acc, depth, 0).amax(dim=1).to(torch.int32)
+    d = torch.arange(T, dtype=torch.int32, device=tokens.device)[None, :]
+    hit = acc[:, None, :] & (depth[:, None, :] == d[:, :, None]) \
+        & (d[:, :, None] > 0)                                 # (B,Td,Tc)
+    # argmax takes no bool; on ties it returns the first maximal index,
+    # as jnp.argmax does
+    first = hit.to(torch.int32).argmax(dim=2)
+    path_col = torch.where(hit.any(dim=2), first,
+                           anchor.long()[:, None]).to(torch.int32)
+    return n_acc, path_col, acc
+
+
 def token_logprobs_at(logits: torch.Tensor,
                       tokens: torch.Tensor) -> torch.Tensor:
     """log softmax(logits) at ``tokens``; (B,T,V), (B,T) -> (B,T) f32.

@@ -1,21 +1,34 @@
-// Spec-verify attention (K1) for Hopper, written by hand in CUDA C++.
+// Spec-verify (K1) and tree-verify (K2) attention for Hopper, written by
+// hand in CUDA C++: one kernel body, with the tree mask as an optional
+// operand, as in the Pallas version.
 //
-// Replaces the Pallas TPU kernel repro/kernels/spec_verify/kernel.py
+// K1 replaces the Pallas TPU kernel repro/kernels/spec_verify/kernel.py
 // (spec_verify_pallas -> _verify_call -> pl.pallas_call, body
 // _verify_kernel).  Same function: for q (B,T,Hq,D) over a slot cache
 // k,v (B,S,Hk,D), softmax(q k^T / sqrt(D)) v under the mask
 //   (k_pos >= 0) & (k_pos <= q_pos) & (k_pos > q_pos - window, if window)
 // with query head h reading KV head h / (Hq/Hk); rows with no visible key
 // give 0.  Scores, softmax and the accumulator are f32; the output has
-// q's dtype.  It is the attention of every cached forward of the port:
-// decode (T=1), linear speculative verify (T=gamma+1) and mixed prefill
-// chunks (T <= prefill_chunk).
+// q's dtype.  It is the attention of every cached forward of the port's
+// linear path: decode (T=1), linear speculative verify (T=gamma+1) and
+// mixed prefill chunks (T <= prefill_chunk).
 //
-// What bounds it: at the engine's shapes (a few query rows per KV head,
-// a cache of thousands of slots) it is bound by memory.  A call must read
-// the K/V rows of the live slots once (B*S_live*Hk*D*2 elements) and does
-// 4*B*T*Hq*S_live*D flops, far below the card's ratio of ~295 flops per
-// byte.  What the design does about it:
+// K2 replaces tree_verify_pallas (same file, body _tree_kernel): K1 with
+// a (B,T,S) byte mask ANDed into the positional mask, so a draft-tree
+// node sees the committed prefix and its own ancestors but not a sibling
+// at the same position.  It is the attention of every forward of the
+// tree-speculation path (decode, tree verify and prefill chunks alike).
+// Row r of a CTA reads mask row t(r) = r / (Hq/Hk) at the slot its lane
+// scores; the bytes of the next tile are loaded with its K/V, one tile
+// ahead.  The arithmetic is K1's, in K1's order: with an all-true mask
+// K2's output is bitwise K1's.
+//
+// What bounds them: at the engine's shapes (a few query rows per KV head,
+// a cache of thousands of slots) they are bound by memory.  A call must
+// read the K/V rows of the live slots once (B*S_live*Hk*D*2 elements),
+// plus B*T*S mask bytes for K2, and does 4*B*T*Hq*S_live*D flops, far
+// below the card's ratio of ~295 flops per byte.  What the design does
+// about it:
 //   * One CTA per (b, KV head, tile of 32 query rows).  The Hq/Hk query
 //     heads x T positions that share a KV head are packed into the CTA's
 //     rows, so each K/V tile is read from device memory once per KV head
@@ -30,7 +43,8 @@
 //     (empty slots, slots in the future or outside the window are not),
 //     and loads only those, so a half-empty cache costs what its live
 //     slots cost.  Skipping a fully masked tile leaves (m, l, acc)
-//     bit-identical.
+//     bit-identical.  The test is positional for K2 too: the tree mask
+//     only narrows what a row sees, so the marked tiles stay a superset.
 //   * No atomics and a fixed reduction order: repeated runs are bitwise
 //     deterministic.
 // Later work (not here): split S across CTAs when B*Hk underfills the 132
@@ -162,13 +176,17 @@ size_t smem_bytes(int S) {
          sizeof(int) * (kBlockK + kRows + n_tiles);
 }
 
-template <typename T, int D>
+// kTree = false: K1 (tree_mask unused); true: K2.
+template <typename T, int D, bool kTree>
 __global__ void __launch_bounds__(kThreads)
 spec_verify_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ q_pos,
-                   const int* __restrict__ k_pos, T* __restrict__ out,
-                   int n_t, int S, int Hq, int Hk, long long kv_b_stride,
-                   long long kpos_b_stride, int window, float scale) {
+                   const int* __restrict__ k_pos,
+                   const unsigned char* __restrict__ tree_mask,
+                   T* __restrict__ out, int n_t, int S, int Hq, int Hk,
+                   long long kv_b_stride, long long kpos_b_stride,
+                   long long tm_b_stride, long long tm_t_stride, int window,
+                   float scale) {
   constexpr int NDW = D / 32;  // output dims owned by each lane
   extern __shared__ float smem[];
   float* qs = smem;                        // [kRows][D], scaled f32
@@ -250,16 +268,42 @@ spec_verify_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wrow = warp * kRowsPerWarp;
   const bool warp_has_rows = row0 + wrow < n_rows;  // uniform over the warp
 
+  // K2: the mask row of each of the warp's query rows, and this lane's
+  // mask bytes (slot tile*kBlockK + lane) of the current / next tile
+  const unsigned char* tmr[kRowsPerWarp];
+  unsigned char m_cur[kRowsPerWarp], m_nxt[kRowsPerWarp];
+  if constexpr (kTree) {
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = row0 + wrow + rr;
+      tmr[rr] = tree_mask + (long long)b * tm_b_stride +
+                (long long)(r < n_rows ? r / G : 0) * tm_t_stride;
+      m_cur[rr] = m_nxt[rr] = 0;
+    }
+  }
+  auto load_mask = [&](int tile, unsigned char* m) {
+    const int s = tile * kBlockK + lane;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr)
+      m[rr] = (s < S && row0 + wrow + rr < n_rows) ? tmr[rr][s] : 0;
+  };
+
   TileRegs<T, D> regs;
   int cur = next_tile(need, 0, n_tiles);
-  if (cur < n_tiles)
+  if (cur < n_tiles) {
     regs.load(kb, vb, kpb, cur * kBlockK, S, key_stride, tid);
+    if constexpr (kTree)
+      if (warp_has_rows) load_mask(cur, m_cur);
+  }
   while (cur < n_tiles) {
     regs.store(ks, vs, kps, tid);
     const int nxt = next_tile(need, cur + 1, n_tiles);
     __syncthreads();  // tile cur is in shared memory
-    if (nxt < n_tiles)  // in flight while this tile is computed
+    if (nxt < n_tiles) {  // in flight while this tile is computed
       regs.load(kb, vb, kpb, nxt * kBlockK, S, key_stride, tid);
+      if constexpr (kTree)
+        if (warp_has_rows) load_mask(nxt, m_nxt);
+    }
 
     if (warp_has_rows) {
       // scores: lane j scores slot j of the tile against the warp's rows
@@ -278,7 +322,8 @@ spec_verify_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         if (row0 + wrow + rr >= n_rows) continue;  // uniform over the warp
-        const bool ok = visible(kpj, qps[wrow + rr], window);
+        bool ok = visible(kpj, qps[wrow + rr], window);
+        if constexpr (kTree) ok = ok && m_cur[rr] != 0;
         const float s = ok ? sc[rr] : kNegInf;
         const float m_new = fmaxf(m_run[rr], warp_max(s));
         const float p = ok ? expf(s - m_new) : 0.f;
@@ -306,6 +351,10 @@ spec_verify_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // the next store overwrites ks / vs / kps / ps
+    if constexpr (kTree) {
+#pragma unroll
+      for (int rr = 0; rr < kRowsPerWarp; ++rr) m_cur[rr] = m_nxt[rr];
+    }
     cur = nxt;
   }
 
@@ -321,49 +370,52 @@ spec_verify_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* q_pos, const void* k_pos, void* out, int B,
-                   int n_t, int S, int Hq, int Hk, long long kv_b_stride,
-                   long long kpos_b_stride, int window, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(S);
-  auto kern = spec_verify_kernel<T, D>;
+// Everything a launch needs besides the element type and head dim.
+struct Args {
+  const void *q, *k, *v, *q_pos, *k_pos;
+  const unsigned char* tree_mask;  // null for K1
+  void* out;
+  int B, n_t, S, Hq, Hk;
+  long long kv_b_stride, kpos_b_stride, tm_b_stride, tm_t_stride;
+  int window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool kTree>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes<D>(a.S);
+  auto kern = spec_verify_kernel<T, D, kTree>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int rows = n_t * (Hq / Hk);
-  dim3 grid((rows + kRows - 1) / kRows, B * Hk);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(k_pos), static_cast<T*>(out), n_t, S, Hq, Hk,
-      kv_b_stride, kpos_b_stride, window, scale);
+  const int rows = a.n_t * (a.Hq / a.Hk);
+  dim3 grid((rows + kRows - 1) / kRows, a.B * a.Hk);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const int*>(a.q_pos),
+      static_cast<const int*>(a.k_pos), a.tree_mask, static_cast<T*>(a.out),
+      a.n_t, a.S, a.Hq, a.Hk, a.kv_b_stride, a.kpos_b_stride, a.tm_b_stride,
+      a.tm_t_stride, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const void* q_pos, const void* k_pos, void* out, int B,
-                     int n_t, int S, int Hq, int Hk, long long kv_b_stride,
-                     long long kpos_b_stride, int window, float scale,
-                     cudaStream_t st) {
+template <typename T, bool kTree>
+cudaError_t launch_d(int D, const Args& a) {
   switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, q_pos, k_pos, out, B, n_t, S, Hq, Hk,
-                           kv_b_stride, kpos_b_stride, window, scale, st);
-    case 64:
-      return launch<T, 64>(q, k, v, q_pos, k_pos, out, B, n_t, S, Hq, Hk,
-                           kv_b_stride, kpos_b_stride, window, scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, q_pos, k_pos, out, B, n_t, S, Hq, Hk,
-                            kv_b_stride, kpos_b_stride, window, scale, st);
-    case 256:
-      return launch<T, 256>(q, k, v, q_pos, k_pos, out, B, n_t, S, Hq, Hk,
-                            kv_b_stride, kpos_b_stride, window, scale, st);
-    default:
-      return cudaErrorInvalidValue;
+    case 32: return launch<T, 32, kTree>(a);
+    case 64: return launch<T, 64, kTree>(a);
+    case 128: return launch<T, 128, kTree>(a);
+    case 256: return launch<T, 256, kTree>(a);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kTree>
+int launch_any(int dtype, int D, const Args& a) {
+  if (dtype == 0) return launch_d<float, kTree>(D, a);
+  if (dtype == 1) return launch_d<__nv_bfloat16, kTree>(D, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -380,15 +432,29 @@ extern "C" int spec_verify_launch(int dtype, const void* q, const void* k,
                                   long long kv_b_stride,
                                   long long kpos_b_stride, int window,
                                   float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, q_pos, k_pos, out, B, n_t, S, Hq, Hk,
-                           kv_b_stride, kpos_b_stride, window, scale, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, q_pos, k_pos, out, B, n_t, S,
-                                   Hq, Hk, kv_b_stride, kpos_b_stride, window,
-                                   scale, st);
-  return cudaErrorInvalidValue;
+  const Args a{q, k, v, q_pos, k_pos, nullptr, out, B, n_t, S, Hq, Hk,
+               kv_b_stride, kpos_b_stride, 0, 0, window, scale,
+               static_cast<cudaStream_t>(stream)};
+  return launch_any<false>(dtype, D, a);
+}
+
+// K2: spec_verify_launch's arguments plus tree_mask, (B,T,S) bytes (0 =
+// hidden) with contiguous rows, batch stride tm_b_stride and row stride
+// tm_t_stride.
+extern "C" int tree_verify_launch(int dtype, const void* q, const void* k,
+                                  const void* v, const void* q_pos,
+                                  const void* k_pos, const void* tree_mask,
+                                  void* out, int B, int n_t, int S, int Hq,
+                                  int Hk, int D, long long kv_b_stride,
+                                  long long kpos_b_stride,
+                                  long long tm_b_stride,
+                                  long long tm_t_stride, int window,
+                                  float scale, void* stream) {
+  const Args a{q, k, v, q_pos, k_pos,
+               static_cast<const unsigned char*>(tree_mask), out, B, n_t, S,
+               Hq, Hk, kv_b_stride, kpos_b_stride, tm_b_stride, tm_t_stride,
+               window, scale, static_cast<cudaStream_t>(stream)};
+  return launch_any<true>(dtype, D, a);
 }
 
 extern "C" const char* spec_verify_error_string(int err) {

@@ -1,8 +1,11 @@
-"""Wrapper of the spec-verify CUDA kernel (K1): build, checks, launch.
+"""Wrappers of the spec-verify (K1) and tree-verify (K2) CUDA kernels:
+build, checks, launch.
 
 ``spec_verify(q, k, v, q_pos, k_pos, window=)`` computes the function of
-``ref.spec_verify_ref``.  A CPU tensor goes to that plain version; a
-CUDA tensor goes to the hand-written kernel in ``csrc/spec_verify.cu``
+``ref.spec_verify_ref``, ``tree_verify(q, k, v, q_pos, k_pos, tree_mask,
+window=)`` that of ``ref.tree_verify_ref``.  A CPU tensor goes to the
+plain version; a CUDA tensor goes to the hand-written kernel in
+``csrc/spec_verify.cu`` (one body, the tree mask an optional operand)
 or the wrapper raises — there is no fallback.
 
 The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
@@ -24,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.spec_verify.ref import f32_scale, spec_verify_ref
+from repro_torch.kernels.spec_verify.ref import (f32_scale, spec_verify_ref,
+                                                 tree_verify_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "spec_verify.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -33,14 +37,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the kernel since the last reset (the wrapper adds one where
-# it launches, and nowhere else)
-launches = 0
+# launches of each kernel since the last reset (a wrapper adds one where
+# it launches its kernel, and nowhere else)
+launches = {"spec_verify": 0, "tree_verify": 0}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for name in launches:
+        launches[name] = 0
 
 
 class _Build:
@@ -86,6 +90,10 @@ def build() -> ctypes.CDLL:
         i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i64,
         i32, ctypes.c_float, vp]
     lib.spec_verify_launch.restype = i32
+    lib.tree_verify_launch.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64,
+        i64, i64, i64, i32, ctypes.c_float, vp]
+    lib.tree_verify_launch.restype = i32
     lib.spec_verify_error_string.argtypes = [i32]
     lib.spec_verify_error_string.restype = ctypes.c_char_p
     _build.seconds = time.perf_counter() - t0
@@ -139,16 +147,27 @@ def check_inputs(q, k, v, q_pos, k_pos) -> None:
         raise ValueError("spec_verify: k/v rows must be 16-byte aligned")
 
 
-def spec_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-                window: int = 0) -> torch.Tensor:
-    """q (B,T,Hq,D); k, v (B,S,Hk,D); q_pos (B,T), k_pos (B,S) int32."""
-    global launches
-    if q.device.type == "cpu":
-        return spec_verify_ref(q, k, v, q_pos, k_pos, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"spec_verify: no kernel for device {q.device}")
-    check_inputs(q, k, v, q_pos, k_pos)
+def check_tree_mask(q, k, tree_mask) -> None:
+    """Raise on a tree mask K2 does not take: another device, a dtype
+    other than bool / uint8, a shape other than (B, T, S), rows that are
+    not contiguous."""
+    if tree_mask.device != q.device:
+        raise ValueError(f"tree_verify: tree_mask on {tree_mask.device}, q "
+                         f"on {q.device}")
+    if tree_mask.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"tree_verify: tree_mask dtype {tree_mask.dtype}; "
+                        "want bool or uint8")
+    want = (q.shape[0], q.shape[1], k.shape[1])
+    if tuple(tree_mask.shape) != want:
+        raise ValueError(f"tree_verify: tree_mask {tuple(tree_mask.shape)}; "
+                         f"want {want}")
+    if tree_mask.stride(2) != 1:
+        raise ValueError("tree_verify: tree_mask rows must be contiguous")
+
+
+def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window):
+    """Launch K1 (``tree_mask`` None) or K2 on q's current stream; raise
+    on a refused launch."""
     lib = build()
     B, T, Hq, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
@@ -156,12 +175,48 @@ def spec_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = f32_scale(D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.spec_verify_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(), B, T, S, Hq,
-            Hk, D, k.stride(0), k_pos.stride(0), int(window), scale, stream)
+        head = (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                q_pos.data_ptr(), k_pos.data_ptr())
+        if tree_mask is None:
+            err = lib.spec_verify_launch(
+                *head, out.data_ptr(), B, T, S, Hq, Hk, D, k.stride(0),
+                k_pos.stride(0), int(window), scale, stream)
+        else:
+            err = lib.tree_verify_launch(
+                *head, tree_mask.data_ptr(), out.data_ptr(), B, T, S, Hq, Hk,
+                D, k.stride(0), k_pos.stride(0), tree_mask.stride(0),
+                tree_mask.stride(1), int(window), scale, stream)
     if err:
-        raise RuntimeError("spec_verify launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            + lib.spec_verify_error_string(err).decode())
-    launches += 1
+    launches[name] += 1
     return out
+
+
+def spec_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                window: int = 0) -> torch.Tensor:
+    """K1.  q (B,T,Hq,D); k, v (B,S,Hk,D); q_pos (B,T), k_pos (B,S)
+    int32."""
+    if q.device.type == "cpu":
+        return spec_verify_ref(q, k, v, q_pos, k_pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"spec_verify: no kernel for device {q.device}")
+    check_inputs(q, k, v, q_pos, k_pos)
+    return _launch("spec_verify", q, k, v, q_pos, k_pos, None, window)
+
+
+def tree_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_pos: torch.Tensor, k_pos: torch.Tensor,
+                tree_mask: torch.Tensor, *,
+                window: int = 0) -> torch.Tensor:
+    """K2: K1's arguments plus ``tree_mask`` (B,T,S) bool or uint8, ANDed
+    into the positional mask."""
+    if q.device.type == "cpu":
+        return tree_verify_ref(q, k, v, q_pos, k_pos, tree_mask,
+                               window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"tree_verify: no kernel for device {q.device}")
+    check_inputs(q, k, v, q_pos, k_pos)
+    check_tree_mask(q, k, tree_mask)
+    return _launch("tree_verify", q, k, v, q_pos, k_pos, tree_mask, window)

@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the spec-verify attention kernel (K1).
+"""Plain PyTorch versions of the spec-verify (K1) and tree-verify (K2)
+attention kernels.
 
-Counterpart of ``repro.kernels.spec_verify.ref.spec_verify_ref`` and of
-``repro.models.attention._plain`` on the slot-cache path, which compute
-the same function.  Contract:
+Counterparts of ``repro.kernels.spec_verify.ref.spec_verify_ref`` /
+``tree_verify_ref`` and of ``repro.models.attention._plain`` on the
+slot-cache path, which compute the same functions.  Contract:
 
   q:     (B, T, Hq, D)   query tokens (decode T=1, verify T=gamma+1,
                          mixed prefill T <= prefill_chunk)
@@ -11,8 +12,9 @@ the same function.  Contract:
   k_pos: (B, S) int32    absolute position held by each slot, -1 = empty
 
 Mask: (k_pos >= 0) & (k_pos <= q_pos) & (k_pos > q_pos - window if
-window).  Scores and the softmax are f32; rows with no visible key give
-0; the output has q's dtype.  This follows ``_plain`` op for op (scale
+window); K2 ANDs a (B, T, S) ``tree_mask`` into it.  Scores and the
+softmax are f32; rows with no visible key give 0; the output has q's
+dtype.  This follows ``_plain`` op for op (scale
 ``1/sqrt(float32(D))`` on the f32 query), so on the CPU the port's
 forward matches the JAX package's.
 """
@@ -44,12 +46,27 @@ def pos_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def spec_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
+    return _masked_ref(q, k, v, pos_mask(q_pos, k_pos, window))
+
+
+def tree_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    tree_mask: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """K2: K1 with ``tree_mask`` (B, T, S), bool or uint8 (0 = hidden),
+    ANDed into the positional mask — a draft-tree node sees the committed
+    prefix and its own ancestors, never a sibling at its position."""
+    return _masked_ref(q, k, v,
+                       pos_mask(q_pos, k_pos, window) & tree_mask.bool())
+
+
+def _masked_ref(q, k, v, mask):
     B, T, Hq, D = q.shape
     Hk = k.shape[2]
     G = Hq // Hk
     qg = (q.float() * f32_scale(D)).reshape(B, T, Hk, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())    # (B,Hk,G,T,S)
-    m = pos_mask(q_pos, k_pos, window)[:, None, None]
+    m = mask[:, None, None]
     s = torch.where(m, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(m.any(dim=-1, keepdim=True), p, 0.0)

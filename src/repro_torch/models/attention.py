@@ -5,8 +5,10 @@ every cached forward attends T query tokens to a slot-indexed KV cache
 masked by each slot's absolute position.  The JAX package computes it
 with ``_plain`` (its forward never calls the Pallas kernel); in the port
 the hand-written spec-verify kernel (K1) *is* that attention on the
-card, and its plain version — which follows ``_plain`` op for op — runs
-on a CPU tensor.  The cache-free forward (training, cross-attention)
+card, and the tree-verify kernel (K2) is the attention of a forward
+that carries an ``allowed_mask`` (tree speculation).  Their plain
+versions — which follow ``_plain`` op for op — run on a CPU tensor.
+The cache-free forward (training, cross-attention)
 belongs to the flash-attention kernel (K3), a later slice.
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.spec_verify.ops import spec_verify
+from repro_torch.kernels.spec_verify.ops import spec_verify, tree_verify
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -26,12 +28,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,S) absolute positions (-1 = empty slot) -> (B,T,Hq,D).
 
     The mask is (k_pos >= 0) & (k_pos <= q_pos) & window — the JAX
-    package's causal mask with ``kv_valid = k_pos >= 0``."""
+    package's causal mask with ``kv_valid = k_pos >= 0``.
+
+    ``allowed_mask`` (B,T,S) bool: the JAX package lets it *replace* that
+    mask, while K2 ANDs it in (as the Pallas tree kernel does).  The two
+    agree because the mask ``forward`` builds is a subset of the
+    positional one (cached slots use the positional mask itself, this
+    step's slots ancestor-or-self columns at positions <= the query's);
+    the tests check that subset on the engine's tree batches."""
     if softcap:
         raise NotImplementedError(
             "attention softcap is not on this slice's path")
     if allowed_mask is not None:
-        raise NotImplementedError(
-            "allowed_mask (tree speculation, K2) arrives with the tree "
-            "slice")
+        return tree_verify(q, k, v, q_pos, k_pos, allowed_mask,
+                           window=window)
     return spec_verify(q, k, v, q_pos, k_pos, window=window)

@@ -67,6 +67,16 @@ def with_scratch(t: torch.Tensor, pos_dim: int) -> torch.Tensor:
     return t.as_strided(size, t.stride(), t.storage_offset())
 
 
+def clone_cache(cache: dict) -> dict:
+    """A copy of a cache from :func:`init_cache`, scratch slots and all
+    (a plain ``clone`` of the views would drop them)."""
+    out = {}
+    for name, t in cache.items():
+        dim = 1 if name == "slot_pos" else 2
+        out[name] = with_scratch(t, dim).clone().narrow(dim, 0, t.shape[dim])
+    return out
+
+
 def _project_qkv(p, xn, cfg, positions):
     B, T, _ = xn.shape
     hd = cfg.head_dim
@@ -78,16 +88,18 @@ def _project_qkv(p, xn, cfg, positions):
     return q, k, v
 
 
-def _self_attn(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos):
+def _self_attn(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
+               allowed=None):
     """Slot-scatter branch: write this step's K/V rows in place, then
-    attend over the whole slot cache."""
+    attend over the whole slot cache (under ``allowed`` (B,T,S) when the
+    step verifies draft trees)."""
     B, T = x.shape[:2]
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     q, k, v = _project_qkv(p, xn, cfg, positions)
     with_scratch(ck, 1)[bidx, slots] = k.to(ck.dtype)
     with_scratch(cv, 1)[bidx, slots] = v.to(cv.dtype)
     o = attention(q, ck, cv, positions, slot_pos, window=cfg.sliding_window,
-                  softcap=cfg.attn_logit_softcap)
+                  softcap=cfg.attn_logit_softcap, allowed_mask=allowed)
     return x + lin(o.reshape(B, T, -1), p["wo"])
 
 
@@ -98,10 +110,35 @@ def _mlp(p, x, cfg):
     return x + lin(h, p["wd"])
 
 
-def _dense_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos):
+def _dense_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
+                 allowed=None):
     x = _self_attn(p["attn"], x, cfg, positions, bidx, slots, ck, cv,
-                   slot_pos)
+                   slot_pos, allowed)
     return _mlp(p["mlp"], x, cfg)
+
+
+def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
+    """One (B,T,S) allowed-mask shared by every layer of a tree-verify
+    forward: previously cached slots obey validity + causality (+ window);
+    slots written by this step's columns obey ``within_mask`` (B,T,T).
+    ``slots`` (B,T) are this step's write targets, S for masked columns;
+    the column of each slot is scattered into a (B, S+1) buffer whose
+    last column stands in for JAX's dropped writes."""
+    B, T = positions.shape
+    S = slot_pos.shape[1]
+    qp = positions[:, :, None]
+    kp = slot_pos[:, None, :]
+    base = (kp >= 0) & (kp <= qp)
+    if cfg.sliding_window:
+        base = base & (kp > qp - cfg.sliding_window)
+    col = torch.full((B, S + 1), -1, dtype=torch.int64,
+                     device=positions.device)
+    col[torch.arange(B, device=positions.device)[:, None], slots] = \
+        torch.arange(T, device=positions.device).expand(B, T)
+    col = col[:, :S]
+    idx = col.clamp(0, T - 1)[:, None, :].expand(B, T, S)
+    ext = within_mask.gather(2, idx)
+    return torch.where((col >= 0)[:, None, :], ext, base)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -114,16 +151,20 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     The cache is updated in place and returned.  Slots come from
     positions (``positions % S`` on a ring cache for sliding-window
-    configs)."""
+    configs), or from ``slot_index`` (B,T) when given.  Tree-verify
+    inputs (both or neither): ``slot_index`` puts sibling draft nodes,
+    which share a position, in distinct slots; ``within_mask`` (B,T,T)
+    bool says which of this step's columns each query may see (ancestor
+    or self for tree rows, causal order for the rest).  Every layer then
+    attends under one allowed-mask built from it, through K2."""
     if cache is None:
         raise NotImplementedError(
             "the cache-free forward (training, K3) is a later slice")
     if contiguous_update:
         raise NotImplementedError(
             "contiguous_update (launch/steps.py prefill) is not ported")
-    if slot_index is not None or within_mask is not None:
-        raise NotImplementedError(
-            "tree-verify inputs arrive with the tree-speculation slice")
+    if (slot_index is None) != (within_mask is None):
+        raise ValueError("slot_index and within_mask come together")
     if cfg.arch_type != "dense":
         raise NotImplementedError(
             f"arch_type={cfg.arch_type!r}: this slice ports dense models")
@@ -133,19 +174,25 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     slot_pos = cache["slot_pos"]
     S = slot_pos.shape[1]
-    slots = positions.long()
-    if cfg.sliding_window:
-        slots = slots % S
+    if slot_index is not None:
+        slots = slot_index.long()
+    else:
+        slots = positions.long()
+        if cfg.sliding_window:
+            slots = slots % S
     keep = slots < S
     if token_mask is not None:
         keep = keep & token_mask
     slots = torch.where(keep, slots, S)
     bidx = torch.arange(B, device=tokens.device)[:, None]
     with_scratch(slot_pos, 1)[bidx, slots] = positions
+    allowed = None
+    if within_mask is not None:
+        allowed = _allowed_mask(cfg, positions, slots, slot_pos, within_mask)
 
     for i, p in enumerate(params["layers"]):
         x = _dense_layer(p, x, cfg, positions, bidx, slots, cache["k"][i],
-                         cache["v"][i], slot_pos)
+                         cache["v"][i], slot_pos, allowed)
 
     x = rms_norm(x, params["final_ln"], cfg.rms_eps)
     if cfg.tie_embeddings:

@@ -234,7 +234,5 @@ def test_takeover_cancel_and_crash_match(models):
 
 def test_unported_modes_raise(models):
     _, _, tcfg, tp = models["float32"]
-    for kw in ({"spec_mode": "tree"}, {"prefill_mode": "sync"},
-               {"migration_mode": "perslot"}, {"tp": 2}):
-        with pytest.raises(NotImplementedError):
-            Instance(tcfg, tp, StepFunctions(tcfg), device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Instance(tcfg, tp, StepFunctions(tcfg), device="cpu", tp=2)
