@@ -6,12 +6,18 @@
 Phases, in this order:
 
 1. the card's name and power limit, as nvidia-smi prints them;
-2. build of the hand-written kernels from ``src/repro_torch/kernels``;
+2. build of the hand-written kernels from ``src/repro_torch/kernels``,
+   one ``nvcc`` per source, all started together;
 3. kernels: K1 (spec_verify) and K2 (tree_verify) against their plain
    PyTorch versions on the card at granite-3-8b's head shapes, and at
    every other head dim they are built for; K2 on random draft trees
    (siblings at one position, a query that sees no key) and, under an
-   all-true mask, bitwise equal to K1;
+   all-true mask, bitwise equal to K1; K3 (flash_attention: the forward,
+   dQ and dK/dV) against the plain forward and backward at granite's
+   head shapes in bf16 and f32 — causal, non-causal, window 256,
+   q_offset > 0 with Tq != Tk, lengths off the tile, rows that see no
+   key (0, LSE -inf, no gradient) — and at D = 32, 64, 256, repeat
+   launches bitwise equal;
 4. linear slice: a full-width, full-depth granite-3-8b Seer rollout
    (random weights from a seed, bf16) on two instances through the
    port's entry points, with its checks: every group finishes, every
@@ -31,9 +37,15 @@ Phases, in this order:
    warm group suffix trees (every attention through K2, none through K1,
    at most one host sync per step, drafts accepted, branching trees
    verified), set beside the linear slice's warm pass;
-7. timing: each kernel at the shape its slice gave it, beside its plain
+7. training: ``RLTrainer`` at granite-3-8b's full width and 12 layers
+   (f32 masters, AdamW, bf16 activations), two sync iterations of
+   rollout -> reward -> GRPO train step -> weight push on the copy task
+   (see ``training_phase`` for its checks: K3 launches per train step,
+   no plain attention, the rollout on the pushed weights, a bitwise
+   repeat of a train step, K3 against the plain attention);
+8. timing: each kernel at the shape its slice gave it, beside its plain
    version, a library call and the card's bound.  Its ``launches`` are
-   its slice's.
+   its slice's (K3's: the training phase's two train steps).
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -62,9 +74,15 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SPEC_VERIFY_TPU = "src/repro/kernels/spec_verify/kernel.py:87"
 TREE_VERIFY_TPU = "src/repro/kernels/spec_verify/kernel.py:94"
 SPEC_VERIFY_SRC = "src/repro_torch/kernels/spec_verify/csrc/spec_verify.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:89"
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 # the slice's rollout: 8 GRPO groups of 4 (32 requests on 2 x 8 slots,
 # so requests queue and migrate), 128 new tokens in chunks of 32
 GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
+# the training phase: granite-3-8b's full width at this depth (f32
+# masters, gradients and AdamW moments of all 40 layers would need 131 GB),
+# prompts of BOS + 383 copy-task tokens
+TRAIN_LAYERS, TRAIN_PROMPT = 12, 384
 
 
 class CheckFailed(RuntimeError):
@@ -394,6 +412,166 @@ def tree_kernels_time(torch, np, *, B, S, T, live, dtype="bfloat16",
             "bound_by": bound_by, "max_abs_err": err}
 
 
+def _fa_inputs(torch, np, *, B, Tq, Tk, Hq, Hk, D, dtype, seed):
+    """q, k, v, dO of K3 on the card, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to("cuda", dt)
+    return (arr(B, Tq, Hq, D), arr(B, Tk, Hk, D), arr(B, Tk, Hk, D),
+            arr(B, Tq, Hq, D))
+
+
+def flash_kernels_check(torch, np) -> list:
+    """K3's forward, dQ and dK/dV against the plain forward and backward
+    on the card: granite-3-8b head shapes (Hq 32, Hk 8, D 128) in bf16 and
+    f32, causal, non-causal, window 256 and q_offset > 0, Tq != Tk, T not a
+    multiple of the 32-row tile, a case whose later rows see no key; then
+    D = 32, 64 and 256 on a small case.  Repeat launches bitwise equal,
+    rows that see nothing 0 (LSE -inf, no gradient)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    rows = []
+    # B, Tq, Tk, Hq, Hk, D, q_offset, causal, window
+    shapes = [(2, 512, 512, 32, 8, 128, 0, True, 0),
+              (2, 300, 300, 32, 8, 128, 0, False, 0),
+              (2, 300, 300, 32, 8, 128, 0, True, 256),
+              (2, 200, 700, 32, 8, 128, 500, True, 0),
+              (1, 64, 100, 32, 8, 128, 200, True, 128)]
+    cases = [c + (dt,) for c in shapes for dt in ("bfloat16", "float32")]
+    cases += [(2, 100, 100, 8, 2, D, 0, True, w, dt) for D in (32, 64, 256)
+              for dt, w in (("bfloat16", 0), ("float32", 64))]
+    for B, Tq, Tk, Hq, Hk, D, off, causal, win, dtype in cases:
+        kw = dict(q_offset=off, causal=causal, window=win)
+        q, k, v, do = _fa_inputs(torch, np, B=B, Tq=Tq, Tk=Tk, Hq=Hq, Hk=Hk,
+                                 D=D, dtype=dtype, seed=Tq + Tk + D + win)
+        o, lse = ops.forward_kernel(q, k, v, **kw)
+        o2, lse2 = ops.forward_kernel(q, k, v, **kw)
+        g = ops.backward_kernels(q, k, v, o, lse, do, **kw)
+        g2 = ops.backward_kernels(q, k, v, o, lse, do, **kw)
+        o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+        g_ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        torch.cuda.synchronize()
+        tol = TOL[dtype]
+        errs, ok = {}, True
+        for name, a, b in (("o", o, o_ref), ("dq", g[0], g_ref[0]),
+                           ("dk", g[1], g_ref[1]), ("dv", g[2], g_ref[2])):
+            errs[name] = float((a.float() - b.float()).abs().max())
+            ok = ok and torch.allclose(a.float(), b.float(), atol=tol,
+                                       rtol=tol)
+        seen = torch.isfinite(lse_ref)
+        ok = ok and torch.equal(torch.isfinite(lse), seen) and \
+            torch.allclose(lse[seen], lse_ref[seen], atol=tol, rtol=tol)
+        blind = ~seen.transpose(1, 2)                      # (B, Tq, Hq)
+        n_blind = int(blind.sum())
+        empty = n_blind == 0 or (
+            float(o[blind].float().abs().max()) == 0.0
+            and float(g[0][blind].float().abs().max()) == 0.0)
+        det = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+            torch.equal(a, b) for a, b in zip(g, g2))
+        err = max(errs.values())
+        rows.append({"B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq, "Hk": Hk, "D": D,
+                     "q_offset": off, "causal": causal, "window": win,
+                     "dtype": dtype, "max_abs_err": err, "errs": errs,
+                     "tol": tol, "blind_rows": n_blind,
+                     "blind_rows_zero": empty, "deterministic": det})
+        what = f"B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hk={Hk} D={D} q_offset=" \
+            f"{off} causal={causal} window={win} {dtype}"
+        log(f"  flash_attention {what}: max|err| " + ", ".join(
+            f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {tol}); "
+            f"{n_blind} blind rows 0: {empty}; repeat bit-equal: {det}")
+        check(bool(ok), f"flash_attention disagrees with its plain version:"
+              f" {what} {errs}")
+        check(empty, f"flash_attention: a row that sees nothing is not 0 "
+              f"({what})")
+        check(det, f"flash_attention: repeat launch not bit-equal ({what})")
+    return rows
+
+
+def _flash_bound_ms(B, T, Hq, Hk, D, dtype, which):
+    """Least time of one K3 call at the causal training shape: the bytes
+    it must move (each input read once, each output written once) over
+    the memory rate against its matrix products over the peak rate of its
+    input type; the causal mask leaves T(T+1)/2 (query, key) pairs, each
+    product 2*D operations per pair and query head.  forward: S, P V;
+    dq: S, dP, dS K; dkdv: S, dP, P^T dO, dS^T Q."""
+    es = 2 if dtype == "bfloat16" else 4
+    pairs = B * Hq * T * (T + 1) // 2
+    q_bytes, kv_bytes = B * T * Hq * D * es, B * T * Hk * D * es
+    rows_f32 = B * Hq * T * 4
+    if which == "forward":
+        n_mm, nbytes = 2, 2 * q_bytes + 2 * kv_bytes + rows_f32
+    elif which == "dq":
+        n_mm, nbytes = 3, 3 * q_bytes + 2 * kv_bytes + 2 * rows_f32
+    else:
+        n_mm, nbytes = 4, 2 * q_bytes + 4 * kv_bytes + 2 * rows_f32
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = n_mm * 2 * D * pairs / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_kernels_time(torch, np, *, B=32, T=512, dtype="bfloat16",
+                       iters=50) -> dict:
+    """K3's forward, dQ and dK/dV at the training shape (causal), beside
+    the plain forward and backward, SDPA forward and backward (the
+    yardstick, never called by the port) and each kernel's bound; medians
+    of CUDA-event timed calls with L2 flushed before each."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    Hq, Hk, D = 32, 8, 128
+    q, k, v, do = _fa_inputs(torch, np, B=B, Tq=T, Tk=T, Hq=Hq, Hk=Hk, D=D,
+                             dtype=dtype, seed=5)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    n0 = dict(ops.launches)
+    o, lse = ops.forward_kernel(q, k, v)
+    delta = ops.bwd_delta(o, do)
+    res = {"B": B, "T": T, "dtype": dtype}
+    res["forward_ms"] = _time_ms(torch, lambda: ops.forward_kernel(q, k, v),
+                                 iters, flush)
+    res["dq_ms"] = _time_ms(torch, lambda: ops.dq_kernel(
+        q, k, v, do, lse, delta), iters, flush)
+    res["dkdv_ms"] = _time_ms(torch, lambda: ops.dkdv_kernel(
+        q, k, v, do, lse, delta), iters, flush)
+    res["backward_ms"] = _time_ms(torch, lambda: ops.backward_kernels(
+        q, k, v, o, lse, do), iters, flush)
+    ops.launches.update(n0)      # timing launches are not a slice's
+    res["plain_forward_ms"] = _time_ms(
+        torch, lambda: flash_attention_fwd_ref(q, k, v), 5, flush)
+    res["plain_backward_ms"] = _time_ms(
+        torch, lambda: flash_attention_bwd_ref(q, k, v, o, lse, do), 5,
+        flush)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    with torch.no_grad():
+        res["library_forward_ms"] = _time_ms(torch, sdpa, iters, flush)
+    out = sdpa()
+    res["library_backward_ms"] = _time_ms(
+        torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True), iters, flush)
+    res["library_fwd_bwd_ms"] = _time_ms(
+        torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+        iters, flush)
+    for which in ("forward", "dq", "dkdv"):
+        res[f"{which}_bound_ms"], res[f"{which}_bound_by"] = \
+            _flash_bound_ms(B, T, Hq, Hk, D, dtype, which)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the linear slice
 # ---------------------------------------------------------------------------
@@ -595,6 +773,283 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
             "tokens": sum(len(s.generated) for s in seqs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the GRPO trainer
+# ---------------------------------------------------------------------------
+
+
+def _digest(torch, tree) -> list:
+    """Per-leaf fingerprints of a parameter tree that change with any bit:
+    the int64 sums of each leaf's 32-bit words, plain and weighted by
+    position (mod a prime), in the trainer's leaf order."""
+    from repro_torch.training.optim import tree_items
+    out = []
+    for _, t in tree_items(tree):
+        w = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        idx = torch.arange(w.numel(), device=w.device) % 1_000_003
+        out.append(torch.stack([w.sum(), (w * idx).sum()]))
+    return torch.stack(out).cpu().tolist()
+
+
+def _plain_flash(torch):
+    """An autograd Function that runs K3's plain forward and backward on
+    the card: the oracle of the training phase, never on its path."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            o, lse = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                             window=window)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.kw = dict(causal=causal, window=window)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*flash_attention_bwd_ref(q, k, v, o, lse, do, **ctx.kw),
+                    None, None)
+
+    def attention(q, k, v, *, q_offset=0, causal=True, window=0):
+        return PlainFlash.apply(q, k, v, causal, window)
+    return attention
+
+
+def _grad_norms(torch, cfg, trainer, batch):
+    """Loss of ``grpo_loss`` on ``batch`` and the gradient's norm per JAX
+    leaf and in all (the trainer's parameters, no update)."""
+    from repro_torch.training.grpo import grpo_loss
+    from repro_torch.training.optim import global_norm, jax_leaf, tree_items
+    loss, _ = grpo_loss(cfg, trainer.params, batch, gcfg=trainer.gcfg)
+    paths, leaves = zip(*tree_items(trainer.params))
+    grads = torch.autograd.grad(loss, leaves)
+    sq = {}
+    for path, g in zip(paths, grads):
+        key = "/".join(jax_leaf(path))
+        sq[key] = sq.get(key, 0.0) + float(g.float().square().sum())
+    total = float(global_norm(list(grads)))
+    return float(loss.detach()), {k: v ** 0.5 for k, v in sq.items()}, total
+
+
+def training_phase(torch, np, profile: bool = False) -> dict:
+    """``RLTrainer`` at granite-3-8b's full width, TRAIN_LAYERS layers,
+    f32 masters from seed 0 and bf16 activations: 2 sync iterations of a
+    Seer rollout (copy task over the whole vocabulary, 8 groups x 4,
+    prompts of 384 tokens, 128 new tokens at temperature 1, 2 instances x
+    8 slots x 2048, chunk 32, linear speculation)
+    and one train step on the (32, 512) batch, then the weight push.
+    Checks: finite losses; the second rollout decodes under the pushed
+    copy; per train step K3 launches 2 x layers forward (recompute) and
+    layers of dQ and dK/dV, K1 none, no plain attention; K1 only in the
+    rollouts, at most one host sync per engine step; the first train
+    step repeated from the same state (masters re-made from the seed,
+    zero moments) bitwise equal in loss and parameters; and K3 against
+    the plain attention (forward and backward) on 4 of the batch's
+    sequences, loss and gradient norms within the bf16 tolerance.  With
+    ``profile``, one more train step under torch.profiler."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import make_task
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.spec_verify import ops as sv
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_params
+    from repro_torch.training.loop import RLConfig, RLTrainer
+    from repro_torch.training.optim import tree_items
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    L = cfg.num_layers
+    # prompt bodies from the whole vocabulary: a random policy's response
+    # then holds about one token of its prompt in 128, so the copy task's
+    # in-prompt term gives rewards that differ within a group (nonzero
+    # advantages, a real gradient); over 8 content tokens every reward
+    # would be 0
+    task = make_task("copy", cfg.vocab_size, prompt_len=TRAIN_PROMPT - 1,
+                     response_len=NEW_TOKENS, content_vocab=0)
+    rl = RLConfig(n_groups=GROUPS, group_size=GROUP_SIZE,
+                  max_new_tokens=NEW_TOKENS, temperature=1.0, iterations=2,
+                  train_steps_per_iter=1, seed=0, n_instances=2,
+                  max_slots=8, cache_len=2048, chunk_size=CHUNK_SIZE,
+                  spec_decode=True, device="cuda", log=log)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = RLTrainer(cfg, task, rl)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(tr.params))
+    log(f"  trainer: granite-3-8b width, {L} layers, {n_params / 1e9:.3f} B "
+        f"f32 master params + AdamW moments + bf16 serving copy, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    steps, rollouts, first = [], [], {}
+    train_step, roll_run = tr.train_step, tr.rollout.run
+
+    def counted_step(params, opt_state, batch):
+        n_fa, n_sv = dict(fa.launches), dict(sv.launches)
+        plain0 = dict(fa_ref.calls)
+        torch.use_deterministic_algorithms(True)
+        try:
+            out = train_step(params, opt_state, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rec = {name: fa.launches[name] - n_fa[name] for name in fa.launches}
+        rec["spec_verify"] = sv.launches["spec_verify"] - n_sv["spec_verify"]
+        rec["plain_calls"] = sum(fa_ref.calls[k] - plain0[k]
+                                 for k in plain0)
+        rec["loss"] = float(out[2])
+        steps.append(rec)
+        if not first:
+            first.update(batch=batch, loss=out[2].clone(),
+                         digest=_digest(torch, params))
+        return out
+
+    def counted_rollout(groups):
+        st = tr.rollout.steps
+        n_fa, n_sv = dict(fa.launches), sv.launches["spec_verify"]
+        inv0, hs0 = st.invocations, st.host_syncs
+        pushed = tr.updater.params is not None and all(
+            inst.params is tr.updater.params for inst in tr.rollout.instances)
+        res = roll_run(groups)
+        rollouts.append({
+            "fused_steps": st.invocations - inv0,
+            "host_syncs": st.host_syncs - hs0, "steps": res.stats.steps,
+            "tokens": res.stats.tokens, "migrations": res.stats.migrations,
+            "k1": sv.launches["spec_verify"] - n_sv,
+            "k3": sum(fa.launches[k] - n_fa[k] for k in n_fa),
+            "on_pushed_copy": pushed, "version": tr.updater.version,
+            "finished": all(g.all_finished for g in res.groups)})
+        return res
+
+    tr.train_step, tr.rollout.run = counted_step, counted_rollout
+    fa.reset_launches()
+    sv.reset_launches()
+    plain0 = sum(fa_ref.calls.values())
+    t0 = time.perf_counter()
+    hist = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    plain_calls = sum(fa_ref.calls.values()) - plain0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tr.train_step, tr.rollout.run = train_step, roll_run
+
+    check(len(hist) == 2 and all(np.isfinite(h.loss) for h in hist),
+          f"training losses {[h.loss for h in hist]}")
+    adv = first["batch"]["advantages"]
+    check(bool((adv != 0).any()) and all(
+        h.metrics["grad_norm"] > 0 for h in hist),
+          "zero advantages or a zero gradient: the train steps test nothing")
+    check(plain_calls == 0, f"{plain_calls} plain attention calls on the "
+          "card")
+    for i, st in enumerate(steps):
+        want = {"flash_attention": 2 * L, "flash_attention_dq": L,
+                "flash_attention_dkdv": L, "spec_verify": 0,
+                "plain_calls": 0}
+        got = {k: st[k] for k in want}
+        check(got == want, f"train step {i}: launches {got}, want {want}")
+    for i, ro in enumerate(rollouts):
+        check(ro["finished"], f"rollout {i}: not every group finished")
+        check(ro["k3"] == 0, f"rollout {i} launched K3 {ro['k3']} times")
+        check(ro["k1"] == ro["fused_steps"] * L,
+              f"rollout {i}: K1 launches {ro['k1']} != {ro['fused_steps']} "
+              f"steps x {L}")
+        check(ro["host_syncs"] <= ro["steps"],
+              f"rollout {i}: host syncs {ro['host_syncs']} > steps "
+              f"{ro['steps']}")
+    check(not rollouts[0]["on_pushed_copy"] and rollouts[1]["on_pushed_copy"]
+          and rollouts[1]["version"] == 1,
+          "the second rollout did not run on the pushed weights")
+    wq = tr.params["layers"][0]["attn"]["wq"]
+    check(torch.equal(tr.updater.params["layers"][0]["attn"]["wq"],
+                      wq.detach().to(torch.bfloat16)),
+          "the pushed copy is not the masters cast to bf16")
+
+    # the first train step again, from the same state: masters re-made
+    # from the seed, zero moments, the same batch
+    log("  repeat of the first train step from the same state")
+    gen = torch.Generator(device="cuda").manual_seed(rl.seed)
+    fresh = init_params(cfg, gen, device="cuda", dtype="float32")
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(tree_items(tr.params), tree_items(fresh)):
+            a.copy_(b)
+        for _, m in tree_items(tr.opt_state.mu):
+            m.zero_()
+        for _, v in tree_items(tr.opt_state.nu):
+            v.zero_()
+        tr.opt_state.step.zero_()
+    del fresh
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, _, loss2, _ = train_step(tr.params, tr.opt_state, first["batch"])
+        digest2 = _digest(torch, tr.params)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    repeat_equal = bool(torch.equal(loss2, first["loss"])) and \
+        digest2 == first["digest"]
+    check(repeat_equal, f"repeated train step not bitwise equal: loss "
+          f"{float(loss2)!r} vs {float(first['loss'])!r}, parameter "
+          f"digests equal: {digest2 == first['digest']}")
+
+    # K3 against the plain attention, forward and backward, on 4 of the
+    # batch's sequences
+    log("  K3 against the plain attention on 4 sequences of the batch")
+    sub = {k: v[:4] for k, v in first["batch"].items()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        loss_k3, norms_k3, total_k3 = _grad_norms(torch, cfg, tr, sub)
+        calls0 = sum(fa_ref.calls.values())
+        kernel = attn_mod.flash_attention
+        attn_mod.flash_attention = _plain_flash(torch)
+        try:
+            loss_pl, norms_pl, total_pl = _grad_norms(torch, cfg, tr, sub)
+        finally:
+            attn_mod.flash_attention = kernel
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(sum(fa_ref.calls.values()) - calls0 == 3 * L,
+          "the oracle did not run the plain attention")
+    tol = TOL["bfloat16"]
+    worst = max(abs(norms_k3[k] - norms_pl[k]) / max(norms_pl[k], 1e-30)
+                for k in norms_pl)
+    oracle_ok = abs(loss_k3 - loss_pl) <= tol * max(abs(loss_pl), 1.0) \
+        and abs(total_k3 - total_pl) <= tol * total_pl and worst <= tol
+    check(oracle_ok, f"K3 train step against plain attention: loss "
+          f"{loss_k3} vs {loss_pl}, grad norm {total_k3} vs {total_pl}, "
+          f"worst leaf-norm gap {worst:.3e}")
+    prof_rep = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            train_step(tr.params, tr.opt_state, first["batch"])
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t1
+        prof_rep = _profile_summary(prof, t_step)
+    return {
+        "profile": prof_rep,
+        "layers": L, "params": n_params, "wall_s": wall,
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "plain_calls": plain_calls, "train_steps": steps,
+        "rollouts": rollouts,
+        "iterations": [{"loss": h.loss, "reward": h.mean_reward,
+                        "rollout_s": h.rollout_seconds,
+                        "train_s": h.train_seconds,
+                        "push_s": h.weight_update_seconds,
+                        "iteration_s": h.rollout_seconds + h.train_seconds
+                        + h.weight_update_seconds,
+                        "tokens": h.tokens, "grad_norm":
+                        h.metrics["grad_norm"]} for h in hist],
+        "repeat_bitwise": repeat_equal,
+        "oracle": {"loss_k3": loss_k3, "loss_plain": loss_pl,
+                   "grad_norm_k3": total_k3, "grad_norm_plain": total_pl,
+                   "worst_leaf_norm_rel_gap": worst}}
+
+
 def profile_steps(torch, cfg, params, n_steps: int) -> dict:
     """torch.profiler over decode steps of one full instance: device time
     by kernel name, and the device's busy share of the window."""
@@ -622,6 +1077,12 @@ def profile_steps(torch, cfg, params, n_steps: int) -> dict:
             inst.run_step(drafts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return {"steps": n_steps, **_profile_summary(prof, wall)}
+
+
+def _profile_summary(prof, wall: float) -> dict:
+    """Device time by kernel name over a profiled window of ``wall``
+    seconds, and the device's busy share of it."""
     rows = []
     dev_total = 0.0
     for e in prof.key_averages():
@@ -632,8 +1093,7 @@ def profile_steps(torch, cfg, params, n_steps: int) -> dict:
             rows.append((e.key, t / 1e3, e.count))
             dev_total += t / 1e3
     rows.sort(key=lambda r: -r[1])
-    return {"steps": n_steps, "wall_ms": wall * 1e3,
-            "device_ms": dev_total,
+    return {"wall_ms": wall * 1e3, "device_ms": dev_total,
             "busy_share": dev_total / max(wall * 1e3, 1e-9),
             "top": rows[:25]}
 
@@ -644,16 +1104,22 @@ def profile_steps(torch, cfg, params, n_steps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0,
-                    help="profile this many engine steps (0: off)")
+                    help="profile this many engine steps and one train "
+                    "step (0: off)")
     ap.add_argument("--out", default=None,
                     help="directory for the full JSON report and traces")
     args = ap.parse_args()
 
+    # cuBLAS is deterministic only with a fixed workspace, set before
+    # CUDA starts (the training phase repeats a train step bitwise)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.spec_verify import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -669,13 +1135,15 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
-    ops.build()
-    info = ops.build_info()
-    log(f"build: spec_verify.cu -> sm_90a in {info['seconds']:.1f} s")
-    report["build_seconds"] = info["seconds"]
+    libs = (ops.LIBRARY, fa_ops.LIBRARY)
+    build.build_all(libs)
+    log("build (one nvcc each, in parallel): " + ", ".join(
+        f"{lib.source.name} -> sm_90a in {lib.seconds:.1f} s"
+        for lib in libs) + f"; {time.perf_counter() - t0:.1f} s in all")
+    report["build_seconds"] = {lib.name: lib.seconds for lib in libs}
     if out_dir:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
-            f.write(info["log"])
+            f.write("\n".join(lib.log for lib in libs))
 
     B, S = 8, 2048
     log("kernels: spec_verify (K1) against its plain version")
@@ -685,6 +1153,10 @@ def main() -> int:
     log("kernels: tree_verify (K2) against its plain version")
     report["tree_kernel_checks"] = tree_kernels_check(
         torch, np, B=B, S=S, T_list=[1, 9, 33, 64])
+
+    log("kernels: flash_attention (K3) forward, dQ and dK/dV against "
+        "their plain versions")
+    report["flash_kernel_checks"] = flash_kernels_check(torch, np)
 
     log("linear slice: granite-3-8b Seer rollout on the card")
     cfg, params = build_model(torch)
@@ -856,6 +1328,39 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    log(f"training: GRPO trainer at granite-3-8b width, {TRAIN_LAYERS} "
+        "layers, 2 sync iterations")
+    trn = training_phase(torch, np, profile=bool(args.profile))
+    report["training"] = trn
+    for i, it in enumerate(trn["iterations"]):
+        ro = trn["rollouts"][i]
+        log(f"  iteration {i}: rollout {it['rollout_s']:.3f} s ({ro['steps']}"
+            f" engine steps, {ro['host_syncs']} host syncs, {ro['k1']} K1 "
+            f"launches, {ro['migrations']} migrations), train "
+            f"{it['train_s']:.3f} s, weight push {it['push_s']:.3f} s, "
+            f"iteration {it['iteration_s']:.3f} s; loss {it['loss']:+.6e}, "
+            f"grad norm {it['grad_norm']:.4f}, reward {it['reward']:.4f}")
+    st0 = trn["train_steps"][0]
+    log(f"  per train step: K3 forward {st0['flash_attention']} (2 x "
+        f"{trn['layers']}, recompute), dQ {st0['flash_attention_dq']}, "
+        f"dK/dV {st0['flash_attention_dkdv']}, K1 {st0['spec_verify']}, "
+        f"plain attention calls {trn['plain_calls']}; second rollout on "
+        f"the pushed copy; repeat bitwise equal: {trn['repeat_bitwise']}; "
+        f"peak memory {trn['peak_mem_gb']:.1f} GB")
+    o = trn["oracle"]
+    log(f"  K3 against plain attention (4 sequences): loss "
+        f"{o['loss_k3']:+.6e} vs {o['loss_plain']:+.6e}, grad norm "
+        f"{o['grad_norm_k3']:.6f} vs {o['grad_norm_plain']:.6f}, worst "
+        f"leaf-norm gap {o['worst_leaf_norm_rel_gap']:.3e}")
+    if trn["profile"]:
+        p = trn["profile"]
+        log(f"  profile of one train step: wall {p['wall_ms']:.1f} ms, "
+            f"device {p['device_ms']:.1f} ms (busy share "
+            f"{p['busy_share']:.3f})")
+        for k_, t_, n_ in p["top"][:15]:
+            log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
+    torch.cuda.empty_cache()
+
     def commonest_T(by_kind):
         return int(max(by_kind, key=by_kind.get).split(":")[1])
 
@@ -883,18 +1388,52 @@ def main() -> int:
             f"{tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} ms, "
             f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
 
-    def kernel_row(name, tpu, launches, checks, tm):
-        return {"name": name, "route": "cuda", "source": SPEC_VERIFY_SRC,
+    ft = flash_kernels_time(torch, np)
+    report["flash_kernel_time"] = ft
+    log(f"  flash_attention timing B={ft['B']} T={ft['T']} causal bf16: "
+        f"forward {ft['forward_ms']:.4f} ms (plain {ft['plain_forward_ms']:.4f}"
+        f", SDPA {ft['library_forward_ms']:.4f}, bound "
+        f"{ft['forward_bound_ms']:.4f} {ft['forward_bound_by']}); dQ "
+        f"{ft['dq_ms']:.4f} ms (bound {ft['dq_bound_ms']:.4f} "
+        f"{ft['dq_bound_by']}), dK/dV {ft['dkdv_ms']:.4f} ms (bound "
+        f"{ft['dkdv_bound_ms']:.4f} {ft['dkdv_bound_by']}), backward in all "
+        f"{ft['backward_ms']:.4f} ms (plain {ft['plain_backward_ms']:.4f}, "
+        f"SDPA backward {ft['library_backward_ms']:.4f}, SDPA forward + "
+        f"backward {ft['library_fwd_bwd_ms']:.4f})")
+
+    def kernel_row(name, tpu, launches, checks, tm, source=SPEC_VERIFY_SRC):
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": tpu, "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in checks),
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                 "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                 "library_ms": tm["library_ms"]}
+
+    # the forward's max_abs_err is that of o, dQ's of dq, dK/dV's of dk
+    # and dv; plain_ms and library_ms of the two backward kernels are the
+    # whole backward's (dq, dk, dv: no one call computes less)
+    outputs = {"forward": ("o",), "dq": ("dq",), "dkdv": ("dk", "dv")}
+
+    def flash_row(name, which, plain, library):
+        errs = [{"max_abs_err": max(c["errs"][o] for o in outputs[which])}
+                for c in report["flash_kernel_checks"]]
+        return kernel_row(
+            name, FLASH_TPU, trn["launches"][name], errs,
+            {"ms": ft[f"{which}_ms"], "plain_ms": ft[plain],
+             "bound_ms": ft[f"{which}_bound_ms"],
+             "bound_by": ft[f"{which}_bound_by"], "library_ms": ft[library]},
+            source=FLASH_SRC)
     rows = [kernel_row("spec_verify", SPEC_VERIFY_TPU, k1_launches,
                        report["kernel_checks"], report["kernel_time"][0]),
             kernel_row("tree_verify", TREE_VERIFY_TPU, k2_launches,
                        report["tree_kernel_checks"],
-                       report["tree_kernel_time"][0])]
+                       report["tree_kernel_time"][0]),
+            flash_row("flash_attention", "forward", "plain_forward_ms",
+                      "library_forward_ms"),
+            flash_row("flash_attention_dq", "dq", "plain_backward_ms",
+                      "library_backward_ms"),
+            flash_row("flash_attention_dkdv", "dkdv", "plain_backward_ms",
+                      "library_backward_ms")]
 
     report["wall_total_s"] = time.perf_counter() - t0
     if out_dir:

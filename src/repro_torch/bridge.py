@@ -76,6 +76,27 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
     return out
 
 
+def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
+    """The port's params -> the JAX package's tree (numpy): each
+    per-layer leaf restacked along a leading ``(L, ...)`` axis; bfloat16
+    leaves arrive as float32 (exact)."""
+    layers = params["layers"]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers, config has "
+                         f"{cfg.num_layers}")
+
+    def stacked(blk):
+        return {name: np.stack([to_numpy(lyr[blk][name]) for lyr in layers])
+                for name in layers[0][blk]}
+
+    out = {"embed": to_numpy(params["embed"]),
+           "final_ln": to_numpy(params["final_ln"]),
+           "layers": {"attn": stacked("attn"), "mlp": stacked("mlp")}}
+    if "unembed" in params:
+        out["unembed"] = to_numpy(params["unembed"])
+    return out
+
+
 def cache_from_jax(cfg: ModelConfig, cache: Dict[str, np.ndarray],
                    device: DeviceLike = None) -> dict:
     """A reference cache (``k``/``v`` (L,B,S,Hk,D), ``slot_pos`` (B,S))

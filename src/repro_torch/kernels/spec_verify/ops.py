@@ -10,30 +10,22 @@ or the wrapper raises — there is no fallback.
 
 The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``, into
-``repro_torch/kernels/_build/`` (listed in ``.gitignore``).  Nothing is
-compiled or loaded when the module is imported.
+``repro_torch/kernels/_build/`` (listed in ``.gitignore``; see
+``kernels/build.py``).  Nothing is compiled or loaded when the module is
+imported.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.spec_verify.ref import (f32_scale, spec_verify_ref,
                                                  tree_verify_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "spec_verify.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,44 +39,7 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-class _Build:
-    lib: Optional[ctypes.CDLL] = None
-    seconds: float = 0.0
-    log: str = ""
-
-
-_build = _Build()
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the spec-verify kernel is "
-                           "built from source at first use on the card")
-    return path
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source digest) and load the kernel library."""
-    if _build.lib is not None:
-        return _build.lib
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"spec_verify_{digest[:12]}.so"
-    t0 = time.perf_counter()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _build.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{_build.log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.spec_verify_launch.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i64,
@@ -96,15 +51,14 @@ def build() -> ctypes.CDLL:
     lib.tree_verify_launch.restype = i32
     lib.spec_verify_error_string.argtypes = [i32]
     lib.spec_verify_error_string.restype = ctypes.c_char_p
-    _build.seconds = time.perf_counter() - t0
-    _build.lib = lib
-    return lib
 
 
-def build_info() -> dict:
-    """Seconds the last ``build`` took (0 when the library was cached)
-    and nvcc's output (register / shared-memory use per instance)."""
-    return {"seconds": _build.seconds, "log": _build.log}
+LIBRARY = KernelLibrary("spec_verify", SOURCE, _declare)
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source digest) and load the kernel library."""
+    return LIBRARY.load()
 
 
 def check_inputs(q, k, v, q_pos, k_pos) -> None:

@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, RoPE, the weight-casting matmul and the
-seeded parameter init.
+"""Shared building blocks: norms, RoPE, the weight-casting matmul, the
+cross-entropy of training and the seeded parameter init.
 
 Counterpart of ``repro.models.common``.  The dtype steps are kept
 exactly: RMSNorm runs in f32 and casts back, RoPE angles are f32, and
@@ -56,24 +56,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[label], with the log-sum-exp in f32.  The
+    gold logit is read by an index, whose gradient is an ``index_put``
+    that has a deterministic (atomic-free) form on the card."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    flat = lf.reshape(-1, lf.shape[-1])
+    rows = torch.arange(flat.shape[0], device=flat.device)
+    gold = flat[rows, labels.reshape(-1).long()].reshape(labels.shape)
+    return logz - gold
+
+
+def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return -softmax_cross_entropy(logits, tokens)
+
+
 # ---------------------------------------------------------------------------
 # seeded init (the port's own; the parity tests bridge the JAX package's)
 # ---------------------------------------------------------------------------
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> dict:
+                device: DeviceLike = None, dtype=None) -> dict:
     """Random dense-transformer weights at the JAX package's scales
     (``repro.models.transformer._init_attn`` / ``_init_mlp`` and
     ``Builder.param``): normals scaled by 1/sqrt(fan_in), the embedding
     by 0.02, norms at one.  Matrices and the embedding are stored in
-    ``cfg.dtype`` (``lin`` casts to it on every call anyway), norms in
+    ``dtype`` (default ``cfg.dtype``: ``lin`` casts to it on every call
+    anyway; ``"float32"`` gives a trainer's master weights), norms in
     f32.  ``generator`` must live on ``device``."""
     if cfg.arch_type != "dense":
         raise NotImplementedError(
             f"arch_type={cfg.arch_type!r}: this slice ports dense models")
     dev = resolve_device(device)
-    wdt = torch_dtype(cfg.dtype)
+    wdt = torch_dtype(dtype or cfg.dtype)
     d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
 
     def normal(shape, scale):

@@ -1,11 +1,16 @@
-"""Dense decoder-only transformer with a slot-indexed KV cache.
+"""Dense decoder-only transformer with a slot-indexed KV cache, and its
+cache-free forward (training).
 
 Counterpart of the dense parts of ``repro.models.transformer``:
-``init_cache``, ``_project_qkv``, the slot-scatter branch of
-``_self_attn``, ``_mlp``, ``_dense_layer``, ``_decoder_stack`` (a Python
-loop over layers instead of ``lax.scan``) and ``forward`` with a cache.
-One forward covers chunked prefill, decode (T=1) and speculative verify
-(T=gamma+1), and mixes them row by row under ``token_mask``.
+``init_cache``, ``_project_qkv``, the slot-scatter and ``ck is None``
+branches of ``_self_attn``, ``_mlp``, ``_dense_layer``,
+``_decoder_stack`` (a Python loop over layers instead of ``lax.scan``)
+and ``forward``.  With a cache, one forward covers chunked prefill,
+decode (T=1) and speculative verify (T=gamma+1), and mixes them row by
+row under ``token_mask``.  Without one (``cache=None``) it runs a whole
+sequence at positions 0..T-1 through the flash-attention kernel (K3);
+with ``train=True`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``, the JAX package's ``_remat``).
 
 The cache is updated in place, which replaces JAX's buffer donation:
 ``forward`` writes this step's K/V rows and slot positions into the
@@ -24,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
@@ -103,6 +109,17 @@ def _self_attn(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
     return x + lin(o.reshape(B, T, -1), p["wo"])
 
 
+def _self_attn_nocache(p, x, cfg, positions):
+    """The ``ck is None`` branch: causal self-attention over the
+    sequence itself (positions 0..T-1), through K3."""
+    B, T = x.shape[:2]
+    xn = rms_norm(x, p["ln"], cfg.rms_eps)
+    q, k, v = _project_qkv(p, xn, cfg, positions)
+    o = attention(q, k, v, positions, positions, window=cfg.sliding_window,
+                  softcap=cfg.attn_logit_softcap, contiguous=True)
+    return x + lin(o.reshape(B, T, -1), p["wo"])
+
+
 def _mlp(p, x, cfg):
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     g = lin(xn, p["wg"])
@@ -115,6 +132,37 @@ def _dense_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
     x = _self_attn(p["attn"], x, cfg, positions, bidx, slots, ck, cv,
                    slot_pos, allowed)
     return _mlp(p["mlp"], x, cfg)
+
+
+def _dense_layer_nocache(p, x, cfg, positions):
+    x = _self_attn_nocache(p["attn"], x, cfg, positions)
+    return _mlp(p["mlp"], x, cfg)
+
+
+def _forward_nocache(cfg, params, tokens, positions, train):
+    B, T = tokens.shape
+    want = torch.arange(T, dtype=positions.dtype, device=positions.device)
+    if not torch.equal(positions, want.expand(B, T)):
+        raise NotImplementedError(
+            "the cache-free forward takes positions 0..T-1 in every row "
+            "(the contiguous layout of the flash-attention kernel)")
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+    for p in params["layers"]:
+        if train:
+            x = checkpoint(_dense_layer_nocache, p, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _dense_layer_nocache(p, x, cfg, positions)
+    return _unembed(cfg, params, x)
+
+
+def _unembed(cfg, params, x):
+    dtype = torch_dtype(cfg.dtype)
+    x = rms_norm(x, params["final_ln"], cfg.rms_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T.to(dtype)
+    return x @ params["unembed"].to(dtype)
 
 
 def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
@@ -144,12 +192,18 @@ def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor, cache: Optional[dict] = None, *,
             token_mask: Optional[torch.Tensor] = None,
+            train: bool = False,
             contiguous_update: bool = False,
             slot_index: Optional[torch.Tensor] = None,
             within_mask: Optional[torch.Tensor] = None):
     """tokens/positions (B,T) int32 -> (logits (B,T,V), cache, aux_loss).
 
-    The cache is updated in place and returned.  Slots come from
+    ``cache=None``: the cache-free (training) forward over positions
+    0..T-1 (anything else raises), returning ``(logits, None, 0.0)``;
+    ``train=True`` recomputes each layer in the backward.  It takes no
+    ``token_mask`` (``grpo_loss`` passes none) and no tree inputs.
+
+    With a cache, the cache is updated in place and returned.  Slots come from
     positions (``positions % S`` on a ring cache for sliding-window
     configs), or from ``slot_index`` (B,T) when given.  Tree-verify
     inputs (both or neither): ``slot_index`` puts sibling draft nodes,
@@ -157,17 +211,22 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     bool says which of this step's columns each query may see (ancestor
     or self for tree rows, causal order for the rest).  Every layer then
     attends under one allowed-mask built from it, through K2."""
-    if cache is None:
+    if cfg.arch_type != "dense":
         raise NotImplementedError(
-            "the cache-free forward (training, K3) is a later slice")
+            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    if cache is None:
+        if token_mask is not None or slot_index is not None \
+                or within_mask is not None or contiguous_update:
+            raise NotImplementedError(
+                "the cache-free forward takes no token_mask, tree inputs "
+                "or contiguous_update")
+        return _forward_nocache(cfg, params, tokens, positions, train), \
+            None, 0.0
     if contiguous_update:
         raise NotImplementedError(
             "contiguous_update (launch/steps.py prefill) is not ported")
     if (slot_index is None) != (within_mask is None):
         raise ValueError("slot_index and within_mask come together")
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
     B, T = tokens.shape
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
@@ -194,9 +253,4 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x = _dense_layer(p, x, cfg, positions, bidx, slots, cache["k"][i],
                          cache["v"][i], slot_pos, allowed)
 
-    x = rms_norm(x, params["final_ln"], cfg.rms_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T.to(dtype)
-    else:
-        logits = x @ params["unembed"].to(dtype)
-    return logits, cache, 0.0
+    return _unembed(cfg, params, x), cache, 0.0
