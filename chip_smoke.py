@@ -9,18 +9,21 @@ Phases, in this order:
 2. build of the hand-written kernels from ``src/repro_torch/kernels``,
    one ``nvcc`` per source, all started together;
 3. kernels: K1 (spec_verify) and K2 (tree_verify) against their plain
-   PyTorch versions on the card at granite-3-8b's head shapes, and at
-   every other head dim they are built for; K2 on random draft trees
+   PyTorch versions on the card at granite-3-8b's head shapes, K1 also
+   at zamba2-1.2b's shared attention (Hq=Hk=32, D=64, window 4096), and
+   both at every other head dim they are built for; K2 on random draft trees
    (siblings at one position, a query that sees no key) and, under an
    all-true mask, bitwise equal to K1; K3 (flash_attention: the forward,
    dQ and dK/dV) against the plain forward and backward at granite's
    head shapes in bf16 and f32 — causal, non-causal, window 256,
    q_offset > 0 with Tq != Tk, lengths off the tile, rows that see no
    key (0, LSE -inf, no gradient) — and at D = 32, 64, 256, repeat
-   launches bitwise equal;
+   launches bitwise equal; K4 (ssd_scan) against its plain version at
+   both SSM models' head shapes and tests/test_kernels.py's SSD cases
+   (see ``ssd_kernels_check``);
 4. linear slice: a full-width, full-depth granite-3-8b Seer rollout
-   (random weights from a seed, bf16) on two instances through the
-   port's entry points, with its checks: every group finishes, every
+   (40 layers, random weights from a seed, bf16) on two instances
+   through the port's entry points, with its checks: every group finishes, every
    cached attention launched K1, at most one host sync per engine step,
    dispatch free of host syncs under
    ``torch.cuda.set_sync_debug_mode("error")``, and a repeat run
@@ -30,8 +33,8 @@ Phases, in this order:
    branching drafts (a bad trunk, a good side branch); at each step the
    fused tree step is held against the sync oracle run from the same
    state (same tokens and accept counts, same ``slot_pos``, bitwise
-   equal K/V at every committed slot), with one host sync and 40 K2
-   launches per fused step, and dispatch free of host syncs;
+   equal K/V at every committed slot), with one host sync and one K2
+   launch per layer per fused step, and dispatch free of host syncs;
 6. tree slice: the linear slice's rollout with ``spec_mode="tree"`` and
    three draft paths, a warm pass then a measured one drafting from the
    warm group suffix trees (every attention through K2, none through K1,
@@ -43,9 +46,24 @@ Phases, in this order:
    (see ``training_phase`` for its checks: K3 launches per train step,
    no plain attention, the rollout on the pushed weights, a bitwise
    repeat of a train step, K3 against the plain attention);
-8. timing: each kernel at the shape its slice gave it, beside its plain
-   version, a library call and the card's bound.  Its ``launches`` are
-   its slice's (K3's: the training phase's two train steps).
+8. hybrid slice: a full-width, full-depth zamba2-1.2b Seer rollout (38
+   Mamba2 blocks, the shared attention after every 6th; random bf16
+   weights from seed 0) with the linear slice's settings, a cold pass,
+   its bit-identical repeat and a warm pass (``rec_slice``): K4 once per
+   block and K1 once per attention application per forward, replays
+   included, no plain attention or SSD call, at most one host sync per
+   step, dispatch free of host syncs; then the hybrid engine phase, the
+   fused step against the sync oracle from the same state, bitwise
+   (``rec_engine_check``);
+9. SSM slice: the same for a full-width, full-depth mamba2-370m (48
+   blocks, no attention), 4 groups x 4, 64 new tokens;
+10. timing: each kernel at the shape its slice gave it, beside its plain
+   version, a library call where one computes the same function, and
+   the card's bound.  The ``kernels`` line has one row per kernel and
+   path that runs it (its ``path``), with that path's ``launches`` (K1:
+   the granite linear slice and the hybrid cold pass; K2: the tree
+   slice; K3: the training phase's two train steps; K4: the hybrid and
+   the SSM cold passes) and that path's shape's timing.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -55,6 +73,7 @@ it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -76,6 +95,11 @@ TREE_VERIFY_TPU = "src/repro/kernels/spec_verify/kernel.py:94"
 SPEC_VERIFY_SRC = "src/repro_torch/kernels/spec_verify/csrc/spec_verify.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:89"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_TPU = "src/repro/kernels/ssd_scan/kernel.py:57"
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+# tolerances of K4 against its plain version (tests/test_kernels.py holds
+# the Pallas kernel to its oracle at 1e-4 in f32)
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # the slice's rollout: 8 GRPO groups of 4 (32 requests on 2 x 8 slots,
 # so requests queue and migrate), 128 new tokens in chunks of 32
 GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
@@ -83,6 +107,11 @@ GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
 # masters, gradients and AdamW moments of all 40 layers would need 131 GB),
 # prompts of BOS + 383 copy-task tokens
 TRAIN_LAYERS, TRAIN_PROMPT = 12, 384
+# the SSM slice's rollout (mamba2-370m): 4 groups of 4, 64 new tokens
+SSM_GROUPS, SSM_NEW_TOKENS = 4, 64
+# K1's head shapes on each path that runs it: Hq, Hk, D, window
+K1_SHAPES = {"granite-3-8b": (32, 8, 128, 0),
+             "zamba2-1.2b": (32, 32, 64, 4096)}
 
 
 class CheckFailed(RuntimeError):
@@ -198,19 +227,27 @@ def _time_ms(torch, fn, iters: int, flush=None) -> float:
 
 
 def kernels_check(torch, np, *, B, S, T_list) -> list:
-    """K1 against its plain version at the main path's head shapes
-    (Hq=32, Hk=8, D=128), then at each other head dim it is built for on
-    a small cache, so that every instance of the kernel ran on the card."""
+    """K1 against its plain version at the head shapes of both paths that
+    run it: granite-3-8b's attention (Hq=32, Hk=8, D=128) and zamba2-1.2b's
+    shared attention (Hq=Hk=32, D=64, window 4096, its step widths), each
+    on the main path's cache; then at each other head dim it is built for
+    on a small cache, so that every instance of the kernel ran on the
+    card.  Each row names the path whose shape it has."""
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_ref
     rows = []
-    cases = [(B, S, T, 32, 8, 128, dt, 0) for T in T_list
+    hq, hk, d, _ = K1_SHAPES["granite-3-8b"]
+    cases = [("granite-3-8b", B, S, T, hq, hk, d, dt, 0) for T in T_list
              for dt in ("bfloat16", "float32")]
-    cases += [(B, S, T_list[1], 32, 8, 128, "bfloat16", 256),
-              (B, S, T_list[-1], 32, 8, 128, "float32", 256)]
-    cases += [(4, 512, 9, 8, 2, D, dt, w) for D in ops.HEAD_DIMS if D != 128
-              for dt, w in (("bfloat16", 0), ("float32", 64))]
-    for B, S, T, Hq, Hk, D, dtype, window in cases:
+    cases += [("granite-3-8b", B, S, T_list[1], hq, hk, d, "bfloat16", 256),
+              ("granite-3-8b", B, S, T_list[-1], hq, hk, d, "float32", 256)]
+    hq, hk, d, win = K1_SHAPES["zamba2-1.2b"]
+    cases += [("zamba2-1.2b", B, S, T, hq, hk, d, dt, w)
+              for T in (1, 9, 64, 65) for dt in ("bfloat16", "float32")
+              for w in (0, win)]
+    cases += [("small", 4, 512, 9, 8, 2, D, dt, w) for D in ops.HEAD_DIMS
+              if D != 128 for dt, w in (("bfloat16", 0), ("float32", 64))]
+    for shape, B, S, T, Hq, Hk, D, dtype, window in cases:
         q, k, v, qp, kp = _sv_inputs(torch, np, B=B, T=T, S=S, Hq=Hq, Hk=Hk,
                                      D=D, dtype=dtype, seed=T + window + D)
         out = ops.spec_verify(q, k, v, qp, kp, window=window)
@@ -223,7 +260,8 @@ def kernels_check(torch, np, *, B, S, T_list) -> list:
         empty = out[B - 1].float().abs().max().item() == 0.0 and \
             out[B - 2, 0].float().abs().max().item() == 0.0
         det = torch.equal(out, out2)
-        rows.append({"B": B, "S": S, "T": T, "Hq": Hq, "Hk": Hk, "D": D,
+        rows.append({"shape": shape, "B": B, "S": S, "T": T, "Hq": Hq,
+                     "Hk": Hk, "D": D,
                      "dtype": dtype, "window": window, "max_abs_err": err,
                      "tol": tol, "empty_rows_zero": empty,
                      "deterministic": det})
@@ -238,42 +276,47 @@ def kernels_check(torch, np, *, B, S, T_list) -> list:
     return rows
 
 
-def kernels_time(torch, np, *, B, S, T, live, dtype="bfloat16",
-                 iters=50) -> dict:
+def kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
+                 dtype="bfloat16", iters=50) -> dict:
     """Time K1, its plain version and SDPA (the yardstick, never called
-    by the port) on one main-path shape, with L2 flushed before each."""
+    by the port) on one main-path shape of ``model``'s attention
+    (``K1_SHAPES``), with L2 flushed before each."""
     import torch.nn.functional as F
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import pos_mask, spec_verify_ref
-    q, k, v, qp, kp = _sv_inputs(torch, np, B=B, T=T, S=S, Hq=32, Hk=8,
-                                 D=128, dtype=dtype, seed=7, live=live)
+    Hq, Hk, D, window = K1_SHAPES[model]
+    q, k, v, qp, kp = _sv_inputs(torch, np, B=B, T=T, S=S, Hq=Hq, Hk=Hk,
+                                 D=D, dtype=dtype, seed=7, live=live)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def flush():
         scratch.zero_()
 
     n0 = dict(ops.launches)
-    out = ops.spec_verify(q, k, v, qp, kp)
-    ref = spec_verify_ref(q, k, v, qp, kp)
+    out = ops.spec_verify(q, k, v, qp, kp, window=window)
+    ref = spec_verify_ref(q, k, v, qp, kp, window=window)
     err = float((out.float() - ref.float()).abs().max())
     check(err <= TOL[dtype] * (1 + float(ref.float().abs().max())),
-          f"spec_verify (timing shape) max|err|={err}")
-    ms = _time_ms(torch, lambda: ops.spec_verify(q, k, v, qp, kp), iters,
-                  flush)
-    plain_ms = _time_ms(torch, lambda: spec_verify_ref(q, k, v, qp, kp),
+          f"spec_verify ({model} timing shape) max|err|={err}")
+    ms = _time_ms(torch, lambda: ops.spec_verify(q, k, v, qp, kp,
+                                                 window=window), iters, flush)
+    plain_ms = _time_ms(torch, lambda: spec_verify_ref(q, k, v, qp, kp,
+                                                       window=window),
                         max(iters // 5, 5), flush)
     # SDPA on the same values in its (B, H, T, D) layout with the same
     # boolean mask; the transposes are made outside the timed window
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    mask = pos_mask(qp, kp)[:, None]
+    mask = pos_mask(qp, kp, window)[:, None]
 
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
     library_ms = _time_ms(torch, lib, iters, flush)
-    bound_ms, bound_by = _bound_ms(q, k, qp, kp, 0, dtype)
+    bound_ms, bound_by = _bound_ms(q, k, qp, kp, window, dtype)
     ops.launches.update(n0)      # timing launches are not a slice's
-    return {"T": T, "dtype": dtype, "live_mean": float(np.mean(live)),
+    return {"model": model, "T": T, "Hq": Hq, "Hk": Hk, "D": D,
+            "window": window, "dtype": dtype,
+            "live_mean": float(np.mean(live)),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
 
@@ -577,22 +620,51 @@ def flash_kernels_time(torch, np, *, B=32, T=512, dtype="bfloat16",
 # ---------------------------------------------------------------------------
 
 
-def build_model(torch):
+def _tensors(tree) -> list:
+    """The distinct tensors of a parameter tree (a block shared by several
+    cells, like Zamba2's attention, once)."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+        else:
+            seen[id(x)] = x
+    walk(tree)
+    return list(seen.values())
+
+
+def build_model(torch, name: str = "granite-3-8b", layers: int = 0):
+    """Full-width random weights of ``name`` from seed 0, at full depth or
+    at ``layers`` layers."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg = get_config("granite-3-8b")
+    cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
-    n = sum(w.numel() for w in [params["embed"]] + [
-        t for lyr in params["layers"] for blk in lyr.values()
-        for t in blk.values()])
-    log(f"  granite-3-8b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype}; {n / 1e9:.2f} B params made in "
-        f"{time.perf_counter() - t0:.1f} s")
+    n = sum(w.numel() for w in _tensors(params))
+    what = f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}"
+    if cfg.arch_type in ("ssm", "hybrid"):
+        what = (f"Mamba2 d_inner {cfg.d_inner}, {cfg.ssm_nheads} SSD heads x "
+                f"P {cfg.ssm_head_dim} x N {cfg.ssm_state}, G "
+                f"{cfg.ssm_ngroups}")
+        if cfg.arch_type == "hybrid":
+            what += (f"; shared attention {cfg.num_heads}/{cfg.num_kv_heads} "
+                     f"heads of {cfg.head_dim} every "
+                     f"{cfg.hybrid_attn_every} blocks, d_ff {cfg.d_ff}")
+    log(f"  {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {what}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}; {n / 1e9:.3f} B params made "
+        f"in {time.perf_counter() - t0:.1f} s")
     return cfg, params
 
 
@@ -610,26 +682,51 @@ def make_rollout(cfg, params, **kw):
                        policy="seer", spec_decode=True, device="cuda", **kw)
 
 
-def run_rollout(torch, ro, prompts):
-    """One ``ro.run`` over the slice's groups, its launch counts set to 0
-    just before and read just after."""
-    from repro_torch.core import make_groups
+def _plain_calls() -> int:
+    """Calls of the plain attention and SSD versions so far."""
+    from repro_torch.kernels.spec_verify import ref as sv_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    return sum(sv_ref.calls.values()) + sum(ssd_ref.calls.values())
+
+
+def _reset_launches() -> None:
     from repro_torch.kernels.spec_verify import ops
-    groups = make_groups(prompts, group_size=GROUP_SIZE,
-                         max_new_tokens=NEW_TOKENS, seed=3,
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    ops.reset_launches()
+    ssd_ops.reset_launches()
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {**ops.launches, **ssd_ops.launches}
+
+
+def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
+                new_tokens=NEW_TOKENS):
+    """One ``ro.run`` over the slice's groups, its launch counts set to 0
+    just before and read just after; also its plain-version calls, its
+    recurrent-state replays and its peak device memory."""
+    from repro_torch.core import make_groups
+    groups = make_groups(prompts, group_size=group_size,
+                         max_new_tokens=new_tokens, seed=3,
                          temperature=1.0)
     st = ro.steps
-    inv0, hs0 = st.invocations, st.host_syncs
+    inv0, hs0, rp0 = st.invocations, st.host_syncs, st.replays
     by0 = dict(st.invocations_by_kind)
     nodes0 = [(i.tree_nodes, i.tree_branch_nodes) for i in ro.instances]
     torch.cuda.synchronize()
-    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    plain0 = _plain_calls()
+    _reset_launches()
     t0 = time.perf_counter()
     res = ro.run(groups)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return {"responses": res.responses(), "wall_s": wall,
-            "launches": dict(ops.launches),
+            "launches": _launches(), "replays": st.replays - rp0,
+            "plain_calls": _plain_calls() - plain0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "fused_steps": st.invocations - inv0,
             "by_kind": {k_: n - by0.get(k_, 0) for k_, n in
                         st.invocations_by_kind.items()
@@ -770,6 +867,351 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
     return {"steps": steps, "accepted": accepted,
             "side_branch_steps": rescues, "tree_nodes": inst.tree_nodes,
             "tree_branch_nodes": inst.tree_branch_nodes,
+            "tokens": sum(len(s.generated) for s in seqs)}
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 8-10: the SSD kernel (K4), the hybrid and SSM slices
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(torch, np, *, b, T, nh, P, G, N, dtype, seed, init,
+                strided):
+    """Inputs of K4 on the card from a numpy seed.  ``strided``: x, B and
+    C are views into one (b, T, nh*P + 2*G*N) row, as ``mamba_block``
+    hands them over.  The last row's dt is 0 throughout (an inactive
+    slot: its state must come back unchanged)."""
+    rng = np.random.default_rng(seed)
+    dt_ = getattr(torch, dtype)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to("cuda", dt_)
+    if strided:
+        row = arr(b, T, nh * P + 2 * G * N)
+        x = row[..., :nh * P].reshape(b, T, nh, P)
+        Bm = row[..., nh * P:nh * P + G * N].reshape(b, T, G, N)
+        Cm = row[..., nh * P + G * N:].reshape(b, T, G, N)
+    else:
+        x, Bm, Cm = arr(b, T, nh, P), arr(b, T, G, N), arr(b, T, G, N)
+    dt = rng.uniform(0.01, 0.2, size=(b, T, nh)).astype(np.float32)
+    if b > 1:
+        dt[b - 1] = 0.0
+    A = -rng.uniform(0.5, 1.5, size=(nh,)).astype(np.float32)
+    S0 = rng.normal(size=(b, nh, P, N)).astype(np.float32) if init else None
+    return (x, torch.from_numpy(dt).cuda(), torch.from_numpy(A).cuda(), Bm,
+            Cm, None if S0 is None else torch.from_numpy(S0).cuda())
+
+
+# (name, b, nh, P, G, N): the two models' SSD head shapes on 8 slots
+SSD_MODEL_SHAPES = [("zamba2-1.2b", 8, 64, 64, 1, 64),
+                    ("mamba2-370m", 8, 32, 64, 1, 128)]
+# tests/test_kernels.py's SSD_CASES: b, T, nh, P, G, N, chunk, with_init
+SSD_TEST_CASES = [(2, 128, 4, 64, 1, 128, 64, False),
+                  (1, 96, 8, 32, 2, 64, 32, True),
+                  (2, 32, 2, 64, 1, 128, 128, True),
+                  (1, 256, 4, 64, 4, 32, 64, False)]
+
+
+def ssd_kernels_check(torch, np) -> list:
+    """K4 against its plain version on the card: both models' head shapes
+    on 8 slots (x, B, C strided as the model passes them) at T = 1, 9,
+    33, 65 (decode and the engine's verify widths) and 300 (two chunks of
+    256, padded), with and without an initial state, then
+    tests/test_kernels.py's SSD cases (G = 2 and 4 among them); f32 at
+    1e-4 and bf16 at 3e-2 (absolute and relative).  Each case: a repeat
+    launch bitwise equal, the zero-dt row's state unchanged bit for bit,
+    the in-place update (out_state = init_state) bitwise the same.  Then
+    chunk independence: chunks of 64, 128 and 256 over T = 300 agree at
+    2e-4."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    cases = [(name, b, T, nh, P, G, N, 256, init, dt, True)
+             for name, b, nh, P, G, N in SSD_MODEL_SHAPES
+             for T in (1, 9, 33, 65, 300) for init in (True, False)
+             for dt in ("float32", "bfloat16")]
+    cases += [("tests", b, T, nh, P, G, N, chunk, init, dt, False)
+              for b, T, nh, P, G, N, chunk, init in SSD_TEST_CASES
+              for dt in ("float32", "bfloat16")]
+    rows = []
+    for i, (name, b, T, nh, P, G, N, chunk, init, dtype, strided) in \
+            enumerate(cases):
+        x, dt, A, Bm, Cm, S0 = _ssd_inputs(
+            torch, np, b=b, T=T, nh=nh, P=P, G=G, N=N, dtype=dtype,
+            seed=i, init=init, strided=strided)
+        y, s = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, chunk)
+        y2, s2 = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, chunk)
+        yr, sr = ssd_ref(x, dt, A, Bm, Cm, S0, chunk)
+        same_inplace = True
+        if S0 is not None:
+            s3 = S0.clone()
+            y3, _ = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, s3, chunk,
+                                       out_state=s3)
+            same_inplace = torch.equal(s3, s) and torch.equal(y3, y)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dtype]
+        err = max(float((y.float() - yr.float()).abs().max()),
+                  float((s - sr).abs().max()))
+        ok = torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol) and \
+            torch.allclose(s, sr, atol=tol, rtol=tol)
+        det = torch.equal(y, y2) and torch.equal(s, s2)
+        kept = b == 1 or torch.equal(
+            s[b - 1], S0[b - 1] if S0 is not None else torch.zeros_like(
+                s[b - 1]))
+        rows.append({"shape": name, "b": b, "T": T, "nh": nh, "P": P,
+                     "G": G, "N": N, "chunk": chunk, "init": init,
+                     "dtype": dtype, "strided": strided, "max_abs_err": err,
+                     "tol": tol, "deterministic": det,
+                     "zero_dt_row_kept": kept, "in_place": same_inplace})
+        what = f"{name} b={b} T={T} nh={nh} P={P} G={G} N={N} chunk=" \
+            f"{chunk} init={init} {dtype}"
+        log(f"  ssd_scan {what}: max|err|={err:.3e} (tol {tol}); repeat "
+            f"bit-equal {det}, zero-dt row kept {kept}, in place "
+            f"{same_inplace}")
+        check(bool(ok), f"ssd_scan disagrees with its plain version: {what} "
+              f"max|err|={err}")
+        check(det, f"ssd_scan: repeat launch not bit-equal ({what})")
+        check(kept, f"ssd_scan: a zero-dt row's state changed ({what})")
+        check(same_inplace, f"ssd_scan: in-place state update differs "
+              f"({what})")
+    x, dt, A, Bm, Cm, S0 = _ssd_inputs(torch, np, b=2, T=300, nh=8, P=64,
+                                       G=1, N=64, dtype="float32", seed=99,
+                                       init=True, strided=False)
+    outs = [ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, c) for c in
+            (64, 128, 256)]
+    gap = max(max(float((y - outs[0][0]).abs().max()),
+                  float((s - outs[0][1]).abs().max())) for y, s in outs[1:])
+    log(f"  ssd_scan chunk independence (T=300, chunks 64/128/256): max "
+        f"gap {gap:.3e} (tol 2e-4)")
+    check(gap <= 2e-4, f"ssd_scan: results depend on the chunk ({gap})")
+    rows.append({"chunk_independence_gap": gap, "max_abs_err": 0.0})
+    return rows
+
+
+def _ssd_bound_ms(b, T, nh, P, G, N, es):
+    """Least time of one K4 call at one chunk (T <= 256): the state read
+    once and written once, x, B, C, dt read and y written once, over the
+    memory rate, against the f32 operations (2 per multiply-add) of C S^T,
+    the in-chunk C B^T and W x over the T(T+1)/2 causal pairs, and the
+    state update, over the CUDA cores' f32 rate."""
+    state = 2 * b * nh * P * N * 4
+    nbytes = state + b * T * (2 * nh * P * es + 2 * G * N * es + nh * 4)
+    pairs = T * (T + 1) // 2
+    ops_ = 2 * b * nh * (2 * T * P * N + pairs * (N + P))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops_ / PEAK_OPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ssd_kernels_time(torch, np, *, name, b, nh, P, G, N, T,
+                     iters=50) -> dict:
+    """Time K4 and its plain version at one main-path call: bf16 x, B, C
+    strided as the model passes them, f32 dt and state, the state updated
+    in place; L2 flushed before each call."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    x, dt, A, Bm, Cm, S0 = _ssd_inputs(torch, np, b=b, T=T, nh=nh, P=P,
+                                       G=G, N=N, dtype="bfloat16", seed=7,
+                                       init=True, strided=True)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    n0 = dict(ops.launches)
+    y, s = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, 256)
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, S0, 256)
+    err = max(float((y.float() - yr.float()).abs().max()),
+              float((s - sr).abs().max()))
+    check(torch.allclose(y.float(), yr.float(), atol=3e-2, rtol=3e-2),
+          f"ssd_scan (timing shape) max|err|={err}")
+    state = S0.clone()
+    ms = _time_ms(torch, lambda: ops.ssd_chunk_scan(
+        x, dt, A, Bm, Cm, state, 256, out_state=state), iters, flush)
+    plain_ms = _time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, state, 256),
+                        max(iters // 5, 5), flush)
+    ops.launches.update(n0)      # timing launches are not a slice's
+    bound_ms, bound_by = _ssd_bound_ms(b, T, nh, P, G, N, 2)
+    return {"model": name, "b": b, "T": T, "nh": nh, "P": P, "N": N,
+            "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err}
+
+
+def rec_rollout_checks(r, cfg, which: str) -> None:
+    """A rollout of an SSM or hybrid model went through its kernels: every
+    group finished; per forward (replays included) one K4 launch per
+    Mamba2 block and one K1 launch per shared-attention application, no
+    K2; no plain attention or SSD call; at most one host sync per step."""
+    from repro_torch.models.transformer import n_attn_layers, n_ssm_layers
+    fw = r["fused_steps"] + r["replays"]
+    L_ssm, L_attn = n_ssm_layers(cfg), n_attn_layers(cfg)
+    n = r["launches"]
+    check(r["finished"], f"{which}: not every group finished")
+    check(n["ssd_scan"] > 0, f"{which}: K4 launched no time")
+    check(n["ssd_scan"] == fw * L_ssm, f"{which}: K4 launches "
+          f"{n['ssd_scan']} != ({r['fused_steps']} steps + {r['replays']} "
+          f"replays) x {L_ssm}")
+    check(n["spec_verify"] == fw * L_attn, f"{which}: K1 launches "
+          f"{n['spec_verify']} != {fw} forwards x {L_attn}")
+    check(L_attn == 0 or n["spec_verify"] > 0, f"{which}: K1 launched no "
+          "time")
+    check(n["tree_verify"] == 0, f"{which}: K2 launched")
+    check(r["plain_calls"] == 0, f"{which}: {r['plain_calls']} plain "
+          "attention / SSD calls on the card")
+    check(r["host_syncs"] <= r["stats"].steps, f"{which}: host syncs "
+          f"{r['host_syncs']} > steps {r['stats'].steps}")
+
+
+def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed) -> dict:
+    """The Seer rollout of an SSM or hybrid model: a cold pass, its repeat
+    (bit-identical responses and launch counts), and a warm pass on the
+    repeat's rollout, whose group suffix trees hold the streams of the
+    pass before (drafts accepted, replays with a partly accepted mask);
+    each pass with ``rec_rollout_checks``."""
+    prompts = make_prompts(np, cfg, groups, seed=seed)
+    runs = []
+    for _ in range(2):
+        ro = make_rollout(cfg, params)
+        runs.append(run_rollout(torch, ro, prompts, new_tokens=new_tokens))
+    ro.reset_acceptance_profile()
+    warm = run_rollout(torch, ro, prompts, new_tokens=new_tokens)
+    del ro
+    cold = runs[0]
+    for which, r in (("cold pass", cold), ("repeat", runs[1]),
+                     ("warm pass", warm)):
+        rec_rollout_checks(r, cfg, f"{cfg.name} {which}")
+    check(runs[1]["responses"] == cold["responses"],
+          f"{cfg.name}: repeat rollout not bit-identical")
+    check(runs[1]["launches"] == cold["launches"] and
+          runs[1]["replays"] == cold["replays"],
+          f"{cfg.name}: repeat rollout launched its kernels a different "
+          "number of times")
+    check(warm["stats"].accepted > 0, f"{cfg.name}: the warm pass accepted "
+          "no draft")
+    lens = [len(x) for x in cold["responses"].values()]
+    check(all(n_ == new_tokens for n_ in lens),
+          f"{cfg.name}: response lengths {sorted(set(lens))}")
+
+    def rep(r):
+        st = r["stats"]
+        return {"tokens": st.tokens, "steps": st.steps,
+                "fused_steps": r["fused_steps"], "replays": r["replays"],
+                "chunks": st.chunks, "migrations": st.migrations,
+                "drafted": st.drafted, "accepted": st.accepted,
+                "mean_acceptance": st.mean_acceptance,
+                "host_syncs": r["host_syncs"], "launches": r["launches"],
+                "tokens_per_step": st.tokens / r["fused_steps"],
+                "fused_by_T": r["by_kind"], "wall_s": r["wall_s"],
+                "tokens_per_s": st.tokens / r["wall_s"],
+                "peak_mem_gb": r["peak_mem_gb"]}
+    out = {"requests": len(lens), "cold": rep(cold),
+           "repeat_wall_s": runs[1]["wall_s"],
+           "repeat_tokens_per_s": runs[1]["stats"].tokens / runs[1]["wall_s"],
+           "warm": rep(warm),
+           "warm_same_responses": sum(warm["responses"][k] == v for k, v in
+                                      cold["responses"].items())}
+    for which in ("cold", "warm"):
+        x = out[which]
+        log(f"  {which} pass: tokens {x['tokens']}, engine steps "
+            f"{x['fused_steps']} ({x['replays']} with a replay), chunks "
+            f"{x['chunks']}, migrations {x['migrations']}, drafted "
+            f"{x['drafted']}, accepted {x['accepted']}, tokens per step "
+            f"{x['tokens_per_step']:.3f}; launches {x['launches']}, host "
+            f"syncs {x['host_syncs']}; wall {x['wall_s']:.3f} s, "
+            f"{x['tokens_per_s']:.1f} tokens/s, peak {x['peak_mem_gb']:.1f} "
+            f"GB; steps by T {x['fused_by_T']}")
+    log(f"  repeat of the cold pass bit-identical (wall "
+        f"{out['repeat_wall_s']:.3f} s, {out['repeat_tokens_per_s']:.1f} "
+        f"tokens/s); warm responses equal to the cold pass "
+        f"{out['warm_same_responses']}/{len(lens)}")
+    return out
+
+
+def rec_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
+    """One full-width instance of an SSM or hybrid model driven with good
+    drafts (from a draft-free run of the same requests) on even slots and
+    bad ones (the good ones perturbed) on odd slots.  Once the prompts
+    are prefilled, before each fused step the instance is snapshotted and
+    the sync oracle (host acceptance, host-side restore and replay) runs
+    on the snapshot with the same drafts: both commit the same tokens and
+    accept counts and leave every cache leaf (``ssm``, ``conv``, K/V,
+    ``slot_pos``) bitwise equal.  Each fused step dispatches under
+    ``set_sync_debug_mode("error")``, costs one host sync, replays, and
+    launches K4 once per block and K1 once per attention layer per
+    forward."""
+    from repro_torch.engine import EngineSeq, Instance, StepFunctions
+    from repro_torch.models.transformer import n_attn_layers, n_ssm_layers
+    V = cfg.vocab_size
+    L_ssm, L_attn = n_ssm_layers(cfg), n_attn_layers(cfg)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, V, size=int(n)).tolist()
+               for n in rng.integers(100, 300, size=8)]
+
+    def new_instance():
+        inst = Instance(cfg, params, StepFunctions(cfg), max_slots=8,
+                        cache_len=2048, device="cuda")
+        seqs = [EngineSeq(f"h{i}", f"g{i}", p, seed=i, temperature=1.0,
+                          max_new_tokens=n_tokens)
+                for i, p in enumerate(prompts)]
+        check([inst.admit(s) for s in seqs] == list(range(8)),
+              "slots not admitted in order")
+        return inst, seqs
+
+    base, seqs = new_instance()
+    while not all(s.finished for s in seqs):
+        base.run_step()
+    streams = [s.generated for s in seqs]
+    del base
+
+    inst, seqs = new_instance()
+    while inst.prefilling_slots():
+        inst.run_step()
+    steps = accepted = rejected = 0
+    while not all(s.finished for s in seqs):
+        drafts = {}
+        for i, s in enumerate(seqs):
+            good = streams[i][len(s.generated):len(s.generated) + 3]
+            if s.finished or not good:
+                continue
+            drafts[i] = good if i % 2 == 0 else [(x + 7) % V for x in good]
+        shadow = _snapshot(inst)
+        want = shadow._run_step_sync(drafts)
+        n0, h0, r0 = _launches(), inst.steps.host_syncs, inst.steps.replays
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ticket = inst.dispatch_step(drafts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        n1 = _launches()
+        rp = inst.steps.replays - r0
+        got = inst.commit_step(ticket)
+        steps += 1
+        check(inst.steps.host_syncs - h0 == 1,
+              f"{cfg.name} step {steps}: {inst.steps.host_syncs - h0} host "
+              "syncs")
+        check(rp == (1 if drafts else 0),
+              f"{cfg.name} step {steps}: {rp} replays with drafts {drafts}")
+        check(n1["ssd_scan"] - n0["ssd_scan"] == (1 + rp) * L_ssm and
+              n1["spec_verify"] - n0["spec_verify"] == (1 + rp) * L_attn,
+              f"{cfg.name} step {steps}: launches {n0} -> {n1}")
+        check({i: (t, a) for i, (t, _, a) in got.items()} ==
+              {i: (t, a) for i, (t, _, a) in want.items()},
+              f"{cfg.name} step {steps}: fused {got} != sync oracle {want}")
+        for k, t in inst.cache.items():
+            check(torch.equal(t, shadow.cache[k]),
+                  f"{cfg.name} step {steps}: cache leaf {k} differs from "
+                  "the oracle's")
+        for i, (_, _, a) in got.items():
+            accepted += a
+            rejected += a < len(drafts.get(i, []))
+        del shadow
+        check(steps < 200, f"{cfg.name} engine phase does not finish")
+    check(accepted > 0 and rejected > 0, f"{cfg.name} engine phase: "
+          f"accepted {accepted}, rejected rows {rejected}")
+    return {"steps": steps, "accepted": accepted, "rejected_rows": rejected,
+            "replays": inst.steps.replays,
             "tokens": sum(len(s.generated) for s in seqs)}
 
 
@@ -1093,9 +1535,11 @@ def _profile_summary(prof, wall: float) -> dict:
             rows.append((e.key, t / 1e3, e.count))
             dev_total += t / 1e3
     rows.sort(key=lambda r: -r[1])
+    shares = {name: sum(t for k, t, _ in rows if f"{name}_kernel" in k)
+              / max(dev_total, 1e-9) for name in ("ssd_scan", "spec_verify")}
     return {"wall_ms": wall * 1e3, "device_ms": dev_total,
             "busy_share": dev_total / max(wall * 1e3, 1e-9),
-            "top": rows[:25]}
+            "shares": shares, "top": rows[:25]}
 
 
 # ---------------------------------------------------------------------------
@@ -1121,6 +1565,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1132,10 +1577,10 @@ def main() -> int:
     card = card_line()
     log(card)
     report["card"] = card
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
-    libs = (ops.LIBRARY, fa_ops.LIBRARY)
+    libs = (ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY)
     build.build_all(libs)
     log("build (one nvcc each, in parallel): " + ", ".join(
         f"{lib.source.name} -> sm_90a in {lib.seconds:.1f} s"
@@ -1157,6 +1602,9 @@ def main() -> int:
     log("kernels: flash_attention (K3) forward, dQ and dK/dV against "
         "their plain versions")
     report["flash_kernel_checks"] = flash_kernels_check(torch, np)
+
+    log("kernels: ssd_scan (K4) against its plain version")
+    report["ssd_kernel_checks"] = ssd_kernels_check(torch, np)
 
     log("linear slice: granite-3-8b Seer rollout on the card")
     cfg, params = build_model(torch)
@@ -1326,6 +1774,7 @@ def main() -> int:
         f"{w_['tokens_per_s']:.1f}, responses equal "
         f"{tree_rep['same_responses_as_linear']}/{len(lens)}")
     del params
+    gc.collect()
     torch.cuda.empty_cache()
 
     log(f"training: GRPO trainer at granite-3-8b width, {TRAIN_LAYERS} "
@@ -1359,7 +1808,52 @@ def main() -> int:
             f"{p['busy_share']:.3f})")
         for k_, t_, n_ in p["top"][:15]:
             log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
+    # the trainer's closures hold tensors in reference cycles: collect
+    # them, so that the next phases' peak memory is theirs
+    gc.collect()
     torch.cuda.empty_cache()
+
+    rec = {}
+    for arch, groups, new_tokens in (("zamba2-1.2b", GROUPS, NEW_TOKENS),
+                                     ("mamba2-370m", SSM_GROUPS,
+                                      SSM_NEW_TOKENS)):
+        kind = "hybrid" if arch.startswith("zamba2") else "SSM"
+        log(f"{kind} slice: {arch} Seer rollout on the card, {groups} groups "
+            f"x {GROUP_SIZE}, {new_tokens} new tokens")
+        rcfg, rparams = build_model(torch, arch)
+        sd = sync_debug_steps(torch, np, rcfg, rparams)
+        log(f"  dispatch under sync debug 'error': T per step "
+            f"{sd['step_T']}, host syncs {sd['host_syncs_per_step']}")
+        rep_ = rec_slice(torch, np, rcfg, rparams, groups=groups,
+                         new_tokens=new_tokens, seed=1)
+        rep_["sync_debug"] = sd
+        if kind == "hybrid":
+            log(f"hybrid engine: {arch} fused steps against the sync "
+                "oracle")
+            he = rec_engine_check(torch, np, rcfg, rparams)
+            rep_["engine"] = he
+            log(f"  {he['steps']} steps, each equal to the sync oracle from "
+                f"the same state (tokens, accept counts, ssm, conv, K/V, "
+                f"slot_pos bitwise), 1 host sync each, {he['replays']} "
+                f"replays, dispatch clean under sync debug 'error'; "
+                f"{he['accepted']} drafts accepted, {he['rejected_rows']} "
+                "row-steps with a rejected draft")
+        if args.profile:
+            rep_["profile"] = profile_steps(torch, rcfg, rparams,
+                                            args.profile)
+            p = rep_["profile"]
+            log(f"  profile of {p['steps']} steps: wall {p['wall_ms']:.1f} "
+                f"ms, device {p['device_ms']:.1f} ms (busy share "
+                f"{p['busy_share']:.3f}); K4 {p['shares']['ssd_scan']:.3f} "
+                f"and K1 {p['shares']['spec_verify']:.3f} of device time")
+            for k_, t_, n_ in p["top"][:12]:
+                log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
+        rec[arch] = rep_
+        del rparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["hybrid_slice"] = rec["zamba2-1.2b"]
+    report["ssm_slice"] = rec["mamba2-370m"]
 
     def commonest_T(by_kind):
         return int(max(by_kind, key=by_kind.get).split(":")[1])
@@ -1378,6 +1872,21 @@ def main() -> int:
             f"{tm['live_mean']:.0f} bf16: {tm['ms']:.4f} ms, plain "
             f"{tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} ms, "
             f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+    # K1 at zamba2's shared attention, at the hybrid passes' commonest
+    # widths (same prompt lengths, so the same live contexts)
+    hyb = rec["zamba2-1.2b"]
+    report["hybrid_kernel_time"] = [
+        kernels_time(torch, np, B=B, S=S, T=T, live=live,
+                     model="zamba2-1.2b")
+        for T in dict.fromkeys(commonest_T(hyb[p_]["fused_by_T"])
+                               for p_ in ("cold", "warm"))]
+    for tm in report["hybrid_kernel_time"]:
+        log(f"  spec_verify timing (zamba2-1.2b shared attention) B={B} "
+            f"T={tm['T']} S={S} Hq={tm['Hq']} Hk={tm['Hk']} D={tm['D']} "
+            f"window {tm['window']} live~{tm['live_mean']:.0f} bf16: "
+            f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, SDPA "
+            f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+            f"({tm['bound_by']})")
     report["tree_kernel_time"] = [
         tree_kernels_time(torch, np, B=B, S=S, T=T, live=lv)
         for T, lv in [(commonest_T(tr["by_kind"]), live)] + fixed]
@@ -1387,6 +1896,17 @@ def main() -> int:
             f"same inputs {tm['k1_ms']:.4f} ms), plain "
             f"{tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} ms, "
             f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+
+    report["ssd_kernel_time"] = []
+    for arch, b, nh, P, G, N in SSD_MODEL_SHAPES:
+        T = commonest_T(rec[arch]["cold"]["fused_by_T"])
+        tm = ssd_kernels_time(torch, np, name=arch, b=b, nh=nh, P=P, G=G,
+                              N=N, T=T)
+        report["ssd_kernel_time"].append(tm)
+        log(f"  ssd_scan timing ({arch} heads) b={b} T={T} nh={nh} P={P} "
+            f"N={N} bf16, state in place: {tm['ms']:.4f} ms, plain "
+            f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+            f"({tm['bound_by']}); no single PyTorch call computes SSD")
 
     ft = flash_kernels_time(torch, np)
     report["flash_kernel_time"] = ft
@@ -1401,9 +1921,10 @@ def main() -> int:
         f"SDPA backward {ft['library_backward_ms']:.4f}, SDPA forward + "
         f"backward {ft['library_fwd_bwd_ms']:.4f})")
 
-    def kernel_row(name, tpu, launches, checks, tm, source=SPEC_VERIFY_SRC):
+    def kernel_row(name, tpu, path, launches, checks, tm,
+                   source=SPEC_VERIFY_SRC):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": tpu, "launches": launches,
+                "replaces": tpu, "path": path, "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in checks),
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                 "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
@@ -1418,14 +1939,29 @@ def main() -> int:
         errs = [{"max_abs_err": max(c["errs"][o] for o in outputs[which])}
                 for c in report["flash_kernel_checks"]]
         return kernel_row(
-            name, FLASH_TPU, trn["launches"][name], errs,
+            name, FLASH_TPU, "granite-3-8b training, 2 train steps",
+            trn["launches"][name], errs,
             {"ms": ft[f"{which}_ms"], "plain_ms": ft[plain],
              "bound_ms": ft[f"{which}_bound_ms"],
              "bound_by": ft[f"{which}_bound_by"], "library_ms": ft[library]},
             source=FLASH_SRC)
-    rows = [kernel_row("spec_verify", SPEC_VERIFY_TPU, k1_launches,
-                       report["kernel_checks"], report["kernel_time"][0]),
-            kernel_row("tree_verify", TREE_VERIFY_TPU, k2_launches,
+
+    # a kernel that two paths run has a row for each: its first path's
+    # row holds every check but those at the other path's shape
+    def checks_of(rows_, shape, other=False):
+        return [c for c in rows_ if (c.get("shape") == shape) != other]
+    z_cold, m_cold = hyb["cold"], rec["mamba2-370m"]["cold"]
+    rows = [kernel_row("spec_verify", SPEC_VERIFY_TPU,
+                       "granite-3-8b linear slice, cold pass", k1_launches,
+                       checks_of(report["kernel_checks"], "zamba2-1.2b",
+                                 other=True), report["kernel_time"][0]),
+            kernel_row("spec_verify/zamba2-1.2b", SPEC_VERIFY_TPU,
+                       "zamba2-1.2b hybrid slice, cold pass",
+                       z_cold["launches"]["spec_verify"],
+                       checks_of(report["kernel_checks"], "zamba2-1.2b"),
+                       report["hybrid_kernel_time"][0]),
+            kernel_row("tree_verify", TREE_VERIFY_TPU,
+                       "granite-3-8b tree slice, measured pass", k2_launches,
                        report["tree_kernel_checks"],
                        report["tree_kernel_time"][0]),
             flash_row("flash_attention", "forward", "plain_forward_ms",
@@ -1433,7 +1969,18 @@ def main() -> int:
             flash_row("flash_attention_dq", "dq", "plain_backward_ms",
                       "library_backward_ms"),
             flash_row("flash_attention_dkdv", "dkdv", "plain_backward_ms",
-                      "library_backward_ms")]
+                      "library_backward_ms"),
+            kernel_row("ssd_scan", SSD_TPU,
+                       "zamba2-1.2b hybrid slice, cold pass",
+                       z_cold["launches"]["ssd_scan"],
+                       checks_of(report["ssd_kernel_checks"], "mamba2-370m",
+                                 other=True),
+                       report["ssd_kernel_time"][0], source=SSD_SRC),
+            kernel_row("ssd_scan/mamba2-370m", SSD_TPU,
+                       "mamba2-370m SSM slice, cold pass",
+                       m_cold["launches"]["ssd_scan"],
+                       checks_of(report["ssd_kernel_checks"], "mamba2-370m"),
+                       report["ssd_kernel_time"][1], source=SSD_SRC)]
 
     report["wall_total_s"] = time.perf_counter() - t0
     if out_dir:
@@ -1442,7 +1989,7 @@ def main() -> int:
     log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -18,7 +18,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import (DeviceLike, dtype_name, resolve_device,
                                 torch_dtype)
 from repro_torch.engine.engine import KVBlob
-from repro_torch.models.transformer import init_cache
+from repro_torch.models.mamba2 import F32_PARAMS
+from repro_torch.models.transformer import check_arch, init_cache
 
 
 def to_tensor(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -42,14 +43,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
                     dtype=None) -> dict:
     """The JAX package's ``init_params`` tree (as numpy) -> the port's
-    params.  The stacked ``(L, ...)`` layer leaves become per-layer
-    weights.  Matrices and the embedding are stored once in ``dtype``
-    (default ``cfg.dtype``) and norms in f32: exact, because the JAX
-    forward casts every weight to the activation dtype where it uses it
-    (``lin``, the embed gather and the tied unembed)."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    params.  Stacked layer leaves become per-layer weights: dense
+    ``layers[i]``, ssm ``layers[i]``, hybrid ``cells[c]["ssm"][j]`` and
+    ``tail[j]``, with the one ``shared_attn`` / ``shared_mlp`` block held
+    once.  Matrices and the embedding are stored once in ``dtype``
+    (default ``cfg.dtype``): exact, because the JAX forward casts them to
+    the activation dtype where it uses them (``lin``, the embed gather and
+    the tied unembed).  Norms and the Mamba2 vectors stay f32, and so do
+    the conv weights, which the reference uses in f32 (``causal_conv``)."""
+    check_arch(cfg)
     dev = resolve_device(device)
     wdt = torch_dtype(dtype or cfg.dtype)
 
@@ -59,27 +61,50 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
     def vec(a):
         return to_tensor(a, dev, torch.float32)
 
-    la, lm = tree["layers"]["attn"], tree["layers"]["mlp"]
-    layers = []
-    for i in range(cfg.num_layers):
-        layers.append({
-            "attn": {"ln": vec(la["ln"][i]), "wq": mat(la["wq"][i]),
-                     "wk": mat(la["wk"][i]), "wv": mat(la["wv"][i]),
-                     "wo": mat(la["wo"][i])},
-            "mlp": {"ln": vec(lm["ln"][i]), "wg": mat(lm["wg"][i]),
-                    "wu": mat(lm["wu"][i]), "wd": mat(lm["wd"][i])},
-        })
-    out = {"embed": mat(tree["embed"]), "final_ln": vec(tree["final_ln"]),
-           "layers": layers}
+    def block(leaves, idx):
+        return {name: (vec if name in F32_PARAMS else mat)(a[idx])
+                for name, a in leaves.items()}
+
+    def attn(t, idx=()):
+        return {"ln": vec(t["ln"][idx]), "wq": mat(t["wq"][idx]),
+                "wk": mat(t["wk"][idx]), "wv": mat(t["wv"][idx]),
+                "wo": mat(t["wo"][idx])}
+
+    def mlp(t, idx=()):
+        return {"ln": vec(t["ln"][idx]), "wg": mat(t["wg"][idx]),
+                "wu": mat(t["wu"][idx]), "wd": mat(t["wd"][idx])}
+
+    out = {"embed": mat(tree["embed"]), "final_ln": vec(tree["final_ln"])}
     if not cfg.tie_embeddings:
         out["unembed"] = mat(tree["unembed"])
+    L = cfg.num_layers
+    if cfg.arch_type == "dense":
+        la, lm = tree["layers"]["attn"], tree["layers"]["mlp"]
+        out["layers"] = [{"attn": attn(la, i), "mlp": mlp(lm, i)}
+                         for i in range(L)]
+    elif cfg.arch_type == "ssm":
+        out["layers"] = [block(tree["layers"], i) for i in range(L)]
+    else:
+        every = cfg.hybrid_attn_every
+        cells = tree["cells"]["ssm"]
+        out["cells"] = [{"ssm": [block(cells, (c, j)) for j in range(every)]}
+                        for c in range(L // every)]
+        if "tail" in tree:
+            n_tail = L - (L // every) * every
+            out["tail"] = [block(tree["tail"], j) for j in range(n_tail)]
+        out["shared_attn"] = attn(tree["shared_attn"])
+        out["shared_mlp"] = mlp(tree["shared_mlp"])
     return out
 
 
 def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
     """The port's params -> the JAX package's tree (numpy): each
     per-layer leaf restacked along a leading ``(L, ...)`` axis; bfloat16
-    leaves arrive as float32 (exact)."""
+    leaves arrive as float32 (exact).  Dense models (the trainer's)."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type={cfg.arch_type!r}: checkpoints of the port are "
+            "written by its trainer, which runs dense models")
     layers = params["layers"]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{len(layers)} layers, config has "
@@ -99,11 +124,14 @@ def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
 
 def cache_from_jax(cfg: ModelConfig, cache: Dict[str, np.ndarray],
                    device: DeviceLike = None) -> dict:
-    """A reference cache (``k``/``v`` (L,B,S,Hk,D), ``slot_pos`` (B,S))
-    -> a port cache with the same contents."""
+    """A reference cache (``k``/``v`` (L,B,S,Hk,D), ``slot_pos`` (B,S),
+    ``conv`` (n_ssm,B,K-1,ch), ``ssm`` (n_ssm,B,nh,P,N)) -> a port cache
+    with the same contents."""
     dev = resolve_device(device)
-    _, B, S = cache["k"].shape[:3]
-    dt = np.asarray(cache["k"]).dtype.name
+    lead = cache["k"] if "k" in cache else cache["conv"]
+    B = lead.shape[1]
+    S = cache["k"].shape[2] if "k" in cache else 1
+    dt = np.asarray(lead).dtype.name
     out = init_cache(cfg, B, S, dtype=dt, device=dev)
     for k, v in cache.items():
         out[k].copy_(to_tensor(v, dev))

@@ -210,8 +210,10 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     # the port registers the architectures it runs; the others arrive
-    # with the slices that port their layers (MoE, SSM, VLM, audio)
-    from repro_torch.configs import granite_3_8b  # noqa: F401
+    # with the slices that port their layers (MoE, VLM, audio)
+    from repro_torch.configs import (  # noqa: F401
+        granite_3_8b, mamba2_370m, zamba2_1_2b,
+    )
 
 
 def for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:

@@ -29,8 +29,21 @@ What changes with PyTorch:
   through the tree-verify kernel (K2); acceptance of the longest path
   and the compaction of the winning branch into canonical slots run on
   the device, where JAX's dropped scatters land in the scratch slot.
+* **Recurrent state (SSM and hybrid archs).**  A Mamba2 block's state
+  advanced through rejected drafts cannot be invalidated by ``slot_pos``:
+  as in the JAX package, the step replays the accepted prefix from the
+  pre-step state in a second, masked forward.  JAX decides on the device
+  (``lax.cond(any(acc_mask != mask))``); here a Python ``if`` on that
+  flag would be a second host sync, so the host decides from what it
+  knows at dispatch — a replay can only be needed when some row carries
+  drafts — and such steps replay unconditionally.  A replay whose mask
+  equals the first pass's recomputes the same state bit for bit.  The
+  first pass writes its recurrent state into fresh buffers
+  (``forward(rec_out=)``), so the cache still holds the pre-step state
+  for the replay, which writes into the cache: no copy of the state.
 * **Device.**  Instances live on ``cuda`` unless built with
-  ``device="cpu"``; there attention runs the kernels' plain versions.
+  ``device="cpu"``; there attention and the SSD run the kernels' plain
+  versions.
 
 Tensor parallelism is a later slice and raises ``NotImplementedError``.
 """
@@ -67,9 +80,10 @@ class StepFunctions:
     Every returned step callable counts its calls in ``invocations`` and
     ``invocations_by_kind`` ("fused:T", "tree:T", and on the sync oracle
     "step:T", "tree_ref:T", "prefill:T"); ``host_syncs`` counts blocking
-    device->host reads of step results; ``migration_calls`` counts the
-    batched KV export/import calls (and per-leaf ops of the per-slot
-    paths)."""
+    device->host reads of step results; ``replays`` counts the
+    recurrent-state replays inside fused steps (a second forward each);
+    ``migration_calls`` counts the batched KV export/import calls (and
+    per-leaf ops of the per-slot paths)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -77,6 +91,7 @@ class StepFunctions:
         self.invocations = 0
         self.invocations_by_kind: Dict[str, int] = {}
         self.host_syncs = 0
+        self.replays = 0
         self.migration_calls = 0
         self.migration_calls_by_kind: Dict[str, int] = {}
 
@@ -97,13 +112,16 @@ class StepFunctions:
         """Device-resident step with on-device accept/commit:
 
         (params, cache, tokens(B,T), positions, mask, keys, temps,
-        sample_rows(B,), anchor(B,), n_drafts(B,)) ->
+        sample_rows(B,), anchor(B,), n_drafts(B,), replay) ->
         (sampled(B,T), logprobs(B,T), n_accepted(B,), cache)
 
         Column ``anchor[i]`` holds the row's pending token, columns
         ``anchor+1 .. anchor+n_drafts`` its drafts.  The cache comes back
         updated in place with every slot past the accepted chain
-        invalidated (``slot_pos`` rollback)."""
+        invalidated (``slot_pos`` rollback) and, with ``replay`` (a host
+        bool: some row carries drafts, on a recurrent cache), the SSM and
+        conv state replayed over the accepted prefix only; prefill rows
+        keep their full mask, so the replay recomputes their state."""
         key = ("fused", T)
         if key in self._step_cache:
             return self._step_cache[key]
@@ -111,18 +129,27 @@ class StepFunctions:
 
         @torch.no_grad()
         def fn(params, cache, tokens, positions, mask, keys, temps,
-               sample_rows, anchor, n_drafts):
+               sample_rows, anchor, n_drafts, replay=False):
             logits, cache, _ = forward(cfg, params, tokens, positions, cache,
-                                       token_mask=mask)
+                                       token_mask=mask,
+                                       rec_out=_fresh_rec(cache, replay))
             logits = logits.float()
             sampled = sample_tokens(logits, keys, temps, sample_rows)
             lp = token_logprobs_at(logits, sampled)
             n_acc = draft_acceptance(sampled, tokens, anchor, n_drafts)
-            anchor_pos = positions.gather(1, anchor.long()[:, None])[:, 0]
-            committed_end = torch.where(sample_rows, anchor_pos + n_acc + 1,
-                                        _INT32_MAX)
-            sp = cache["slot_pos"]
-            sp.masked_fill_(sp >= committed_end[:, None], -1)
+            if "slot_pos" in cache:
+                anchor_pos = positions.gather(1, anchor.long()[:, None])[:, 0]
+                committed_end = torch.where(
+                    sample_rows, anchor_pos + n_acc + 1, _INT32_MAX)
+                sp = cache["slot_pos"]
+                sp.masked_fill_(sp >= committed_end[:, None], -1)
+            if replay:
+                cols = torch.arange(T, device=tokens.device)[None, :]
+                acc_mask = mask & (~sample_rows[:, None]
+                                   | (cols <= (anchor + n_acc)[:, None]))
+                forward(cfg, params, tokens, positions, cache,
+                        token_mask=acc_mask, logits=False)
+                self.replays += 1
             return sampled, lp, n_acc, cache
 
         counted = self._counted(fn, f"fused:{T}")
@@ -144,8 +171,10 @@ class StepFunctions:
         compaction of the winning branch into the canonical
         position-indexed slots, and a path-major relayout of the outputs,
         so the host commits columns ``0..n_accepted`` as on the linear
-        path.  Dense caches only: the recurrent-state replay of the JAX
-        package waits for the SSM slice."""
+        path.  A trailing ``replay`` (host bool) replays the recurrent
+        state over the anchor and the accepted path, as
+        :meth:`fused_step` does; recurrent caches verify single-path
+        trees only (``Instance._build_tree_batch`` refuses the others)."""
         key = ("tree", T)
         if key in self._step_cache:
             return self._step_cache[key]
@@ -154,33 +183,40 @@ class StepFunctions:
 
         @torch.no_grad()
         def fn(params, cache, tokens, positions, slot_index, mask, within,
-               keys, temps, sample_rows, anchor, parent, depth):
-            if "ssm" in cache:
-                raise NotImplementedError(
-                    "tree steps on a recurrent cache arrive with the SSM "
-                    "slice of the port")
+               keys, temps, sample_rows, anchor, parent, depth,
+               replay=False):
             logits, cache, _ = forward(cfg, params, tokens, positions, cache,
                                        token_mask=mask,
                                        slot_index=slot_index,
-                                       within_mask=within)
+                                       within_mask=within,
+                                       rec_out=_fresh_rec(cache, replay))
             logits = logits.float()
             sampled = sample_tokens(logits, keys, temps, sample_rows)
             lp = token_logprobs_at(logits, sampled)
-            n_acc, path_col, _ = tree_acceptance(sampled, tokens, parent,
-                                                 depth, within, mask, anchor)
+            n_acc, path_col, acc = tree_acceptance(
+                sampled, tokens, parent, depth, within, mask, anchor)
             n_acc = torch.where(sample_rows, n_acc, 0)
             pc = path_col.long()
-            S = cache["slot_pos"].shape[1]
-            anchor_pos = positions.gather(1, anchor.long()[:, None])
-            node_slots = torch.where((depth > 0) & mask, slot_index, S)
             dcols = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device)[None, :]
-            dvalid = (dcols >= 1) & (dcols <= n_acc[:, None]) \
-                & sample_rows[:, None]
-            src = torch.where(dvalid, slot_index.gather(1, pc), S)
-            dst_pos = anchor_pos + dcols
-            dst = torch.where(dvalid, dst_pos % S if ring else dst_pos, S)
-            compact_tree(cache, node_slots, src, dst, dst_pos)
+            if "slot_pos" in cache:
+                S = cache["slot_pos"].shape[1]
+                anchor_pos = positions.gather(1, anchor.long()[:, None])
+                node_slots = torch.where((depth > 0) & mask, slot_index, S)
+                dvalid = (dcols >= 1) & (dcols <= n_acc[:, None]) \
+                    & sample_rows[:, None]
+                src = torch.where(dvalid, slot_index.gather(1, pc), S)
+                dst_pos = anchor_pos + dcols
+                dst = torch.where(dvalid, dst_pos % S if ring else dst_pos,
+                                  S)
+                compact_tree(cache, node_slots, src, dst, dst_pos)
+            if replay:
+                keep = mask & (~sample_rows[:, None]
+                               | (dcols <= anchor[:, None]) | acc)
+                forward(cfg, params, tokens, positions, cache,
+                        token_mask=keep, slot_index=slot_index,
+                        within_mask=within, logits=False)
+                self.replays += 1
             return sampled.gather(1, pc), lp.gather(1, pc), n_acc, cache
 
         counted = self._counted(fn, f"tree:{T}")
@@ -299,6 +335,14 @@ class StepFunctions:
             idx[sax] = slots
             dst[tuple(idx)] = src.movedim(0, sax).to(dst.dtype)
         return cache
+
+
+def _fresh_rec(cache: dict, replay: bool) -> Optional[dict]:
+    """Fresh buffers for the first pass's recurrent state when the step
+    replays (the cache keeps the pre-step state for the replay)."""
+    if not replay:
+        return None
+    return {k: torch.empty_like(cache[k]) for k in ("conv", "ssm")}
 
 
 @torch.no_grad()
@@ -820,14 +864,16 @@ class Instance:
         seqs = [self._draining[i] for i in slots]
         overlapped = self._inflight is not None
         out: Dict[str, KVBlob] = {}
-        max_ext = self.cache["slot_pos"].shape[1]
+        extents = [v.shape[_pos_axis(k) + 1] for k, v in self.cache.items()
+                   if _pos_axis(k) is not None]
+        max_ext = max(extents) if extents else 0
         lives = []
         for s in seqs:
             live = min(s.next_pos, max_ext)
             b = max(self.prefill_chunk, 1)
             while b < live:
                 b <<= 1
-            lives.append(min(b, max_ext))
+            lives.append(min(b, max_ext) if max_ext else 0)
         order = sorted(range(len(slots)), key=lambda j: (lives[j], slots[j]))
         slots = [slots[j] for j in order]
         seqs = [seqs[j] for j in order]
@@ -939,7 +985,14 @@ class Instance:
         self.migration_host_seconds += time.perf_counter() - t0
 
     def _clear_slot_cache(self, slot: int) -> None:
-        self.cache["slot_pos"][slot].fill_(-1)
+        """Empty a slot in place, on the device: ``slot_pos`` -1, the
+        recurrent state and conv window 0 (each through a view, never an
+        indexed assignment of a Python scalar, which syncs the host)."""
+        if "slot_pos" in self.cache:
+            self.cache["slot_pos"][slot].fill_(-1)
+        for k in ("ssm", "conv"):
+            if k in self.cache:
+                self.cache[k][:, slot].zero_()
 
     # -- prefill --------------------------------------------------------------
 
@@ -1117,9 +1170,11 @@ class Instance:
                                anchor, n_drafts, temps)
         keys = position_keys(self.base_key, seeds_d, pos_d)
         fn = self.steps.fused_step(T)
+        replay = "ssm" in self.cache and bool(n_drafts.any())
         sampled, lps, n_acc, self.cache = fn(
             self.params, self.cache, tok_d, pos_d, mask_d.bool(), keys,
-            temps_d.view(torch.float32), rows_d.bool(), anchor_d, nd_d)
+            temps_d.view(torch.float32), rows_d.bool(), anchor_d, nd_d,
+            replay)
         return self._book_step(B, T, sampled, lps, n_acc, decode, plan,
                                fused, anchors)
 
@@ -1163,10 +1218,11 @@ class Instance:
             bt.temps)
         keys = position_keys(self.base_key, seeds_d, pos_d)
         fn = self.steps.fused_tree_step(T)
+        replay = "ssm" in self.cache and bt.n_tree_nodes > 0
         sampled, lps, n_acc, self.cache = fn(
             self.params, self.cache, tok_d, pos_d, slot_d, mask_d.bool(),
             within_d.bool(), keys, temps_d.view(torch.float32),
-            rows_d.bool(), anchor_d, parent_d, depth_d)
+            rows_d.bool(), anchor_d, parent_d, depth_d, replay)
         self.tree_steps += 1 if bt.n_tree_nodes else 0
         return self._book_step(B, T, sampled, lps, n_acc, decode, plan,
                                bt.fused, bt.anchors)
@@ -1205,7 +1261,8 @@ class Instance:
         B = self.max_slots
         fused = [i for i, n in plan.items()
                  if n == len(self.slots[i].prefill_queue) and n + 1 <= T]
-        S = self.cache["slot_pos"].shape[1]
+        S = self.cache["slot_pos"].shape[1] if "slot_pos" in self.cache \
+            else self.cache_len
         ring = self.cfg.sliding_window > 0
 
         def to_slot(p):
@@ -1329,7 +1386,8 @@ class Instance:
             seq.finished = True
         if len(seq.generated) >= seq.max_new_tokens:
             seq.finished = True
-        if seq.next_pos >= self.cache_len - 1 and not self.cfg.sliding_window:
+        if seq.next_pos >= self.cache_len - 1 and not self.cfg.sliding_window \
+                and self.cfg.arch_type not in ("ssm",):
             seq.finished = True   # cache exhausted (engine-tier guard)
         return (new_toks, new_lps, a)
 
@@ -1402,6 +1460,10 @@ class Instance:
             tokens, positions, mask, seeds, sample_rows, temps)
         keys = position_keys(self.base_key, seeds_d, pos_d)
         fn = self.steps.step(T)
+        # the forward updates the recurrent state in place: keep a copy of
+        # the pre-step state for the host-side replay
+        pre_rec = {k: self.cache[k].clone() for k in ("ssm", "conv")} \
+            if ("ssm" in self.cache and gamma > 0) else None
         sampled_d, lps_d, self.cache = fn(
             self.params, self.cache, tok_d, pos_d, mask_d.bool(), keys,
             temps_d.view(torch.float32), rows_d.bool())
@@ -1426,9 +1488,24 @@ class Instance:
             new_lps = [float(lps[i, j]) for j in range(a + 1)]
             rollback_from[i] = seq.next_pos + a + 1
             out[i] = self._commit_row(seq, new_toks, new_lps, a)
-        if gamma > 0:
+        if "slot_pos" in self.cache and gamma > 0:
             self.steps.rollback(self.cache["slot_pos"],
                                 self._upload(rollback_from))
+        if pre_rec is not None:
+            # states advanced through rejected drafts: restore the pre-step
+            # state and replay only the accepted prefix (prefill rows keep
+            # their full mask and recompute their state identically)
+            accepted = mask.astype(bool)
+            for i in decode:
+                accepted[i, :] = False
+                accepted[i, :rollback_from[i] - positions[i, 0]] = True
+            if not np.array_equal(accepted, mask.astype(bool)):
+                for k, t in pre_rec.items():
+                    self.cache[k].copy_(t)
+                acc_d, = self._upload_int32(accepted)
+                _, _, self.cache = fn(
+                    self.params, self.cache, tok_d, pos_d, acc_d.bool(),
+                    keys, temps_d.view(torch.float32), rows_d.bool())
         self.steps_run += 1
         return out
 

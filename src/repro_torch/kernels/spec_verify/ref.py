@@ -24,6 +24,9 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+# calls of the two plain versions, so that a run on the card can show that
+# its main path never took them
+calls = {"spec_verify": 0, "tree_verify": 0}
 
 
 def f32_scale(D: int) -> float:
@@ -46,6 +49,7 @@ def pos_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def spec_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
+    calls["spec_verify"] += 1
     return _masked_ref(q, k, v, pos_mask(q_pos, k_pos, window))
 
 
@@ -56,6 +60,7 @@ def tree_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K2: K1 with ``tree_mask`` (B, T, S), bool or uint8 (0 = hidden),
     ANDed into the positional mask — a draft-tree node sees the committed
     prefix and its own ancestors, never a sibling at its position."""
+    calls["tree_verify"] += 1
     return _masked_ref(q, k, v,
                        pos_mask(q_pos, k_pos, window) & tree_mask.bool())
 

@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, RoPE, the weight-casting matmul, the
-cross-entropy of training and the seeded parameter init.
+"""Shared building blocks: norms (plain and Mamba2's gated one), RoPE,
+the weight-casting matmul and the cross-entropy of training.
 
 Counterpart of ``repro.models.common``.  The dtype steps are kept
 exactly: RMSNorm runs in f32 and casts back, RoPE angles are f32, and
@@ -10,12 +10,8 @@ the JAX package's f32 master weights.
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
-
-from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 
 
 def lin(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -42,6 +38,14 @@ def rope_freqs(head_dim: int, theta: float,
                         device=device) / head_dim
     base = torch.full((), theta, dtype=torch.float32, device=device)
     return 1.0 / torch.pow(base, exps)
+
+
+def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's RMSNorm(x * silu(gate)): silu of the gate in f32, cast to
+    x's dtype, then :func:`rms_norm`."""
+    g = gate.float()
+    return rms_norm(x * (g * torch.sigmoid(g)).to(x.dtype), weight, eps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -71,56 +75,3 @@ def softmax_cross_entropy(logits: torch.Tensor,
 
 def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return -softmax_cross_entropy(logits, tokens)
-
-
-# ---------------------------------------------------------------------------
-# seeded init (the port's own; the parity tests bridge the JAX package's)
-# ---------------------------------------------------------------------------
-
-
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = None, dtype=None) -> dict:
-    """Random dense-transformer weights at the JAX package's scales
-    (``repro.models.transformer._init_attn`` / ``_init_mlp`` and
-    ``Builder.param``): normals scaled by 1/sqrt(fan_in), the embedding
-    by 0.02, norms at one.  Matrices and the embedding are stored in
-    ``dtype`` (default ``cfg.dtype``: ``lin`` casts to it on every call
-    anyway; ``"float32"`` gives a trainer's master weights), norms in
-    f32.  ``generator`` must live on ``device``."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
-    dev = resolve_device(device)
-    wdt = torch_dtype(dtype or cfg.dtype)
-    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
-
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return w.mul_(scale).to(wdt)
-
-    def ones(n):
-        return torch.ones(n, device=dev, dtype=torch.float32)
-
-    params = {"embed": normal((cfg.vocab_size, d), 0.02),
-              "final_ln": ones(d), "layers": []}
-    if not cfg.tie_embeddings:
-        params["unembed"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
-    for _ in range(cfg.num_layers):
-        params["layers"].append({
-            "attn": {
-                "ln": ones(d),
-                "wq": normal((d, cfg.num_heads * hd), 1.0 / math.sqrt(d)),
-                "wk": normal((d, cfg.num_kv_heads * hd), 1.0 / math.sqrt(d)),
-                "wv": normal((d, cfg.num_kv_heads * hd), 1.0 / math.sqrt(d)),
-                "wo": normal((cfg.num_heads * hd, d),
-                             1.0 / math.sqrt(cfg.num_heads * hd)),
-            },
-            "mlp": {
-                "ln": ones(d),
-                "wg": normal((d, f), 1.0 / math.sqrt(d)),
-                "wu": normal((d, f), 1.0 / math.sqrt(d)),
-                "wd": normal((f, d), 1.0 / math.sqrt(f)),
-            },
-        })
-    return params

@@ -1,20 +1,25 @@
-"""Dense decoder-only transformer with a slot-indexed KV cache, and its
-cache-free forward (training).
+"""The config-driven model on the dense, SSM (Mamba2) and hybrid
+(Zamba2) archs, with a slot-indexed KV cache and recurrent state, and the
+dense cache-free forward (training).
 
-Counterpart of the dense parts of ``repro.models.transformer``:
-``init_cache``, ``_project_qkv``, the slot-scatter and ``ck is None``
-branches of ``_self_attn``, ``_mlp``, ``_dense_layer``,
-``_decoder_stack`` (a Python loop over layers instead of ``lax.scan``)
-and ``forward``.  With a cache, one forward covers chunked prefill,
-decode (T=1) and speculative verify (T=gamma+1), and mixes them row by
-row under ``token_mask``.  Without one (``cache=None``) it runs a whole
-sequence at positions 0..T-1 through the flash-attention kernel (K3);
-with ``train=True`` each layer is recomputed in the backward
-(``torch.utils.checkpoint``, the JAX package's ``_remat``).
+Counterpart of ``repro.models.transformer`` on those archs:
+``init_params``, ``init_cache``, ``_project_qkv``, the slot-scatter and
+``ck is None`` branches of ``_self_attn``, ``_mlp``, ``_dense_layer``,
+``_decoder_stack``, ``_ssm_stack``, ``_hybrid_stack`` (Python loops over
+layers instead of ``lax.scan``) and ``forward``.  With a cache, one
+forward covers chunked prefill, decode (T=1) and speculative verify
+(T=gamma+1), and mixes them row by row under ``token_mask``.  Without
+one (``cache=None``, dense only) it runs a whole sequence at positions
+0..T-1 through the flash-attention kernel (K3); with ``train=True`` each
+layer is recomputed in the backward (``torch.utils.checkpoint``, the JAX
+package's ``_remat``).
 
 The cache is updated in place, which replaces JAX's buffer donation:
 ``forward`` writes this step's K/V rows and slot positions into the
-tensors of ``cache`` and returns the same dict.
+tensors of ``cache`` and returns the same dict.  The recurrent leaves
+(``conv`` and ``ssm``) go to ``rec_out`` when it is given — the engine's
+replay keeps the pre-step state that way, without a copy — and else
+into the cache too.
 
 Masked (padding) tokens: the JAX package sends them to slot ``S`` and
 drops the write (``.at[...].set(mode="drop")``).  Torch has no drop mode
@@ -26,6 +31,7 @@ never read.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -35,6 +41,84 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models.attention import attention
 from repro_torch.models.common import apply_rope, lin, rms_norm
+from repro_torch.models.mamba2 import init_mamba_block, mamba_block
+
+PORTED_ARCHS = ("dense", "ssm", "hybrid")
+
+
+def check_arch(cfg: ModelConfig) -> None:
+    if cfg.arch_type not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"arch_type={cfg.arch_type!r}: the port runs {PORTED_ARCHS}")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = None, dtype=None) -> dict:
+    """Random weights at the JAX package's scales (``init_params``,
+    ``_init_attn``, ``_init_mlp``, ``init_mamba_block`` and
+    ``Builder.param``): normals scaled by 1/sqrt(fan_in), the embedding
+    by 0.02, norms at one.  Matrices and the embedding are stored in
+    ``dtype`` (default ``cfg.dtype``: ``lin`` casts to it on every call
+    anyway; ``"float32"`` gives a trainer's master weights); norms, the
+    Mamba2 vectors and the conv weights (used in f32) in f32.
+
+    Trees: dense ``layers[i]["attn"|"mlp"]``; ssm ``layers[i]`` (one
+    Mamba2 block each); hybrid ``cells[c]["ssm"][j]``, ``tail[j]`` (the
+    blocks past the last whole cell) and one ``shared_attn`` and
+    ``shared_mlp``, used by every cell.  ``generator`` must live on
+    ``device``."""
+    check_arch(cfg)
+    dev = resolve_device(device)
+    wdt = torch_dtype(dtype or cfg.dtype)
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+
+    def normal(shape, scale, f32=False):
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32).mul_(scale)
+        return w if f32 else w.to(wdt)
+
+    def ones(n):
+        return torch.ones(n, device=dev, dtype=torch.float32)
+
+    def zeros(n):
+        return torch.zeros(n, device=dev, dtype=torch.float32)
+
+    def attn():
+        return {"ln": ones(d),
+                "wq": normal((d, cfg.num_heads * hd), 1.0 / math.sqrt(d)),
+                "wk": normal((d, cfg.num_kv_heads * hd), 1.0 / math.sqrt(d)),
+                "wv": normal((d, cfg.num_kv_heads * hd), 1.0 / math.sqrt(d)),
+                "wo": normal((cfg.num_heads * hd, d),
+                             1.0 / math.sqrt(cfg.num_heads * hd))}
+
+    def mlp():
+        return {"ln": ones(d),
+                "wg": normal((d, f), 1.0 / math.sqrt(d)),
+                "wu": normal((d, f), 1.0 / math.sqrt(d)),
+                "wd": normal((f, d), 1.0 / math.sqrt(f))}
+
+    def block():
+        return init_mamba_block(cfg, normal, ones, zeros)
+
+    params = {"embed": normal((cfg.vocab_size, d), 0.02),
+              "final_ln": ones(d)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+    L = cfg.num_layers
+    if cfg.arch_type == "dense":
+        params["layers"] = [{"attn": attn(), "mlp": mlp()} for _ in range(L)]
+    elif cfg.arch_type == "ssm":
+        params["layers"] = [block() for _ in range(L)]
+    else:
+        every = cfg.hybrid_attn_every
+        n_cells = L // every
+        params["cells"] = [{"ssm": [block() for _ in range(every)]}
+                           for _ in range(n_cells)]
+        if L - n_cells * every:
+            params["tail"] = [block() for _ in range(L - n_cells * every)]
+        params["shared_attn"] = attn()
+        params["shared_mlp"] = mlp()
+    return params
 
 
 def cache_len_for(cfg: ModelConfig, requested: int) -> int:
@@ -43,22 +127,47 @@ def cache_len_for(cfg: ModelConfig, requested: int) -> int:
     return requested
 
 
+def n_attn_layers(cfg: ModelConfig) -> int:
+    if cfg.arch_type == "ssm":
+        return 0
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every
+    return cfg.num_layers
+
+
+def n_ssm_layers(cfg: ModelConfig) -> int:
+    return cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None) -> dict:
-    """Zero K/V ``(L,B,S,Hk,D)`` and ``slot_pos (B,S)`` filled with -1,
-    the JAX package's layout, each a view of a buffer one slot wider
-    (the scratch slot of masked writes)."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    """The JAX package's cache layout.  Attention layers: zero K/V
+    ``(n_attn,B,S,Hk,D)`` and ``slot_pos (B,S)`` filled with -1, each a
+    view of a buffer one slot wider (the scratch slot of masked writes).
+    Mamba2 blocks: the conv window ``conv (n_ssm,B,K-1,ch)`` in ``dtype``
+    and the state ``ssm (n_ssm,B,nh,P,N)`` in f32, both zero; they have
+    no position axis and no scratch slot."""
+    check_arch(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     S = cache_len_for(cfg, max_len)
-    shape = (cfg.num_layers, batch, S + 1, cfg.num_kv_heads, cfg.head_dim)
-    k = torch.zeros(shape, dtype=dt, device=dev)
-    v = torch.zeros(shape, dtype=dt, device=dev)
-    sp = torch.full((batch, S + 1), -1, dtype=torch.int32, device=dev)
-    return {"k": k[:, :, :S], "v": v[:, :, :S], "slot_pos": sp[:, :S]}
+    cache = {}
+    n_attn = n_attn_layers(cfg)
+    if n_attn:
+        shape = (n_attn, batch, S + 1, cfg.num_kv_heads, cfg.head_dim)
+        k = torch.zeros(shape, dtype=dt, device=dev)
+        v = torch.zeros(shape, dtype=dt, device=dev)
+        sp = torch.full((batch, S + 1), -1, dtype=torch.int32, device=dev)
+        cache.update(k=k[:, :, :S], v=v[:, :, :S], slot_pos=sp[:, :S])
+    n_ssm = n_ssm_layers(cfg)
+    if n_ssm:
+        ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        cache["conv"] = torch.zeros((n_ssm, batch, cfg.ssm_conv - 1, ch),
+                                    dtype=dt, device=dev)
+        cache["ssm"] = torch.zeros(
+            (n_ssm, batch, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=torch.float32, device=dev)
+    return cache
 
 
 def with_scratch(t: torch.Tensor, pos_dim: int) -> torch.Tensor:
@@ -73,13 +182,17 @@ def with_scratch(t: torch.Tensor, pos_dim: int) -> torch.Tensor:
     return t.as_strided(size, t.stride(), t.storage_offset())
 
 
+POSITION_DIM = {"k": 2, "v": 2, "slot_pos": 1}
+
+
 def clone_cache(cache: dict) -> dict:
     """A copy of a cache from :func:`init_cache`, scratch slots and all
     (a plain ``clone`` of the views would drop them)."""
     out = {}
     for name, t in cache.items():
-        dim = 1 if name == "slot_pos" else 2
-        out[name] = with_scratch(t, dim).clone().narrow(dim, 0, t.shape[dim])
+        dim = POSITION_DIM.get(name)
+        out[name] = t.clone() if dim is None else with_scratch(
+            t, dim).clone().narrow(dim, 0, t.shape[dim])
     return out
 
 
@@ -189,19 +302,50 @@ def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
     return torch.where((col >= 0)[:, None, :], ext, base)
 
 
+def _ssm_stack(cfg, blocks, x, token_mask, cache, rec, first):
+    """Mamba2 blocks ``first .. first+len(blocks)-1`` of the cache: each
+    reads its conv window and state from ``cache`` and writes the new ones
+    into ``rec`` (the cache itself, or the replay's fresh buffers)."""
+    for j, p in enumerate(blocks):
+        li = first + j
+        x, _, _ = mamba_block(p, x, cfg, cache["conv"][li], cache["ssm"][li],
+                              token_mask, conv_out=rec["conv"][li],
+                              state_out=rec["ssm"][li])
+    return x
+
+
+def _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args):
+    """Zamba2: each cell runs its ``hybrid_attn_every`` Mamba2 blocks,
+    then the one shared attention + MLP block over that cell's K/V layer;
+    the ``tail`` blocks follow the last cell."""
+    every = cfg.hybrid_attn_every
+    positions, bidx, slots, slot_pos, allowed = attn_args
+    for c, cell in enumerate(params["cells"]):
+        x = _ssm_stack(cfg, cell["ssm"], x, token_mask, cache, rec,
+                       c * every)
+        x = _self_attn(params["shared_attn"], x, cfg, positions, bidx, slots,
+                       cache["k"][c], cache["v"][c], slot_pos, allowed)
+        x = _mlp(params["shared_mlp"], x, cfg)
+    return _ssm_stack(cfg, params.get("tail", []), x, token_mask, cache,
+                      rec, len(params["cells"]) * every)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor, cache: Optional[dict] = None, *,
             token_mask: Optional[torch.Tensor] = None,
             train: bool = False,
             contiguous_update: bool = False,
             slot_index: Optional[torch.Tensor] = None,
-            within_mask: Optional[torch.Tensor] = None):
+            within_mask: Optional[torch.Tensor] = None,
+            rec_out: Optional[dict] = None,
+            logits: bool = True):
     """tokens/positions (B,T) int32 -> (logits (B,T,V), cache, aux_loss).
 
     ``cache=None``: the cache-free (training) forward over positions
     0..T-1 (anything else raises), returning ``(logits, None, 0.0)``;
     ``train=True`` recomputes each layer in the backward.  It takes no
-    ``token_mask`` (``grpo_loss`` passes none) and no tree inputs.
+    ``token_mask`` (``grpo_loss`` passes none) and no tree inputs.  Dense
+    models only: training an SSM or hybrid needs a backward of K4.
 
     With a cache, the cache is updated in place and returned.  Slots come from
     positions (``positions % S`` on a ring cache for sliding-window
@@ -209,12 +353,19 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     inputs (both or neither): ``slot_index`` puts sibling draft nodes,
     which share a position, in distinct slots; ``within_mask`` (B,T,T)
     bool says which of this step's columns each query may see (ancestor
-    or self for tree rows, causal order for the rest).  Every layer then
-    attends under one allowed-mask built from it, through K2."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: this slice ports dense models")
+    or self for tree rows, causal order for the rest).  Every attention
+    layer then attends under one allowed-mask built from it, through K2.
+    Mamba2 blocks read the recurrent state from the cache and write it to
+    ``rec_out`` (``{"conv", "ssm"}`` shaped like the cache's leaves) when
+    given, else back into the cache.  ``logits=False`` skips the unembed
+    and returns None in their place (the engine's replay)."""
+    check_arch(cfg)
     if cache is None:
+        if cfg.arch_type != "dense":
+            raise NotImplementedError(
+                f"arch_type={cfg.arch_type!r}: the cache-free (training) "
+                "forward needs a backward of the SSD kernel (K4), which "
+                "arrives with a later slice")
         if token_mask is not None or slot_index is not None \
                 or within_mask is not None or contiguous_update:
             raise NotImplementedError(
@@ -231,26 +382,38 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
 
-    slot_pos = cache["slot_pos"]
-    S = slot_pos.shape[1]
-    if slot_index is not None:
-        slots = slot_index.long()
+    attn_args = None
+    if "slot_pos" in cache:
+        slot_pos = cache["slot_pos"]
+        S = slot_pos.shape[1]
+        if slot_index is not None:
+            slots = slot_index.long()
+        else:
+            slots = positions.long()
+            if cfg.sliding_window:
+                slots = slots % S
+        keep = slots < S
+        if token_mask is not None:
+            keep = keep & token_mask
+        slots = torch.where(keep, slots, S)
+        bidx = torch.arange(B, device=tokens.device)[:, None]
+        with_scratch(slot_pos, 1)[bidx, slots] = positions
+        allowed = None
+        if within_mask is not None:
+            allowed = _allowed_mask(cfg, positions, slots, slot_pos,
+                                    within_mask)
+        attn_args = (positions, bidx, slots, slot_pos, allowed)
+
+    rec = cache if rec_out is None else rec_out
+    if cfg.arch_type == "dense":
+        _, bidx, slots, slot_pos, allowed = attn_args
+        for i, p in enumerate(params["layers"]):
+            x = _dense_layer(p, x, cfg, positions, bidx, slots, cache["k"][i],
+                             cache["v"][i], slot_pos, allowed)
+    elif cfg.arch_type == "ssm":
+        x = _ssm_stack(cfg, params["layers"], x, token_mask, cache, rec, 0)
     else:
-        slots = positions.long()
-        if cfg.sliding_window:
-            slots = slots % S
-    keep = slots < S
-    if token_mask is not None:
-        keep = keep & token_mask
-    slots = torch.where(keep, slots, S)
-    bidx = torch.arange(B, device=tokens.device)[:, None]
-    with_scratch(slot_pos, 1)[bidx, slots] = positions
-    allowed = None
-    if within_mask is not None:
-        allowed = _allowed_mask(cfg, positions, slots, slot_pos, within_mask)
-
-    for i, p in enumerate(params["layers"]):
-        x = _dense_layer(p, x, cfg, positions, bidx, slots, cache["k"][i],
-                         cache["v"][i], slot_pos, allowed)
-
+        x = _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args)
+    if not logits:
+        return None, cache, 0.0
     return _unembed(cfg, params, x), cache, 0.0

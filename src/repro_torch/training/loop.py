@@ -28,7 +28,7 @@ from repro_torch.core.request import Group, make_groups
 from repro_torch.core.rollout import SeerRollout
 from repro_torch.data.tasks import RewardWorker, Task
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import init_params
+from repro_torch.models.transformer import init_params
 from repro_torch.training.checkpoint import (WeightUpdater, save,
                                              serving_params)
 from repro_torch.training.grpo import GRPOConfig, grpo_loss, pack_experience
@@ -156,6 +156,12 @@ class RLTrainer:
         if rl.tracer is not None:
             raise NotImplementedError(
                 "tracing arrives with the observability slice of the port")
+        if cfg.arch_type != "dense":
+            raise NotImplementedError(
+                f"arch_type={cfg.arch_type!r}: training an SSM or hybrid "
+                "model needs a backward of the SSD kernel (K4), which "
+                "arrives with a later slice of the port; this slice serves "
+                "them")
         self.cfg = cfg
         self.task = task
         self.rl = rl

@@ -29,6 +29,10 @@ def _port_modules():
 def test_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     assert len(mods) > 20
+    assert {"repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.kernels.ssd_scan.ref",
+            "repro_torch.configs.mamba2_370m",
+            "repro_torch.configs.zamba2_1_2b"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
@@ -74,19 +78,21 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.core import SeerRollout
     from repro_torch.engine import Instance, StepFunctions
     from repro_torch.models import init_cache, init_params
-    cfg = get_tiny_config("granite-3-8b")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_cache(cfg, 1, 8)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_params(cfg, torch.Generator())
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        params_from_jax(cfg, {})
-    params = init_params(cfg, torch.Generator().manual_seed(0),
-                         device="cpu")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Instance(cfg, params, StepFunctions(cfg), max_slots=1, cache_len=8)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        SeerRollout(cfg, params, max_slots=1, cache_len=8)
+    for arch in ("granite-3-8b", "mamba2-370m", "zamba2-1.2b"):
+        cfg = get_tiny_config(arch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_cache(cfg, 1, 8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(cfg, torch.Generator())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            params_from_jax(cfg, {})
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Instance(cfg, params, StepFunctions(cfg), max_slots=1,
+                     cache_len=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SeerRollout(cfg, params, max_slots=1, cache_len=8)
 
 
 def _smoke(cwd: Path, env=None):

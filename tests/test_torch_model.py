@@ -36,12 +36,17 @@ def jax_params():
 
 
 def test_configs_equal_the_reference():
-    assert tcfgs.list_archs() == [ARCH]
-    for get in ("get_config", "get_tiny_config"):
-        ref = getattr(jcfgs, get)(ARCH)
-        port = getattr(tcfgs, get)(ARCH)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref), get
-        assert port.head_dim == ref.head_dim
+    archs = [ARCH, "mamba2-370m", "zamba2-1.2b"]
+    assert tcfgs.list_archs() == sorted(archs)
+    for arch in archs:
+        for get in ("get_config", "get_tiny_config"):
+            ref = getattr(jcfgs, get)(arch)
+            port = getattr(tcfgs, get)(arch)
+            assert dataclasses.asdict(port) == dataclasses.asdict(ref), \
+                (arch, get)
+            assert port.head_dim == ref.head_dim
+            assert (port.d_inner, port.ssm_nheads) == \
+                (ref.d_inner, ref.ssm_nheads)
 
 
 def test_norm_and_rope_match():
