@@ -7,18 +7,23 @@ Phases, in this order:
 
 1. the card's name and power limit, as nvidia-smi prints them;
 2. build of the hand-written kernels from ``src/repro_torch/kernels``,
-   one ``nvcc`` per source, all started together;
+   one ``nvcc`` per source, all started together; the count of HGMMA
+   (wgmma) instructions in each of K3's tensor-core kernels, from
+   ``cuobjdump -sass`` where the toolkit has it;
 3. kernels: K1 (spec_verify) and K2 (tree_verify) against their plain
    PyTorch versions on the card at granite-3-8b's head shapes, K1 also
    at zamba2-1.2b's shared attention (Hq=Hk=32, D=64, window 4096), and
    both at every other head dim they are built for; K2 on random draft trees
    (siblings at one position, a query that sees no key) and, under an
    all-true mask, bitwise equal to K1; K3 (flash_attention: the forward,
-   dQ and dK/dV) against the plain forward and backward at granite's
-   head shapes in bf16 and f32 — causal, non-causal, window 256,
-   q_offset > 0 with Tq != Tk, lengths off the tile, rows that see no
-   key (0, LSE -inf, no gradient) — and at D = 32, 64, 256, repeat
-   launches bitwise equal; K4 (ssd_scan) against its plain version at
+   dQ and dK/dV) against the plain forward and backward on both routes
+   of its (dtype, D) table (the tensor cores for bf16 at D 64 and 128,
+   the CUDA cores for f32 and for bf16 at D 32 and 256): granite's and
+   zamba2's head shapes — causal, non-causal, window 256, q_offset > 0
+   with Tq != Tk, lengths at the 64-row and 64-key tile edges (1, 63,
+   65, 129, 300), rows that see no key (0, LSE -inf, no gradient) — and
+   D = 32, 64, 256, repeat launches bitwise equal (see
+   ``flash_kernels_check``); K4 (ssd_scan) against its plain version at
    both SSM models' head shapes and tests/test_kernels.py's SSD cases
    (see ``ssd_kernels_check``);
 4. linear slice: a full-width, full-depth granite-3-8b Seer rollout
@@ -59,8 +64,11 @@ Phases, in this order:
    blocks, no attention), 4 groups x 4, 64 new tokens;
 10. timing: each kernel at the shape its slice gave it, beside its plain
    version, a library call where one computes the same function, and
-   the card's bound.  The ``kernels`` line has one row per kernel and
-   path that runs it (its ``path``), with that path's ``launches`` (K1:
+   the card's bound, each held against its plain version on the timed
+   inputs; K3 also at zamba2-1.2b's head shape, with each entry's
+   TFLOP/s and share of its bound.  The ``kernels`` line has one
+   row per kernel and path that runs it (its ``path``), with that path's
+   ``launches`` (K1:
    the granite linear slice and the hybrid cold pass; K2: the tree
    slice; K3: the training phase's two train steps; K4: the hybrid and
    the SSM cold passes) and that path's shape's timing.
@@ -467,16 +475,71 @@ def _fa_inputs(torch, np, *, B, Tq, Tk, Hq, Hk, D, dtype, seed):
             arr(B, Tq, Hq, D))
 
 
-def flash_kernels_check(torch, np) -> list:
-    """K3's forward, dQ and dK/dV against the plain forward and backward
-    on the card: granite-3-8b head shapes (Hq 32, Hk 8, D 128) in bf16 and
-    f32, causal, non-causal, window 256 and q_offset > 0, Tq != Tk, T not a
-    multiple of the 32-row tile, a case whose later rows see no key; then
-    D = 32, 64 and 256 on a small case.  Repeat launches bitwise equal,
-    rows that see nothing 0 (LSE -inf, no gradient)."""
+def _flash_case(torch, q, k, v, do, *, q_offset, causal, window) -> dict:
+    """One K3 case: the forward, dQ and dK/dV launched twice each on
+    (q, k, v, do), held against the plain forward and backward at TOL
+    (o, LSE, dq, dk, dv), rows that see nothing 0 with no gradient,
+    repeat launches bitwise equal.  Raises CheckFailed on any miss."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
+    B, Tq, Hq, D = q.shape
+    Tk, Hk = k.shape[1], k.shape[2]
+    dtype = str(q.dtype).removeprefix("torch.")
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    o, lse = ops.forward_kernel(q, k, v, **kw)
+    o2, lse2 = ops.forward_kernel(q, k, v, **kw)
+    g = ops.backward_kernels(q, k, v, o, lse, do, **kw)
+    g2 = ops.backward_kernels(q, k, v, o, lse, do, **kw)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+    g_ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    errs, ok = {}, True
+    for name, a, b in (("o", o, o_ref), ("dq", g[0], g_ref[0]),
+                       ("dk", g[1], g_ref[1]), ("dv", g[2], g_ref[2])):
+        errs[name] = float((a.float() - b.float()).abs().max())
+        ok = ok and torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+    seen = torch.isfinite(lse_ref)
+    ok = ok and torch.equal(torch.isfinite(lse), seen) and \
+        torch.allclose(lse[seen], lse_ref[seen], atol=tol, rtol=tol)
+    blind = ~seen.transpose(1, 2)                          # (B, Tq, Hq)
+    n_blind = int(blind.sum())
+    empty = n_blind == 0 or (
+        float(o[blind].float().abs().max()) == 0.0
+        and float(g[0][blind].float().abs().max()) == 0.0)
+    det = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+        torch.equal(a, b) for a, b in zip(g, g2))
+    route = ops.route(q.dtype, D)
+    what = f"B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hk={Hk} D={D} q_offset=" \
+        f"{q_offset} causal={causal} window={window} {dtype} ({route})"
+    log(f"  flash_attention {what}: max|err| " + ", ".join(
+        f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {tol}); "
+        f"{n_blind} blind rows 0: {empty}; repeat bit-equal: {det}")
+    check(bool(ok), f"flash_attention disagrees with its plain version:"
+          f" {what} {errs}")
+    check(empty, f"flash_attention: a row that sees nothing is not 0 "
+          f"({what})")
+    check(det, f"flash_attention: repeat launch not bit-equal ({what})")
+    return {"B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq, "Hk": Hk, "D": D,
+            "q_offset": q_offset, "causal": causal, "window": window,
+            "dtype": dtype, "route": route, "max_abs_err": max(errs.values()),
+            "errs": errs, "tol": tol, "blind_rows": n_blind,
+            "blind_rows_zero": empty, "deterministic": det}
+
+
+def flash_kernels_check(torch, np) -> list:
+    """K3's forward, dQ and dK/dV against the plain forward and backward
+    on the card, on both routes of the library's (dtype, D) table: the
+    tensor cores (bf16 at D 64 and 128) and the CUDA cores (f32, and bf16
+    at D 32 and 256).  granite-3-8b head shapes (Hq 32, Hk 8, D 128) in
+    bf16 and f32: causal, non-causal, window 256 and q_offset > 0, Tq !=
+    Tk, a case whose later rows see no key; then at granite's and
+    zamba2-1.2b's (Hq = Hk = 32, D 64) head shapes in bf16, lengths at the
+    edges of the 64-row and 64-key tiles (Tq, Tk of 1, 63, 65, 129, 300),
+    q_offset > 0 with window 256, rows that see nothing; f32 on a few of
+    those; then D = 32, 64 and 256 on a small case.  Repeat launches
+    bitwise equal, rows that see nothing 0 (LSE -inf, no gradient)."""
     rows = []
     # B, Tq, Tk, Hq, Hk, D, q_offset, causal, window
     shapes = [(2, 512, 512, 32, 8, 128, 0, True, 0),
@@ -485,89 +548,67 @@ def flash_kernels_check(torch, np) -> list:
               (2, 200, 700, 32, 8, 128, 500, True, 0),
               (1, 64, 100, 32, 8, 128, 200, True, 128)]
     cases = [c + (dt,) for c in shapes for dt in ("bfloat16", "float32")]
+    # tile edges: (B, Tq, Tk, q_offset, causal, window) at both head shapes
+    edges = [(1, 1, 1, 0, True, 0), (1, 63, 63, 0, True, 0),
+             (1, 65, 65, 0, True, 0), (1, 129, 129, 0, False, 0),
+             (1, 1, 129, 128, True, 0), (2, 65, 300, 235, True, 0),
+             (1, 129, 63, 0, False, 0), (1, 129, 300, 171, True, 256),
+             (1, 65, 100, 200, True, 128)]
+    for Hq, Hk, D in ((32, 8, 128), (32, 32, 64)):
+        cases += [(B, Tq, Tk, Hq, Hk, D, off, causal, win, "bfloat16")
+                  for B, Tq, Tk, off, causal, win in edges]
+    cases += [(B, Tq, Tk, 32, 8, 128, off, causal, win, "float32")
+              for B, Tq, Tk, off, causal, win in (edges[1], edges[4],
+                                                 edges[7])]
     cases += [(2, 100, 100, 8, 2, D, 0, True, w, dt) for D in (32, 64, 256)
               for dt, w in (("bfloat16", 0), ("float32", 64))]
     for B, Tq, Tk, Hq, Hk, D, off, causal, win, dtype in cases:
-        kw = dict(q_offset=off, causal=causal, window=win)
         q, k, v, do = _fa_inputs(torch, np, B=B, Tq=Tq, Tk=Tk, Hq=Hq, Hk=Hk,
                                  D=D, dtype=dtype, seed=Tq + Tk + D + win)
-        o, lse = ops.forward_kernel(q, k, v, **kw)
-        o2, lse2 = ops.forward_kernel(q, k, v, **kw)
-        g = ops.backward_kernels(q, k, v, o, lse, do, **kw)
-        g2 = ops.backward_kernels(q, k, v, o, lse, do, **kw)
-        o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
-        g_ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
-        torch.cuda.synchronize()
-        tol = TOL[dtype]
-        errs, ok = {}, True
-        for name, a, b in (("o", o, o_ref), ("dq", g[0], g_ref[0]),
-                           ("dk", g[1], g_ref[1]), ("dv", g[2], g_ref[2])):
-            errs[name] = float((a.float() - b.float()).abs().max())
-            ok = ok and torch.allclose(a.float(), b.float(), atol=tol,
-                                       rtol=tol)
-        seen = torch.isfinite(lse_ref)
-        ok = ok and torch.equal(torch.isfinite(lse), seen) and \
-            torch.allclose(lse[seen], lse_ref[seen], atol=tol, rtol=tol)
-        blind = ~seen.transpose(1, 2)                      # (B, Tq, Hq)
-        n_blind = int(blind.sum())
-        empty = n_blind == 0 or (
-            float(o[blind].float().abs().max()) == 0.0
-            and float(g[0][blind].float().abs().max()) == 0.0)
-        det = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
-            torch.equal(a, b) for a, b in zip(g, g2))
-        err = max(errs.values())
-        rows.append({"B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq, "Hk": Hk, "D": D,
-                     "q_offset": off, "causal": causal, "window": win,
-                     "dtype": dtype, "max_abs_err": err, "errs": errs,
-                     "tol": tol, "blind_rows": n_blind,
-                     "blind_rows_zero": empty, "deterministic": det})
-        what = f"B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hk={Hk} D={D} q_offset=" \
-            f"{off} causal={causal} window={win} {dtype}"
-        log(f"  flash_attention {what}: max|err| " + ", ".join(
-            f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {tol}); "
-            f"{n_blind} blind rows 0: {empty}; repeat bit-equal: {det}")
-        check(bool(ok), f"flash_attention disagrees with its plain version:"
-              f" {what} {errs}")
-        check(empty, f"flash_attention: a row that sees nothing is not 0 "
-              f"({what})")
-        check(det, f"flash_attention: repeat launch not bit-equal ({what})")
+        rows.append(_flash_case(torch, q, k, v, do, q_offset=off,
+                                causal=causal, window=win))
     return rows
+
+
+def _flash_ops(B, T, Hq, D, which):
+    """Operations of one K3 call at the causal shape: T(T+1)/2 visible
+    (query, key) pairs per query head, 2*D operations per pair and matrix
+    product; forward: S, P V; dq: S, dP, dS K; dkdv: S, dP, P^T dO, dS^T Q."""
+    n_mm = {"forward": 2, "dq": 3, "dkdv": 4}[which]
+    return n_mm * 2 * D * (B * Hq * T * (T + 1) // 2)
 
 
 def _flash_bound_ms(B, T, Hq, Hk, D, dtype, which):
     """Least time of one K3 call at the causal training shape: the bytes
     it must move (each input read once, each output written once) over
-    the memory rate against its matrix products over the peak rate of its
-    input type; the causal mask leaves T(T+1)/2 (query, key) pairs, each
-    product 2*D operations per pair and query head.  forward: S, P V;
-    dq: S, dP, dS K; dkdv: S, dP, P^T dO, dS^T Q."""
+    the memory rate against its matrix products (``_flash_ops``) over the
+    peak rate of its input type."""
     es = 2 if dtype == "bfloat16" else 4
-    pairs = B * Hq * T * (T + 1) // 2
     q_bytes, kv_bytes = B * T * Hq * D * es, B * T * Hk * D * es
     rows_f32 = B * Hq * T * 4
-    if which == "forward":
-        n_mm, nbytes = 2, 2 * q_bytes + 2 * kv_bytes + rows_f32
-    elif which == "dq":
-        n_mm, nbytes = 3, 3 * q_bytes + 2 * kv_bytes + 2 * rows_f32
-    else:
-        n_mm, nbytes = 4, 2 * q_bytes + 4 * kv_bytes + 2 * rows_f32
+    nbytes = {"forward": 2 * q_bytes + 2 * kv_bytes + rows_f32,
+              "dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows_f32,
+              "dkdv": 2 * q_bytes + 4 * kv_bytes + 2 * rows_f32}[which]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = n_mm * 2 * D * pairs / PEAK_OPS[dtype]
+    t_ops = _flash_ops(B, T, Hq, D, which) / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_kernels_time(torch, np, *, B=32, T=512, dtype="bfloat16",
-                       iters=50) -> dict:
-    """K3's forward, dQ and dK/dV at the training shape (causal), beside
-    the plain forward and backward, SDPA forward and backward (the
-    yardstick, never called by the port) and each kernel's bound; medians
-    of CUDA-event timed calls with L2 flushed before each."""
+def flash_kernels_time(torch, np, *, B=32, T=512, Hq=32, Hk=8, D=128,
+                       dtype="bfloat16", iters=50) -> dict:
+    """K3's forward, dQ and dK/dV at a causal training shape (granite-3-8b's
+    heads by default), beside the plain forward and backward, SDPA forward
+    and backward (the yardstick, never called by the port) and each
+    kernel's bound; medians of CUDA-event timed calls with L2 flushed
+    before each.  Each entry's achieved TFLOP/s (``_flash_ops`` over its
+    time) and its share of the bound (bound over time).  The timed inputs
+    are first held against the plain versions (``_flash_case``): the
+    shape the train step runs is the one checked."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
-    Hq, Hk, D = 32, 8, 128
     q, k, v, do = _fa_inputs(torch, np, B=B, Tq=T, Tk=T, Hq=Hq, Hk=Hk, D=D,
                              dtype=dtype, seed=5)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -576,9 +617,12 @@ def flash_kernels_time(torch, np, *, B=32, T=512, dtype="bfloat16",
         scratch.zero_()
 
     n0 = dict(ops.launches)
+    res = {"B": B, "T": T, "Hq": Hq, "Hk": Hk, "D": D, "dtype": dtype,
+           "route": ops.route(q.dtype, D),
+           "check": _flash_case(torch, q, k, v, do, q_offset=0, causal=True,
+                                window=0)}
     o, lse = ops.forward_kernel(q, k, v)
     delta = ops.bwd_delta(o, do)
-    res = {"B": B, "T": T, "dtype": dtype}
     res["forward_ms"] = _time_ms(torch, lambda: ops.forward_kernel(q, k, v),
                                  iters, flush)
     res["dq_ms"] = _time_ms(torch, lambda: ops.dq_kernel(
@@ -612,7 +656,36 @@ def flash_kernels_time(torch, np, *, B=32, T=512, dtype="bfloat16",
     for which in ("forward", "dq", "dkdv"):
         res[f"{which}_bound_ms"], res[f"{which}_bound_by"] = \
             _flash_bound_ms(B, T, Hq, Hk, D, dtype, which)
+        res[f"{which}_tflops"] = _flash_ops(B, T, Hq, D, which) / (
+            res[f"{which}_ms"] * 1e9)
+        res[f"{which}_bound_share"] = \
+            res[f"{which}_bound_ms"] / res[f"{which}_ms"]
     return res
+
+
+def flash_hgmma_counts(lib_path) -> dict:
+    """HGMMA instructions (wgmma in SASS) in each of K3's tensor-core
+    kernels of the built library, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        # tc::flash_fwd_wgmma<128, ...> mangles to ...tc15flash_fwd_wgmmaILi128E
+        m = re.search(r"\d(flash_[a-z]+_wgmma)ILi(\d+)E", line)
+        if "Function : " in line:
+            cur = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if cur:
+                counts[cur] = 0
+        elif cur and "HGMMA" in line:
+            counts[cur] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1537,6 +1610,10 @@ def _profile_summary(prof, wall: float) -> dict:
     rows.sort(key=lambda r: -r[1])
     shares = {name: sum(t for k, t, _ in rows if f"{name}_kernel" in k)
               / max(dev_total, 1e-9) for name in ("ssd_scan", "spec_verify")}
+    # K3 on either route: flash_{fwd,dq,dkdv}_{wgmma,kernel}
+    shares["flash_attention"] = sum(
+        t for k, t, _ in rows if "flash_" in k and (
+            "_wgmma" in k or "_kernel" in k)) / max(dev_total, 1e-9)
     return {"wall_ms": wall * 1e3, "device_ms": dev_total,
             "busy_share": dev_total / max(wall * 1e3, 1e-9),
             "shares": shares, "top": rows[:25]}
@@ -1589,6 +1666,17 @@ def main() -> int:
     if out_dir:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write("\n".join(lib.log for lib in libs))
+    hgmma = flash_hgmma_counts(fa_ops.LIBRARY.path())
+    report["k3_hgmma"] = hgmma
+    if hgmma is None:
+        log("K3 HGMMA instructions in SASS: not available (no cuobjdump)")
+    else:
+        log("K3 HGMMA instructions in SASS: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(hgmma.items())))
+        for which in ("fwd", "dq", "dkdv"):
+            for D in (64, 128):
+                name = f"flash_{which}_wgmma<{D}>"
+                check(hgmma.get(name, 0) > 0, f"no HGMMA in {name}'s SASS")
 
     B, S = 8, 2048
     log("kernels: spec_verify (K1) against its plain version")
@@ -1805,7 +1893,8 @@ def main() -> int:
         p = trn["profile"]
         log(f"  profile of one train step: wall {p['wall_ms']:.1f} ms, "
             f"device {p['device_ms']:.1f} ms (busy share "
-            f"{p['busy_share']:.3f})")
+            f"{p['busy_share']:.3f}); K3 "
+            f"{p['shares']['flash_attention']:.3f} of device time")
         for k_, t_, n_ in p["top"][:15]:
             log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
     # the trainer's closures hold tensors in reference cycles: collect
@@ -1908,18 +1997,26 @@ def main() -> int:
             f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
             f"({tm['bound_by']}); no single PyTorch call computes SSD")
 
+    # K3 at granite-3-8b's heads (the training phase's shape) and at
+    # zamba2-1.2b's (Hq = Hk = 32, D 64)
     ft = flash_kernels_time(torch, np)
+    fz = flash_kernels_time(torch, np, Hq=32, Hk=32, D=64)
     report["flash_kernel_time"] = ft
-    log(f"  flash_attention timing B={ft['B']} T={ft['T']} causal bf16: "
-        f"forward {ft['forward_ms']:.4f} ms (plain {ft['plain_forward_ms']:.4f}"
-        f", SDPA {ft['library_forward_ms']:.4f}, bound "
-        f"{ft['forward_bound_ms']:.4f} {ft['forward_bound_by']}); dQ "
-        f"{ft['dq_ms']:.4f} ms (bound {ft['dq_bound_ms']:.4f} "
-        f"{ft['dq_bound_by']}), dK/dV {ft['dkdv_ms']:.4f} ms (bound "
-        f"{ft['dkdv_bound_ms']:.4f} {ft['dkdv_bound_by']}), backward in all "
-        f"{ft['backward_ms']:.4f} ms (plain {ft['plain_backward_ms']:.4f}, "
-        f"SDPA backward {ft['library_backward_ms']:.4f}, SDPA forward + "
-        f"backward {ft['library_fwd_bwd_ms']:.4f})")
+    report["flash_kernel_time_zamba2"] = fz
+    for f_, name in ((ft, "granite-3-8b"), (fz, "zamba2-1.2b")):
+        log(f"  flash_attention timing ({name} heads) B={f_['B']} T="
+            f"{f_['T']} Hq={f_['Hq']} Hk={f_['Hk']} D={f_['D']} causal bf16 "
+            f"({f_['route']}): " + "; ".join(
+                f"{w} {f_[f'{w}_ms']:.4f} ms ({f_[f'{w}_tflops']:.1f} "
+                f"TFLOP/s, bound {f_[f'{w}_bound_ms']:.4f} "
+                f"{f_[f'{w}_bound_by']}, {f_[f'{w}_bound_share']:.3f} of "
+                f"it)" for w in ("forward", "dq", "dkdv")))
+        log(f"    backward in all {f_['backward_ms']:.4f} ms; plain forward "
+            f"{f_['plain_forward_ms']:.4f}, plain backward "
+            f"{f_['plain_backward_ms']:.4f}; SDPA forward "
+            f"{f_['library_forward_ms']:.4f}, backward "
+            f"{f_['library_backward_ms']:.4f}, forward + backward "
+            f"{f_['library_fwd_bwd_ms']:.4f}")
 
     def kernel_row(name, tpu, path, launches, checks, tm,
                    source=SPEC_VERIFY_SRC):
@@ -1937,7 +2034,8 @@ def main() -> int:
 
     def flash_row(name, which, plain, library):
         errs = [{"max_abs_err": max(c["errs"][o] for o in outputs[which])}
-                for c in report["flash_kernel_checks"]]
+                for c in report["flash_kernel_checks"] + [ft["check"],
+                                                          fz["check"]]]
         return kernel_row(
             name, FLASH_TPU, "granite-3-8b training, 2 train steps",
             trn["launches"][name], errs,

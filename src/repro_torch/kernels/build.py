@@ -3,7 +3,8 @@ library with a plain C interface in ``kernels/_build/`` -> ``ctypes``.
 
 Each kernel package holds one :class:`KernelLibrary` for its ``.cu``
 source.  The library is compiled at first use, once per digest of its
-source and flags (an unchanged source reuses its ``.so``), for
+source, the headers it includes (``#include "..."``, followed
+recursively) and the flags (an unchanged source reuses its ``.so``), for
 ``sm_90a``; nothing is compiled or loaded when a module is imported.
 :func:`build_all` starts one ``nvcc`` per library not yet built, all at
 once, and loads them when they are done.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,6 +25,28 @@ from typing import Callable, Iterable, Optional
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(source: Path) -> list:
+    """``source`` and every file it includes with ``#include "..."``,
+    followed recursively, each path resolved against the directory of the
+    file that names it (as nvcc does); a name that resolves to no file is
+    left to nvcc's own search path."""
+    seen, order, stack = set(), [], [Path(source).resolve()]
+    while stack:
+        path = stack.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        order.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            dep = (path.parent / name).resolve()
+            if dep.is_file():
+                stack.append(dep)
+    return order
 
 
 def _nvcc() -> str:
@@ -47,8 +71,10 @@ class KernelLibrary:
         self.log = ""            # nvcc's output (ptxas registers / smem)
 
     def path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for src in sources_of(self.source):
+            h.update(src.read_bytes())
+        digest = h.hexdigest()
         return BUILD_DIR / f"{self.name}_{digest[:12]}.so"
 
     def load(self) -> ctypes.CDLL:

@@ -8,6 +8,9 @@ k and v.  A CPU tensor goes to the plain forward and backward; a CUDA
 tensor goes to the hand-written kernels of ``csrc/flash_attention.cu``
 (the forward, which also writes each row's log-sum-exp, then dQ and
 dK/dV in the backward) or the wrapper raises — there is no fallback.
+Inside the library the route is a fixed table of (dtype, head dim):
+bf16 at D 64 and 128 runs on the tensor cores (wgmma on TMA-staged
+tiles), f32 and bf16 at D 32 and 256 on the CUDA cores (:func:`route`).
 The ``autograd.Function`` keeps nothing outside its ``ctx``, so it is
 safe under ``torch.utils.checkpoint``'s recompute (which runs its forward
 a second time).
@@ -54,18 +57,34 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.flash_attention_fwd_launch, lib.flash_attention_dq_launch,
                lib.flash_attention_dkdv_launch):
         fn.restype = i32
+    lib.flash_attention_route.argtypes = [i32, i32]
+    lib.flash_attention_route.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
 
 LIBRARY = KernelLibrary("flash_attention", SOURCE, _declare)
+_ROUTES = {1: "cuda_cores", 2: "tensor_cores"}
+# the grid's y dimension carries B * Hk (CUDA caps it at 65535)
+MAX_B_HK = 65535
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The library's route for (dtype, head dim): "tensor_cores" or
+    "cuda_cores" (asks the built library, whose table decides)."""
+    code = LIBRARY.load().flash_attention_route(_DTYPES[dtype], head_dim)
+    if code not in _ROUTES:
+        raise ValueError(f"flash_attention: no route for {dtype}, head dim "
+                         f"{head_dim}")
+    return _ROUTES[code]
 
 
 def check_inputs(q, k, v, *, q_offset: int, window: int) -> None:
     """Raise on what the kernel does not take: mixed devices, a dtype
     other than float32 / bfloat16, mismatched shapes, a head dim it was
-    not built for, non-contiguous or unaligned tensors, a negative offset
-    or window."""
+    not built for, more (batch, KV head) pairs than the grid holds,
+    non-contiguous or unaligned tensors (TMA and the 16-byte loads need
+    16-byte-aligned rows), a negative offset or window."""
     dev = q.device
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
@@ -85,6 +104,9 @@ def check_inputs(q, k, v, *, q_offset: int, window: int) -> None:
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in "
                          f"{HEAD_DIMS}")
+    if B * k.shape[2] > MAX_B_HK:
+        raise ValueError(f"flash_attention: B * Hk = {B * k.shape[2]} "
+                         f"exceeds the grid's {MAX_B_HK}")
     if q_offset < 0 or window < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset}, window "
                          f"{window}; want both >= 0")

@@ -176,3 +176,69 @@ def test_check_inputs_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         ops.check_inputs(q, torch.zeros(1, 8, 3, 64), torch.zeros(1, 8, 3, 64),
                          q_offset=0, window=0)
+
+
+def test_library_digest_follows_included_headers(tmp_path):
+    """``KernelLibrary.path`` digests the source and every header it
+    includes (followed recursively, resolved as nvcc does): editing a
+    header gives a new library path, so a stale build is never reused;
+    editing a file nobody includes does not."""
+    from repro_torch.kernels.build import KernelLibrary, sources_of
+    (tmp_path / "csrc").mkdir()
+    src = tmp_path / "csrc" / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "../inc/a.cuh"\n')
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "inc" / "a.cuh").write_text('#include "b.cuh"\n// a\n')
+    (tmp_path / "inc" / "b.cuh").write_text("// b\n")
+    (tmp_path / "inc" / "other.cuh").write_text("// unused\n")
+    assert [p.name for p in sources_of(src)] == ["k.cu", "a.cuh", "b.cuh"]
+    lib = KernelLibrary("k", src, lambda _: None)
+    first = lib.path()
+    (tmp_path / "inc" / "other.cuh").write_text("// still unused\n")
+    assert lib.path() == first
+    (tmp_path / "inc" / "b.cuh").write_text("// b, edited\n")
+    second = lib.path()
+    assert second != first
+    (tmp_path / "inc" / "a.cuh").write_text('#include "b.cuh"\n// a, edited\n')
+    assert lib.path() not in (first, second)
+    # K3's own source reaches the shared Hopper header
+    assert "hopper.cuh" in [p.name for p in sources_of(ops.SOURCE)]
+
+
+def _aligned(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+def _misaligned(shape, dtype=torch.bfloat16):
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)   # 2 bytes off
+
+
+@pytest.mark.parametrize("make, error, reason", [
+    (lambda: (_misaligned((1, 8, 4, 64)), _aligned((1, 8, 2, 64),
+                                                   torch.bfloat16)),
+     ValueError, "16-byte aligned"),
+    (lambda: (_aligned((1, 4, 8, 64)).transpose(1, 2),
+              _aligned((1, 8, 2, 64))), ValueError, "contiguous"),
+    (lambda: (_aligned((1, 8, 4, 48)), _aligned((1, 8, 2, 48))),
+     ValueError, "head dim 48"),
+    (lambda: (_aligned((1, 8, 4, 512)), _aligned((1, 8, 2, 512))),
+     ValueError, "head dim 512"),
+    (lambda: (_aligned((65536, 1, 1, 64)), _aligned((65536, 1, 1, 64))),
+     ValueError, "grid"),
+    (lambda: (_aligned((1, 8, 4, 64), torch.float16),
+              _aligned((1, 8, 2, 64), torch.float16)), TypeError,
+     "float32, bfloat16"),
+    (lambda: (_aligned((1, 8, 4, 64)), _aligned((1, 8, 3, 64))),
+     ValueError, "vs k"),
+], ids=["misaligned", "non-contiguous", "head-dim-48", "head-dim-512",
+        "grid", "float16", "heads-not-grouped"])
+def test_check_inputs_names_the_reason(make, error, reason):
+    """What neither route of the kernels takes is refused before a launch,
+    with the reason in the message: TMA and the 16-byte loads need
+    contiguous, 16-byte-aligned rows; the library is built for head dims
+    32, 64, 128 and 256; the grid holds at most 65535 (batch, KV head)
+    pairs; the dtype is float32 or bfloat16; Hq is a multiple of Hk."""
+    q, k = make()
+    with pytest.raises(error, match=reason):
+        ops.check_inputs(q, k, k, q_offset=0, window=0)
