@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile N] [--out DIR]
+    python3 chip_smoke.py [--profile N] [--out DIR] [--kernels-only]
 
 Phases, in this order:
 
 1. the card's name and power limit, as nvidia-smi prints them;
 2. build of the hand-written kernels from ``src/repro_torch/kernels``,
    one ``nvcc`` per source, all started together; the count of HGMMA
-   (wgmma) instructions in each of K3's tensor-core kernels, from
-   ``cuobjdump -sass`` where the toolkit has it;
+   (wgmma) instructions in each tensor-core kernel of K3 and of K1/K2,
+   from ``cuobjdump -sass`` where the toolkit has it; the timer's
+   self-check (``timer_self_check``: a 4-byte ``zero_()`` must read at
+   most 0.010 ms, so the host's dispatch gap is outside the window);
 3. kernels: K1 (spec_verify) and K2 (tree_verify) against their plain
-   PyTorch versions on the card at granite-3-8b's head shapes, K1 also
-   at zamba2-1.2b's shared attention (Hq=Hk=32, D=64, window 4096), and
-   both at every other head dim they are built for; K2 on random draft trees
-   (siblings at one position, a query that sees no key) and, under an
-   all-true mask, bitwise equal to K1; K3 (flash_attention: the forward,
+   PyTorch versions on the card, each case on every route its shape can
+   take (the library's table, then the other route through
+   ``ops.launch_on_route``: the tensor cores for bf16 at D 64 / 128, the
+   split CUDA cores), at granite-3-8b's head shapes (widths on both
+   sides of the table's threshold, windows, permuted slots, empty rows,
+   blind queries, B = 1), K1 also at zamba2-1.2b's shared attention
+   (Hq=Hk=32, D=64, window 4096), and both at every other head dim they
+   are built for; K2 on random draft trees (siblings at one position, a
+   query that sees no key) and, under an all-true mask, bitwise equal to
+   K1 on each route, every wrapper call free of host syncs under
+   ``torch.cuda.set_sync_debug_mode("error")``; K3 (flash_attention: the forward,
    dQ and dK/dV) against the plain forward and backward on both routes
    of its (dtype, D) table (the tensor cores for bf16 at D 64 and 128,
    the CUDA cores for f32 and for bf16 at D 32 and 256): granite's and
@@ -65,8 +73,17 @@ Phases, in this order:
 10. timing: each kernel at the shape its slice gave it, beside its plain
    version, a library call where one computes the same function, and
    the card's bound, each held against its plain version on the timed
-   inputs; K3 also at zamba2-1.2b's head shape, with each entry's
-   TFLOP/s and share of its bound.  The ``kernels`` line has one
+   inputs; K1 and K2 also at fixed widths (T = 1, 9, 33, 64 at 384 live
+   slots; K1 at zamba2's heads T = 1, 9, 64), with their route, n_split,
+   both routes' times at those widths, three rounds each (min,
+   median, max of the round medians) and the wrapper's host time per
+   call, and a check that T = 1 runs the split CUDA cores and T = 64 the
+   tensor cores; K3 also at zamba2-1.2b's head shape, with each entry's
+   TFLOP/s and share of its bound.  Every time is taken by
+   ``_time_rounds``: CUDA events around each call after an L2 flush, the
+   device spinning (``torch.cuda._sleep``) before the start event for
+   twice the host's longest enqueue of the call, so the window holds
+   device work only.  The ``kernels`` line has one
    row per kernel and path that runs it (its ``path``), with that path's
    ``launches`` (K1:
    the granite linear slice and the hybrid cold pass; K2: the tree
@@ -76,7 +93,9 @@ Phases, in this order:
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before either.  Without a CUDA device, or without the repository beside
-it, the script exits non-zero and prints no result.
+it, the script exits non-zero and prints no result.  ``--kernels-only``
+stops after phase 3's K1 / K2 checks and their timing table (no slices,
+no result line): the quick measurement of a K1 / K2 change.
 """
 from __future__ import annotations
 
@@ -211,77 +230,229 @@ def _bound_ms(q, k, q_pos, k_pos, window, dtype, tree=None):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _time_ms(torch, fn, iters: int, flush=None) -> float:
-    """Median device time of ``fn`` over ``iters`` calls (CUDA events
-    around each call; ``flush`` runs before each, outside the timed
-    window).  The median, not the mean: one slow stretch of the card
-    during a run should not decide a kernel's figure."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        if flush is not None:
-            flush()
+_SPIN = {}
+
+
+def _spin_cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per device millisecond,
+    measured once with CUDA events."""
+    if "per_ms" not in _SPIN:
+        n = 1 << 22
+        torch.cuda._sleep(1000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        torch.cuda._sleep(n)
         b.record()
-        pairs.append((a, b))
+        torch.cuda.synchronize()
+        _SPIN["per_ms"] = n / a.elapsed_time(b)
+    return _SPIN["per_ms"]
+
+
+# timing rounds of every measured call: each a median of its calls,
+# reported as the min, median and max of the rounds
+ROUNDS = 3
+
+
+def _host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds per call of ``fn``: enqueue only, the device not
+    waited for (``calls`` back to back, then one synchronize); the median
+    of ``ROUNDS`` rounds."""
+    per = []
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append(1e6 * (time.perf_counter() - t) / calls)
+        torch.cuda.synchronize()
+    return sorted(per)[len(per) // 2]
+
+
+def _time_rounds(torch, fn, iters: int, flush=None) -> dict:
+    """Device time of ``fn``: ``ROUNDS`` rounds, each the median of
+    ``iters`` calls timed by CUDA events; the min, median and max of the
+    round medians.  ``flush`` runs before each call, outside the timed
+    window.  Before each start event the device spins
+    (``torch.cuda._sleep``) for twice the longest host enqueue of ``fn``
+    seen in warm-up, so that every kernel of ``fn`` is queued before the
+    start event is reached: the window holds device work only, never the
+    host's dispatch gap.  The median, not the mean: one slow stretch of
+    the card should not decide a figure."""
+    fn()
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t)
     torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in pairs)
-    return times[len(times) // 2]
+    spin = int(2e3 * max(host) * _spin_cycles_per_ms(torch))
+    meds = []
+    for _ in range(ROUNDS):
+        pairs = []
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            torch.cuda._sleep(spin)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in pairs)
+        meds.append(times[len(times) // 2])
+    spread = sorted(meds)
+    return {"min": spread[0], "median": spread[len(spread) // 2],
+            "max": spread[-1], "rounds": meds,
+            "host_enqueue_us": 1e6 * max(host)}
+
+
+def _time_ms(torch, fn, iters: int, flush=None) -> float:
+    """The median of ``_time_rounds``' round medians."""
+    return _time_rounds(torch, fn, iters, flush)["median"]
+
+
+def timer_self_check(torch) -> float:
+    """The timed window of one tiny kernel (a 4-byte ``zero_()``) after an
+    L2 flush; above 0.010 ms the host's gap is still inside the window."""
+    tiny = torch.empty(1, dtype=torch.int32, device="cuda")
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    t = _time_rounds(torch, tiny.zero_, 50, scratch.zero_)
+    check(t["max"] <= 0.010, f"timer self-check: a 4-byte zero_() reads "
+          f"{t['max']:.4f} ms (> 0.010): the host's gap is in the window")
+    return t["max"]
+
+
+def _no_sync(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: raises
+    if the call synchronises the host with the device."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _routes(dtype: str, D: int) -> tuple:
+    """The routes a (dtype, head dim) can take: the CUDA cores always, the
+    tensor cores for bf16 at D 64 and 128."""
+    if dtype == "bfloat16" and D in (64, 128):
+        return ("cuda_cores", "tensor_cores")
+    return ("cuda_cores",)
+
+
+def _route_outputs(torch, ops, q, k, v, qp, kp, tm, window, dtype, D):
+    """K1 (K2 with ``tm``) launched twice on each route the shape can
+    take, K2 also under an all-true mask beside K1 on that route: {route:
+    (out, repeat bit-equal, all-true K2 == K1 or None)}."""
+    res = {}
+    for r in _routes(dtype, D):
+        out = ops.launch_on_route(r, q, k, v, qp, kp, tm, window=window)
+        out2 = ops.launch_on_route(r, q, k, v, qp, kp, tm, window=window)
+        same_k1 = None
+        if tm is not None:
+            k2_all = ops.launch_on_route(r, q, k, v, qp, kp,
+                                         torch.ones_like(tm), window=window)
+            k1 = ops.launch_on_route(r, q, k, v, qp, kp, window=window)
+            same_k1 = torch.equal(k2_all, k1)
+        res[r] = (out, torch.equal(out, out2), same_k1)
+    return res
 
 
 def kernels_check(torch, np, *, B, S, T_list) -> list:
     """K1 against its plain version at the head shapes of both paths that
-    run it: granite-3-8b's attention (Hq=32, Hk=8, D=128) and zamba2-1.2b's
-    shared attention (Hq=Hk=32, D=64, window 4096, its step widths), each
-    on the main path's cache; then at each other head dim it is built for
-    on a small cache, so that every instance of the kernel ran on the
-    card.  Each row names the path whose shape it has."""
+    run it, on every route each shape can take (the wrapper's own route
+    first, from the library's table, then the other through
+    ``ops.launch_on_route``): granite-3-8b's attention (Hq=32, Hk=8,
+    D=128) at widths on both sides of the tensor cores' 64 packed rows,
+    window 0 and 256, bf16 and f32, permuted slots, an empty row and a
+    blind query (both exactly 0), and B = 1 with a live count that does
+    not divide among the splits; zamba2-1.2b's shared attention (Hq=Hk=32,
+    D=64, window 4096, its step widths), each on the main path's cache;
+    then each other head dim it is built for on a small cache, so that
+    every instance of the kernel ran on the card.  Every launch is
+    repeated and must be bitwise equal; the wrapper's call runs under
+    sync debug "error" (sizing the split workspace needs no host sync).
+    Each row names the path whose shape it has."""
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_ref
     rows = []
     hq, hk, d, _ = K1_SHAPES["granite-3-8b"]
-    cases = [("granite-3-8b", B, S, T, hq, hk, d, dt, 0) for T in T_list
-             for dt in ("bfloat16", "float32")]
-    cases += [("granite-3-8b", B, S, T_list[1], hq, hk, d, "bfloat16", 256),
-              ("granite-3-8b", B, S, T_list[-1], hq, hk, d, "float32", 256)]
+    cases = [("granite-3-8b", B, S, T, hq, hk, d, dt, 0, None)
+             for T in T_list for dt in ("bfloat16", "float32")]
+    cases += [("granite-3-8b", B, S, T, hq, hk, d, dt, 256, None)
+              for T, dt in ((9, "bfloat16"), (17, "bfloat16"),
+                            (64, "bfloat16"), (128, "bfloat16"),
+                            (1, "float32"), (65, "float32"))]
+    cases += [("granite-3-8b", 1, S, T, hq, hk, d, dt, 0, [333])
+              for T, dt in ((1, "bfloat16"), (64, "bfloat16"),
+                            (1, "float32"))]
     hq, hk, d, win = K1_SHAPES["zamba2-1.2b"]
-    cases += [("zamba2-1.2b", B, S, T, hq, hk, d, dt, w)
+    cases += [("zamba2-1.2b", B, S, T, hq, hk, d, dt, w, None)
               for T in (1, 9, 64, 65) for dt in ("bfloat16", "float32")
               for w in (0, win)]
-    cases += [("small", 4, 512, 9, 8, 2, D, dt, w) for D in ops.HEAD_DIMS
-              if D != 128 for dt, w in (("bfloat16", 0), ("float32", 64))]
-    for shape, B, S, T, Hq, Hk, D, dtype, window in cases:
+    cases += [("small", 4, 512, 9, 8, 2, D, dt, w, None)
+              for D in ops.HEAD_DIMS if D != 128
+              for dt, w in (("bfloat16", 0), ("float32", 64))]
+    for shape, B, S, T, Hq, Hk, D, dtype, window, live in cases:
         q, k, v, qp, kp = _sv_inputs(torch, np, B=B, T=T, S=S, Hq=Hq, Hk=Hk,
-                                     D=D, dtype=dtype, seed=T + window + D)
-        out = ops.spec_verify(q, k, v, qp, kp, window=window)
-        out2 = ops.spec_verify(q, k, v, qp, kp, window=window)
+                                     D=D, dtype=dtype, seed=T + window + D,
+                                     live=live)
+        route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
+        out = _no_sync(torch, lambda: ops.spec_verify(q, k, v, qp, kp,
+                                                      window=window))
         ref = spec_verify_ref(q, k, v, qp, kp, window=window)
+        by_route = _route_outputs(torch, ops, q, k, v, qp, kp, None, window,
+                                  dtype, D)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
         tol = TOL[dtype]
-        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-        empty = out[B - 1].float().abs().max().item() == 0.0 and \
-            out[B - 2, 0].float().abs().max().item() == 0.0
-        det = torch.equal(out, out2)
-        rows.append({"shape": shape, "B": B, "S": S, "T": T, "Hq": Hq,
-                     "Hk": Hk, "D": D,
-                     "dtype": dtype, "window": window, "max_abs_err": err,
-                     "tol": tol, "empty_rows_zero": empty,
-                     "deterministic": det})
         what = f"B={B} T={T} S={S} Hq={Hq} Hk={Hk} D={D} {dtype} " \
             f"window={window}"
-        log(f"  spec_verify {what}: max|err|={err:.3e} (tol {tol}) "
-            f"empty rows 0: {empty}, repeat bit-equal: {det}")
-        check(bool(ok), f"spec_verify disagrees with its plain version: "
-              f"{what} max|err|={err}")
-        check(empty, f"spec_verify: rows with no visible key not 0 ({what})")
-        check(det, f"spec_verify: repeat launch not bit-equal ({what})")
+        check(torch.equal(out, by_route[route][0]),
+              f"spec_verify: the wrapper and its route {route} differ "
+              f"({what})")
+        errs = {}
+        for r, (o, det, _) in by_route.items():
+            errs[r] = float((o.float() - ref.float()).abs().max())
+            ok = torch.allclose(o.float(), ref.float(), atol=tol, rtol=tol)
+            check(bool(ok), f"spec_verify disagrees with its plain version "
+                  f"on {r}: {what} max|err|={errs[r]}")
+            check(det, f"spec_verify: repeat launch on {r} not bit-equal "
+                  f"({what})")
+            if live is None:
+                empty = o[B - 1].float().abs().max().item() == 0.0 and \
+                    o[B - 2, 0].float().abs().max().item() == 0.0
+                check(empty, f"spec_verify: rows with no visible key not 0 "
+                      f"on {r} ({what})")
+        err = max(errs.values())
+        rows.append({"shape": shape, "B": B, "S": S, "T": T, "Hq": Hq,
+                     "Hk": Hk, "D": D, "dtype": dtype, "window": window,
+                     "route": route, "n_split": n_split,
+                     "errs_by_route": errs, "max_abs_err": err, "tol": tol,
+                     "empty_rows_zero": live is None, "deterministic": True})
+        log(f"  spec_verify {what}: route {route} (n_split {n_split}); "
+            f"max|err| " + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
+            + f" (tol {tol}); repeats bit-equal; wrapper free of host "
+            f"syncs; " + ("empty rows and blind query 0" if live is None
+                         else f"live {live[0]}"))
     return rows
+
+
+def _time_routes(torch, ops, q, k, v, qp, kp, tm, window, dtype, iters,
+                 flush) -> dict:
+    """At the fixed widths, each route the shape can take timed through
+    ``ops.launch_on_route`` (K2 with ``tm``): {route: spread}; the
+    measurement that fixes the route table."""
+    T, D = q.shape[1], q.shape[3]
+    routes = _routes(dtype, D)
+    if T not in VERIFY_WIDTHS or len(routes) < 2:
+        return {}
+    return {r: _time_rounds(torch, lambda: ops.launch_on_route(
+        r, q, k, v, qp, kp, tm, window=window), iters, flush)
+        for r in routes}
 
 
 def kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
@@ -306,8 +477,10 @@ def kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
     err = float((out.float() - ref.float()).abs().max())
     check(err <= TOL[dtype] * (1 + float(ref.float().abs().max())),
           f"spec_verify ({model} timing shape) max|err|={err}")
-    ms = _time_ms(torch, lambda: ops.spec_verify(q, k, v, qp, kp,
-                                                 window=window), iters, flush)
+    def k1():
+        return ops.spec_verify(q, k, v, qp, kp, window=window)
+    t = _time_rounds(torch, k1, iters, flush)
+    host_us = _host_us(torch, k1)
     plain_ms = _time_ms(torch, lambda: spec_verify_ref(q, k, v, qp, kp,
                                                        window=window),
                         max(iters // 5, 5), flush)
@@ -319,14 +492,20 @@ def kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
-    library_ms = _time_ms(torch, lib, iters, flush)
+    lt = _time_rounds(torch, lib, iters, flush)
     bound_ms, bound_by = _bound_ms(q, k, qp, kp, window, dtype)
+    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
+    route_ms = _time_routes(torch, ops, q, k, v, qp, kp, None, window, dtype,
+                            iters, flush)
     ops.launches.update(n0)      # timing launches are not a slice's
     return {"model": model, "T": T, "Hq": Hq, "Hk": Hk, "D": D,
             "window": window, "dtype": dtype,
-            "live_mean": float(np.mean(live)),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+            "live_mean": float(np.mean(live)), "route": route,
+            "n_split": n_split, "route_ms": route_ms,
+            "ms": t["median"], "ms_spread": t, "host_us": host_us,
+            "plain_ms": plain_ms, "library_ms": lt["median"],
+            "library_spread": lt, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
 
 
 def _tree_inputs(torch, np, *, B, T, S, Hq, Hk, D, dtype, seed, live=None):
@@ -374,49 +553,60 @@ def _tree_inputs(torch, np, *, B, T, S, Hq, Hk, D, dtype, seed, live=None):
 def tree_kernels_check(torch, np, *, B, S, T_list) -> list:
     """K2 against its plain version at the main path's head shapes, on
     random trees, T in ``T_list`` (decode, tree verify and prefill
-    widths), bf16 and f32, window 0 and 256; repeat launches bit-equal,
-    the query that sees no key exactly 0, and with an all-true mask K2
-    bitwise equal to K1.  Then each other head dim on a small cache."""
+    widths on both sides of the tensor cores' 64 packed rows), bf16 and
+    f32, window 0 and 256, on every route each shape can take; repeat
+    launches bit-equal, the query that sees no key exactly 0, and with an
+    all-true mask K2 bitwise equal to K1 on the same route, the wrapper's
+    call free of host syncs.  Then B = 1, and each other head dim on a
+    small cache."""
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import tree_verify_ref
     rows = []
     cases = [(B, S, T, 32, 8, 128, dt, w) for T in T_list
              for dt in ("bfloat16", "float32") for w in (0, 256)]
+    cases += [(1, S, T, 32, 8, 128, "bfloat16", 0) for T in (1, 9, 64)]
     cases += [(4, 512, 9, 8, 2, D, dt, w) for D in ops.HEAD_DIMS if D != 128
               for dt, w in (("bfloat16", 0), ("float32", 64))]
     for B, S, T, Hq, Hk, D, dtype, window in cases:
         q, k, v, qp, kp, tm = _tree_inputs(
             torch, np, B=B, T=T, S=S, Hq=Hq, Hk=Hk, D=D, dtype=dtype,
             seed=100 + T + window + D)
-        out = ops.tree_verify(q, k, v, qp, kp, tm, window=window)
-        out2 = ops.tree_verify(q, k, v, qp, kp, tm, window=window)
+        route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
+        out = _no_sync(torch, lambda: ops.tree_verify(q, k, v, qp, kp, tm,
+                                                      window=window))
         ref = tree_verify_ref(q, k, v, qp, kp, tm, window=window)
-        ones = torch.ones_like(tm)
-        k2_all = ops.tree_verify(q, k, v, qp, kp, ones, window=window)
-        k1 = ops.spec_verify(q, k, v, qp, kp, window=window)
+        by_route = _route_outputs(torch, ops, q, k, v, qp, kp, tm, window,
+                                  dtype, D)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
         tol = TOL[dtype]
-        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-        empty = out[B - 1, T - 1].float().abs().max().item() == 0.0
-        det = torch.equal(out, out2)
-        same_k1 = torch.equal(k2_all, k1)
-        rows.append({"B": B, "S": S, "T": T, "Hq": Hq, "Hk": Hk, "D": D,
-                     "dtype": dtype, "window": window, "max_abs_err": err,
-                     "tol": tol, "empty_query_zero": empty,
-                     "deterministic": det, "all_true_equals_k1": same_k1})
         what = f"B={B} T={T} S={S} Hq={Hq} Hk={Hk} D={D} {dtype} " \
             f"window={window}"
-        log(f"  tree_verify {what}: max|err|={err:.3e} (tol {tol}) "
-            f"blind query 0: {empty}, repeat bit-equal: {det}, all-true "
-            f"mask == K1: {same_k1}")
-        check(bool(ok), f"tree_verify disagrees with its plain version: "
-              f"{what} max|err|={err}")
-        check(empty, f"tree_verify: a query with no visible key is not 0 "
+        check(torch.equal(out, by_route[route][0]),
+              f"tree_verify: the wrapper and its route {route} differ "
               f"({what})")
-        check(det, f"tree_verify: repeat launch not bit-equal ({what})")
-        check(same_k1, f"tree_verify with an all-true mask is not "
-              f"bitwise K1 ({what})")
+        errs = {}
+        for r, (o, det, same_k1) in by_route.items():
+            errs[r] = float((o.float() - ref.float()).abs().max())
+            ok = torch.allclose(o.float(), ref.float(), atol=tol, rtol=tol)
+            check(bool(ok), f"tree_verify disagrees with its plain version "
+                  f"on {r}: {what} max|err|={errs[r]}")
+            check(o[B - 1, T - 1].float().abs().max().item() == 0.0,
+                  f"tree_verify: a query with no visible key is not 0 on "
+                  f"{r} ({what})")
+            check(det, f"tree_verify: repeat launch on {r} not bit-equal "
+                  f"({what})")
+            check(same_k1, f"tree_verify with an all-true mask is not "
+                  f"bitwise K1 on {r} ({what})")
+        err = max(errs.values())
+        rows.append({"B": B, "S": S, "T": T, "Hq": Hq, "Hk": Hk, "D": D,
+                     "dtype": dtype, "window": window, "route": route,
+                     "n_split": n_split, "errs_by_route": errs,
+                     "max_abs_err": err, "tol": tol, "empty_query_zero": True,
+                     "deterministic": True, "all_true_equals_k1": True})
+        log(f"  tree_verify {what}: route {route} (n_split {n_split}); "
+            f"max|err| " + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
+            + f" (tol {tol}); blind query 0, repeats bit-equal, all-true "
+            f"mask == K1 on every route, wrapper free of host syncs")
     return rows
 
 
@@ -442,8 +632,10 @@ def tree_kernels_time(torch, np, *, B, S, T, live, dtype="bfloat16",
     err = float((out.float() - ref.float()).abs().max())
     check(err <= TOL[dtype] * (1 + float(ref.float().abs().max())),
           f"tree_verify (timing shape) max|err|={err}")
-    ms = _time_ms(torch, lambda: ops.tree_verify(q, k, v, qp, kp, tm),
-                  iters, flush)
+    def k2():
+        return ops.tree_verify(q, k, v, qp, kp, tm)
+    t = _time_rounds(torch, k2, iters, flush)
+    host_us = _host_us(torch, k2)
     k1_ms = _time_ms(torch, lambda: ops.spec_verify(q, k, v, qp, kp), iters,
                      flush)
     plain_ms = _time_ms(torch, lambda: tree_verify_ref(q, k, v, qp, kp, tm),
@@ -454,13 +646,82 @@ def tree_kernels_time(torch, np, *, B, S, T, live, dtype="bfloat16",
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
-    library_ms = _time_ms(torch, lib, iters, flush)
+    lt = _time_rounds(torch, lib, iters, flush)
     bound_ms, bound_by = _bound_ms(q, k, qp, kp, 0, dtype, tree=tm)
+    route, n_split = ops.plan(q.dtype, B, T, 32, 8, 128, S)
+    route_ms = _time_routes(torch, ops, q, k, v, qp, kp, tm, 0, dtype, iters,
+                            flush)
     ops.launches.update(n0)      # timing launches are not a slice's
     return {"T": T, "dtype": dtype, "live_mean": float(np.mean(live)),
-            "ms": ms, "k1_ms": k1_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+            "route": route, "n_split": n_split, "route_ms": route_ms,
+            "ms": t["median"], "ms_spread": t, "host_us": host_us,
+            "k1_ms": k1_ms, "plain_ms": plain_ms,
+            "library_ms": lt["median"], "library_spread": lt,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+
+def _spread(t) -> str:
+    return f"{t['median']:.4f} [{t['min']:.4f}-{t['max']:.4f}]"
+
+
+def log_verify_time(name, tm) -> None:
+    """One timing row of K1 or K2: card ms as median [min-max] of the
+    round medians, host microseconds per call, plain, SDPA, bound."""
+    heads = f" Hq={tm['Hq']} Hk={tm['Hk']} D={tm['D']} window " \
+        f"{tm['window']}" if "Hq" in tm else ""
+    k1 = f" (K1 on the same inputs {tm['k1_ms']:.4f})" if "k1_ms" in tm \
+        else ""
+    both = "".join(f"; on {r} {_spread(x)}"
+                   for r, x in tm["route_ms"].items())
+    log(f"  {name} timing T={tm['T']}{heads} live~{tm['live_mean']:.0f} "
+        f"bf16, route {tm['route']} (n_split {tm['n_split']}): "
+        f"{_spread(tm['ms_spread'])} ms{k1}, host {tm['host_us']:.1f} "
+        f"us/call{both}; plain {tm['plain_ms']:.4f} ms; SDPA "
+        f"{_spread(tm['library_spread'])} ms; bound {tm['bound_ms']:.4f} "
+        f"ms ({tm['bound_by']})")
+
+
+# K1 / K2 check widths at granite's heads (G = 4), each checked on both
+# routes: the table sends T = 1 to the split CUDA cores and T >= 2 to the
+# tensor cores; 15/16/17, 63/64/65 and 128 pack 60-68, 256-260 and 512
+# rows, around the 64-row tiles' edges
+CHECK_WIDTHS = (1, 2, 3, 9, 15, 16, 17, 33, 64, 65, 128)
+# fixed widths at 384 live slots of every row, comparable across runs:
+# K1 and K2 at granite-3-8b's heads, K1 also at zamba2-1.2b's
+VERIFY_WIDTHS = (1, 9, 33, 64)
+ZAMBA_WIDTHS = (1, 9, 64)
+
+
+def verify_time_table(torch, np, *, B, S, extra=(), zamba_extra=(),
+                      tree_extra=()) -> dict:
+    """K1 and K2 timed at the fixed widths (and each slice's commonest
+    widths, ``extra``: (T, live) pairs) with ``kernels_time`` and
+    ``tree_kernels_time``."""
+    fixed = [(T, np.full(B, 384)) for T in VERIFY_WIDTHS]
+    zfixed = [(T, np.full(B, 384)) for T in ZAMBA_WIDTHS]
+    out = {"spec_verify": [kernels_time(torch, np, B=B, S=S, T=T, live=lv)
+                           for T, lv in list(extra) + fixed],
+           "spec_verify/zamba2-1.2b": [
+               kernels_time(torch, np, B=B, S=S, T=T, live=lv,
+                            model="zamba2-1.2b")
+               for T, lv in list(zamba_extra) + zfixed],
+           "tree_verify": [tree_kernels_time(torch, np, B=B, S=S, T=T,
+                                             live=lv)
+                           for T, lv in list(tree_extra) + fixed]}
+    for name, rows in out.items():
+        for tm in rows:
+            log_verify_time(name, tm)
+    # the routes the table gives the engine's shapes: decode on the split
+    # CUDA cores, wide steps on the tensor cores
+    for name in ("spec_verify", "tree_verify"):
+        by_t = {tm["T"]: tm for tm in out[name][-len(VERIFY_WIDTHS):]}
+        check(by_t[1]["route"] == "cuda_cores" and by_t[1]["n_split"] > 1,
+              f"{name} at T=1: route {by_t[1]['route']}, n_split "
+              f"{by_t[1]['n_split']} (want the split CUDA cores)")
+        check(by_t[64]["route"] == "tensor_cores",
+              f"{name} at T=64: route {by_t[64]['route']} (want the tensor "
+              f"cores)")
+    return out
 
 
 def _fa_inputs(torch, np, *, B, Tq, Tk, Hq, Hk, D, dtype, seed):
@@ -663,9 +924,17 @@ def flash_kernels_time(torch, np, *, B=32, T=512, Hq=32, Hk=8, D=128,
     return res
 
 
-def flash_hgmma_counts(lib_path) -> dict:
-    """HGMMA instructions (wgmma in SASS) in each of K3's tensor-core
-    kernels of the built library, from ``cuobjdump -sass``; None where the
+# kernel names in SASS: tc::flash_fwd_wgmma<128, ...> mangles to
+# ...tc15flash_fwd_wgmmaILi128E, tc::verify_wgmma<64, true> to
+# ...tc12verify_wgmmaILi64ELb1EE
+FLASH_WGMMA = r"\d(flash_[a-z]+_wgmma)ILi(\d+)E"
+VERIFY_WGMMA = r"\d(verify_wgmma)ILi(\d+)ELb([01])E"
+
+
+def hgmma_counts(lib_path, pattern) -> dict:
+    """HGMMA instructions (wgmma in SASS) in each tensor-core kernel of a
+    built library whose name matches ``pattern`` (the kernel's name, then
+    its template arguments), from ``cuobjdump -sass``; None where the
     toolkit has no cuobjdump."""
     import re
     import shutil
@@ -677,10 +946,9 @@ def flash_hgmma_counts(lib_path) -> dict:
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
     counts, cur = {}, None
     for line in out.stdout.splitlines():
-        # tc::flash_fwd_wgmma<128, ...> mangles to ...tc15flash_fwd_wgmmaILi128E
-        m = re.search(r"\d(flash_[a-z]+_wgmma)ILi(\d+)E", line)
+        m = re.search(pattern, line)
         if "Function : " in line:
-            cur = f"{m.group(1)}<{m.group(2)}>" if m else None
+            cur = f"{m.group(1)}<{','.join(m.groups()[1:])}>" if m else None
             if cur:
                 counts[cur] = 0
         elif cur and "HGMMA" in line:
@@ -829,11 +1097,7 @@ def sync_debug_steps(torch, np, cfg, params, n_steps: int = 8) -> dict:
         drafts = {i: [inst.slots[i].last_token] * (8 if it % 2 else 2)
                   for i in inst.decode_slots()}
         s0 = steps.host_syncs
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            ticket = inst.dispatch_step(drafts)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        ticket = _no_sync(torch, lambda: inst.dispatch_step(drafts))
         inst.commit_step(ticket)
         syncs.append(steps.host_syncs - s0)
         kinds.append(ticket.T if ticket is not None else 0)
@@ -1627,6 +1891,9 @@ def main() -> int:
     ap.add_argument("--profile", type=int, default=0,
                     help="profile this many engine steps and one train "
                     "step (0: off)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, check K1 and K2 and time them at the "
+                    "fixed widths, then stop (no slices, no result line)")
     ap.add_argument("--out", default=None,
                     help="directory for the full JSON report and traces")
     args = ap.parse_args()
@@ -1666,26 +1933,46 @@ def main() -> int:
     if out_dir:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write("\n".join(lib.log for lib in libs))
-    hgmma = flash_hgmma_counts(fa_ops.LIBRARY.path())
-    report["k3_hgmma"] = hgmma
-    if hgmma is None:
-        log("K3 HGMMA instructions in SASS: not available (no cuobjdump)")
-    else:
-        log("K3 HGMMA instructions in SASS: " + ", ".join(
+    want = {"K3": (fa_ops.LIBRARY, FLASH_WGMMA,
+                   [f"flash_{w}_wgmma<{D}>" for w in ("fwd", "dq", "dkdv")
+                    for D in (64, 128)]),
+            "K1/K2": (ops.LIBRARY, VERIFY_WGMMA,
+                      [f"verify_wgmma<{D},{t}>" for D in (64, 128)
+                       for t in (0, 1)])}
+    for kname, (lib, pattern, names) in want.items():
+        hgmma = hgmma_counts(lib.path(), pattern)
+        report[f"{kname.lower().replace('/', '_')}_hgmma"] = hgmma
+        if hgmma is None:
+            log(f"{kname} HGMMA instructions in SASS: not available (no "
+                "cuobjdump)")
+            continue
+        log(f"{kname} HGMMA instructions in SASS: " + ", ".join(
             f"{k} {v}" for k, v in sorted(hgmma.items())))
-        for which in ("fwd", "dq", "dkdv"):
-            for D in (64, 128):
-                name = f"flash_{which}_wgmma<{D}>"
-                check(hgmma.get(name, 0) > 0, f"no HGMMA in {name}'s SASS")
+        for name in names:
+            check(hgmma.get(name, 0) > 0, f"no HGMMA in {name}'s SASS")
+
+    report["timer_self_check_ms"] = timer_self_check(torch)
+    log(f"timer self-check: a 4-byte zero_() after an L2 flush reads "
+        f"{report['timer_self_check_ms']:.4f} ms (max of 3 round medians; "
+        f"limit 0.010)")
 
     B, S = 8, 2048
     log("kernels: spec_verify (K1) against its plain version")
     report["kernel_checks"] = kernels_check(torch, np, B=B, S=S,
-                                            T_list=[1, 9, 64])
+                                            T_list=CHECK_WIDTHS)
 
     log("kernels: tree_verify (K2) against its plain version")
     report["tree_kernel_checks"] = tree_kernels_check(
-        torch, np, B=B, S=S, T_list=[1, 9, 33, 64])
+        torch, np, B=B, S=S, T_list=CHECK_WIDTHS)
+
+    if args.kernels_only:
+        log("K1 / K2 timing at the fixed widths")
+        report["verify_time"] = verify_time_table(torch, np, B=B, S=S)
+        if out_dir:
+            with open(os.path.join(out_dir, "report.json"), "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        log(card)
+        return 0
 
     log("kernels: flash_attention (K3) forward, dQ and dK/dV against "
         "their plain versions")
@@ -1948,43 +2235,21 @@ def main() -> int:
         return int(max(by_kind, key=by_kind.get).split(":")[1])
 
     # each kernel's timing shape follows its slice: its most frequent step
-    # width, and each slot's context halfway through; then a fixed set of
-    # widths at 384 live slots, comparable across runs
+    # width, and each slot's context halfway through; then the fixed
+    # widths at 384 live slots (``verify_time_table``).  K1 also at
+    # zamba2's shared attention, at the hybrid passes' commonest widths
+    # (same prompt lengths, so the same live contexts)
     live = np.asarray([min(len(p) + NEW_TOKENS // 2, S)
                        for p in prompts for _ in range(GROUP_SIZE)][:B])
-    fixed = [(T, np.full(B, 384)) for T in (1, 9, 64)]
-    report["kernel_time"] = [
-        kernels_time(torch, np, B=B, S=S, T=T, live=lv)
-        for T, lv in [(commonest_T(r["by_kind"]), live)] + fixed]
-    for tm in report["kernel_time"]:
-        log(f"  spec_verify timing B={B} T={tm['T']} S={S} live~"
-            f"{tm['live_mean']:.0f} bf16: {tm['ms']:.4f} ms, plain "
-            f"{tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} ms, "
-            f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
-    # K1 at zamba2's shared attention, at the hybrid passes' commonest
-    # widths (same prompt lengths, so the same live contexts)
     hyb = rec["zamba2-1.2b"]
-    report["hybrid_kernel_time"] = [
-        kernels_time(torch, np, B=B, S=S, T=T, live=live,
-                     model="zamba2-1.2b")
-        for T in dict.fromkeys(commonest_T(hyb[p_]["fused_by_T"])
-                               for p_ in ("cold", "warm"))]
-    for tm in report["hybrid_kernel_time"]:
-        log(f"  spec_verify timing (zamba2-1.2b shared attention) B={B} "
-            f"T={tm['T']} S={S} Hq={tm['Hq']} Hk={tm['Hk']} D={tm['D']} "
-            f"window {tm['window']} live~{tm['live_mean']:.0f} bf16: "
-            f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, SDPA "
-            f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
-            f"({tm['bound_by']})")
-    report["tree_kernel_time"] = [
-        tree_kernels_time(torch, np, B=B, S=S, T=T, live=lv)
-        for T, lv in [(commonest_T(tr["by_kind"]), live)] + fixed]
-    for tm in report["tree_kernel_time"]:
-        log(f"  tree_verify timing B={B} T={tm['T']} S={S} live~"
-            f"{tm['live_mean']:.0f} bf16: {tm['ms']:.4f} ms (K1 on the "
-            f"same inputs {tm['k1_ms']:.4f} ms), plain "
-            f"{tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} ms, "
-            f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+    vt = verify_time_table(
+        torch, np, B=B, S=S, extra=[(commonest_T(r["by_kind"]), live)],
+        zamba_extra=[(T, live) for T in dict.fromkeys(
+            commonest_T(hyb[p_]["fused_by_T"]) for p_ in ("cold", "warm"))],
+        tree_extra=[(commonest_T(tr["by_kind"]), live)])
+    report["kernel_time"] = vt["spec_verify"]
+    report["hybrid_kernel_time"] = vt["spec_verify/zamba2-1.2b"]
+    report["tree_kernel_time"] = vt["tree_verify"]
 
     report["ssd_kernel_time"] = []
     for arch, b, nh, P, G, N in SSD_MODEL_SHAPES:

@@ -66,24 +66,35 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A contiguous bf16 tensor of dims (d0, d1, d2, d3), innermost first, cut
-// into boxes (b0, b1, b2, b3) with b0 * 2 == 128 bytes, swizzled 128B;
-// loads past an edge read zeros.  false if the driver refuses.
+// Any tiled tensor map: `rank` dims innermost first, the byte strides of
+// dims 1.. (multiples of 16), the box, no interleave; loads past an edge
+// read zeros.  false if the driver refuses.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                         cuuint32_t rank, const void* base,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor of dims (d0, d1, d2, d3), innermost first, contiguous but
+// for the outermost stride (`stride3` bytes; 0: contiguous), cut into
+// boxes (b0, b1, b2, b3) with b0 * 2 == 128 bytes, swizzled 128B.
 inline bool encode_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0,
                            uint64_t d1, uint64_t d2, uint64_t d3,
                            uint32_t b0, uint32_t b1, uint32_t b2,
-                           uint32_t b3) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return false;
+                           uint32_t b3, uint64_t stride3 = 0) {
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
-  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
+  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2,
+                                 stride3 ? stride3 : d0 * d1 * d2 * 2};
   const cuuint32_t box[4] = {b0, b1, b2, b3};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------
@@ -156,6 +167,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the 3-d counterpart of tma_load_4d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -1,14 +1,22 @@
 """Wrappers of the spec-verify (K1) and tree-verify (K2) CUDA kernels:
-build, checks, launch.
+build, checks, routes, launch.
 
 ``spec_verify(q, k, v, q_pos, k_pos, window=)`` computes the function of
 ``ref.spec_verify_ref``, ``tree_verify(q, k, v, q_pos, k_pos, tree_mask,
 window=)`` that of ``ref.tree_verify_ref``.  A CPU tensor goes to the
-plain version; a CUDA tensor goes to the hand-written kernel in
-``csrc/spec_verify.cu`` (one body, the tree mask an optional operand)
-or the wrapper raises — there is no fallback.
+plain version; a CUDA tensor goes to the hand-written kernels in
+``csrc/spec_verify.cu`` or the wrapper raises — there is no fallback.
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+Inside the library the route of a call is a fixed table of its shape
+(dtype, head dim, T), the same for K1 and K2 (:func:`plan`): bf16 at
+D 64 / 128 from T = 2 up on the tensor cores (wgmma on TMA-staged
+tiles); f32, the other head dims and bf16 decode (T = 1) on the CUDA
+cores, where a grid that would underfill the card is split along the
+cache into ``n_split`` shares (a function of the shape, :func:`plan`)
+merged by a second launch in split order.  The wrapper allocates the
+split workspace; a call counts one launch however many kernels it ran.
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``, into
 ``repro_torch/kernels/_build/`` (listed in ``.gitignore``; see
 ``kernels/build.py``).  Nothing is compiled or loaded when the module is
@@ -39,16 +47,25 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+# the library's route codes
+ROUTES = {1: "cuda_cores", 2: "tensor_cores"}
+_ROUTE_CODES = {None: 0, "cuda_cores": 1, "tensor_cores": 2}
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.spec_verify_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i64,
-        i32, ctypes.c_float, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64,
+        i64, i32, ctypes.c_float, i32, vp]
     lib.spec_verify_launch.restype = i32
     lib.tree_verify_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64,
-        i64, i64, i64, i32, ctypes.c_float, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+        i64, i64, i64, i64, i32, ctypes.c_float, i32, vp]
     lib.tree_verify_launch.restype = i32
+    lib.spec_verify_route.argtypes = [i32] * 6
+    lib.spec_verify_route.restype = i32
+    lib.spec_verify_splits.argtypes = [i32] * 8
+    lib.spec_verify_splits.restype = i32
     lib.spec_verify_error_string.argtypes = [i32]
     lib.spec_verify_error_string.restype = ctypes.c_char_p
 
@@ -61,10 +78,52 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
+_PLANS = {}
+
+
+def plan(dtype: torch.dtype, B: int, T: int, Hq: int, Hk: int, D: int,
+         S: int, route: str = None) -> tuple:
+    """(route, n_split) of a call of this shape: the library's table, or
+    ``route`` ("cuda_cores" / "tensor_cores") where the shape can take
+    it; n_split is 1 on the tensor cores.  Kept per shape, so the hot
+    path asks the library once."""
+    key = (dtype, B, T, Hq, Hk, D, S, route)
+    got = _PLANS.get(key)
+    if got is None:
+        lib = build()
+        want = _ROUTE_CODES[route]
+        code = lib.spec_verify_route(_DTYPES[dtype], D, T, Hq, Hk, want)
+        if code not in ROUTES:
+            raise ValueError(f"spec_verify: no route for {dtype}, head dim "
+                             f"{D}, T={T}, Hq={Hq}, Hk={Hk}"
+                             + (f" on {route}" if route else ""))
+        got = (ROUTES[code], lib.spec_verify_splits(
+            _DTYPES[dtype], D, B, T, Hq, Hk, S, want))
+        _PLANS[key] = got
+    return got
+
+
+def check_tensor_cores(q, tree_mask=None) -> None:
+    """Raise on what the tensor-core route cannot take: TMA reads q, and
+    K2's mask, as tiles, so q needs a 16-byte-aligned base and the mask a
+    16-byte-aligned base and batch and row strides that are multiples of
+    16 bytes (the K/V conditions are ``check_inputs``' own)."""
+    if q.data_ptr() % 16:
+        raise ValueError("spec_verify (tensor cores): q must start on a "
+                         "16-byte boundary")
+    if tree_mask is not None and (tree_mask.data_ptr() % 16
+                                  or tree_mask.stride(0) % 16
+                                  or tree_mask.stride(1) % 16):
+        raise ValueError("tree_verify (tensor cores): the mask's base and "
+                         "its batch and row strides must be multiples of "
+                         f"16 bytes; got strides {tree_mask.stride()}")
+
+
 def check_inputs(q, k, v, q_pos, k_pos) -> None:
     """Raise on what the kernel does not take: mixed devices, a dtype
     other than float32 / bfloat16 (int32 positions), mismatched shapes,
-    a head dim it was not built for, non-contiguous or unaligned rows."""
+    a head dim it was not built for, non-contiguous or unaligned rows
+    (what the tensor-core route asks besides: ``check_tensor_cores``)."""
     dev = q.device
     for name, t in (("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos)):
         if t.device != dev:
@@ -104,7 +163,8 @@ def check_inputs(q, k, v, q_pos, k_pos) -> None:
 def check_tree_mask(q, k, tree_mask) -> None:
     """Raise on a tree mask K2 does not take: another device, a dtype
     other than bool / uint8, a shape other than (B, T, S), rows that are
-    not contiguous."""
+    not contiguous (what the tensor-core route asks besides:
+    ``check_tensor_cores``)."""
     if tree_mask.device != q.device:
         raise ValueError(f"tree_verify: tree_mask on {tree_mask.device}, q "
                          f"on {q.device}")
@@ -119,27 +179,37 @@ def check_tree_mask(q, k, tree_mask) -> None:
         raise ValueError("tree_verify: tree_mask rows must be contiguous")
 
 
-def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window):
-    """Launch K1 (``tree_mask`` None) or K2 on q's current stream; raise
-    on a refused launch."""
-    lib = build()
+def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window,
+            route: str = None):
+    """Launch K1 (``tree_mask`` None) or K2 on q's current stream, on the
+    table's route or on ``route``; raise on what that route cannot take
+    and on a refused launch."""
     B, T, Hq, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
+    how, n_split = plan(q.dtype, B, T, Hq, Hk, D, S, route)
+    if how == "tensor_cores":
+        check_tensor_cores(q, tree_mask)
+    lib = build()
     out = torch.empty_like(q)
+    # the splits' (acc, m, l) in f32, merged into out by the second launch
+    ws = (torch.empty(n_split * B * T * Hq * (D + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
+    part = None if ws is None else ws.data_ptr()
     scale = f32_scale(D)
+    code = _ROUTE_CODES[route]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         head = (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 q_pos.data_ptr(), k_pos.data_ptr())
         if tree_mask is None:
             err = lib.spec_verify_launch(
-                *head, out.data_ptr(), B, T, S, Hq, Hk, D, k.stride(0),
-                k_pos.stride(0), int(window), scale, stream)
+                *head, out.data_ptr(), part, B, T, S, Hq, Hk, D, k.stride(0),
+                k_pos.stride(0), int(window), scale, code, stream)
         else:
             err = lib.tree_verify_launch(
-                *head, tree_mask.data_ptr(), out.data_ptr(), B, T, S, Hq, Hk,
-                D, k.stride(0), k_pos.stride(0), tree_mask.stride(0),
-                tree_mask.stride(1), int(window), scale, stream)
+                *head, tree_mask.data_ptr(), out.data_ptr(), part, B, T, S,
+                Hq, Hk, D, k.stride(0), k_pos.stride(0), tree_mask.stride(0),
+                tree_mask.stride(1), int(window), scale, code, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.spec_verify_error_string(err).decode())
@@ -174,3 +244,15 @@ def tree_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_inputs(q, k, v, q_pos, k_pos)
     check_tree_mask(q, k, tree_mask)
     return _launch("tree_verify", q, k, v, q_pos, k_pos, tree_mask, window)
+
+
+def launch_on_route(route: str, q, k, v, q_pos, k_pos, tree_mask=None, *,
+                    window: int = 0) -> torch.Tensor:
+    """K1 (or K2, given ``tree_mask``) on CUDA tensors on ``route``
+    whatever the table says: for checking both routes of a shape on the
+    card and timing one against the other.  The port never calls it."""
+    check_inputs(q, k, v, q_pos, k_pos)
+    if tree_mask is not None:
+        check_tree_mask(q, k, tree_mask)
+    name = "spec_verify" if tree_mask is None else "tree_verify"
+    return _launch(name, q, k, v, q_pos, k_pos, tree_mask, window, route)

@@ -17,6 +17,13 @@ softmax are f32; rows with no visible key give 0; the output has q's
 dtype.  This follows ``_plain`` op for op (scale
 ``1/sqrt(float32(D))`` on the f32 query), so on the CPU the port's
 forward matches the JAX package's.
+
+The split route of the kernels (decode on the CUDA cores) has its own
+plain pieces: ``split_partials`` cuts the attention of each row into
+``n_split`` shares of its slots, as the kernel cuts its list of needed
+32-slot tiles, and keeps each share's (m, l, unnormalised acc) in f32;
+``merge_partials`` merges them in share order, as the merge launch does.
+``split_verify_ref`` is the two together.
 """
 from __future__ import annotations
 
@@ -77,3 +84,80 @@ def _masked_ref(q, k, v, mask):
     p = torch.where(m.any(dim=-1, keepdim=True), p, 0.0)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, T, Hq, D).to(q.dtype)
+
+
+SPLIT_TILE = 32   # slots per tile of the kernels' split route
+
+
+def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor, n_split: int,
+                   tile: int = SPLIT_TILE) -> tuple:
+    """The attention of q over k, v under ``mask`` (B, T, S) cut into
+    ``n_split`` shares: per batch row, the in-order list of ``tile``-slot
+    tiles that some query of the row may see, share s holding entries
+    [n * s // n_split, n * (s + 1) // n_split) of it (empty when n_split
+    exceeds n).  Returns (m, l, acc): m and l (n_split, B, T, Hq) f32 —
+    the share's max score (NEG_INF where it sees no key) and its sum of
+    exp(score - m) — and acc (n_split, B, T, Hq, D) f32, the unnormalised
+    sum of exp(score - m) v."""
+    B, T, Hq, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G = Hq // Hk
+    qg = (q.float() * f32_scale(D)).reshape(B, T, Hk, G, D)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float())    # (B,T,Hk,G,S)
+    s = s.reshape(B, T, Hq, S)
+    n_tiles = -(-S // tile)
+    seen = torch.zeros(B, n_tiles * tile, dtype=torch.bool)
+    seen[:, :S] = mask.any(dim=1).cpu()
+    seen = seen.reshape(B, n_tiles, tile).any(dim=-1)        # (B, n_tiles)
+    share = torch.full((B, S), -1, dtype=torch.long)
+    for b in range(B):
+        listed = torch.nonzero(seen[b]).flatten().tolist()
+        n = len(listed)
+        for sp in range(n_split):
+            for t in listed[n * sp // n_split:n * (sp + 1) // n_split]:
+                share[b, t * tile:(t + 1) * tile] = sp
+    share = share.to(q.device)
+    vf = v.float().repeat_interleave(G, dim=2)                # (B,S,Hq,D)
+    ms, ls, accs = [], [], []
+    for sp in range(n_split):
+        vis = mask & (share == sp)[:, None, :]                 # (B,T,S)
+        sv = torch.where(vis[:, :, None, :], s, NEG_INF)
+        m = sv.max(dim=-1).values                              # (B,T,Hq)
+        p = torch.where(vis[:, :, None, :], torch.exp(sv - m[..., None]),
+                        0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bthk,bkhd->bthd", p, vf))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """The plain version of the merge launch: shares (n, ...) merged in
+    share order, out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M)
+    with M the max of m_s; exactly 0 where no share saw a key (every l_s
+    is 0), never NaN.  f32 out."""
+    mx = m[0]
+    for sp in range(1, m.shape[0]):
+        mx = torch.maximum(mx, m[sp])
+    lt = torch.zeros_like(l[0])
+    at = torch.zeros_like(acc[0])
+    for sp in range(m.shape[0]):
+        c = torch.exp(m[sp] - mx)
+        lt = lt + l[sp] * c
+        at = at + acc[sp] * c[..., None]
+    return at / torch.clamp(lt, min=1e-30)[..., None]
+
+
+def split_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, k_pos: torch.Tensor,
+                     n_split: int, *, window: int = 0,
+                     tree_mask: torch.Tensor = None) -> torch.Tensor:
+    """K1 (K2 with ``tree_mask``) computed as the split route computes
+    it: ``split_partials`` then ``merge_partials``; q's dtype out."""
+    mask = pos_mask(q_pos, k_pos, window)
+    if tree_mask is not None:
+        mask = mask & tree_mask.bool()
+    return merge_partials(*split_partials(q, k, v, mask, n_split)).to(
+        q.dtype)

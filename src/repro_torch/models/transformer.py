@@ -284,7 +284,9 @@ def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
     slots written by this step's columns obey ``within_mask`` (B,T,T).
     ``slots`` (B,T) are this step's write targets, S for masked columns;
     the column of each slot is scattered into a (B, S+1) buffer whose
-    last column stands in for JAX's dropped writes."""
+    last column stands in for JAX's dropped writes.  The mask's rows are
+    laid out a multiple of 16 bytes apart (a view of a padded buffer when
+    S is not), as K2's tensor-core route reads them by TMA."""
     B, T = positions.shape
     S = slot_pos.shape[1]
     qp = positions[:, :, None]
@@ -299,7 +301,13 @@ def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
     col = col[:, :S]
     idx = col.clamp(0, T - 1)[:, None, :].expand(B, T, S)
     ext = within_mask.gather(2, idx)
-    return torch.where((col >= 0)[:, None, :], ext, base)
+    pad = -S % 16
+    if not pad:
+        return torch.where((col >= 0)[:, None, :], ext, base)
+    out = torch.zeros((B, T, S + pad), dtype=torch.bool,
+                      device=positions.device)[:, :, :S]
+    torch.where((col >= 0)[:, None, :], ext, base, out=out)
+    return out
 
 
 def _ssm_stack(cfg, blocks, x, token_mask, cache, rec, first):
