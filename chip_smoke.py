@@ -9,7 +9,8 @@ Phases, in this order:
 2. build of the hand-written kernels from ``src/repro_torch/kernels``,
    one ``nvcc`` per source, all started together; the count of HGMMA
    (wgmma) instructions in each tensor-core kernel of K3 and of K1/K2,
-   from ``cuobjdump -sass`` where the toolkit has it; the timer's
+   and of HMMA (mma.sync) in each of K4's, from ``cuobjdump -sass``
+   where the toolkit has it; the timer's
    self-check (``timer_self_check``: a 4-byte ``zero_()`` must read at
    most 0.010 ms, so the host's dispatch gap is outside the window);
 3. kernels: K1 (spec_verify) and K2 (tree_verify) against their plain
@@ -32,8 +33,11 @@ Phases, in this order:
    65, 129, 300), rows that see no key (0, LSE -inf, no gradient) — and
    D = 32, 64, 256, repeat launches bitwise equal (see
    ``flash_kernels_check``); K4 (ssd_scan) against its plain version at
-   both SSM models' head shapes and tests/test_kernels.py's SSD cases
-   (see ``ssd_kernels_check``);
+   both SSM models' head shapes and tests/test_kernels.py's SSD cases,
+   each case on every route its shape can take (the recurrent route up to
+   T = 64, the tensor cores for bf16, the CUDA cores) and at every n_split
+   of each route, bitwise the same across n_split (see
+   ``ssd_kernels_check``), the N = 16 and 32 instances included;
 4. linear slice: a full-width, full-depth granite-3-8b Seer rollout
    (40 layers, random weights from a seed, bf16) on two instances
    through the port's entry points, with its checks: every group finishes, every
@@ -88,14 +92,20 @@ Phases, in this order:
    ``launches`` (K1:
    the granite linear slice and the hybrid cold pass; K2: the tree
    slice; K3: the training phase's two train steps; K4: the hybrid and
-   the SSM cold passes) and that path's shape's timing.
+   the SSM cold passes) and that path's shape's timing; K4 also at fixed
+   widths (``ssd_time_table``: T = 1, 3, 5, 9, 33, 64 and each SSM slice's
+   cold and warm commonest, both models' heads on 8 slots) with route,
+   n_split, bound on the route's units and its share, the kernel's own
+   duration from torch.profiler, plain time and the wrapper's host time
+   per call.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before either.  Without a CUDA device, or without the repository beside
 it, the script exits non-zero and prints no result.  ``--kernels-only``
-stops after phase 3's K1 / K2 checks and their timing table (no slices,
-no result line): the quick measurement of a K1 / K2 change.
+stops after phase 3's K1 / K2 and K4 checks and their timing tables (no
+slices, no result line; K4's table also times every route and n_split
+at the fixed widths): the quick measurements of a kernel change.
 """
 from __future__ import annotations
 
@@ -929,13 +939,15 @@ def flash_kernels_time(torch, np, *, B=32, T=512, Hq=32, Hk=8, D=128,
 # ...tc12verify_wgmmaILi64ELb1EE
 FLASH_WGMMA = r"\d(flash_[a-z]+_wgmma)ILi(\d+)E"
 VERIFY_WGMMA = r"\d(verify_wgmma)ILi(\d+)ELb([01])E"
+# ssd_tensor_cores<64, 32> mangles to ...16ssd_tensor_coresILi64ELi32EE
+SSD_MMA = r"\d(ssd_tensor_cores)ILi(\d+)ELi(\d+)E"
 
 
-def hgmma_counts(lib_path, pattern) -> dict:
-    """HGMMA instructions (wgmma in SASS) in each tensor-core kernel of a
-    built library whose name matches ``pattern`` (the kernel's name, then
-    its template arguments), from ``cuobjdump -sass``; None where the
-    toolkit has no cuobjdump."""
+def hgmma_counts(lib_path, pattern, opcode="HGMMA") -> dict:
+    """``opcode`` instructions (HGMMA: wgmma in SASS; HMMA: mma.sync) in
+    each tensor-core kernel of a built library whose name matches
+    ``pattern`` (the kernel's name, then its template arguments), from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -951,7 +963,7 @@ def hgmma_counts(lib_path, pattern) -> dict:
             cur = f"{m.group(1)}<{','.join(m.groups()[1:])}>" if m else None
             if cur:
                 counts[cur] = 0
-        elif cur and "HGMMA" in line:
+        elif cur and opcode in line:
             counts[cur] += 1
     return counts
 
@@ -1243,29 +1255,86 @@ def _ssd_inputs(torch, np, *, b, T, nh, P, G, N, dtype, seed, init,
 # (name, b, nh, P, G, N): the two models' SSD head shapes on 8 slots
 SSD_MODEL_SHAPES = [("zamba2-1.2b", 8, 64, 64, 1, 64),
                     ("mamba2-370m", 8, 32, 64, 1, 128)]
-# tests/test_kernels.py's SSD_CASES: b, T, nh, P, G, N, chunk, with_init
+# b, T, nh, P, G, N, chunk, with_init: tests/test_kernels.py's
+# SSD_CASES, then the state widths N = 16 (the tiny configs' heads, and P
+# 64, which the tensor cores take at N = 16) and N = 32 at widths the
+# recurrent route takes, so that every kernel instance the table can
+# reach is held to the plain version
 SSD_TEST_CASES = [(2, 128, 4, 64, 1, 128, 64, False),
                   (1, 96, 8, 32, 2, 64, 32, True),
                   (2, 32, 2, 64, 1, 128, 128, True),
-                  (1, 256, 4, 64, 4, 32, 64, False)]
+                  (1, 256, 4, 64, 4, 32, 64, False),
+                  (2, 9, 8, 32, 1, 16, 256, True),
+                  (2, 33, 8, 32, 1, 16, 256, True),
+                  (2, 33, 4, 64, 1, 16, 256, True),
+                  (2, 9, 4, 64, 2, 32, 256, True)]
+
+
+def _ssd_run(ops, route, n_split, x, dt, A, Bm, Cm, S0, chunk,
+             out_state=None):
+    """K4 on ``route`` (None: the wrapper, i.e. the table) at ``n_split``
+    (None: the table's)."""
+    if route is None and n_split is None:
+        return ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, chunk,
+                                  out_state=out_state)
+    return ops.launch_on_route(route, x, dt, A, Bm, Cm, S0, chunk,
+                               out_state=out_state, n_split=n_split)
+
+
+def _ssd_route_case(torch, ops, route, args, chunk, b, want_kept):
+    """One K4 case on one route at each n_split the route can take: the
+    outputs at the table's n_split, and whether a repeat launch, every
+    other n_split and the in-place update (``out_state = init_state``)
+    gave the same bits, and whether the zero-dt row kept its state."""
+    x, dt, A, Bm, Cm, S0 = args
+    T, P, N = x.shape[1], x.shape[3], Bm.shape[3]
+    _, n0 = ops.plan(x.dtype, b, T, x.shape[2], P, N, route)
+    n_run = None if route is None else n0
+    y, s = _ssd_run(ops, route, n_run, *args, chunk)
+    y2, s2 = _ssd_run(ops, route, n_run, *args, chunk)
+    det = torch.equal(y, y2) and torch.equal(s, s2)
+    splits = [n0] if route is None else ops.split_options(route, x.dtype,
+                                                          T, P, N)
+    split_same = True
+    for n in splits:
+        if n != n0:
+            yn, sn = _ssd_run(ops, route, n, *args, chunk)
+            split_same = split_same and torch.equal(yn, y) and \
+                torch.equal(sn, s)
+    inplace = True
+    if S0 is not None:
+        s3 = S0.clone()
+        y3, _ = _ssd_run(ops, route, n_run, x, dt, A, Bm, Cm, s3, chunk,
+                         out_state=s3)
+        inplace = torch.equal(s3, s) and torch.equal(y3, y)
+    kept = b == 1 or torch.equal(s[b - 1], want_kept)
+    return y, s, {"n_split": n0, "splits": splits, "deterministic": det,
+                  "split_invariant": split_same, "in_place": inplace,
+                  "zero_dt_row_kept": kept}
 
 
 def ssd_kernels_check(torch, np) -> list:
-    """K4 against its plain version on the card: both models' head shapes
-    on 8 slots (x, B, C strided as the model passes them) at T = 1, 9,
-    33, 65 (decode and the engine's verify widths) and 300 (two chunks of
-    256, padded), with and without an initial state, then
-    tests/test_kernels.py's SSD cases (G = 2 and 4 among them); f32 at
-    1e-4 and bf16 at 3e-2 (absolute and relative).  Each case: a repeat
-    launch bitwise equal, the zero-dt row's state unchanged bit for bit,
-    the in-place update (out_state = init_state) bitwise the same.  Then
-    chunk independence: chunks of 64, 128 and 256 over T = 300 agree at
-    2e-4."""
+    """K4 against its plain version on the card, each case on every route
+    its shape can take (the wrapper's, from the library's table, then
+    each other through ``ops.launch_on_route``: the recurrent route up to
+    T = 64, the tensor cores for bf16, the CUDA cores always) and on
+    each route at every n_split it can take: both models' head shapes on
+    8 slots (x, B, C strided as the model passes them) at T = 1, 2, 9,
+    33, 64, 65 (decode, the engine's verify and prefill widths) and 300
+    (two chunks of 256, padded), with and without an initial state, then
+    ``SSD_TEST_CASES`` (tests/test_kernels.py's, G = 2 and 4 among them,
+    and N = 16 and 32 on every route that takes them); f32 at
+    1e-4 and bf16 at 3e-2 (absolute and relative).  On each route: a
+    repeat launch, every other n_split and the in-place update
+    (out_state = init_state) bitwise the same, the zero-dt row's state
+    unchanged bit for bit.  Across routes the results agree at the
+    tolerance only (logged).  Then chunk independence: chunks of 64, 128
+    and 256 over T = 300 agree at 2e-4 on every route."""
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     cases = [(name, b, T, nh, P, G, N, 256, init, dt, True)
              for name, b, nh, P, G, N in SSD_MODEL_SHAPES
-             for T in (1, 9, 33, 65, 300) for init in (True, False)
+             for T in (1, 2, 9, 33, 64, 65, 300) for init in (True, False)
              for dt in ("float32", "bfloat16")]
     cases += [("tests", b, T, nh, P, G, N, chunk, init, dt, False)
               for b, T, nh, P, G, N, chunk, init in SSD_TEST_CASES
@@ -1273,107 +1342,300 @@ def ssd_kernels_check(torch, np) -> list:
     rows = []
     for i, (name, b, T, nh, P, G, N, chunk, init, dtype, strided) in \
             enumerate(cases):
-        x, dt, A, Bm, Cm, S0 = _ssd_inputs(
-            torch, np, b=b, T=T, nh=nh, P=P, G=G, N=N, dtype=dtype,
-            seed=i, init=init, strided=strided)
-        y, s = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, chunk)
-        y2, s2 = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, chunk)
-        yr, sr = ssd_ref(x, dt, A, Bm, Cm, S0, chunk)
-        same_inplace = True
-        if S0 is not None:
-            s3 = S0.clone()
-            y3, _ = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, s3, chunk,
-                                       out_state=s3)
-            same_inplace = torch.equal(s3, s) and torch.equal(y3, y)
+        args = _ssd_inputs(torch, np, b=b, T=T, nh=nh, P=P, G=G, N=N,
+                           dtype=dtype, seed=i, init=init, strided=strided)
+        x, dt, A, Bm, Cm, S0 = args
+        yr, sr = ssd_ref(*args, chunk)
+        kept_ref = S0[b - 1] if S0 is not None else torch.zeros_like(
+            sr[b - 1])
+        routes = ops.routes_of(x.dtype, T, P, N)
+        table, _ = ops.plan(x.dtype, b, T, nh, P, N)
+        yw, sw = ops.ssd_chunk_scan(*args, chunk)
+        outs, facts = {}, {}
+        for r in routes:
+            y, s, f = _ssd_route_case(torch, ops, r, args, chunk, b,
+                                      kept_ref)
+            outs[r], facts[r] = (y, s), f
         torch.cuda.synchronize()
         tol = SSD_TOL[dtype]
-        err = max(float((y.float() - yr.float()).abs().max()),
-                  float((s - sr).abs().max()))
-        ok = torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol) and \
-            torch.allclose(s, sr, atol=tol, rtol=tol)
-        det = torch.equal(y, y2) and torch.equal(s, s2)
-        kept = b == 1 or torch.equal(
-            s[b - 1], S0[b - 1] if S0 is not None else torch.zeros_like(
-                s[b - 1]))
-        rows.append({"shape": name, "b": b, "T": T, "nh": nh, "P": P,
-                     "G": G, "N": N, "chunk": chunk, "init": init,
-                     "dtype": dtype, "strided": strided, "max_abs_err": err,
-                     "tol": tol, "deterministic": det,
-                     "zero_dt_row_kept": kept, "in_place": same_inplace})
         what = f"{name} b={b} T={T} nh={nh} P={P} G={G} N={N} chunk=" \
             f"{chunk} init={init} {dtype}"
-        log(f"  ssd_scan {what}: max|err|={err:.3e} (tol {tol}); repeat "
-            f"bit-equal {det}, zero-dt row kept {kept}, in place "
-            f"{same_inplace}")
-        check(bool(ok), f"ssd_scan disagrees with its plain version: {what} "
-              f"max|err|={err}")
-        check(det, f"ssd_scan: repeat launch not bit-equal ({what})")
-        check(kept, f"ssd_scan: a zero-dt row's state changed ({what})")
-        check(same_inplace, f"ssd_scan: in-place state update differs "
-              f"({what})")
-    x, dt, A, Bm, Cm, S0 = _ssd_inputs(torch, np, b=2, T=300, nh=8, P=64,
-                                       G=1, N=64, dtype="float32", seed=99,
-                                       init=True, strided=False)
-    outs = [ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, c) for c in
-            (64, 128, 256)]
-    gap = max(max(float((y - outs[0][0]).abs().max()),
-                  float((s - outs[0][1]).abs().max())) for y, s in outs[1:])
-    log(f"  ssd_scan chunk independence (T=300, chunks 64/128/256): max "
-        f"gap {gap:.3e} (tol 2e-4)")
+        y0, s0 = outs[routes[0]]
+        check(torch.equal(yw, y0) and torch.equal(sw, s0),
+              f"ssd_scan: the wrapper and its route {table} differ ({what})")
+        errs = {}
+        for r, (y, s) in outs.items():
+            errs[r] = max(float((y.float() - yr.float()).abs().max()),
+                          float((s - sr).abs().max()))
+            ok = torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol) \
+                and torch.allclose(s, sr, atol=tol, rtol=tol)
+            f = facts[r]
+            check(bool(ok), f"ssd_scan disagrees with its plain version on "
+                  f"{r}: {what} max|err|={errs[r]}")
+            check(f["deterministic"], f"ssd_scan: repeat launch on {r} not "
+                  f"bit-equal ({what})")
+            check(f["split_invariant"], f"ssd_scan: results on {r} depend "
+                  f"on n_split {f['splits']} ({what})")
+            check(f["zero_dt_row_kept"], f"ssd_scan: a zero-dt row's state "
+                  f"changed on {r} ({what})")
+            check(f["in_place"], f"ssd_scan: in-place state update differs "
+                  f"on {r} ({what})")
+        gap = max((max(float((y.float() - y0.float()).abs().max()),
+                       float((s - s0).abs().max()))
+                   for y, s in outs.values()), default=0.0)
+        rows.append({"shape": name, "b": b, "T": T, "nh": nh, "P": P,
+                     "G": G, "N": N, "chunk": chunk, "init": init,
+                     "dtype": dtype, "strided": strided, "route": table,
+                     "errs_by_route": errs,
+                     "splits_by_route": {r: facts[r]["splits"]
+                                         for r in facts},
+                     "max_abs_err": max(errs.values()), "tol": tol,
+                     "route_gap": gap, "deterministic": True,
+                     "zero_dt_row_kept": True, "in_place": True,
+                     "split_invariant": True})
+        log(f"  ssd_scan {what}: route {table}; max|err| " + ", ".join(
+            f"{r} {e:.3e} (n_split {facts[r]['splits']})"
+            for r, e in errs.items()) + f" (tol {tol}); gap between routes "
+            f"{gap:.3e}; on each route repeat, every n_split and in place "
+            f"bit-equal, zero-dt row kept")
+    args = _ssd_inputs(torch, np, b=2, T=300, nh=8, P=64, G=1, N=64,
+                       dtype="float32", seed=99, init=True, strided=False)
+    gap = 0.0
+    for r in ops.routes_of(torch.float32, 300, 64, 64):
+        outs = [_ssd_run(ops, r, None, *args, c) for c in (64, 128, 256)]
+        gap = max([gap] + [max(float((y - outs[0][0]).abs().max()),
+                               float((s - outs[0][1]).abs().max()))
+                           for y, s in outs[1:]])
+    log(f"  ssd_scan chunk independence (T=300, chunks 64/128/256, every "
+        f"route): max gap {gap:.3e} (tol 2e-4)")
     check(gap <= 2e-4, f"ssd_scan: results depend on the chunk ({gap})")
     rows.append({"chunk_independence_gap": gap, "max_abs_err": 0.0})
     return rows
 
 
-def _ssd_bound_ms(b, T, nh, P, G, N, es):
-    """Least time of one K4 call at one chunk (T <= 256): the state read
-    once and written once, x, B, C, dt read and y written once, over the
-    memory rate, against the f32 operations (2 per multiply-add) of C S^T,
-    the in-chunk C B^T and W x over the T(T+1)/2 causal pairs, and the
-    state update, over the CUDA cores' f32 rate."""
+def _round_operand(torch, v, how):
+    """An f32 operand as a tensor-core product would take it: rounded to
+    bf16, to TF32 (10 mantissa bits, to nearest, as cvt.rna.tf32.f32), or
+    split into a hi + lo pair of bf16 values."""
+    if how == "bf16":
+        return v.to(torch.bfloat16).float()
+    if how == "tf32":
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+# the operand choices of the tensor-core route, and its own
+SSD_OPERANDS = ("bf16", "tf32", "hi_lo")
+SSD_TC_OPERANDS = "hi_lo"
+
+
+def ssd_operand_errors(torch, np, widths=(9, 64)) -> list:
+    """The error each operand choice of the tensor-core route would give:
+    one chunk of K4's chunked form in plain PyTorch on the card, C B^T and
+    the bf16 operands exact, f32 sums, the f32 operands W, B o w and S
+    rounded per ``_round_operand``, held to ``ssd_ref`` at both models'
+    head shapes (b 8, bf16, the timing inputs) at the 3e-2 tolerance:
+    max |err| of y and of the state, and the worst err / (atol + rtol
+    |ref|) (above 1 fails)."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    rows = []
+    for name, b, nh, P, G, N in SSD_MODEL_SHAPES:
+        for T in widths:
+            x, dt, A, Bm, Cm, S0 = _ssd_inputs(
+                torch, np, b=b, T=T, nh=nh, P=P, G=G, N=N, dtype="bfloat16",
+                seed=7, init=True, strided=True)
+            yr, sr = ssd_ref(x, dt, A, Bm, Cm, S0, 256)
+            xf = x.float().permute(0, 2, 1, 3)                 # (b,nh,T,P)
+            Bh = Bm.float().repeat_interleave(nh // G, 2).permute(0, 2, 1, 3)
+            Ch = Cm.float().repeat_interleave(nh // G, 2).permute(0, 2, 1, 3)
+            dth = dt.permute(0, 2, 1)                           # (b,nh,T)
+            cs = torch.cumsum(dth * A[None, :, None], dim=-1)
+            causal = torch.tril(torch.ones(T, T, dtype=torch.bool,
+                                           device="cuda"))
+            W = torch.where(causal, (Ch @ Bh.transpose(-1, -2))
+                            * torch.exp(cs[..., :, None] - cs[..., None, :])
+                            * dth[..., None, :], 0.0)
+            wst = dth * torch.exp(cs[..., -1:] - cs)            # (b,nh,T)
+            for how in SSD_OPERANDS:
+                rnd = lambda v: _round_operand(torch, v, how)   # noqa: E731
+                y = _round_operand(torch, W, how) @ xf + torch.exp(cs)[
+                    ..., None] * (Ch @ rnd(S0).transpose(-1, -2))
+                s = torch.exp(cs[..., -1])[..., None, None] * S0 + \
+                    xf.transpose(-1, -2) @ rnd(Bh * wst[..., None])
+                y = y.permute(0, 2, 1, 3).to(torch.bfloat16).float()
+                errs = {}
+                for k, got, want in (("y", y, yr.float()), ("state", s, sr)):
+                    gap = (got - want).abs()
+                    errs[k] = (float(gap.max()), float(
+                        (gap / (3e-2 + 3e-2 * want.abs())).max()))
+                rows.append({"model": name, "T": T, "operands": how,
+                             "y_max_abs_err": errs["y"][0],
+                             "state_max_abs_err": errs["state"][0],
+                             "worst_share_of_tol": max(errs["y"][1],
+                                                       errs["state"][1])})
+                log(f"  ssd_scan operands {how} ({name} heads, T={T}): "
+                    f"max|err| y {errs['y'][0]:.3e}, state "
+                    f"{errs['state'][0]:.3e}; worst share of the 3e-2 "
+                    f"tolerance {rows[-1]['worst_share_of_tol']:.3f}"
+                    + (" (the route's)" if how == SSD_TC_OPERANDS else ""))
+    return rows
+
+
+def _ssd_bound_ms(b, T, nh, P, G, N, es, route, chunk=256):
+    """Least time of one K4 call on ``route``: the state read once and
+    written once, x, B, C, dt read and y written once, over the memory
+    rate, against the operations this call needs (2 per multiply-add)
+    over the rate of the units its route runs the products on (the bf16
+    tensor cores on ``tensor_cores``, the f32 CUDA cores otherwise): C S^T
+    and the state update for each head and token, W x over each head's
+    causal pairs of a chunk, and C B^T over those pairs once per group
+    (every head of a group shares it)."""
     state = 2 * b * nh * P * N * 4
     nbytes = state + b * T * (2 * nh * P * es + 2 * G * N * es + nh * 4)
-    pairs = T * (T + 1) // 2
-    ops_ = 2 * b * nh * (2 * T * P * N + pairs * (N + P))
+    Q = min(chunk, T)
+    full, rest = divmod(T, Q)
+    pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
+    ops_ = 2 * (b * nh * (2 * T * P * N + pairs * P) + b * G * pairs * N)
+    rate = PEAK_OPS["bfloat16" if route == "tensor_cores" else "float32"]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops_ / PEAK_OPS["float32"]
+    t_ops = ops_ / rate
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ssd_kernels_time(torch, np, *, name, b, nh, P, G, N, T,
-                     iters=50) -> dict:
-    """Time K4 and its plain version at one main-path call: bf16 x, B, C
-    strided as the model passes them, f32 dt and state, the state updated
-    in place; L2 flushed before each call."""
+def _kernel_us(torch, fn, flush, match: str, calls: int = 30):
+    """The median device duration, in microseconds, of the kernels whose
+    name holds ``match`` over ``calls`` calls of ``fn`` (each after
+    ``flush``), from torch.profiler's kernel records: the kernel's own
+    time, with no event or launch overhead in it; None where the profiler
+    saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    durs = sorted(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type.name == "CUDA" and match in e.name)
+    return durs[len(durs) // 2] if durs else None
+
+
+def _ssd_timing_inputs(torch, np, *, b, nh, P, G, N, T):
+    """The inputs of a timed K4 call (bf16 x, B, C strided as the model
+    passes them, f32 dt and state) and an L2 flush."""
+    args = _ssd_inputs(torch, np, b=b, T=T, nh=nh, P=P, G=G, N=N,
+                       dtype="bfloat16", seed=7, init=True, strided=True)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    return args, scratch.zero_
+
+
+def ssd_call_time(torch, np, *, b, nh, P, G, N, T, iters=50) -> dict:
+    """K4 through its entry point ``ops.ssd_chunk_scan`` alone, whose
+    signature every version of K4 keeps (so the same code times a parent
+    tree's kernel), at one main-path call: bf16 x, B, C strided as the
+    model passes them, f32 dt and state, the state updated in place, L2
+    flushed before each call.  The timed window (``_time_rounds``), the
+    kernel's own duration (``_kernel_us``; K4's kernels are all named
+    ssd_*), the wrapper's host us per call, the plain version's time and
+    the error against it."""
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
-    x, dt, A, Bm, Cm, S0 = _ssd_inputs(torch, np, b=b, T=T, nh=nh, P=P,
-                                       G=G, N=N, dtype="bfloat16", seed=7,
-                                       init=True, strided=True)
-    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-
-    def flush():
-        scratch.zero_()
-
+    (x, dt, A, Bm, Cm, S0), flush = _ssd_timing_inputs(
+        torch, np, b=b, nh=nh, P=P, G=G, N=N, T=T)
     n0 = dict(ops.launches)
     y, s = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, S0, 256)
     yr, sr = ssd_ref(x, dt, A, Bm, Cm, S0, 256)
     err = max(float((y.float() - yr.float()).abs().max()),
               float((s - sr).abs().max()))
-    check(torch.allclose(y.float(), yr.float(), atol=3e-2, rtol=3e-2),
-          f"ssd_scan (timing shape) max|err|={err}")
+    check(torch.allclose(y.float(), yr.float(), atol=3e-2, rtol=3e-2) and
+          torch.allclose(s, sr, atol=3e-2, rtol=3e-2),
+          f"ssd_scan (timing shape b={b} nh={nh} P={P} N={N}, T={T}) "
+          f"max|err|={err}")
     state = S0.clone()
-    ms = _time_ms(torch, lambda: ops.ssd_chunk_scan(
-        x, dt, A, Bm, Cm, state, 256, out_state=state), iters, flush)
+
+    def k4():
+        return ops.ssd_chunk_scan(x, dt, A, Bm, Cm, state, 256,
+                                  out_state=state)
+    t = _time_rounds(torch, k4, iters, flush)
+    kernel_us = _kernel_us(torch, k4, flush, "ssd_")
+    host_us = _host_us(torch, k4)
     plain_ms = _time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, state, 256),
                         max(iters // 5, 5), flush)
     ops.launches.update(n0)      # timing launches are not a slice's
-    bound_ms, bound_by = _ssd_bound_ms(b, T, nh, P, G, N, 2)
-    return {"model": name, "b": b, "T": T, "nh": nh, "P": P, "N": N,
-            "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"b": b, "T": T, "nh": nh, "P": P, "N": N, "dtype": "bfloat16",
+            "ms": t["median"], "ms_spread": t, "kernel_us": kernel_us,
+            "host_us": host_us, "plain_ms": plain_ms, "library_ms": None,
             "max_abs_err": err}
+
+
+def ssd_kernels_time(torch, np, *, name, b, nh, P, G, N, T, iters=50,
+                     sweep=False) -> dict:
+    """``ssd_call_time`` with the call's route and n_split from the
+    library's table and the bound on that route's units; with ``sweep``
+    also each route the shape can take at each n_split it can take (the
+    measurement that fixes the library's table)."""
+    from repro_torch.kernels.ssd_scan import ops
+    tm = ssd_call_time(torch, np, b=b, nh=nh, P=P, G=G, N=N, T=T,
+                       iters=iters)
+    route, n_split = ops.plan(torch.bfloat16, b, T, nh, P, N)
+    sweep_ms = {}
+    n0 = dict(ops.launches)
+    if sweep:
+        (x, dt, A, Bm, Cm, state), flush = _ssd_timing_inputs(
+            torch, np, b=b, nh=nh, P=P, G=G, N=N, T=T)
+    for r in ops.routes_of(torch.bfloat16, T, P, N) if sweep else ():
+        for n in ops.split_options(r, torch.bfloat16, T, P, N):
+            sweep_ms[f"{r}/{n}"] = _time_rounds(
+                torch, lambda: ops.launch_on_route(
+                    r, x, dt, A, Bm, Cm, state, 256, out_state=state,
+                    n_split=n), iters, flush)
+    ops.launches.update(n0)
+    bound_ms, bound_by = _ssd_bound_ms(b, T, nh, P, G, N, 2, route)
+    return {"model": name, **tm, "route": route, "n_split": n_split,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / tm["ms"], "sweep_ms": sweep_ms}
+
+
+# K4's fixed widths: decode, the warm passes' verify widths (T = 3, 5, 9),
+# a verify width past 32 and the prefill chunk
+SSD_WIDTHS = (1, 3, 5, 9, 33, 64)
+
+
+def _us(t) -> str:
+    return "not measured" if t is None else f"{t:.2f}"
+
+
+def ssd_time_table(torch, np, extra=None, sweep=True) -> dict:
+    """K4 timed at both models' head shapes (b 8, bf16, state in place)
+    at the fixed widths and each model's ``extra`` widths (the slices'
+    commonest), with route, n_split, time [min-max], the kernel's own
+    duration, bound and its share, plain time and wrapper host us per
+    call; ``sweep`` also times every route and n_split at the fixed
+    widths."""
+    out = {}
+    for name, b, nh, P, G, N in SSD_MODEL_SHAPES:
+        widths = list(dict.fromkeys(list((extra or {}).get(name, ()))
+                                    + list(SSD_WIDTHS)))
+        rows = out[name] = []
+        for T in widths:
+            tm = ssd_kernels_time(torch, np, name=name, b=b, nh=nh, P=P,
+                                  G=G, N=N, T=T,
+                                  sweep=sweep and T in SSD_WIDTHS)
+            rows.append(tm)
+            swept = "".join(f"; {k} {_spread(v)}"
+                            for k, v in tm["sweep_ms"].items())
+            log(f"  ssd_scan timing ({name} heads) b={b} T={T} nh={nh} "
+                f"P={P} N={N} bf16, state in place, route {tm['route']} "
+                f"(n_split {tm['n_split']}): {_spread(tm['ms_spread'])} ms, "
+                f"kernel {_us(tm['kernel_us'])} us (profiler), host "
+                f"{tm['host_us']:.1f} us/call; plain "
+                f"{tm['plain_ms']:.4f} ms; bound {tm['bound_ms']:.4f} ms "
+                f"({tm['bound_by']}, {tm['bound_share']:.3f} of it)"
+                + swept)
+    return out
 
 
 def rec_rollout_checks(r, cfg, which: str) -> None:
@@ -1859,6 +2121,17 @@ def profile_steps(torch, cfg, params, n_steps: int) -> dict:
     return {"steps": n_steps, **_profile_summary(prof, wall)}
 
 
+# each kernel library's CUDA kernels, by the names the profiler records:
+# K1 / K2 on either route and the split merge, K3 on either route
+# (flash_{fwd,dq,dkdv}_{wgmma,kernel}), K4 on each of its routes
+KERNEL_NAMES = {"spec_verify": ("verify_cores", "verify_wgmma",
+                                "merge_splits"),
+                "flash_attention": ("flash_fwd_", "flash_dq_",
+                                    "flash_dkdv_"),
+                "ssd_scan": ("ssd_recurrent", "ssd_tensor_cores",
+                             "ssd_cores")}
+
+
 def _profile_summary(prof, wall: float) -> dict:
     """Device time by kernel name over a profiled window of ``wall``
     seconds, and the device's busy share of it."""
@@ -1872,12 +2145,8 @@ def _profile_summary(prof, wall: float) -> dict:
             rows.append((e.key, t / 1e3, e.count))
             dev_total += t / 1e3
     rows.sort(key=lambda r: -r[1])
-    shares = {name: sum(t for k, t, _ in rows if f"{name}_kernel" in k)
-              / max(dev_total, 1e-9) for name in ("ssd_scan", "spec_verify")}
-    # K3 on either route: flash_{fwd,dq,dkdv}_{wgmma,kernel}
-    shares["flash_attention"] = sum(
-        t for k, t, _ in rows if "flash_" in k and (
-            "_wgmma" in k or "_kernel" in k)) / max(dev_total, 1e-9)
+    shares = {name: sum(t for k, t, _ in rows if any(f in k for f in names))
+              / max(dev_total, 1e-9) for name, names in KERNEL_NAMES.items()}
     return {"wall_ms": wall * 1e3, "device_ms": dev_total,
             "busy_share": dev_total / max(wall * 1e3, 1e-9),
             "shares": shares, "top": rows[:25]}
@@ -1892,7 +2161,7 @@ def main() -> int:
                     help="profile this many engine steps and one train "
                     "step (0: off)")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build, check K1 and K2 and time them at the "
+                    help="build, check K1, K2 and K4 and time them at the "
                     "fixed widths, then stop (no slices, no result line)")
     ap.add_argument("--out", default=None,
                     help="directory for the full JSON report and traces")
@@ -1933,23 +2202,27 @@ def main() -> int:
     if out_dir:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write("\n".join(lib.log for lib in libs))
-    want = {"K3": (fa_ops.LIBRARY, FLASH_WGMMA,
+    want = {"K3": (fa_ops.LIBRARY, FLASH_WGMMA, "HGMMA",
                    [f"flash_{w}_wgmma<{D}>" for w in ("fwd", "dq", "dkdv")
                     for D in (64, 128)]),
-            "K1/K2": (ops.LIBRARY, VERIFY_WGMMA,
+            "K1/K2": (ops.LIBRARY, VERIFY_WGMMA, "HGMMA",
                       [f"verify_wgmma<{D},{t}>" for D in (64, 128)
-                       for t in (0, 1)])}
-    for kname, (lib, pattern, names) in want.items():
-        hgmma = hgmma_counts(lib.path(), pattern)
+                       for t in (0, 1)]),
+            # K4's tensor-core route runs mma.sync (HMMA in SASS)
+            "K4": (ssd_ops.LIBRARY, SSD_MMA, "HMMA",
+                   [f"ssd_tensor_cores<{n},{pt}>"
+                    for n, pt in ssd_ops.TC_INSTANCES])}
+    for kname, (lib, pattern, opcode, names) in want.items():
+        hgmma = hgmma_counts(lib.path(), pattern, opcode)
         report[f"{kname.lower().replace('/', '_')}_hgmma"] = hgmma
         if hgmma is None:
-            log(f"{kname} HGMMA instructions in SASS: not available (no "
+            log(f"{kname} {opcode} instructions in SASS: not available (no "
                 "cuobjdump)")
             continue
-        log(f"{kname} HGMMA instructions in SASS: " + ", ".join(
+        log(f"{kname} {opcode} instructions in SASS: " + ", ".join(
             f"{k} {v}" for k, v in sorted(hgmma.items())))
         for name in names:
-            check(hgmma.get(name, 0) > 0, f"no HGMMA in {name}'s SASS")
+            check(hgmma.get(name, 0) > 0, f"no {opcode} in {name}'s SASS")
 
     report["timer_self_check_ms"] = timer_self_check(torch)
     log(f"timer self-check: a 4-byte zero_() after an L2 flush reads "
@@ -1957,6 +2230,20 @@ def main() -> int:
         f"limit 0.010)")
 
     B, S = 8, 2048
+
+    def finish_kernels_only():
+        if out_dir:
+            with open(os.path.join(out_dir, "report.json"), "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        log(card)
+        return 0
+
+    def ssd_kernels():
+        log("kernels: ssd_scan (K4) against its plain version")
+        report["ssd_kernel_checks"] = ssd_kernels_check(torch, np)
+        log("ssd_scan: the tensor-core route's operand choices, emulated")
+        report["ssd_operand_errors"] = ssd_operand_errors(torch, np)
+
     log("kernels: spec_verify (K1) against its plain version")
     report["kernel_checks"] = kernels_check(torch, np, B=B, S=S,
                                             T_list=CHECK_WIDTHS)
@@ -1966,20 +2253,18 @@ def main() -> int:
         torch, np, B=B, S=S, T_list=CHECK_WIDTHS)
 
     if args.kernels_only:
+        ssd_kernels()
         log("K1 / K2 timing at the fixed widths")
         report["verify_time"] = verify_time_table(torch, np, B=B, S=S)
-        if out_dir:
-            with open(os.path.join(out_dir, "report.json"), "w") as f:
-                json.dump(report, f, indent=1, default=str)
-        log(card)
-        return 0
+        log("K4 timing at the fixed widths")
+        report["ssd_time"] = ssd_time_table(torch, np)
+        return finish_kernels_only()
 
     log("kernels: flash_attention (K3) forward, dQ and dK/dV against "
         "their plain versions")
     report["flash_kernel_checks"] = flash_kernels_check(torch, np)
 
-    log("kernels: ssd_scan (K4) against its plain version")
-    report["ssd_kernel_checks"] = ssd_kernels_check(torch, np)
+    ssd_kernels()
 
     log("linear slice: granite-3-8b Seer rollout on the card")
     cfg, params = build_model(torch)
@@ -2251,16 +2536,18 @@ def main() -> int:
     report["hybrid_kernel_time"] = vt["spec_verify/zamba2-1.2b"]
     report["tree_kernel_time"] = vt["tree_verify"]
 
-    report["ssd_kernel_time"] = []
-    for arch, b, nh, P, G, N in SSD_MODEL_SHAPES:
-        T = commonest_T(rec[arch]["cold"]["fused_by_T"])
-        tm = ssd_kernels_time(torch, np, name=arch, b=b, nh=nh, P=P, G=G,
-                              N=N, T=T)
-        report["ssd_kernel_time"].append(tm)
-        log(f"  ssd_scan timing ({arch} heads) b={b} T={T} nh={nh} P={P} "
-            f"N={N} bf16, state in place: {tm['ms']:.4f} ms, plain "
-            f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
-            f"({tm['bound_by']}); no single PyTorch call computes SSD")
+    # K4 at each SSM slice's cold and warm passes' commonest widths, then
+    # the fixed widths (no single PyTorch call computes SSD); the kernels
+    # line takes the cold pass's
+    cold_T = {arch: commonest_T(rec[arch]["cold"]["fused_by_T"])
+              for arch in rec}
+    st_ = ssd_time_table(torch, np, sweep=False, extra={
+        arch: [cold_T[arch], commonest_T(rec[arch]["warm"]["fused_by_T"])]
+        for arch in rec})
+    report["ssd_time"] = st_
+    report["ssd_kernel_time"] = [
+        next(tm for tm in st_[arch] if tm["T"] == cold_T[arch])
+        for arch, *_ in SSD_MODEL_SHAPES]
 
     # K3 at granite-3-8b's heads (the training phase's shape) and at
     # zamba2-1.2b's (Hq = Hk = 32, D 64)

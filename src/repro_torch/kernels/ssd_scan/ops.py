@@ -1,15 +1,25 @@
-"""Wrapper of the SSD chunk-scan CUDA kernel (K4): build, checks, launch.
+"""Wrapper of the SSD chunk-scan CUDA kernel (K4): build, checks, routes,
+launch.
 
 ``ssd_chunk_scan(x, dt, A, Bm, Cm, init_state, chunk)`` computes the
 function of ``ref.ssd_ref`` (the JAX package's
 ``repro.kernels.ssd_scan.ops.ssd_chunk_scan``, same signature and
 contract).  A CPU tensor goes to the plain version; a CUDA tensor goes
-to the hand-written kernel in ``csrc/ssd_scan.cu`` or the wrapper raises
+to the hand-written kernels in ``csrc/ssd_scan.cu`` or the wrapper raises
 — there is no fallback.  ``out_state`` names the tensor that receives the
 final state (it may be ``init_state`` itself: the model updates its
 recurrent cache in place).
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+Inside the library the route of a call is a fixed table of its shape
+(dtype, T, P, N) (:func:`plan`): steps up to T = 16 (decode among them)
+take the recurrent route, one pass per token on the state in registers
+(every dtype), wider bf16 steps the tensor cores (``mma.sync``), the
+rest the CUDA cores; each route splits the state's P rows over
+``n_split`` CTAs, a function of the shape, and its results are bitwise
+the same whatever ``n_split`` is.  A shape no route takes (N not a
+multiple of 4) is refused.  A call counts one launch whatever it runs.
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``, into
 ``repro_torch/kernels/_build/`` (see ``kernels/build.py``).  Nothing is
 compiled or loaded when the module is imported.
@@ -23,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import KernelLibrary
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_split_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 MAX_CHUNK = 256
@@ -39,11 +49,25 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+# the library's route codes
+ROUTES = {1: "recurrent", 2: "tensor_cores", 3: "cuda_cores"}
+_ROUTE_CODES = {None: 0, "recurrent": 1, "tensor_cores": 2, "cuda_cores": 3}
+# the tensor-core kernel's instances, (N, rows of the state per CTA)
+TC_INSTANCES = [(n, pt) for n in (16, 32, 64, 128) for pt in (16, 32, 64)
+                if (n // 8) * (pt // 16) % 8 == 0]
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_launch.argtypes = [i32] + [vp] * 8 + [i32] * 7 \
-        + [i64] * 11 + [vp]
+        + [i64] * 11 + [i32, i32, vp]
     lib.ssd_scan_launch.restype = i32
+    lib.ssd_scan_route.argtypes = [i32] * 5
+    lib.ssd_scan_route.restype = i32
+    lib.ssd_scan_splits.argtypes = [i32] * 7
+    lib.ssd_scan_splits.restype = i32
+    lib.ssd_scan_split_ok.argtypes = [i32] * 6
+    lib.ssd_scan_split_ok.restype = i32
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
 
@@ -56,12 +80,61 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
+_PLANS = {}
+
+
+def plan(dtype: torch.dtype, b: int, T: int, nh: int, P: int, N: int,
+         route: str = None, n_split: int = None) -> tuple:
+    """(route, n_split) of a call of this shape: the library's table, or
+    ``route`` ("recurrent" / "tensor_cores" / "cuda_cores") and ``n_split``
+    where the shape can take them.  Kept per shape, so the hot path asks
+    the library once."""
+    key = (dtype, b, T, nh, P, N, route, n_split)
+    got = _PLANS.get(key)
+    if got is None:
+        lib = build()
+        want = _ROUTE_CODES[route]
+        code = lib.ssd_scan_route(_DTYPES[dtype], T, P, N, want)
+        if code not in ROUTES:
+            raise ValueError(f"ssd_chunk_scan: no route for {dtype}, T={T}, "
+                             f"P={P}, N={N}"
+                             + (f" on {route}" if route else ""))
+        n = n_split or lib.ssd_scan_splits(_DTYPES[dtype], b, T, nh, P, N,
+                                           code)
+        if not lib.ssd_scan_split_ok(code, _DTYPES[dtype], T, P, N, n):
+            raise ValueError(f"ssd_chunk_scan: {ROUTES[code]} cannot split "
+                             f"P={P} (T={T}, N={N}) into {n}")
+        got = _PLANS[key] = (ROUTES[code], n)
+    return got
+
+
+def routes_of(dtype: torch.dtype, T: int, P: int, N: int) -> tuple:
+    """Every route a shape can take, the table's first."""
+    lib = build()
+    first = ROUTES[lib.ssd_scan_route(_DTYPES[dtype], T, P, N, 0)]
+    return (first,) + tuple(
+        r for code, r in ROUTES.items() if r != first
+        and lib.ssd_scan_route(_DTYPES[dtype], T, P, N, code) == code)
+
+
+def split_options(route: str, dtype: torch.dtype, T: int, P: int,
+                  N: int) -> tuple:
+    """The n_split values (powers of two) ``route`` can take at this
+    shape."""
+    lib = build()
+    code = _ROUTE_CODES[route]
+    return tuple(n for n in (1 << k for k in range(P.bit_length()))
+                 if lib.ssd_scan_split_ok(code, _DTYPES[dtype], T, P, N, n))
+
+
 def check_inputs(x, dt, A, Bm, Cm, init_state, out_state, chunk) -> None:
     """Raise on what the kernel does not take: mixed devices, x/B/C other
     than float32 or bfloat16 (or of different dtypes), dt/A/states other
     than float32, mismatched shapes, a last dim that is not contiguous,
-    states that are not contiguous, a chunk over 256.  A state too large
-    for shared memory fails at launch, and the wrapper raises then."""
+    states that are not contiguous or do not start on a 16-byte boundary
+    (every route moves the state in 16-byte vectors), a chunk over 256.
+    A state too large for shared memory fails at launch, and the wrapper
+    raises then."""
     dev = x.device
     named = (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
              ("init_state", init_state), ("out_state", out_state))
@@ -91,6 +164,10 @@ def check_inputs(x, dt, A, Bm, Cm, init_state, out_state, chunk) -> None:
                               or not t.is_contiguous()):
             raise ValueError(f"ssd_chunk_scan: {name} {tuple(t.shape)} "
                              f"must be a contiguous {(b, nh, P, N)}")
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"ssd_chunk_scan: {name} starts at an address "
+                             f"{t.data_ptr() % 16} bytes past a 16-byte "
+                             f"boundary; the state moves in 16-byte vectors")
     if (x.stride(3) != 1 or Bm.stride(3) != 1 or Cm.stride(3) != 1
             or dt.stride(2) != 1 or not A.is_contiguous()):
         raise ValueError("ssd_chunk_scan: x, B, C and dt need a contiguous "
@@ -98,6 +175,38 @@ def check_inputs(x, dt, A, Bm, Cm, init_state, out_state, chunk) -> None:
     if not 1 <= min(chunk, T) <= MAX_CHUNK:
         raise ValueError(f"ssd_chunk_scan: chunk {min(chunk, T)} not in "
                          f"1..{MAX_CHUNK}")
+
+
+def _launch(x, dt, A, Bm, Cm, init_state, chunk, out_state, route=None,
+            n_split=None):
+    """K4 on x's current stream, on the table's route and split or on the
+    given ones; raise on a shape the route cannot take and on a refused
+    launch."""
+    b, T, nh, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if out_state is None:
+        out_state = torch.empty((b, nh, P, N), dtype=torch.float32,
+                                device=x.device)
+    check_inputs(x, dt, A, Bm, Cm, init_state, out_state, chunk)
+    how, n = plan(x.dtype, b, T, nh, P, N, route, n_split)
+    lib = build()
+    y = torch.empty((b, T, nh, P), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_launch(
+            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(),
+            None if init_state is None else init_state.data_ptr(),
+            y.data_ptr(), out_state.data_ptr(), b, T, nh, P, G, N,
+            min(chunk, T), x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1),
+            Bm.stride(2), Cm.stride(0), Cm.stride(1), Cm.stride(2),
+            _ROUTE_CODES[how], n, stream)
+    if err:
+        raise RuntimeError(f"ssd_scan launch failed ({how}, n_split {n}): "
+                           + lib.ssd_scan_error_string(err).decode())
+    launches["ssd_scan"] += 1
+    return y, out_state
 
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -115,26 +224,22 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return y, state
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan: no kernel for device {x.device}")
-    b, T, nh, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    if out_state is None:
-        out_state = torch.empty((b, nh, P, N), dtype=torch.float32,
-                                device=x.device)
-    check_inputs(x, dt, A, Bm, Cm, init_state, out_state, chunk)
-    lib = build()
-    y = torch.empty((b, T, nh, P), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_scan_launch(
-            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            Bm.data_ptr(), Cm.data_ptr(),
-            None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), out_state.data_ptr(), b, T, nh, P, G, N,
-            min(chunk, T), x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1),
-            Bm.stride(2), Cm.stride(0), Cm.stride(1), Cm.stride(2), stream)
-    if err:
-        raise RuntimeError("ssd_scan launch failed: "
-                           + lib.ssd_scan_error_string(err).decode())
-    launches["ssd_scan"] += 1
-    return y, out_state
+    return _launch(x, dt, A, Bm, Cm, init_state, chunk, out_state)
+
+
+def launch_on_route(route: str, x, dt, A, Bm, Cm, init_state, chunk, *,
+                    out_state=None, n_split: int = None):
+    """K4 on CUDA tensors on ``route`` at ``n_split`` (None: the route's
+    own) whatever the table says: for checking every route and split of a
+    shape on the card and timing one against another.  On CPU tensors,
+    the plain version of that route's decomposition
+    (``ref.ssd_split_ref``); a name that is no route raises.  The port
+    never calls it."""
+    if x.device.type == "cpu":
+        y, state = ssd_split_ref(x, dt, A, Bm, Cm, init_state, chunk,
+                                 n_split or 1, route=route)
+        if out_state is not None:
+            state = out_state.copy_(state)
+        return y, state
+    return _launch(x, dt, A, Bm, Cm, init_state, chunk, out_state, route,
+                   n_split)
