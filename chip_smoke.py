@@ -20,7 +20,9 @@ Phases, in this order:
    split CUDA cores), at granite-3-8b's head shapes (widths on both
    sides of the table's threshold, windows, permuted slots, empty rows,
    blind queries, B = 1), K1 also at zamba2-1.2b's shared attention
-   (Hq=Hk=32, D=64, window 4096), and both at every other head dim they
+   (Hq=Hk=32, D=64, window 4096), both at moonshot-v1-16b-a3b's (16/16,
+   G = 1), yi-6b's (32/4, G = 8) and phi4-mini-3.8b's (24/8, G = 3)
+   heads of 128, and both at every other head dim they
    are built for; K2 on random draft trees (siblings at one position, a
    query that sees no key) and, under an all-true mask, bitwise equal to
    K1 on each route, every wrapper call free of host syncs under
@@ -30,8 +32,9 @@ Phases, in this order:
    the CUDA cores for f32 and for bf16 at D 32 and 256): granite's and
    zamba2's head shapes — causal, non-causal, window 256, q_offset > 0
    with Tq != Tk, lengths at the 64-row and 64-key tile edges (1, 63,
-   65, 129, 300), rows that see no key (0, LSE -inf, no gradient) — and
-   D = 32, 64, 256, repeat launches bitwise equal (see
+   65, 129, 300), rows that see no key (0, LSE -inf, no gradient) —,
+   D = 32, 64, 256, and phi4-mini-3.8b's G = 3 (the tensor cores' Gt = 1
+   packing) and yi-6b's G = 8, repeat launches bitwise equal (see
    ``flash_kernels_check``); K4 (ssd_scan) against its plain version at
    both SSM models' head shapes and tests/test_kernels.py's SSD cases,
    each case on every route its shape can take (the recurrent route up to
@@ -74,11 +77,25 @@ Phases, in this order:
    (``rec_engine_check``);
 9. SSM slice: the same for a full-width, full-depth mamba2-370m (48
    blocks, no attention), 4 groups x 4, 64 new tokens;
-10. timing: each kernel at the shape its slice gave it, beside its plain
+10. MoE slice: a full-width, full-depth moonshot-v1-16b-a3b Seer rollout
+   (48 layers: one dense, 47 MoE of 64 experts top-6 and 2 shared, each
+   expert run on every token as the reference serves; 16/16 heads of 128;
+   random bf16 weights from seed 0, the router in f32) with the linear
+   slice's settings on caches of 1024 positions: a cold pass, its
+   bit-identical repeat and a warm pass (``rec_slice``, one rollout on
+   the card at a time), K1 once per layer per fused step, no K2, no
+   plain attention, at most one host sync per step, dispatch free of
+   host syncs, drafts accepted on the warm pass; then the MoE tree
+   engine phase (``tree_engine_check`` on moonshot); then the serving
+   CLI (``repro_torch.launch.serve.main``) on cuda with its default arch
+   (yi-6b tiny) and with moonshot-v1-16b-a3b tiny, every request
+   finished;
+11. timing: each kernel at the shape its slice gave it, beside its plain
    version, a library call where one computes the same function, and
    the card's bound, each held against its plain version on the timed
    inputs; K1 and K2 also at fixed widths (T = 1, 9, 33, 64 at 384 live
-   slots; K1 at zamba2's heads T = 1, 9, 64), with their route, n_split,
+   slots; K1 at zamba2's and at moonshot's heads T = 1, 9, 64), with
+   their route, n_split,
    both routes' times at those widths, three rounds each (min,
    median, max of the round medians) and the wrapper's host time per
    call, and a check that T = 1 runs the split CUDA cores and T = 64 the
@@ -90,16 +107,18 @@ Phases, in this order:
    device work only.  The ``kernels`` line has one
    row per kernel and path that runs it (its ``path``), with that path's
    ``launches`` (K1:
-   the granite linear slice and the hybrid cold pass; K2: the tree
-   slice; K3: the training phase's two train steps; K4: the hybrid and
-   the SSM cold passes) and that path's shape's timing; K4 also at fixed
+   the granite linear slice, the hybrid cold pass and the MoE cold pass;
+   K2: the tree slice and the MoE tree engine phase; K3: the training
+   phase's two train steps; K4: the hybrid and the SSM cold passes) and
+   that path's shape's timing; K4 also at fixed
    widths (``ssd_time_table``: T = 1, 3, 5, 9, 33, 64 and each SSM slice's
    cold and warm commonest, both models' heads on 8 slots) with route,
    n_split, bound on the route's units and its share, the kernel's own
    duration from torch.profiler, plain time and the wrapper's host time
    per call.
 
-The line before the last is the ``kernels`` JSON record; the last line
+Each phase's wall time is printed as it ends.  The line before the last
+is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before either.  Without a CUDA device, or without the repository beside
 it, the script exits non-zero and prints no result.  ``--kernels-only``
@@ -146,9 +165,22 @@ GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
 TRAIN_LAYERS, TRAIN_PROMPT = 12, 384
 # the SSM slice's rollout (mamba2-370m): 4 groups of 4, 64 new tokens
 SSM_GROUPS, SSM_NEW_TOKENS = 4, 64
-# K1's head shapes on each path that runs it: Hq, Hk, D, window
+# K1's head shapes on each path that runs it: Hq, Hk, D, window; and of
+# the other configs the port serves (yi-6b G = 8, phi4-mini-3.8b G = 3)
 K1_SHAPES = {"granite-3-8b": (32, 8, 128, 0),
-             "zamba2-1.2b": (32, 32, 64, 4096)}
+             "zamba2-1.2b": (32, 32, 64, 4096),
+             "moonshot-v1-16b-a3b": (16, 16, 128, 0),
+             "yi-6b": (32, 4, 128, 0),
+             "phi4-mini-3.8b": (24, 8, 128, 0)}
+# the MoE slice: moonshot-v1-16b-a3b at full width and depth (56.8 GB of
+# bf16 weights) on 2 x 8 slots of this many positions (K/V 393,216 bytes
+# a position: 6.4 GB for both instances), 64 new tokens (as the SSM
+# slice: the script's time limit)
+MOE_ARCH, MOE_CACHE_LEN, MOE_NEW_TOKENS = "moonshot-v1-16b-a3b", 1024, 64
+# the dense configs whose heads K1 / K2 and K3 are checked at
+NEW_HEADS = ("moonshot-v1-16b-a3b", "yi-6b", "phi4-mini-3.8b")
+# the serving CLI's new tokens a request (its default)
+SERVE_NEW_TOKENS = 48
 
 
 class CheckFailed(RuntimeError):
@@ -381,7 +413,10 @@ def kernels_check(torch, np, *, B, S, T_list) -> list:
     window 0 and 256, bf16 and f32, permuted slots, an empty row and a
     blind query (both exactly 0), and B = 1 with a live count that does
     not divide among the splits; zamba2-1.2b's shared attention (Hq=Hk=32,
-    D=64, window 4096, its step widths), each on the main path's cache;
+    D=64, window 4096, its step widths); moonshot-v1-16b-a3b's (16/16, G =
+    1), yi-6b's (32/4, G = 8) and phi4-mini-3.8b's (24/8, G = 3) heads at
+    every width of ``T_list`` in bf16 (both routes) and at T 1, 9 in f32;
+    each on the main path's cache;
     then each other head dim it is built for on a small cache, so that
     every instance of the kernel ran on the card.  Every launch is
     repeated and must be bitwise equal; the wrapper's call runs under
@@ -404,6 +439,12 @@ def kernels_check(torch, np, *, B, S, T_list) -> list:
     cases += [("zamba2-1.2b", B, S, T, hq, hk, d, dt, w, None)
               for T in (1, 9, 64, 65) for dt in ("bfloat16", "float32")
               for w in (0, win)]
+    for name in NEW_HEADS:
+        hq, hk, d, _ = K1_SHAPES[name]
+        cases += [(name, B, S, T, hq, hk, d, "bfloat16", 0, None)
+                  for T in T_list]
+        cases += [(name, B, S, T, hq, hk, d, "float32", 0, None)
+                  for T in (1, 9)]
     cases += [("small", 4, 512, 9, 8, 2, D, dt, w, None)
               for D in ops.HEAD_DIMS if D != 128
               for dt, w in (("bfloat16", 0), ("float32", 64))]
@@ -567,17 +608,23 @@ def tree_kernels_check(torch, np, *, B, S, T_list) -> list:
     f32, window 0 and 256, on every route each shape can take; repeat
     launches bit-equal, the query that sees no key exactly 0, and with an
     all-true mask K2 bitwise equal to K1 on the same route, the wrapper's
-    call free of host syncs.  Then B = 1, and each other head dim on a
-    small cache."""
+    call free of host syncs.  Then B = 1, the heads of moonshot-v1-16b-a3b,
+    yi-6b and phi4-mini-3.8b at every width (bf16, both routes) and T = 9
+    in f32, and each other head dim on a small cache."""
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import tree_verify_ref
     rows = []
-    cases = [(B, S, T, 32, 8, 128, dt, w) for T in T_list
+    cases = [("granite-3-8b", B, S, T, 32, 8, 128, dt, w) for T in T_list
              for dt in ("bfloat16", "float32") for w in (0, 256)]
-    cases += [(1, S, T, 32, 8, 128, "bfloat16", 0) for T in (1, 9, 64)]
-    cases += [(4, 512, 9, 8, 2, D, dt, w) for D in ops.HEAD_DIMS if D != 128
-              for dt, w in (("bfloat16", 0), ("float32", 64))]
-    for B, S, T, Hq, Hk, D, dtype, window in cases:
+    cases += [("granite-3-8b", 1, S, T, 32, 8, 128, "bfloat16", 0)
+              for T in (1, 9, 64)]
+    for name in NEW_HEADS:
+        hq, hk, d, _ = K1_SHAPES[name]
+        cases += [(name, B, S, T, hq, hk, d, "bfloat16", 0) for T in T_list]
+        cases += [(name, B, S, 9, hq, hk, d, "float32", 0)]
+    cases += [("small", 4, 512, 9, 8, 2, D, dt, w) for D in ops.HEAD_DIMS
+              if D != 128 for dt, w in (("bfloat16", 0), ("float32", 64))]
+    for shape, B, S, T, Hq, Hk, D, dtype, window in cases:
         q, k, v, qp, kp, tm = _tree_inputs(
             torch, np, B=B, T=T, S=S, Hq=Hq, Hk=Hk, D=D, dtype=dtype,
             seed=100 + T + window + D)
@@ -608,8 +655,9 @@ def tree_kernels_check(torch, np, *, B, S, T_list) -> list:
             check(same_k1, f"tree_verify with an all-true mask is not "
                   f"bitwise K1 on {r} ({what})")
         err = max(errs.values())
-        rows.append({"B": B, "S": S, "T": T, "Hq": Hq, "Hk": Hk, "D": D,
-                     "dtype": dtype, "window": window, "route": route,
+        rows.append({"shape": shape, "B": B, "S": S, "T": T, "Hq": Hq,
+                     "Hk": Hk, "D": D, "dtype": dtype, "window": window,
+                     "route": route,
                      "n_split": n_split, "errs_by_route": errs,
                      "max_abs_err": err, "tol": tol, "empty_query_zero": True,
                      "deterministic": True, "all_true_equals_k1": True})
@@ -620,16 +668,18 @@ def tree_kernels_check(torch, np, *, B, S, T_list) -> list:
     return rows
 
 
-def tree_kernels_time(torch, np, *, B, S, T, live, dtype="bfloat16",
-                      iters=50) -> dict:
+def tree_kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
+                      dtype="bfloat16", iters=50) -> dict:
     """Time K2, K1 on the same inputs (without the mask), K2's plain
     version and SDPA with the combined boolean mask (the yardstick, never
-    called by the port), with L2 flushed before each call."""
+    called by the port), at ``model``'s heads (``K1_SHAPES``, window 0),
+    with L2 flushed before each call."""
     import torch.nn.functional as F
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import pos_mask, tree_verify_ref
-    q, k, v, qp, kp, tm = _tree_inputs(torch, np, B=B, T=T, S=S, Hq=32,
-                                       Hk=8, D=128, dtype=dtype, seed=17,
+    Hq, Hk, D, _ = K1_SHAPES[model]
+    q, k, v, qp, kp, tm = _tree_inputs(torch, np, B=B, T=T, S=S, Hq=Hq,
+                                       Hk=Hk, D=D, dtype=dtype, seed=17,
                                        live=live)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
@@ -658,11 +708,12 @@ def tree_kernels_time(torch, np, *, B, S, T, live, dtype="bfloat16",
                                               enable_gqa=True)
     lt = _time_rounds(torch, lib, iters, flush)
     bound_ms, bound_by = _bound_ms(q, k, qp, kp, 0, dtype, tree=tm)
-    route, n_split = ops.plan(q.dtype, B, T, 32, 8, 128, S)
+    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
     route_ms = _time_routes(torch, ops, q, k, v, qp, kp, tm, 0, dtype, iters,
                             flush)
     ops.launches.update(n0)      # timing launches are not a slice's
-    return {"T": T, "dtype": dtype, "live_mean": float(np.mean(live)),
+    return {"model": model, "T": T, "Hq": Hq, "Hk": Hk, "D": D, "window": 0,
+            "dtype": dtype, "live_mean": float(np.mean(live)),
             "route": route, "n_split": n_split, "route_ms": route_ms,
             "ms": t["median"], "ms_spread": t, "host_us": host_us,
             "k1_ms": k1_ms, "plain_ms": plain_ms,
@@ -700,15 +751,19 @@ CHECK_WIDTHS = (1, 2, 3, 9, 15, 16, 17, 33, 64, 65, 128)
 # K1 and K2 at granite-3-8b's heads, K1 also at zamba2-1.2b's
 VERIFY_WIDTHS = (1, 9, 33, 64)
 ZAMBA_WIDTHS = (1, 9, 64)
+MOE_WIDTHS = (1, 9, 64)
 
 
 def verify_time_table(torch, np, *, B, S, extra=(), zamba_extra=(),
-                      tree_extra=()) -> dict:
+                      tree_extra=(), moe_extra=(), moe_tree_extra=()) -> dict:
     """K1 and K2 timed at the fixed widths (and each slice's commonest
     widths, ``extra``: (T, live) pairs) with ``kernels_time`` and
-    ``tree_kernels_time``."""
+    ``tree_kernels_time``; K1 at moonshot-v1-16b-a3b's heads at the MoE
+    slice's commonest width and T = 1, 9, 64, K2 there at the MoE tree
+    engine's commonest width."""
     fixed = [(T, np.full(B, 384)) for T in VERIFY_WIDTHS]
     zfixed = [(T, np.full(B, 384)) for T in ZAMBA_WIDTHS]
+    mfixed = [(T, np.full(B, 384)) for T in MOE_WIDTHS]
     out = {"spec_verify": [kernels_time(torch, np, B=B, S=S, T=T, live=lv)
                            for T, lv in list(extra) + fixed],
            "spec_verify/zamba2-1.2b": [
@@ -717,7 +772,15 @@ def verify_time_table(torch, np, *, B, S, extra=(), zamba_extra=(),
                for T, lv in list(zamba_extra) + zfixed],
            "tree_verify": [tree_kernels_time(torch, np, B=B, S=S, T=T,
                                              live=lv)
-                           for T, lv in list(tree_extra) + fixed]}
+                           for T, lv in list(tree_extra) + fixed],
+           f"spec_verify/{MOE_ARCH}": [
+               kernels_time(torch, np, B=B, S=S, T=T, live=lv,
+                            model=MOE_ARCH)
+               for T, lv in list(moe_extra) + mfixed],
+           f"tree_verify/{MOE_ARCH}": [
+               tree_kernels_time(torch, np, B=B, S=S, T=T, live=lv,
+                                 model=MOE_ARCH)
+               for T, lv in moe_tree_extra]}
     for name, rows in out.items():
         for tm in rows:
             log_verify_time(name, tm)
@@ -809,7 +872,8 @@ def flash_kernels_check(torch, np) -> list:
     zamba2-1.2b's (Hq = Hk = 32, D 64) head shapes in bf16, lengths at the
     edges of the 64-row and 64-key tiles (Tq, Tk of 1, 63, 65, 129, 300),
     q_offset > 0 with window 256, rows that see nothing; f32 on a few of
-    those; then D = 32, 64 and 256 on a small case.  Repeat launches
+    those; then D = 32, 64 and 256 on a small case; then phi4-mini-3.8b's
+    (24/8, G = 3) and yi-6b's (32/4, G = 8) heads of 128.  Repeat launches
     bitwise equal, rows that see nothing 0 (LSE -inf, no gradient)."""
     rows = []
     # B, Tq, Tk, Hq, Hk, D, q_offset, causal, window
@@ -833,6 +897,16 @@ def flash_kernels_check(torch, np) -> list:
                                                  edges[7])]
     cases += [(2, 100, 100, 8, 2, D, 0, True, w, dt) for D in (32, 64, 256)
               for dt, w in (("bfloat16", 0), ("float32", 64))]
+    # phi4-mini-3.8b's G = 3 (the tensor cores' Gt = 1 packing) and yi-6b's
+    # G = 8: the training shape, tile edges, a window and q_offset, f32
+    for name in ("phi4-mini-3.8b", "yi-6b"):
+        Hq, Hk, D, _ = K1_SHAPES[name]
+        cases += [(2, 512, 512, Hq, Hk, D, 0, True, 0, "bfloat16"),
+                  (2, 300, 300, Hq, Hk, D, 0, False, 0, "bfloat16")]
+        cases += [(B, Tq, Tk, Hq, Hk, D, off, causal, win, "bfloat16")
+                  for B, Tq, Tk, off, causal, win in (edges[2], edges[5],
+                                                     edges[7], edges[8])]
+        cases += [(1, 65, 300, Hq, Hk, D, 235, True, 0, "float32")]
     for B, Tq, Tk, Hq, Hk, D, off, causal, win, dtype in cases:
         q, k, v, do = _fa_inputs(torch, np, B=B, Tq=Tq, Tk=Tk, Hq=Hq, Hk=Hk,
                                  D=D, dtype=dtype, seed=Tq + Tk + D + win)
@@ -1028,10 +1102,10 @@ def make_prompts(np, cfg, n_groups: int, seed: int):
             for n in lens]
 
 
-def make_rollout(cfg, params, **kw):
+def make_rollout(cfg, params, cache_len=2048, **kw):
     from repro_torch.core import SeerRollout
     return SeerRollout(cfg, params, n_instances=2, max_slots=8,
-                       cache_len=2048, chunk_size=CHUNK_SIZE,
+                       cache_len=cache_len, chunk_size=CHUNK_SIZE,
                        policy="seer", spec_decode=True, device="cuda", **kw)
 
 
@@ -1092,12 +1166,13 @@ def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
             "finished": all(g.all_finished for g in res.groups)}
 
 
-def sync_debug_steps(torch, np, cfg, params, n_steps: int = 8) -> dict:
+def sync_debug_steps(torch, np, cfg, params, n_steps: int = 8,
+                     cache_len: int = 2048) -> dict:
     """Dispatch engine steps (prefill, decode and verify with drafts)
     under ``set_sync_debug_mode("error")``; commit outside it."""
     from repro_torch.engine import EngineSeq, Instance, StepFunctions
     steps = StepFunctions(cfg)
-    inst = Instance(cfg, params, steps, max_slots=8, cache_len=2048,
+    inst = Instance(cfg, params, steps, max_slots=8, cache_len=cache_len,
                     device="cuda")
     rng = np.random.default_rng(11)
     for i in range(4):
@@ -1135,7 +1210,8 @@ def _snapshot(inst):
     return shadow
 
 
-def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
+def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24,
+                      cache_len: int = 2048) -> dict:
     """One tree-mode instance driven with ``build_token_tree([bad,
     good])`` drafts (``good`` from a no-draft run of the same requests,
     ``bad`` that trunk perturbed).  Before each fused step the instance
@@ -1144,7 +1220,9 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
     counts, leave the same ``slot_pos`` and bitwise equal K/V at every
     committed slot.  Each fused step dispatches under
     ``set_sync_debug_mode("error")``, costs one host sync and launches K2
-    once per layer (K1 never)."""
+    once per layer (K1 never).  The launch counts are set to 0 before the
+    checked run and returned with it (fused steps and oracle steps), with
+    the fused steps' widths."""
     from repro_torch.engine import (EngineSeq, Instance, StepFunctions,
                                     build_token_tree)
     from repro_torch.kernels.spec_verify import ops
@@ -1155,7 +1233,7 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
 
     def new_instance():
         inst = Instance(cfg, params, StepFunctions(cfg), max_slots=8,
-                        cache_len=2048, spec_mode="tree", device="cuda")
+                        cache_len=cache_len, spec_mode="tree", device="cuda")
         seqs = [EngineSeq(f"t{i}", f"g{i}", p, seed=i, temperature=1.0,
                           max_new_tokens=n_tokens)
                 for i, p in enumerate(prompts)]
@@ -1171,6 +1249,8 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
 
     inst, seqs = new_instance()
     steps = rescues = accepted = 0
+    widths = {}
+    _reset_launches()
     while not all(s.finished for s in seqs):
         drafts = {}
         for i, s in enumerate(seqs):
@@ -1191,6 +1271,8 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
         k1 = ops.launches["spec_verify"] - n0["spec_verify"]
         got = inst.commit_step(ticket)
         steps += 1
+        if ticket is not None:
+            widths[ticket.T] = widths.get(ticket.T, 0) + 1
         check(inst.steps.host_syncs - h0 == 1,
               f"tree step {steps}: {inst.steps.host_syncs - h0} host syncs")
         check(k2 == L and k1 == 0,
@@ -1216,7 +1298,10 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
     return {"steps": steps, "accepted": accepted,
             "side_branch_steps": rescues, "tree_nodes": inst.tree_nodes,
             "tree_branch_nodes": inst.tree_branch_nodes,
-            "tokens": sum(len(s.generated) for s in seqs)}
+            "tokens": sum(len(s.generated) for s in seqs),
+            "launches": _launches(), "steps_by_T": widths,
+            "live_mean": float(np.mean([len(p) + n_tokens // 2
+                                        for p in prompts]))}
 
 
 # ---------------------------------------------------------------------------
@@ -1639,16 +1724,17 @@ def ssd_time_table(torch, np, extra=None, sweep=True) -> dict:
 
 
 def rec_rollout_checks(r, cfg, which: str) -> None:
-    """A rollout of an SSM or hybrid model went through its kernels: every
-    group finished; per forward (replays included) one K4 launch per
-    Mamba2 block and one K1 launch per shared-attention application, no
-    K2; no plain attention or SSD call; at most one host sync per step."""
+    """A rollout of an SSM, hybrid or MoE model went through its kernels:
+    every group finished; per forward (replays included) one K4 launch
+    per Mamba2 block and one K1 launch per attention layer (a hybrid's
+    shared-attention applications), no K2; no plain attention or SSD
+    call; at most one host sync per step."""
     from repro_torch.models.transformer import n_attn_layers, n_ssm_layers
     fw = r["fused_steps"] + r["replays"]
     L_ssm, L_attn = n_ssm_layers(cfg), n_attn_layers(cfg)
     n = r["launches"]
     check(r["finished"], f"{which}: not every group finished")
-    check(n["ssd_scan"] > 0, f"{which}: K4 launched no time")
+    check(L_ssm == 0 or n["ssd_scan"] > 0, f"{which}: K4 launched no time")
     check(n["ssd_scan"] == fw * L_ssm, f"{which}: K4 launches "
           f"{n['ssd_scan']} != ({r['fused_steps']} steps + {r['replays']} "
           f"replays) x {L_ssm}")
@@ -1663,20 +1749,29 @@ def rec_rollout_checks(r, cfg, which: str) -> None:
           f"{r['host_syncs']} > steps {r['stats'].steps}")
 
 
-def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed) -> dict:
-    """The Seer rollout of an SSM or hybrid model: a cold pass, its repeat
-    (bit-identical responses and launch counts), and a warm pass on the
-    repeat's rollout, whose group suffix trees hold the streams of the
-    pass before (drafts accepted, replays with a partly accepted mask);
-    each pass with ``rec_rollout_checks``."""
+def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed,
+              cache_len=2048) -> dict:
+    """The Seer rollout of an SSM, hybrid or MoE model: a cold pass, its
+    repeat (bit-identical responses and launch counts), and a warm pass
+    on the repeat's rollout, whose group suffix trees hold the streams of
+    the pass before (drafts accepted; on SSM and hybrid models replays
+    with a partly accepted mask); each pass with ``rec_rollout_checks``.
+    The first pass's rollout is dropped before the second is built, so
+    that one rollout's caches are on the card at a time."""
     prompts = make_prompts(np, cfg, groups, seed=seed)
     runs = []
-    for _ in range(2):
-        ro = make_rollout(cfg, params)
+    for i in range(2):
+        if i:
+            del ro
+            gc.collect()
+            torch.cuda.empty_cache()
+        ro = make_rollout(cfg, params, cache_len=cache_len)
         runs.append(run_rollout(torch, ro, prompts, new_tokens=new_tokens))
     ro.reset_acceptance_profile()
     warm = run_rollout(torch, ro, prompts, new_tokens=new_tokens)
     del ro
+    gc.collect()
+    torch.cuda.empty_cache()
     cold = runs[0]
     for which, r in (("cold pass", cold), ("repeat", runs[1]),
                      ("warm pass", warm)):
@@ -1706,6 +1801,7 @@ def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed) -> dict:
                 "tokens_per_s": st.tokens / r["wall_s"],
                 "peak_mem_gb": r["peak_mem_gb"]}
     out = {"requests": len(lens), "cold": rep(cold),
+           "repeat": rep(runs[1]),
            "repeat_wall_s": runs[1]["wall_s"],
            "repeat_tokens_per_s": runs[1]["stats"].tokens / runs[1]["wall_s"],
            "warm": rep(warm),
@@ -1723,7 +1819,8 @@ def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed) -> dict:
             f"GB; steps by T {x['fused_by_T']}")
     log(f"  repeat of the cold pass bit-identical (wall "
         f"{out['repeat_wall_s']:.3f} s, {out['repeat_tokens_per_s']:.1f} "
-        f"tokens/s); warm responses equal to the cold pass "
+        f"tokens/s, peak {out['repeat']['peak_mem_gb']:.1f} GB); warm "
+        f"responses equal to the cold pass "
         f"{out['warm_same_responses']}/{len(lens)}")
     return out
 
@@ -2091,14 +2188,24 @@ def training_phase(torch, np, profile: bool = False) -> dict:
                    "worst_leaf_norm_rel_gap": worst}}
 
 
-def profile_steps(torch, cfg, params, n_steps: int) -> dict:
+# the record_function range around each MoE layer in ``profile_steps``
+MOE_RANGE = "moe_layer"
+
+
+def profile_steps(torch, cfg, params, n_steps: int,
+                  cache_len: int = 2048) -> dict:
     """torch.profiler over decode steps of one full instance: device time
-    by kernel name, and the device's busy share of the window."""
+    by kernel name, and the device's busy share of the window.  On a MoE
+    model each MoE layer (``moe_forward``) runs inside a
+    ``record_function`` range for the window, and the device time of the
+    kernels launched in those ranges is its share."""
+    import contextlib
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.engine import EngineSeq, Instance, StepFunctions
+    from repro_torch.models import transformer
     inst = Instance(cfg, params, StepFunctions(cfg), max_slots=8,
-                    cache_len=2048, device="cuda")
+                    cache_len=cache_len, device="cuda")
     rng = np.random.default_rng(5)
     for i in range(8):
         inst.admit(EngineSeq(f"p{i}", f"g{i % 2}", rng.integers(
@@ -2109,8 +2216,17 @@ def profile_steps(torch, cfg, params, n_steps: int) -> dict:
     for _ in range(3):
         inst.run_step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    moe_forward = transformer.moe_forward
+
+    def moe_ranged(*a, **kw):
+        with record_function(MOE_RANGE):
+            return moe_forward(*a, **kw)
+    with contextlib.ExitStack() as stack:
+        if cfg.arch_type == "moe":
+            transformer.moe_forward = moe_ranged
+            stack.callback(setattr, transformer, "moe_forward", moe_forward)
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         for it in range(n_steps):
             drafts = {i: [inst.slots[i].last_token] * 8
@@ -2118,7 +2234,15 @@ def profile_steps(torch, cfg, params, n_steps: int) -> dict:
             inst.run_step(drafts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return {"steps": n_steps, **_profile_summary(prof, wall)}
+    out = {"steps": n_steps, **_profile_summary(prof, wall)}
+    if cfg.arch_type == "moe":
+        moe = [e for e in prof.key_averages() if e.key == MOE_RANGE
+               and e.device_type.name == "CPU"]
+        t = sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0.0) for e in moe) / 1e3
+        out["moe_layer_ms"] = t
+        out["shares"]["moe_layer"] = t / max(out["device_ms"], 1e-9)
+    return out
 
 
 # each kernel library's CUDA kernels, by the names the profiler records:
@@ -2141,7 +2265,8 @@ def _profile_summary(prof, wall: float) -> dict:
         t = getattr(e, "device_time_total", None)
         if t is None:
             t = getattr(e, "cuda_time_total", 0.0)
-        if t and e.device_type.name == "CUDA":
+        # a record_function range's device-side span is not a kernel
+        if t and e.device_type.name == "CUDA" and e.key != MOE_RANGE:
             rows.append((e.key, t / 1e3, e.count))
             dev_total += t / 1e3
     rows.sort(key=lambda r: -r[1])
@@ -2193,6 +2318,15 @@ def main() -> int:
     device_kind = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
+    t_phase = [t0]
+    report["phase_s"] = {}
+
+    def phase_done(name):
+        now = time.perf_counter()
+        report["phase_s"][name] = now - t_phase[0]
+        log(f"phase {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     libs = (ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY)
     build.build_all(libs)
     log("build (one nvcc each, in parallel): " + ", ".join(
@@ -2228,6 +2362,7 @@ def main() -> int:
     log(f"timer self-check: a 4-byte zero_() after an L2 flush reads "
         f"{report['timer_self_check_ms']:.4f} ms (max of 3 round medians; "
         f"limit 0.010)")
+    phase_done("build")
 
     B, S = 8, 2048
 
@@ -2265,6 +2400,7 @@ def main() -> int:
     report["flash_kernel_checks"] = flash_kernels_check(torch, np)
 
     ssd_kernels()
+    phase_done("kernel checks")
 
     log("linear slice: granite-3-8b Seer rollout on the card")
     cfg, params = build_model(torch)
@@ -2357,6 +2493,8 @@ def main() -> int:
         for k_, t_, n_ in p["top"][:12]:
             log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
 
+    phase_done("linear slice")
+
     log("tree engine: fused tree steps against the sync oracle")
     te = tree_engine_check(torch, np, cfg, params)
     report["tree_engine"] = te
@@ -2367,6 +2505,8 @@ def main() -> int:
         f"{te['side_branch_steps']} row-steps accepted along the side "
         f"branch; tree nodes {te['tree_nodes']} (branching "
         f"{te['tree_branch_nodes']})")
+
+    phase_done("tree engine")
 
     log("tree slice: the same rollout with spec_mode='tree', 3 paths")
     ro = make_rollout(cfg, params, spec_mode="tree", multipath_top_k=3)
@@ -2437,6 +2577,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("tree slice")
+
     log(f"training: GRPO trainer at granite-3-8b width, {TRAIN_LAYERS} "
         "layers, 2 sync iterations")
     trn = training_phase(torch, np, profile=bool(args.profile))
@@ -2473,6 +2615,7 @@ def main() -> int:
     # them, so that the next phases' peak memory is theirs
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("training")
 
     rec = {}
     for arch, groups, new_tokens in (("zamba2-1.2b", GROUPS, NEW_TOKENS),
@@ -2515,6 +2658,78 @@ def main() -> int:
         torch.cuda.empty_cache()
     report["hybrid_slice"] = rec["zamba2-1.2b"]
     report["ssm_slice"] = rec["mamba2-370m"]
+    phase_done("hybrid and SSM slices")
+
+    log(f"MoE slice: {MOE_ARCH} Seer rollout on the card, {GROUPS} groups x "
+        f"{GROUP_SIZE}, {MOE_NEW_TOKENS} new tokens, {MOE_CACHE_LEN} "
+        "positions a slot")
+    mcfg, mparams = build_model(torch, MOE_ARCH)
+    log(f"  {mcfg.num_layers} layers: {mcfg.first_dense_layers} dense (d_ff "
+        f"{mcfg.d_ff}), {mcfg.num_layers - mcfg.first_dense_layers} MoE "
+        f"({mcfg.num_experts} experts of {mcfg.moe_d_ff}, top-"
+        f"{mcfg.moe_top_k}, {mcfg.num_shared_experts} shared); weights "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
+    sd = sync_debug_steps(torch, np, mcfg, mparams, cache_len=MOE_CACHE_LEN)
+    log(f"  dispatch under sync debug 'error': T per step {sd['step_T']}, "
+        f"host syncs {sd['host_syncs_per_step']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = rec_slice(torch, np, mcfg, mparams, groups=GROUPS,
+                    new_tokens=MOE_NEW_TOKENS, seed=1,
+                    cache_len=MOE_CACHE_LEN)
+    moe["sync_debug"] = sd
+    phase_done("MoE slice")
+
+    log(f"MoE tree engine: {MOE_ARCH} fused tree steps against the sync "
+        "oracle")
+    mte = tree_engine_check(torch, np, mcfg, mparams,
+                            cache_len=MOE_CACHE_LEN)
+    moe["tree_engine"] = mte
+    log(f"  {mte['steps']} steps, each equal to the sync oracle from the "
+        f"same state (tokens, accept counts, slot_pos, K/V at committed "
+        f"slots), 1 host sync and {mcfg.num_layers} K2 launches each, "
+        f"dispatch clean under sync debug 'error'; {mte['accepted']} drafts "
+        f"accepted, {mte['side_branch_steps']} row-steps along the side "
+        f"branch; tree nodes {mte['tree_nodes']} (branching "
+        f"{mte['tree_branch_nodes']}); K2 launches in the phase (fused and "
+        f"oracle steps) {mte['launches']['tree_verify']}; steps by T "
+        f"{mte['steps_by_T']}")
+    if args.profile:
+        moe["profile"] = profile_steps(torch, mcfg, mparams, args.profile,
+                                       cache_len=MOE_CACHE_LEN)
+        p = moe["profile"]
+        log(f"  profile of {p['steps']} steps: wall {p['wall_ms']:.1f} ms, "
+            f"device {p['device_ms']:.1f} ms (busy share "
+            f"{p['busy_share']:.3f}); MoE layers "
+            f"{p['shares']['moe_layer']:.3f} ({p['moe_layer_ms']:.1f} ms) "
+            f"and K1 {p['shares']['spec_verify']:.3f} of device time")
+        for k_, t_, n_ in p["top"][:12]:
+            log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
+    report["moe_slice"] = moe
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("MoE tree engine")
+
+    log("serving CLI: repro_torch.launch.serve on cuda")
+    from repro_torch.launch import serve
+    report["serve"] = {}
+    for flags in ([], ["--arch", MOE_ARCH]):
+        t_ = time.perf_counter()
+        rep_ = serve.main(flags + ["--max-new-tokens", str(SERVE_NEW_TOKENS),
+                                   "--device", "cuda"])
+        wall_ = time.perf_counter() - t_
+        check(rep_["tokens"] > 0 and rep_["tokens"] ==
+              rep_["requests"] * SERVE_NEW_TOKENS, f"serve {rep_['arch']}: "
+              f"tokens {rep_['tokens']} for {rep_['requests']} requests of "
+              f"{SERVE_NEW_TOKENS}")
+        report["serve"][rep_["arch"]] = rep_
+        log(f"  serve --arch {rep_['arch']} (tiny): {rep_['requests']} "
+            f"requests, tokens {rep_['tokens']} (every request finished), "
+            f"engine steps {rep_['engine_steps']}, migrations "
+            f"{rep_['migrations']}, drafted {rep_['drafted']}, accepted "
+            f"{rep_['accepted']}; {wall_:.1f} s in all")
+    phase_done("serving CLI")
 
     def commonest_T(by_kind):
         return int(max(by_kind, key=by_kind.get).split(":")[1])
@@ -2527,14 +2742,24 @@ def main() -> int:
     live = np.asarray([min(len(p) + NEW_TOKENS // 2, S)
                        for p in prompts for _ in range(GROUP_SIZE)][:B])
     hyb = rec["zamba2-1.2b"]
+    # the MoE slice: the same prompt lengths (seed 1), halfway through its
+    # responses; its tree engine phase at its prompts' halfway contexts
+    moe_live = np.asarray([min(len(p) + MOE_NEW_TOKENS // 2, S)
+                           for p in prompts for _ in range(GROUP_SIZE)][:B])
+    moe_T = commonest_T(moe["cold"]["fused_by_T"])
+    mte_T = max(mte["steps_by_T"], key=mte["steps_by_T"].get)
     vt = verify_time_table(
         torch, np, B=B, S=S, extra=[(commonest_T(r["by_kind"]), live)],
         zamba_extra=[(T, live) for T in dict.fromkeys(
             commonest_T(hyb[p_]["fused_by_T"]) for p_ in ("cold", "warm"))],
-        tree_extra=[(commonest_T(tr["by_kind"]), live)])
+        tree_extra=[(commonest_T(tr["by_kind"]), live)],
+        moe_extra=[(moe_T, moe_live)],
+        moe_tree_extra=[(mte_T, np.full(B, int(mte["live_mean"])))])
     report["kernel_time"] = vt["spec_verify"]
     report["hybrid_kernel_time"] = vt["spec_verify/zamba2-1.2b"]
     report["tree_kernel_time"] = vt["tree_verify"]
+    report["moe_kernel_time"] = vt[f"spec_verify/{MOE_ARCH}"]
+    report["moe_tree_kernel_time"] = vt[f"tree_verify/{MOE_ARCH}"]
 
     # K4 at each SSM slice's cold and warm passes' commonest widths, then
     # the fixed widths (no single PyTorch call computes SSD); the kernels
@@ -2596,24 +2821,37 @@ def main() -> int:
              "bound_by": ft[f"{which}_bound_by"], "library_ms": ft[library]},
             source=FLASH_SRC)
 
-    # a kernel that two paths run has a row for each: its first path's
-    # row holds every check but those at the other path's shape
+    # a kernel that several paths run has a row for each: its first
+    # path's row holds every check but those at the other paths' shapes
     def checks_of(rows_, shape, other=False):
-        return [c for c in rows_ if (c.get("shape") == shape) != other]
+        shapes = {shape} if isinstance(shape, str) else set(shape)
+        return [c for c in rows_ if (c.get("shape") in shapes) != other]
     z_cold, m_cold = hyb["cold"], rec["mamba2-370m"]["cold"]
     rows = [kernel_row("spec_verify", SPEC_VERIFY_TPU,
                        "granite-3-8b linear slice, cold pass", k1_launches,
-                       checks_of(report["kernel_checks"], "zamba2-1.2b",
-                                 other=True), report["kernel_time"][0]),
+                       checks_of(report["kernel_checks"],
+                                 ("zamba2-1.2b", MOE_ARCH), other=True),
+                       report["kernel_time"][0]),
             kernel_row("spec_verify/zamba2-1.2b", SPEC_VERIFY_TPU,
                        "zamba2-1.2b hybrid slice, cold pass",
                        z_cold["launches"]["spec_verify"],
                        checks_of(report["kernel_checks"], "zamba2-1.2b"),
                        report["hybrid_kernel_time"][0]),
+            kernel_row(f"spec_verify/{MOE_ARCH}", SPEC_VERIFY_TPU,
+                       f"{MOE_ARCH} MoE slice, cold pass",
+                       moe["cold"]["launches"]["spec_verify"],
+                       checks_of(report["kernel_checks"], MOE_ARCH),
+                       report["moe_kernel_time"][0]),
             kernel_row("tree_verify", TREE_VERIFY_TPU,
                        "granite-3-8b tree slice, measured pass", k2_launches,
-                       report["tree_kernel_checks"],
+                       checks_of(report["tree_kernel_checks"], MOE_ARCH,
+                                 other=True),
                        report["tree_kernel_time"][0]),
+            kernel_row(f"tree_verify/{MOE_ARCH}", TREE_VERIFY_TPU,
+                       f"{MOE_ARCH} MoE tree engine (fused steps and their "
+                       "sync oracle)", mte["launches"]["tree_verify"],
+                       checks_of(report["tree_kernel_checks"], MOE_ARCH),
+                       report["moe_tree_kernel_time"][0]),
             flash_row("flash_attention", "forward", "plain_forward_ms",
                       "library_forward_ms"),
             flash_row("flash_attention_dq", "dq", "plain_backward_ms",
@@ -2632,7 +2870,9 @@ def main() -> int:
                        checks_of(report["ssd_kernel_checks"], "mamba2-370m"),
                        report["ssd_kernel_time"][1], source=SSD_SRC)]
 
+    phase_done("timing")
     report["wall_total_s"] = time.perf_counter() - t0
+    log(f"whole run: {report['wall_total_s']:.1f} s")
     if out_dir:
         with open(os.path.join(out_dir, "report.json"), "w") as f:
             json.dump(report, f, indent=1, default=str)

@@ -44,13 +44,17 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
                     dtype=None) -> dict:
     """The JAX package's ``init_params`` tree (as numpy) -> the port's
     params.  Stacked layer leaves become per-layer weights: dense
-    ``layers[i]``, ssm ``layers[i]``, hybrid ``cells[c]["ssm"][j]`` and
-    ``tail[j]``, with the one ``shared_attn`` / ``shared_mlp`` block held
-    once.  Matrices and the embedding are stored once in ``dtype``
-    (default ``cfg.dtype``): exact, because the JAX forward casts them to
-    the activation dtype where it uses them (``lin``, the embed gather and
-    the tied unembed).  Norms and the Mamba2 vectors stay f32, and so do
-    the conv weights, which the reference uses in f32 (``causal_conv``)."""
+    ``layers[i]``, moe ``dense_layers[i]`` and ``layers[j]`` (the
+    experts' ``wg``/``wu`` from ``(E, d, eff)`` to the port's
+    ``(d, E * eff)``, ``models.moe``), ssm ``layers[i]``, hybrid
+    ``cells[c]["ssm"][j]`` and ``tail[j]``, with the one ``shared_attn`` /
+    ``shared_mlp`` block held once.  Matrices and the embedding are stored
+    once in ``dtype`` (default ``cfg.dtype``): exact, because the JAX
+    forward casts them to the activation dtype where it uses them
+    (``lin``, the embed gather and the tied unembed).  Norms and the
+    Mamba2 vectors stay f32, and so do the conv weights, which the
+    reference uses in f32 (``causal_conv``), and the MoE router, on which
+    the reference routes in f32."""
     check_arch(cfg)
     dev = resolve_device(device)
     wdt = torch_dtype(dtype or cfg.dtype)
@@ -74,6 +78,19 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
         return {"ln": vec(t["ln"][idx]), "wg": mat(t["wg"][idx]),
                 "wu": mat(t["wu"][idx]), "wd": mat(t["wd"][idx])}
 
+    def experts(a):
+        """(E, d, eff) -> (d, E * eff)."""
+        a = np.asarray(a)
+        return mat(a.transpose(1, 0, 2).reshape(a.shape[1], -1))
+
+    def moe(t, idx):
+        out = {"router": vec(t["router"][idx]), "wg": experts(t["wg"][idx]),
+               "wu": experts(t["wu"][idx]), "wd": mat(t["wd"][idx])}
+        for name in ("sg", "su", "sd"):
+            if name in t:
+                out[name] = mat(t[name][idx])
+        return out
+
     out = {"embed": mat(tree["embed"]), "final_ln": vec(tree["final_ln"])}
     if not cfg.tie_embeddings:
         out["unembed"] = mat(tree["unembed"])
@@ -82,6 +99,17 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
         la, lm = tree["layers"]["attn"], tree["layers"]["mlp"]
         out["layers"] = [{"attn": attn(la, i), "mlp": mlp(lm, i)}
                          for i in range(L)]
+    elif cfg.arch_type == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            dl = tree["dense_layers"]
+            out["dense_layers"] = [{"attn": attn(dl["attn"], i),
+                                    "mlp": mlp(dl["mlp"], i)}
+                                   for i in range(nd)]
+        ml = tree["layers"]
+        out["layers"] = [{"attn": attn(ml["attn"], j),
+                          "ln2": vec(ml["ln2"][j]), "moe": moe(ml["moe"], j)}
+                         for j in range(L - nd)]
     elif cfg.arch_type == "ssm":
         out["layers"] = [block(tree["layers"], i) for i in range(L)]
     else:

@@ -210,9 +210,10 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     # the port registers the architectures it runs; the others arrive
-    # with the slices that port their layers (MoE, VLM, audio)
+    # with the slices that port their layers (VLM, audio)
     from repro_torch.configs import (  # noqa: F401
-        granite_3_8b, mamba2_370m, zamba2_1_2b,
+        deepseek_moe_16b, granite_3_8b, mamba2_370m, mixtral_8x7b,
+        moonshot_v1_16b_a3b, phi4_mini_3_8b, yi_6b, zamba2_1_2b,
     )
 
 

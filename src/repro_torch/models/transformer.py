@@ -1,13 +1,14 @@
-"""The config-driven model on the dense, SSM (Mamba2) and hybrid
+"""The config-driven model on the dense, MoE, SSM (Mamba2) and hybrid
 (Zamba2) archs, with a slot-indexed KV cache and recurrent state, and the
 dense cache-free forward (training).
 
 Counterpart of ``repro.models.transformer`` on those archs:
 ``init_params``, ``init_cache``, ``_project_qkv``, the slot-scatter and
 ``ck is None`` branches of ``_self_attn``, ``_mlp``, ``_dense_layer``,
-``_decoder_stack``, ``_ssm_stack``, ``_hybrid_stack`` (Python loops over
-layers instead of ``lax.scan``) and ``forward``.  With a cache, one
-forward covers chunked prefill, decode (T=1) and speculative verify
+``_moe_layer``, ``_decoder_stack``, ``_ssm_stack``, ``_hybrid_stack``
+(Python loops over layers instead of ``lax.scan``) and ``forward``.
+With a cache, one forward covers chunked prefill, decode (T=1) and
+speculative verify
 (T=gamma+1), and mixes them row by row under ``token_mask``.  Without
 one (``cache=None``, dense only) it runs a whole sequence at positions
 0..T-1 through the flash-attention kernel (K3); with ``train=True`` each
@@ -42,8 +43,9 @@ from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models.attention import attention
 from repro_torch.models.common import apply_rope, lin, rms_norm
 from repro_torch.models.mamba2 import init_mamba_block, mamba_block
+from repro_torch.models.moe import init_moe, moe_forward
 
-PORTED_ARCHS = ("dense", "ssm", "hybrid")
+PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_arch(cfg: ModelConfig) -> None:
@@ -62,10 +64,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     anyway; ``"float32"`` gives a trainer's master weights); norms, the
     Mamba2 vectors and the conv weights (used in f32) in f32.
 
-    Trees: dense ``layers[i]["attn"|"mlp"]``; ssm ``layers[i]`` (one
-    Mamba2 block each); hybrid ``cells[c]["ssm"][j]``, ``tail[j]`` (the
-    blocks past the last whole cell) and one ``shared_attn`` and
-    ``shared_mlp``, used by every cell.  ``generator`` must live on
+    Trees: dense ``layers[i]["attn"|"mlp"]``; moe ``dense_layers[i]``
+    (``{"attn", "mlp"}``, the first ``first_dense_layers`` layers) and
+    ``layers[j]`` (``{"attn", "ln2", "moe"}``, ``models.moe.init_moe``:
+    its router in f32); ssm ``layers[i]`` (one Mamba2 block each);
+    hybrid ``cells[c]["ssm"][j]``, ``tail[j]`` (the blocks past the last
+    whole cell) and one ``shared_attn`` and ``shared_mlp``, used by every
+    cell.  ``generator`` must live on
     ``device``."""
     check_arch(cfg)
     dev = resolve_device(device)
@@ -107,6 +112,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     L = cfg.num_layers
     if cfg.arch_type == "dense":
         params["layers"] = [{"attn": attn(), "mlp": mlp()} for _ in range(L)]
+    elif cfg.arch_type == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            params["dense_layers"] = [{"attn": attn(), "mlp": mlp()}
+                                      for _ in range(nd)]
+        params["layers"] = [
+            {"attn": attn(), "ln2": ones(d),
+             "moe": init_moe(d, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts,
+                             cfg.num_shared_experts, normal)}
+            for _ in range(L - nd)]
     elif cfg.arch_type == "ssm":
         params["layers"] = [block() for _ in range(L)]
     else:
@@ -247,6 +262,34 @@ def _dense_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
     return _mlp(p["mlp"], x, cfg)
 
 
+def _moe_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
+               allowed=None):
+    x = _self_attn(p["attn"], x, cfg, positions, bidx, slots, ck, cv,
+                   slot_pos, allowed)
+    y, aux = moe_forward(rms_norm(x, p["ln2"], cfg.rms_eps), p["moe"], cfg)
+    return x + y, aux
+
+
+def _decoder_stack(cfg, params, x, cache, attn_args):
+    """Dense and MoE layers over the K/V cache: a MoE model's first
+    ``first_dense_layers`` (``dense_layers``) take cache layers
+    0..nd-1 and its MoE layers the rest.  Returns (x, summed aux f32)."""
+    positions, bidx, slots, slot_pos, allowed = attn_args
+    dense, moe = params["layers"], []
+    if cfg.arch_type == "moe":
+        dense, moe = params.get("dense_layers", []), params["layers"]
+    aux = 0.0
+    for i, p in enumerate(dense + moe):
+        args = (x, cfg, positions, bidx, slots, cache["k"][i], cache["v"][i],
+                slot_pos, allowed)
+        if i < len(dense):
+            x = _dense_layer(p, *args)
+        else:
+            x, a = _moe_layer(p, *args)
+            aux = aux + a
+    return x, aux
+
+
 def _dense_layer_nocache(p, x, cfg, positions):
     x = _self_attn_nocache(p["attn"], x, cfg, positions)
     return _mlp(p["mlp"], x, cfg)
@@ -353,9 +396,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     0..T-1 (anything else raises), returning ``(logits, None, 0.0)``;
     ``train=True`` recomputes each layer in the backward.  It takes no
     ``token_mask`` (``grpo_loss`` passes none) and no tree inputs.  Dense
-    models only: training an SSM or hybrid needs a backward of K4.
+    models only: training an SSM or hybrid needs a backward of K4, and
+    MoE training (its aux loss in ``grpo_loss``) is a later slice.
 
-    With a cache, the cache is updated in place and returned.  Slots come from
+    With a cache, the cache is updated in place and returned, and the
+    third output is the MoE layers' summed load-balance loss (an f32
+    scalar; 0.0 on the other archs).  Slots come from
     positions (``positions % S`` on a ring cache for sliding-window
     configs), or from ``slot_index`` (B,T) when given.  Tree-verify
     inputs (both or neither): ``slot_index`` puts sibling draft nodes,
@@ -369,6 +415,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     and returns None in their place (the engine's replay)."""
     check_arch(cfg)
     if cache is None:
+        if cfg.arch_type == "moe":
+            raise NotImplementedError(
+                "arch_type='moe': the cache-free (training) forward of MoE "
+                "models arrives with the MoE training slice of the port")
         if cfg.arch_type != "dense":
             raise NotImplementedError(
                 f"arch_type={cfg.arch_type!r}: the cache-free (training) "
@@ -413,15 +463,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         attn_args = (positions, bidx, slots, slot_pos, allowed)
 
     rec = cache if rec_out is None else rec_out
-    if cfg.arch_type == "dense":
-        _, bidx, slots, slot_pos, allowed = attn_args
-        for i, p in enumerate(params["layers"]):
-            x = _dense_layer(p, x, cfg, positions, bidx, slots, cache["k"][i],
-                             cache["v"][i], slot_pos, allowed)
+    aux = 0.0
+    if cfg.arch_type in ("dense", "moe"):
+        x, aux = _decoder_stack(cfg, params, x, cache, attn_args)
     elif cfg.arch_type == "ssm":
         x = _ssm_stack(cfg, params["layers"], x, token_mask, cache, rec, 0)
     else:
         x = _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args)
     if not logits:
-        return None, cache, 0.0
-    return _unembed(cfg, params, x), cache, 0.0
+        return None, cache, aux
+    return _unembed(cfg, params, x), cache, aux

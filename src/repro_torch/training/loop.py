@@ -156,6 +156,11 @@ class RLTrainer:
         if rl.tracer is not None:
             raise NotImplementedError(
                 "tracing arrives with the observability slice of the port")
+        if cfg.arch_type == "moe":
+            raise NotImplementedError(
+                "arch_type='moe': MoE training (the cache-free MoE forward "
+                "and the router's aux loss in grpo_loss) arrives with the "
+                "MoE training slice of the port; this slice serves them")
         if cfg.arch_type != "dense":
             raise NotImplementedError(
                 f"arch_type={cfg.arch_type!r}: training an SSM or hybrid "

@@ -1,9 +1,11 @@
-"""Shared harness of the port's SSM and hybrid parity tests
-(``test_torch_ssm.py``, ``test_torch_hybrid.py``): the reference's
-weights carried over by the bridge, port and reference ``Instance``s
-stepped side by side with the same drafts, KV blobs crossing between
-the two, and a fused step held against the sync oracle run on a snapshot
-of the same instance.  Everything at f32 on the CPU."""
+"""Shared harness of the port's SSM, hybrid and MoE parity tests
+(``test_torch_ssm.py``, ``test_torch_hybrid.py``,
+``test_torch_moe_engine.py``): the reference's weights carried over by
+the bridge, port and reference ``Instance``s stepped side by side with
+the same drafts (chains, or branching trees on attention-only models),
+KV blobs crossing between the two, and a fused step held against the
+sync oracle run on a snapshot of the same instance.  Everything at f32
+on the CPU."""
 import copy
 import types
 from dataclasses import replace
@@ -18,12 +20,14 @@ from repro.core import make_groups as jmake_groups
 from repro.engine import EngineSeq as JSeq
 from repro.engine import Instance as JInstance
 from repro.engine import StepFunctions as JSteps
+from repro.engine import build_token_tree as jbuild_token_tree
 from repro.models import init_params as jinit_params
 from repro_torch.bridge import blob_from_jax, params_from_jax, to_numpy
 from repro_torch.configs import get_tiny_config
 from repro_torch.core import SeerRollout, make_groups
-from repro_torch.engine import EngineSeq, Instance, StepFunctions
-from repro_torch.models.transformer import clone_cache
+from repro_torch.engine import (EngineSeq, Instance, StepFunctions,
+                                build_token_tree)
+from repro_torch.models.transformer import clone_cache, n_ssm_layers
 
 PROMPTS = [[5, 9, 2, 7, 1], list(range(3, 16)), [40 + i for i in range(20)]]
 INST = dict(max_slots=3, cache_len=64, prefill_chunk=8, gamma_max=4,
@@ -164,7 +168,9 @@ def blobs_cross(m, temp, migration_mode):
 
     jb, tb = export(ref), export(port)
     assert tb.header_crc() == jb.header_crc() and tb.nbytes == jb.nbytes
-    assert {"ssm", "conv"} <= set(tb.arrays)
+    assert set(tb.arrays) == set(jb.arrays)
+    if n_ssm_layers(m.tcfg):
+        assert {"ssm", "conv"} <= set(tb.arrays)
     for k, v in jb.arrays.items():
         np.testing.assert_allclose(to_numpy(tb.arrays[k]), np.asarray(
             v, np.float32), atol=1e-4, rtol=1e-4, err_msg=k)
@@ -254,3 +260,93 @@ def fused_vs_sync(m, spec_mode, temp=1.0):
         it += 1
         assert it < 200
     return it, inst.steps.replays
+
+
+# ------------------------------------------------ branching draft trees ----
+
+
+def oracle_streams(m, temp, n=16):
+    """Every request's tokens from a draft-free reference run."""
+    ref, _ = pair(m)
+    ss = seqs(JSeq, temp, n)
+    for s in ss:
+        ref.admit(s)
+    while not all(s.finished for s in ss):
+        ref.run_step()
+    return [s.generated for s in ss]
+
+
+def branch_paths(tseqs, streams, vocab):
+    """slot -> [bad, good] draft paths: ``good`` continues the no-draft
+    stream, ``bad`` is it perturbed (the trunk, rank 0)."""
+    out = {}
+    for i, s in enumerate(tseqs):
+        good = streams[i][len(s.generated):len(s.generated) + 2]
+        if s.finished or s.prefilling or not good:
+            continue
+        out[i] = [[(x + 7) % vocab for x in good], good]
+    return out
+
+
+def tree_side_by_side(m, temp):
+    """Branching ``[bad, good]`` drafts through reference and port
+    tree-mode instances: the same tokens, logprobs and accept counts at
+    every step, one host sync per fused step, accepts along the side
+    branch, and the same step kinds and tree counters."""
+    streams = oracle_streams(m, temp)
+    ref, port = pair(m, spec_mode="tree")
+    j0 = dict(ref.steps.invocations_by_kind)
+    jseqs, tseqs = seqs(JSeq, temp), seqs(EngineSeq, temp)
+    assert [ref.admit(s) for s in jseqs] == [port.admit(s) for s in tseqs]
+    rescues = 0
+    while not all(s.finished for s in tseqs):
+        paths = branch_paths(tseqs, streams, m.tcfg.vocab_size)
+        h0 = port.steps.host_syncs
+        got = port.commit_step(port.dispatch_step(
+            {i: build_token_tree(p) for i, p in paths.items()}))
+        assert port.steps.host_syncs == h0 + 1
+        want = ref.run_step({i: jbuild_token_tree(p)
+                             for i, p in paths.items()})
+        compare_results(want, got)
+        for i, (toks, _, a) in got.items():
+            if a and i in paths and toks[:a] == paths[i][1][:a]:
+                rescues += 1
+        assert port.steps.invocations < 100
+    assert [s.generated for s in tseqs] == [s.generated for s in jseqs]
+    assert rescues > 0
+    assert dict(port.steps.invocations_by_kind) == {
+        k: n - j0.get(k, 0) for k, n in ref.steps.invocations_by_kind.items()
+        if n > j0.get(k, 0)}
+    for name in ("tree_steps", "tree_nodes", "tree_branch_nodes"):
+        assert getattr(port, name) == getattr(ref, name) > 0, name
+    compare_caches(ref.cache, port.cache)
+
+
+def fused_tree_vs_sync(m, temp=1.0):
+    """At every step the sync oracle's tree step, run on a snapshot of
+    the instance, commits what the fused tree step commits and leaves the
+    same ``slot_pos`` and bitwise equal K/V at every committed slot.
+    Returns the tokens accepted."""
+    streams = oracle_streams(m, temp)
+    _, inst = pair(m, spec_mode="tree")
+    tseqs = seqs(EngineSeq, temp)
+    for s in tseqs:
+        inst.admit(s)
+    accepted = 0
+    while not all(s.finished for s in tseqs):
+        drafts = {i: build_token_tree(p) for i, p in
+                  branch_paths(tseqs, streams, m.tcfg.vocab_size).items()}
+        shadow = snapshot(inst)
+        want = shadow._run_step_sync_tree(drafts)
+        got = inst.run_step(drafts)
+        assert {i: (t, a) for i, (t, _, a) in got.items()} == \
+            {i: (t, a) for i, (t, _, a) in want.items()}
+        sp = inst.cache["slot_pos"]
+        assert torch.equal(sp, shadow.cache["slot_pos"])
+        live = sp >= 0
+        for k in ("k", "v"):
+            assert torch.equal(inst.cache[k][:, live],
+                               shadow.cache[k][:, live])
+        accepted += sum(a for _, _, a in got.values())
+        assert inst.steps_run < 100
+    return accepted

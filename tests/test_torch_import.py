@@ -32,7 +32,12 @@ def test_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.kernels.ssd_scan.ref",
             "repro_torch.configs.mamba2_370m",
-            "repro_torch.configs.zamba2_1_2b"} <= set(mods)
+            "repro_torch.configs.zamba2_1_2b", "repro_torch.models.moe",
+            "repro_torch.launch.serve",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.yi_6b",
+            "repro_torch.configs.phi4_mini_3_8b"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
@@ -78,7 +83,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.core import SeerRollout
     from repro_torch.engine import Instance, StepFunctions
     from repro_torch.models import init_cache, init_params
-    for arch in ("granite-3-8b", "mamba2-370m", "zamba2-1.2b"):
+    for arch in ("granite-3-8b", "mamba2-370m", "zamba2-1.2b",
+                 "moonshot-v1-16b-a3b"):
         cfg = get_tiny_config(arch)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_cache(cfg, 1, 8)
@@ -93,6 +99,9 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                      cache_len=8)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SeerRollout(cfg, params, max_slots=1, cache_len=8)
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--groups", "1"])
 
 
 def _smoke(cwd: Path, env=None):

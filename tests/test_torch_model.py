@@ -36,7 +36,8 @@ def jax_params():
 
 
 def test_configs_equal_the_reference():
-    archs = [ARCH, "mamba2-370m", "zamba2-1.2b"]
+    archs = [ARCH, "mamba2-370m", "zamba2-1.2b", "moonshot-v1-16b-a3b",
+             "deepseek-moe-16b", "mixtral-8x7b", "yi-6b", "phi4-mini-3.8b"]
     assert tcfgs.list_archs() == sorted(archs)
     for arch in archs:
         for get in ("get_config", "get_tiny_config"):
@@ -208,5 +209,11 @@ def test_unported_paths_raise():
     cache = init_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError):
         forward(cfg, params, tok, tok, cache, contiguous_update=True)
-    with pytest.raises(NotImplementedError):
-        init_cache(replace(cfg, arch_type="moe"), 1, 8, device="cpu")
+    # the archs still refused: vlm and audio
+    for arch_type in ("vlm", "audio"):
+        other = replace(cfg, arch_type=arch_type)
+        with pytest.raises(NotImplementedError):
+            init_cache(other, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError):
+            init_params(other, torch.Generator().manual_seed(0),
+                        device="cpu")

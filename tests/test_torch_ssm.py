@@ -26,7 +26,8 @@ from repro.models import mamba2 as jmamba
 from repro_torch.bridge import to_numpy
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import common as tcommon
-from repro_torch.models import forward, init_cache, mamba2 as tmamba
+from repro_torch.models import forward, init_cache, init_params
+from repro_torch.models import mamba2 as tmamba
 from repro_torch.training.loop import RLConfig, RLTrainer
 
 torch.set_num_threads(2)
@@ -297,7 +298,12 @@ def test_trainer_refuses_ssm(m):
 
 
 def test_moe_still_refused():
+    """MoE is served now; the archs still refused are vlm and audio."""
     from repro_torch.configs import get_tiny_config
-    cfg = replace(get_tiny_config(ARCH), arch_type="moe")
-    with pytest.raises(NotImplementedError):
-        init_cache(cfg, 1, 8, device="cpu")
+    for arch_type in ("vlm", "audio"):
+        cfg = replace(get_tiny_config(ARCH), arch_type=arch_type)
+        with pytest.raises(NotImplementedError):
+            init_cache(cfg, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError):
+            init_params(cfg, torch.Generator().manual_seed(0),
+                        device="cpu")
