@@ -22,7 +22,13 @@ Phases, in this order:
    blind queries, B = 1), K1 also at zamba2-1.2b's shared attention
    (Hq=Hk=32, D=64, window 4096), both at moonshot-v1-16b-a3b's (16/16,
    G = 1), yi-6b's (32/4, G = 8) and phi4-mini-3.8b's (24/8, G = 3)
-   heads of 128, and both at every other head dim they
+   heads of 128 and whisper-tiny's (6/6 of 64), K1 at the cross blocks'
+   shapes (llama-3.2-vision-11b's 32/8 heads of 128 over 1601 image
+   tokens, whisper-tiny's 6/6 of 64 over 1500 frames; T = 1, 9, 32 at
+   zero positions, bf16 and f32; each route also held to the f32 plain
+   version at the reference's own scale, where planted faults, the last
+   key dropped or a ragged tile's padding let in, must fail:
+   ``scaled_check``), and both at every other head dim they
    are built for; K2 on random draft trees (siblings at one position, a
    query that sees no key) and, under an all-true mask, bitwise equal to
    K1 on each route, every wrapper call free of host syncs under
@@ -34,7 +40,9 @@ Phases, in this order:
    with Tq != Tk, lengths at the 64-row and 64-key tile edges (1, 63,
    65, 129, 300), rows that see no key (0, LSE -inf, no gradient) —,
    D = 32, 64, 256, and phi4-mini-3.8b's G = 3 (the tensor cores' Gt = 1
-   packing) and yi-6b's G = 8, repeat launches bitwise equal (see
+   packing), yi-6b's G = 8 and whisper-tiny's encoder (B 8, 1500 frames,
+   6/6 heads of 64, non-causal; the forward also under
+   ``scaled_check``), repeat launches bitwise equal (see
    ``flash_kernels_check``); K4 (ssd_scan) against its plain version at
    both SSM models' head shapes and tests/test_kernels.py's SSD cases,
    each case on every route its shape can take (the recurrent route up to
@@ -88,14 +96,35 @@ Phases, in this order:
    host syncs, drafts accepted on the warm pass; then the MoE tree
    engine phase (``tree_engine_check`` on moonshot); then the serving
    CLI (``repro_torch.launch.serve.main``) on cuda with its default arch
-   (yi-6b tiny) and with moonshot-v1-16b-a3b tiny, every request
-   finished;
-11. timing: each kernel at the shape its slice gave it, beside its plain
+   (yi-6b tiny) and with moonshot-v1-16b-a3b, llama-3.2-vision-11b and
+   whisper-tiny tiny, every request finished (it runs after phase 11);
+11. VLM and audio slices: a full-width, full-depth llama-3.2-vision-11b
+   (40 self layers, a cross block over 1601 image tokens after every
+   5th; random bf16 weights from seed 0) and whisper-tiny (4 encoder
+   and 4 decoder layers, 1500 frames) Seer rollout, 4 groups x 4, 64
+   new tokens, on the zero frontend stub (``rec_slice``: cold pass,
+   bit-identical repeat, warm pass; K1 once per self layer and once per
+   cross block per fused step, those inside the cross blocks counted
+   apart; no K2, no K3 and no plain attention call in a rollout; at
+   most one host sync per step; dispatch free of host syncs; building a
+   whisper rollout runs the encoder on each instance, K3 4 times an
+   instance); then, on seeded random image embeddings, the VLM tree
+   engine phase (``tree_engine_check``: K2 per self layer, K1 per cross
+   block) and, on seeded random audio frames, the audio engine phase
+   (``rec_engine_check``: the linear fused step against the sync oracle
+   from the same state, every cache leaf bitwise); and for each model
+   the device time of one batched export and import of 8 slots with and
+   without the cross memory their blobs carry (``blob_time``);
+12. timing: each kernel at the shape its slice gave it, beside its plain
    version, a library call where one computes the same function, and
    the card's bound, each held against its plain version on the timed
    inputs; K1 and K2 also at fixed widths (T = 1, 9, 33, 64 at 384 live
-   slots; K1 at zamba2's and at moonshot's heads T = 1, 9, 64), with
-   their route, n_split,
+   slots; K1 at zamba2's and at moonshot's heads T = 1, 9, 64; K1 at the
+   VLM's and whisper's self-attention and cross blocks, the cross blocks
+   at each slice's commonest width and T = 1, 9, 32 beside K3's
+   non-causal forward on the same inputs, the route the port does not
+   take there; K2 at the VLM tree engine's commonest width; K3 at the
+   audio encoder), with their route, n_split,
    both routes' times at those widths, three rounds each (min,
    median, max of the round medians) and the wrapper's host time per
    call, and a check that T = 1 runs the split CUDA cores and T = 64 the
@@ -107,9 +136,12 @@ Phases, in this order:
    device work only.  The ``kernels`` line has one
    row per kernel and path that runs it (its ``path``), with that path's
    ``launches`` (K1:
-   the granite linear slice, the hybrid cold pass and the MoE cold pass;
-   K2: the tree slice and the MoE tree engine phase; K3: the training
-   phase's two train steps; K4: the hybrid and the SSM cold passes) and
+   the granite linear slice, the hybrid cold pass, the MoE cold pass,
+   and the VLM and whisper cold passes, each as self-attention and
+   cross blocks; K2: the tree slice and the MoE and VLM tree engine
+   phases; K3: the training phase's two train steps and the building of
+   the whisper cold pass's rollout; K4: the hybrid and the SSM cold
+   passes) and
    that path's shape's timing; K4 also at fixed
    widths (``ssd_time_table``: T = 1, 3, 5, 9, 33, 64 and each SSM slice's
    cold and warm commonest, both models' heads on 8 slots) with route,
@@ -129,6 +161,7 @@ at the fixed widths): the quick measurements of a kernel change.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -171,16 +204,40 @@ K1_SHAPES = {"granite-3-8b": (32, 8, 128, 0),
              "zamba2-1.2b": (32, 32, 64, 4096),
              "moonshot-v1-16b-a3b": (16, 16, 128, 0),
              "yi-6b": (32, 4, 128, 0),
-             "phi4-mini-3.8b": (24, 8, 128, 0)}
+             "phi4-mini-3.8b": (24, 8, 128, 0),
+             "llama-3.2-vision-11b": (32, 8, 128, 0),
+             "whisper-tiny": (6, 6, 64, 0)}
 # the MoE slice: moonshot-v1-16b-a3b at full width and depth (56.8 GB of
 # bf16 weights) on 2 x 8 slots of this many positions (K/V 393,216 bytes
 # a position: 6.4 GB for both instances), 64 new tokens (as the SSM
 # slice: the script's time limit)
 MOE_ARCH, MOE_CACHE_LEN, MOE_NEW_TOKENS = "moonshot-v1-16b-a3b", 1024, 64
-# the dense configs whose heads K1 / K2 and K3 are checked at
-NEW_HEADS = ("moonshot-v1-16b-a3b", "yi-6b", "phi4-mini-3.8b")
+# the configs whose heads K1 / K2 are checked at beside granite's
+NEW_HEADS = ("moonshot-v1-16b-a3b", "yi-6b", "phi4-mini-3.8b",
+             "whisper-tiny")
 # the serving CLI's new tokens a request (its default)
 SERVE_NEW_TOKENS = 48
+# the VLM and audio slices: llama-3.2-vision-11b (40 self layers, 8 cross
+# blocks; 20.2 GB of bf16 weights) and whisper-tiny (4 encoder, 4 decoder
+# layers) at full width and depth, 4 groups of 4, 64 new tokens each
+VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "whisper-tiny"
+CROSS_GROUPS, CROSS_NEW_TOKENS = 4, 64
+# the cross blocks' shapes: Hq, Hk, D and the memory's length (image
+# tokens, audio frames); K1 is checked and timed there at these widths
+# (decode, a verify, a prefill chunk)
+CROSS_SHAPES = {VLM_ARCH: (32, 8, 128, 1601), AUDIO_ARCH: (6, 6, 64, 1500)}
+CROSS_WIDTHS = (1, 9, 32)
+# the audio encoder's attention: B, T (frames), Hq, Hk, D; non-causal
+ENCODER_SHAPE = (8, 1500, 6, 6, 64)
+# over 1500-1601 keys an output is an average of ~1/sqrt(Tm) (rms ~0.04),
+# so TOL's bf16 3e-2 is as large as the values.  At those shapes every
+# output is also held to the plain version computed in f32 from the same
+# (bf16-rounded) inputs, relative to the reference's own scale: rms(err) /
+# rms(ref) and max|err| / max|ref|.  A bf16 output rounds to within 2^-8
+# of each value (rms ~0.2% of it); a kernel that drops the last key or lets
+# a ragged tile's padding into the softmax is off by 1.4-2.6% (both are
+# planted below and must fail)
+REL_RMS_TOL, REL_MAX_TOL = 5e-3, 2 ** -6
 
 
 class CheckFailed(RuntimeError):
@@ -414,16 +471,16 @@ def kernels_check(torch, np, *, B, S, T_list) -> list:
     blind query (both exactly 0), and B = 1 with a live count that does
     not divide among the splits; zamba2-1.2b's shared attention (Hq=Hk=32,
     D=64, window 4096, its step widths); moonshot-v1-16b-a3b's (16/16, G =
-    1), yi-6b's (32/4, G = 8) and phi4-mini-3.8b's (24/8, G = 3) heads at
-    every width of ``T_list`` in bf16 (both routes) and at T 1, 9 in f32;
-    each on the main path's cache;
+    1), yi-6b's (32/4, G = 8), phi4-mini-3.8b's (24/8, G = 3) and
+    whisper-tiny's (6/6 of 64) heads at every width of ``T_list`` in bf16
+    (both routes) and at T 1, 9 in f32 (llama-3.2-vision-11b's self
+    layers have granite's heads); each on the main path's cache;
     then each other head dim it is built for on a small cache, so that
     every instance of the kernel ran on the card.  Every launch is
     repeated and must be bitwise equal; the wrapper's call runs under
     sync debug "error" (sizing the split workspace needs no host sync).
     Each row names the path whose shape it has."""
     from repro_torch.kernels.spec_verify import ops
-    from repro_torch.kernels.spec_verify.ref import spec_verify_ref
     rows = []
     hq, hk, d, _ = K1_SHAPES["granite-3-8b"]
     cases = [("granite-3-8b", B, S, T, hq, hk, d, dt, 0, None)
@@ -452,43 +509,158 @@ def kernels_check(torch, np, *, B, S, T_list) -> list:
         q, k, v, qp, kp = _sv_inputs(torch, np, B=B, T=T, S=S, Hq=Hq, Hk=Hk,
                                      D=D, dtype=dtype, seed=T + window + D,
                                      live=live)
-        route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
-        out = _no_sync(torch, lambda: ops.spec_verify(q, k, v, qp, kp,
-                                                      window=window))
-        ref = spec_verify_ref(q, k, v, qp, kp, window=window)
-        by_route = _route_outputs(torch, ops, q, k, v, qp, kp, None, window,
-                                  dtype, D)
-        torch.cuda.synchronize()
-        tol = TOL[dtype]
-        what = f"B={B} T={T} S={S} Hq={Hq} Hk={Hk} D={D} {dtype} " \
-            f"window={window}"
-        check(torch.equal(out, by_route[route][0]),
-              f"spec_verify: the wrapper and its route {route} differ "
+        rows.append(_k1_case(torch, shape, q, k, v, qp, kp, window,
+                             empty_rows=live is None,
+                             note=None if live is None else f"live {live[0]}"))
+    return rows
+
+
+def _k1_case(torch, shape, q, k, v, qp, kp, window, *, empty_rows,
+             note=None) -> dict:
+    """One K1 case: the wrapper (under sync debug "error") and each route
+    its shape can take, launched twice, against the plain version at TOL;
+    with ``empty_rows`` the last row's cache is empty and the first query
+    of the row before it sees no key, and both must come back 0."""
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_ref
+    B, T, Hq, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    dtype = str(q.dtype).removeprefix("torch.")
+    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
+    out = _no_sync(torch, lambda: ops.spec_verify(q, k, v, qp, kp,
+                                                  window=window))
+    ref = spec_verify_ref(q, k, v, qp, kp, window=window)
+    by_route = _route_outputs(torch, ops, q, k, v, qp, kp, None, window,
+                              dtype, D)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    what = f"B={B} T={T} S={S} Hq={Hq} Hk={Hk} D={D} {dtype} " \
+        f"window={window}"
+    check(torch.equal(out, by_route[route][0]),
+          f"spec_verify: the wrapper and its route {route} differ ({what})")
+    errs = {}
+    for r, (o, det, _) in by_route.items():
+        errs[r] = float((o.float() - ref.float()).abs().max())
+        ok = torch.allclose(o.float(), ref.float(), atol=tol, rtol=tol)
+        check(bool(ok), f"spec_verify disagrees with its plain version "
+              f"on {r}: {what} max|err|={errs[r]}")
+        check(det, f"spec_verify: repeat launch on {r} not bit-equal "
               f"({what})")
-        errs = {}
-        for r, (o, det, _) in by_route.items():
-            errs[r] = float((o.float() - ref.float()).abs().max())
-            ok = torch.allclose(o.float(), ref.float(), atol=tol, rtol=tol)
-            check(bool(ok), f"spec_verify disagrees with its plain version "
-                  f"on {r}: {what} max|err|={errs[r]}")
-            check(det, f"spec_verify: repeat launch on {r} not bit-equal "
-                  f"({what})")
-            if live is None:
-                empty = o[B - 1].float().abs().max().item() == 0.0 and \
-                    o[B - 2, 0].float().abs().max().item() == 0.0
-                check(empty, f"spec_verify: rows with no visible key not 0 "
-                      f"on {r} ({what})")
-        err = max(errs.values())
-        rows.append({"shape": shape, "B": B, "S": S, "T": T, "Hq": Hq,
-                     "Hk": Hk, "D": D, "dtype": dtype, "window": window,
-                     "route": route, "n_split": n_split,
-                     "errs_by_route": errs, "max_abs_err": err, "tol": tol,
-                     "empty_rows_zero": live is None, "deterministic": True})
-        log(f"  spec_verify {what}: route {route} (n_split {n_split}); "
-            f"max|err| " + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
-            + f" (tol {tol}); repeats bit-equal; wrapper free of host "
-            f"syncs; " + ("empty rows and blind query 0" if live is None
-                         else f"live {live[0]}"))
+        if empty_rows:
+            empty = o[B - 1].float().abs().max().item() == 0.0 and \
+                o[B - 2, 0].float().abs().max().item() == 0.0
+            check(empty, f"spec_verify: rows with no visible key not 0 "
+                  f"on {r} ({what})")
+    log(f"  spec_verify {shape} {what}: route {route} (n_split {n_split}); "
+        f"max|err| " + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
+        + f" (tol {tol}); repeats bit-equal; wrapper free of host syncs"
+        + ("; empty rows and blind query 0" if empty_rows else "")
+        + (f"; {note}" if note else ""))
+    return {"shape": shape, "B": B, "S": S, "T": T, "Hq": Hq, "Hk": Hk,
+            "D": D, "dtype": dtype, "window": window, "route": route,
+            "n_split": n_split, "errs_by_route": errs,
+            "max_abs_err": max(errs.values()), "tol": tol,
+            "empty_rows_zero": empty_rows, "deterministic": True}
+
+
+def _cross_inputs(torch, np, *, B, T, Tm, Hq, Hk, D, dtype, seed):
+    """Inputs of K1 as a cross block gives them: q (B,T,Hq,D) against a
+    contiguous memory k, v (B,Tm,Hk,D) with no scratch slot, every query
+    and key at position 0 (every key visible)."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to("cuda", dt)
+    zeros = torch.zeros((B, max(T, Tm)), dtype=torch.int32, device="cuda")
+    return (arr(B, T, Hq, D), arr(B, Tm, Hk, D), arr(B, Tm, Hk, D),
+            zeros[:, :T].contiguous(), zeros[:, :Tm].contiguous())
+
+
+def _scaled_err(out, ref32) -> tuple:
+    """(rms(err) / rms(ref), max|err| / max|ref|) of ``out`` against the
+    f32 plain version ``ref32``."""
+    e = out.float() - ref32
+    return (float(e.pow(2).mean().sqrt() / ref32.pow(2).mean().sqrt()),
+            float(e.abs().max() / ref32.abs().max()))
+
+
+def _scaled_ok(errs: tuple) -> bool:
+    return errs[0] <= REL_RMS_TOL and errs[1] <= REL_MAX_TOL
+
+
+def _planted_faults(torch, plain, k, v, dtype, tile: int = 64) -> dict:
+    """Outputs of two wrong kernels over a memory k, v (B, Tm, Hk, D) whose
+    length is no multiple of ``tile``, each the f32 plain version ``plain(k,
+    v)`` over a changed memory, rounded to ``dtype``: the last key dropped,
+    and the last tile's padding (zero keys up to a multiple of ``tile``)
+    let into the softmax."""
+    B, Tm = k.shape[:2]
+    z = k.new_zeros((B, -Tm % tile) + tuple(k.shape[2:]))
+    return {"last key dropped": plain(k[:, :-1], v[:, :-1]).to(dtype),
+            f"{z.shape[1]} padded keys admitted":
+            plain(torch.cat([k, z], 1), torch.cat([v, z], 1)).to(dtype)}
+
+
+def scaled_check(torch, outs: dict, plain, k, v, what: str) -> dict:
+    """Holds each output of ``outs`` ({name: tensor}) to the plain version
+    computed in f32 from the same inputs (``plain(k, v)``, k and v f32)
+    within REL_RMS_TOL / REL_MAX_TOL of the reference's scale, and checks
+    that each planted fault (``_planted_faults``) fails that bound.
+    Returns {name: (rel rms, rel max)}, the faults' included."""
+    k32, v32 = k.float(), v.float()
+    ref32 = plain(k32, v32)
+    dtype = next(iter(outs.values())).dtype
+    errs = {n: _scaled_err(o, ref32) for n, o in outs.items()}
+    for n, e in errs.items():
+        check(_scaled_ok(e), f"{what}: {n} off its f32 plain version: "
+              f"rms(err)/rms(ref) {e[0]:.2e} (limit {REL_RMS_TOL}), "
+              f"max|err|/max|ref| {e[1]:.2e} (limit {REL_MAX_TOL:.2e})")
+    for n, f in _planted_faults(torch, plain, k32, v32, dtype).items():
+        e = errs[f"fault: {n}"] = _scaled_err(f, ref32)
+        check(not _scaled_ok(e), f"{what}: the planted fault '{n}' passes "
+              f"the scaled check ({e[0]:.2e}, {e[1]:.2e})")
+    log(f"  {what} against f32: " + ", ".join(
+        f"{n} {a:.2e}/{b:.2e}" for n, (a, b) in errs.items())
+        + f" (rel rms/rel max; limits {REL_RMS_TOL}/{REL_MAX_TOL:.2e}, "
+        "faults must exceed them)")
+    return errs
+
+
+def _cross_plain(torch, q, qp):
+    """K1's plain version in f32 over a memory of any length at zero
+    positions, for ``scaled_check``."""
+    from repro_torch.kernels.spec_verify.ref import spec_verify_ref
+    q32 = q.float()
+    return lambda k, v: spec_verify_ref(
+        q32, k, v, qp, torch.zeros(k.shape[:2], dtype=torch.int32,
+                                   device=k.device))
+
+
+def cross_kernels_check(torch, np, *, B) -> list:
+    """K1 at the cross blocks' shapes (``CROSS_SHAPES``: llama-3.2-vision's
+    32/8 heads of 128 over 1601 image tokens, whisper-tiny's 6/6 heads of
+    64 over 1500 frames; memory lengths that are no multiple of a tile)
+    at T = 1, 9 and 32, bf16 and f32, on every route each takes, at zero
+    positions (``_k1_case``); each route's output also held to the f32
+    plain version at the reference's scale (``scaled_check``)."""
+    from repro_torch.kernels.spec_verify import ops
+    rows = []
+    for model, (Hq, Hk, D, Tm) in CROSS_SHAPES.items():
+        for T in CROSS_WIDTHS:
+            for dtype in ("bfloat16", "float32"):
+                q, k, v, qp, kp = _cross_inputs(
+                    torch, np, B=B, T=T, Tm=Tm, Hq=Hq, Hk=Hk, D=D,
+                    dtype=dtype, seed=T + D)
+                row = _k1_case(torch, f"{model}/cross", q, k, v, qp, kp, 0,
+                               empty_rows=False, note="zero positions")
+                outs = {r: ops.launch_on_route(r, q, k, v, qp, kp)
+                        for r in _routes(dtype, D)}
+                row["scaled_errs"] = scaled_check(
+                    torch, outs, _cross_plain(torch, q, qp), k, v,
+                    f"spec_verify {model}/cross T={T} {dtype}")
+                rows.append(row)
     return rows
 
 
@@ -809,11 +981,15 @@ def _fa_inputs(torch, np, *, B, Tq, Tk, Hq, Hk, D, dtype, seed):
             arr(B, Tq, Hq, D))
 
 
-def _flash_case(torch, q, k, v, do, *, q_offset, causal, window) -> dict:
+def _flash_case(torch, q, k, v, do, *, q_offset, causal, window,
+                scaled=False) -> dict:
     """One K3 case: the forward, dQ and dK/dV launched twice each on
     (q, k, v, do), held against the plain forward and backward at TOL
     (o, LSE, dq, dk, dv), rows that see nothing 0 with no gradient,
-    repeat launches bitwise equal.  Raises CheckFailed on any miss."""
+    repeat launches bitwise equal; with ``scaled`` (a non-causal forward
+    over a long memory) the forward's output is also held to the f32
+    plain version at the reference's scale (``scaled_check``).  Raises
+    CheckFailed on any miss."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
@@ -855,11 +1031,19 @@ def _flash_case(torch, q, k, v, do, *, q_offset, causal, window) -> dict:
     check(empty, f"flash_attention: a row that sees nothing is not 0 "
           f"({what})")
     check(det, f"flash_attention: repeat launch not bit-equal ({what})")
-    return {"B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq, "Hk": Hk, "D": D,
-            "q_offset": q_offset, "causal": causal, "window": window,
-            "dtype": dtype, "route": route, "max_abs_err": max(errs.values()),
-            "errs": errs, "tol": tol, "blind_rows": n_blind,
-            "blind_rows_zero": empty, "deterministic": det}
+    row = {"B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq, "Hk": Hk, "D": D,
+           "q_offset": q_offset, "causal": causal, "window": window,
+           "dtype": dtype, "route": route, "max_abs_err": max(errs.values()),
+           "errs": errs, "tol": tol, "blind_rows": n_blind,
+           "blind_rows_zero": empty, "deterministic": det}
+    if scaled:
+        assert not causal and q_offset == 0 and window == 0
+        q32 = q.float()
+        row["scaled_errs"] = scaled_check(
+            torch, {"forward": o}, lambda k_, v_: flash_attention_fwd_ref(
+                q32, k_, v_, causal=False)[0], k, v,
+            f"flash_attention forward {what}")
+    return row
 
 
 def flash_kernels_check(torch, np) -> list:
@@ -873,8 +1057,11 @@ def flash_kernels_check(torch, np) -> list:
     edges of the 64-row and 64-key tiles (Tq, Tk of 1, 63, 65, 129, 300),
     q_offset > 0 with window 256, rows that see nothing; f32 on a few of
     those; then D = 32, 64 and 256 on a small case; then phi4-mini-3.8b's
-    (24/8, G = 3) and yi-6b's (32/4, G = 8) heads of 128.  Repeat launches
-    bitwise equal, rows that see nothing 0 (LSE -inf, no gradient)."""
+    (24/8, G = 3) and yi-6b's (32/4, G = 8) heads of 128; then
+    whisper-tiny's encoder (``ENCODER_SHAPE``: B 8, 1500 frames, 6/6
+    heads of 64, non-causal, bf16: a ragged last tile on both sides).
+    Repeat launches bitwise equal, rows that see nothing 0 (LSE -inf, no
+    gradient)."""
     rows = []
     # B, Tq, Tk, Hq, Hk, D, q_offset, causal, window
     shapes = [(2, 512, 512, 32, 8, 128, 0, True, 0),
@@ -907,27 +1094,33 @@ def flash_kernels_check(torch, np) -> list:
                   for B, Tq, Tk, off, causal, win in (edges[2], edges[5],
                                                      edges[7], edges[8])]
         cases += [(1, 65, 300, Hq, Hk, D, 235, True, 0, "float32")]
+    B, T, Hq, Hk, D = ENCODER_SHAPE
+    cases.append((B, T, T, Hq, Hk, D, 0, False, 0, "bfloat16"))
     for B, Tq, Tk, Hq, Hk, D, off, causal, win, dtype in cases:
         q, k, v, do = _fa_inputs(torch, np, B=B, Tq=Tq, Tk=Tk, Hq=Hq, Hk=Hk,
                                  D=D, dtype=dtype, seed=Tq + Tk + D + win)
-        rows.append(_flash_case(torch, q, k, v, do, q_offset=off,
-                                causal=causal, window=win))
+        rows.append(_flash_case(
+            torch, q, k, v, do, q_offset=off, causal=causal, window=win,
+            scaled=(B, Tq, Hq, Hk, D) == ENCODER_SHAPE and not causal))
     return rows
 
 
-def _flash_ops(B, T, Hq, D, which):
-    """Operations of one K3 call at the causal shape: T(T+1)/2 visible
-    (query, key) pairs per query head, 2*D operations per pair and matrix
-    product; forward: S, P V; dq: S, dP, dS K; dkdv: S, dP, P^T dO, dS^T Q."""
+def _flash_ops(B, T, Hq, D, which, causal=True):
+    """Operations of one K3 call at a square shape: T(T+1)/2 visible
+    (query, key) pairs per query head when causal, T^2 when not, 2*D
+    operations per pair and matrix product; forward: S, P V; dq: S, dP,
+    dS K; dkdv: S, dP, P^T dO, dS^T Q."""
     n_mm = {"forward": 2, "dq": 3, "dkdv": 4}[which]
-    return n_mm * 2 * D * (B * Hq * T * (T + 1) // 2)
+    pairs = T * (T + 1) // 2 if causal else T * T
+    return n_mm * 2 * D * B * Hq * pairs
 
 
-def _flash_bound_ms(B, T, Hq, Hk, D, dtype, which):
-    """Least time of one K3 call at the causal training shape: the bytes
-    it must move (each input read once, each output written once) over
-    the memory rate against its matrix products (``_flash_ops``) over the
-    peak rate of its input type."""
+def _flash_bound_ms(B, T, Hq, Hk, D, dtype, which, causal=True):
+    """Least time of one K3 call at a square shape (the causal training
+    shape, the non-causal encoder): the bytes it must move (each input
+    read once, each output written once) over the memory rate against
+    its matrix products (``_flash_ops``) over the peak rate of its input
+    type."""
     es = 2 if dtype == "bfloat16" else 4
     q_bytes, kv_bytes = B * T * Hq * D * es, B * T * Hk * D * es
     rows_f32 = B * Hq * T * 4
@@ -935,9 +1128,106 @@ def _flash_bound_ms(B, T, Hq, Hk, D, dtype, which):
               "dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows_f32,
               "dkdv": 2 * q_bytes + 4 * kv_bytes + 2 * rows_f32}[which]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = _flash_ops(B, T, Hq, D, which) / PEAK_OPS[dtype]
+    t_ops = _flash_ops(B, T, Hq, D, which, causal) / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
+
+
+def encoder_flash_time(torch, np, iters=50) -> dict:
+    """K3's forward at whisper-tiny's encoder (``ENCODER_SHAPE``,
+    non-causal, bf16: the only K3 call of the serving path), beside the
+    plain forward, SDPA's forward (the yardstick) and the bound; held to
+    the plain forward first (``_flash_case``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+    B, T, Hq, Hk, D = ENCODER_SHAPE
+    q, k, v, do = _fa_inputs(torch, np, B=B, Tq=T, Tk=T, Hq=Hq, Hk=Hk, D=D,
+                             dtype="bfloat16", seed=9)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    n0 = dict(ops.launches)
+    res = {"B": B, "T": T, "Hq": Hq, "Hk": Hk, "D": D, "causal": False,
+           "dtype": "bfloat16", "route": ops.route(q.dtype, D),
+           "check": _flash_case(torch, q, k, v, do, q_offset=0,
+                                causal=False, window=0, scaled=True)}
+
+    def fwd():
+        return ops.forward_kernel(q, k, v, causal=False)
+    t = _time_rounds(torch, fwd, iters, flush)
+    res.update(ms=t["median"], ms_spread=t, host_us=_host_us(torch, fwd))
+    ops.launches.update(n0)      # timing launches are not a slice's
+    res["plain_ms"] = _time_ms(torch, lambda: flash_attention_fwd_ref(
+        q, k, v, causal=False), 5, flush)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        lt = _time_rounds(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), iters, flush)
+    res.update(library_ms=lt["median"], library_spread=lt)
+    res["bound_ms"], res["bound_by"] = _flash_bound_ms(
+        B, T, Hq, Hk, D, "bfloat16", "forward", causal=False)
+    res["tflops"] = _flash_ops(B, T, Hq, D, "forward", False) / (
+        res["ms"] * 1e9)
+    res["max_abs_err"] = res["check"]["errs"]["o"]
+    return res
+
+
+def cross_kernels_time(torch, np, *, model, T, B=8, iters=50) -> dict:
+    """K1 at ``model``'s cross block (``CROSS_SHAPES``) at width T, zero
+    positions, bf16: its route and n_split, the other route (K3's
+    non-causal forward over the same memory, which the port does not
+    call there), K1's plain version, SDPA without a mask (the yardstick)
+    and the bound; L2 flushed before each call.  Both kernels are held
+    to the f32 plain version at the reference's scale first
+    (``scaled_check``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_ref
+    Hq, Hk, D, Tm = CROSS_SHAPES[model]
+    dtype = "bfloat16"
+    q, k, v, qp, kp = _cross_inputs(torch, np, B=B, T=T, Tm=Tm, Hq=Hq,
+                                    Hk=Hk, D=D, dtype=dtype, seed=11 + T)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    n0, f0 = dict(ops.launches), dict(fa_ops.launches)
+    ref = spec_verify_ref(q, k, v, qp, kp)
+    out = ops.spec_verify(q, k, v, qp, kp)
+    k3_out = fa_ops.forward_kernel(q, k, v, causal=False)[0]
+    scaled = scaled_check(torch, {"K1": out, "K3": k3_out},
+                          _cross_plain(torch, q, qp), k, v,
+                          f"cross attention ({model}, T={T})")
+    err = float((out.float() - ref.float()).abs().max())
+    k3_err = float((k3_out.float() - ref.float()).abs().max())
+
+    def k1():
+        return ops.spec_verify(q, k, v, qp, kp)
+    t = _time_rounds(torch, k1, iters, flush)
+    k3 = _time_rounds(torch, lambda: fa_ops.forward_kernel(
+        q, k, v, causal=False), iters, flush)
+    host_us = _host_us(torch, k1)
+    plain_ms = _time_ms(torch, lambda: spec_verify_ref(q, k, v, qp, kp),
+                        max(iters // 5, 5), flush)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lt = _time_rounds(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True), iters, flush)
+    ops.launches.update(n0)      # timing launches are not a slice's
+    fa_ops.launches.update(f0)
+    bound_ms, bound_by = _bound_ms(q, k, qp, kp, 0, dtype)
+    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, Tm)
+    return {"model": model, "T": T, "Tm": Tm, "Hq": Hq, "Hk": Hk, "D": D,
+            "dtype": dtype, "route": route, "n_split": n_split,
+            "ms": t["median"], "ms_spread": t, "host_us": host_us,
+            "k3_ms": k3["median"], "k3_spread": k3, "k3_max_abs_err": k3_err,
+            "plain_ms": plain_ms, "library_ms": lt["median"],
+            "library_spread": lt, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "scaled_errs": scaled}
 
 
 def flash_kernels_time(torch, np, *, B=32, T=512, Hq=32, Hk=8, D=128,
@@ -1089,10 +1379,29 @@ def build_model(torch, name: str = "granite-3-8b", layers: int = 0):
             what += (f"; shared attention {cfg.num_heads}/{cfg.num_kv_heads} "
                      f"heads of {cfg.head_dim} every "
                      f"{cfg.hybrid_attn_every} blocks, d_ff {cfg.d_ff}")
+    elif cfg.arch_type == "vlm":
+        what += (f"; a cross block every {cfg.cross_attn_every} layers over "
+                 f"{cfg.num_image_tokens} image tokens")
+    elif cfg.arch_type == "audio":
+        what += (f"; {cfg.encoder_layers} encoder layers over "
+                 f"{cfg.num_audio_frames} frames, a cross block per decoder "
+                 "layer")
     log(f"  {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {what}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}; {n / 1e9:.3f} B params made "
         f"in {time.perf_counter() - t0:.1f} s")
     return cfg, params
+
+
+def modality_embeds(torch, np, cfg, batch: int, seed: int):
+    """Seeded random image embeddings or audio frames (batch, Tm, d_model)
+    in ``cfg.dtype`` on the card: the zero stub would make every cross
+    K/V 0 and hide a wrong cross path."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.models.transformer import cross_len
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal((batch, cross_len(cfg), cfg.d_model),
+                            dtype=np.float32)
+    return torch.from_numpy(e).to("cuda", torch_dtype(cfg.dtype))
 
 
 def make_prompts(np, cfg, n_groups: int, seed: int):
@@ -1111,29 +1420,41 @@ def make_rollout(cfg, params, cache_len=2048, **kw):
 
 def _plain_calls() -> int:
     """Calls of the plain attention and SSD versions so far."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.spec_verify import ref as sv_ref
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    return sum(sv_ref.calls.values()) + sum(ssd_ref.calls.values())
+    return sum(sv_ref.calls.values()) + sum(ssd_ref.calls.values()) + \
+        sum(fa_ref.calls.values())
+
+
+def _counters():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return ops, ssd_ops, fa_ops
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels.spec_verify import ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    ops.reset_launches()
-    ssd_ops.reset_launches()
+    for mod in _counters():
+        mod.reset_launches()
 
 
 def _launches() -> dict:
-    from repro_torch.kernels.spec_verify import ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    return {**ops.launches, **ssd_ops.launches}
+    """Launches of K1, K2, K4 and K3 (forward, dQ, dK/dV) so far."""
+    out = {}
+    for mod in _counters():
+        out.update(mod.launches)
+    return out
 
 
 def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
                 new_tokens=NEW_TOKENS):
     """One ``ro.run`` over the slice's groups, its launch counts set to 0
     just before and read just after; also its plain-version calls, its
-    recurrent-state replays and its peak device memory."""
+    recurrent-state replays, its peak device memory, its KV blobs
+    (slots exported and imported, bytes exported, host seconds spent
+    moving them) and, of its K1 launches, those made inside cross blocks
+    (``cross_launches``)."""
     from repro_torch.core import make_groups
     groups = make_groups(prompts, group_size=group_size,
                          max_new_tokens=new_tokens, seed=3,
@@ -1142,16 +1463,22 @@ def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
     inv0, hs0, rp0 = st.invocations, st.host_syncs, st.replays
     by0 = dict(st.invocations_by_kind)
     nodes0 = [(i.tree_nodes, i.tree_branch_nodes) for i in ro.instances]
+    blob_keys = ("slots_exported", "slots_imported", "migration_bytes_out",
+                 "migration_host_seconds")
+    blobs0 = {k_: sum(getattr(i, k_) for i in ro.instances)
+              for k_ in blob_keys}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain0 = _plain_calls()
     _reset_launches()
-    t0 = time.perf_counter()
-    res = ro.run(groups)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _cross_launches() as cross:
+        t0 = time.perf_counter()
+        res = ro.run(groups)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     return {"responses": res.responses(), "wall_s": wall,
-            "launches": _launches(), "replays": st.replays - rp0,
+            "launches": _launches(), "cross_launches": cross[0],
+            "replays": st.replays - rp0,
             "plain_calls": _plain_calls() - plain0,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "fused_steps": st.invocations - inv0,
@@ -1163,7 +1490,30 @@ def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
                               zip(ro.instances, nodes0)),
             "tree_branch_nodes": sum(i.tree_branch_nodes - n[1] for i, n in
                                      zip(ro.instances, nodes0)),
+            "blobs": {k_: sum(getattr(i, k_) for i in ro.instances)
+                      - blobs0[k_] for k_ in blob_keys},
             "finished": all(g.all_finished for g in res.groups)}
+
+
+@contextlib.contextmanager
+def _cross_launches():
+    """Counts, in the list it yields, the K1 launches made inside
+    ``transformer._cross_attn`` while the block runs (the wrapper's own
+    count, read before and after each cross block)."""
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.models import transformer
+    inner, n = transformer._cross_attn, [0]
+
+    def counted(*a, **kw):
+        n0 = ops.launches["spec_verify"]
+        out = inner(*a, **kw)
+        n[0] += ops.launches["spec_verify"] - n0
+        return out
+    transformer._cross_attn = counted
+    try:
+        yield n
+    finally:
+        transformer._cross_attn = inner
 
 
 def sync_debug_steps(torch, np, cfg, params, n_steps: int = 8,
@@ -1211,7 +1561,7 @@ def _snapshot(inst):
 
 
 def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24,
-                      cache_len: int = 2048) -> dict:
+                      cache_len: int = 2048, embeds=None) -> dict:
     """One tree-mode instance driven with ``build_token_tree([bad,
     good])`` drafts (``good`` from a no-draft run of the same requests,
     ``bad`` that trunk perturbed).  Before each fused step the instance
@@ -1220,20 +1570,24 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24,
     counts, leave the same ``slot_pos`` and bitwise equal K/V at every
     committed slot.  Each fused step dispatches under
     ``set_sync_debug_mode("error")``, costs one host sync and launches K2
-    once per layer (K1 never).  The launch counts are set to 0 before the
-    checked run and returned with it (fused steps and oracle steps), with
-    the fused steps' widths."""
+    once per self-attention layer and K1 once per cross block (a VLM's or
+    audio model's; none elsewhere).  A VLM or audio instance is built on
+    ``embeds`` (its modality embeddings).  The launch counts are set to 0
+    before the checked run and returned with it (fused steps and oracle
+    steps), with the fused steps' widths."""
     from repro_torch.engine import (EngineSeq, Instance, StepFunctions,
                                     build_token_tree)
     from repro_torch.kernels.spec_verify import ops
-    V, L = cfg.vocab_size, cfg.num_layers
+    from repro_torch.models.transformer import n_attn_layers, n_cross_layers
+    V, L, L_cross = cfg.vocab_size, n_attn_layers(cfg), n_cross_layers(cfg)
     rng = np.random.default_rng(21)
     prompts = [rng.integers(0, V, size=int(n)).tolist()
                for n in rng.integers(100, 300, size=8)]
 
     def new_instance():
         inst = Instance(cfg, params, StepFunctions(cfg), max_slots=8,
-                        cache_len=cache_len, spec_mode="tree", device="cuda")
+                        cache_len=cache_len, spec_mode="tree",
+                        modality_embeds=embeds, device="cuda")
         seqs = [EngineSeq(f"t{i}", f"g{i}", p, seed=i, temperature=1.0,
                           max_new_tokens=n_tokens)
                 for i, p in enumerate(prompts)]
@@ -1275,7 +1629,7 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24,
             widths[ticket.T] = widths.get(ticket.T, 0) + 1
         check(inst.steps.host_syncs - h0 == 1,
               f"tree step {steps}: {inst.steps.host_syncs - h0} host syncs")
-        check(k2 == L and k1 == 0,
+        check(k2 == L and k1 == L_cross,
               f"tree step {steps}: K2 launches {k2}, K1 launches {k1}")
         check({i: (t, a) for i, (t, _, a) in got.items()} ==
               {i: (t, a) for i, (t, _, a) in want.items()},
@@ -1724,14 +2078,18 @@ def ssd_time_table(torch, np, extra=None, sweep=True) -> dict:
 
 
 def rec_rollout_checks(r, cfg, which: str) -> None:
-    """A rollout of an SSM, hybrid or MoE model went through its kernels:
-    every group finished; per forward (replays included) one K4 launch
-    per Mamba2 block and one K1 launch per attention layer (a hybrid's
-    shared-attention applications), no K2; no plain attention or SSD
-    call; at most one host sync per step."""
-    from repro_torch.models.transformer import n_attn_layers, n_ssm_layers
+    """A rollout of an SSM, hybrid, MoE, VLM or audio model went through
+    its kernels: every group finished; per forward (replays included) one
+    K4 launch per Mamba2 block and one K1 launch per attention layer (a
+    hybrid's shared-attention applications) and per cross block (those
+    counted inside the cross blocks), no K2, no K3 (the audio encoder ran
+    when the instances were built); no plain attention or SSD call; at
+    most one host sync per step."""
+    from repro_torch.models.transformer import (n_attn_layers,
+                                                n_cross_layers, n_ssm_layers)
     fw = r["fused_steps"] + r["replays"]
-    L_ssm, L_attn = n_ssm_layers(cfg), n_attn_layers(cfg)
+    L_ssm, L_cross = n_ssm_layers(cfg), n_cross_layers(cfg)
+    L_attn = n_attn_layers(cfg) + L_cross
     n = r["launches"]
     check(r["finished"], f"{which}: not every group finished")
     check(L_ssm == 0 or n["ssd_scan"] > 0, f"{which}: K4 launched no time")
@@ -1742,7 +2100,10 @@ def rec_rollout_checks(r, cfg, which: str) -> None:
           f"{n['spec_verify']} != {fw} forwards x {L_attn}")
     check(L_attn == 0 or n["spec_verify"] > 0, f"{which}: K1 launched no "
           "time")
+    check(r["cross_launches"] == fw * L_cross, f"{which}: K1 launches in "
+          f"cross blocks {r['cross_launches']} != {fw} forwards x {L_cross}")
     check(n["tree_verify"] == 0, f"{which}: K2 launched")
+    check(n["flash_attention"] == 0, f"{which}: K3 launched in the rollout")
     check(r["plain_calls"] == 0, f"{which}: {r['plain_calls']} plain "
           "attention / SSD calls on the card")
     check(r["host_syncs"] <= r["stats"].steps, f"{which}: host syncs "
@@ -1751,22 +2112,32 @@ def rec_rollout_checks(r, cfg, which: str) -> None:
 
 def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed,
               cache_len=2048) -> dict:
-    """The Seer rollout of an SSM, hybrid or MoE model: a cold pass, its
-    repeat (bit-identical responses and launch counts), and a warm pass
-    on the repeat's rollout, whose group suffix trees hold the streams of
-    the pass before (drafts accepted; on SSM and hybrid models replays
-    with a partly accepted mask); each pass with ``rec_rollout_checks``.
-    The first pass's rollout is dropped before the second is built, so
-    that one rollout's caches are on the card at a time."""
+    """The Seer rollout of an SSM, hybrid, MoE, VLM or audio model: a cold
+    pass, its repeat (bit-identical responses and launch counts), and a
+    warm pass on the repeat's rollout, whose group suffix trees hold the
+    streams of the pass before (drafts accepted; on SSM and hybrid models
+    replays with a partly accepted mask); each pass with
+    ``rec_rollout_checks``.  The first pass's rollout is dropped before
+    the second is built, so that one rollout's caches are on the card at
+    a time.  Building a rollout of an audio model runs the encoder on
+    each instance: K3 ``encoder_layers`` times an instance (its launches
+    counted around each build)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     prompts = make_prompts(np, cfg, groups, seed=seed)
-    runs = []
+    runs, builds = [], []
     for i in range(2):
         if i:
             del ro
             gc.collect()
             torch.cuda.empty_cache()
+        fa_ops.reset_launches()
         ro = make_rollout(cfg, params, cache_len=cache_len)
+        builds.append(fa_ops.launches["flash_attention"])
         runs.append(run_rollout(torch, ro, prompts, new_tokens=new_tokens))
+    want = len(ro.instances) * (cfg.encoder_layers
+                                if cfg.arch_type == "audio" else 0)
+    check(builds == [want] * 2, f"{cfg.name}: K3 launches per rollout "
+          f"build {builds}, want {want}")
     ro.reset_acceptance_profile()
     warm = run_rollout(torch, ro, prompts, new_tokens=new_tokens)
     del ro
@@ -1796,11 +2167,13 @@ def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed,
                 "drafted": st.drafted, "accepted": st.accepted,
                 "mean_acceptance": st.mean_acceptance,
                 "host_syncs": r["host_syncs"], "launches": r["launches"],
+                "cross_launches": r["cross_launches"], "blobs": r["blobs"],
                 "tokens_per_step": st.tokens / r["fused_steps"],
                 "fused_by_T": r["by_kind"], "wall_s": r["wall_s"],
                 "tokens_per_s": st.tokens / r["wall_s"],
                 "peak_mem_gb": r["peak_mem_gb"]}
     out = {"requests": len(lens), "cold": rep(cold),
+           "k3_per_build": builds[0],
            "repeat": rep(runs[1]),
            "repeat_wall_s": runs[1]["wall_s"],
            "repeat_tokens_per_s": runs[1]["stats"].tokens / runs[1]["wall_s"],
@@ -1814,7 +2187,8 @@ def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed,
             f"{x['chunks']}, migrations {x['migrations']}, drafted "
             f"{x['drafted']}, accepted {x['accepted']}, tokens per step "
             f"{x['tokens_per_step']:.3f}; launches {x['launches']}, host "
-            f"syncs {x['host_syncs']}; wall {x['wall_s']:.3f} s, "
+            f"syncs {x['host_syncs']}; blobs {x['blobs']}; wall "
+            f"{x['wall_s']:.3f} s, "
             f"{x['tokens_per_s']:.1f} tokens/s, peak {x['peak_mem_gb']:.1f} "
             f"GB; steps by T {x['fused_by_T']}")
     log(f"  repeat of the cold pass bit-identical (wall "
@@ -1825,29 +2199,61 @@ def rec_slice(torch, np, cfg, params, *, groups, new_tokens, seed,
     return out
 
 
-def rec_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
-    """One full-width instance of an SSM or hybrid model driven with good
-    drafts (from a draft-free run of the same requests) on even slots and
-    bad ones (the good ones perturbed) on odd slots.  Once the prompts
-    are prefilled, before each fused step the instance is snapshotted and
-    the sync oracle (host acceptance, host-side restore and replay) runs
-    on the snapshot with the same drafts: both commit the same tokens and
-    accept counts and leave every cache leaf (``ssm``, ``conv``, K/V,
-    ``slot_pos``) bitwise equal.  Each fused step dispatches under
-    ``set_sync_debug_mode("error")``, costs one host sync, replays, and
-    launches K4 once per block and K1 once per attention layer per
-    forward."""
+def blob_time(torch, cfg, params, n: int = 8, live: int = 512) -> dict:
+    """Device time of one batched KV export of ``n`` slots (``live``
+    positions each) and of its import, with the cross-attention memory
+    the blobs carry and without it (the same call on the cache without
+    ``cross_k`` / ``cross_v``): what a VLM's or audio model's memory adds
+    to every migration."""
+    from repro_torch.engine import Instance, StepFunctions
+    inst = Instance(cfg, params, StepFunctions(cfg), max_slots=n,
+                    cache_len=2048, device="cuda")
+    export = inst.steps.export_batch((live,) * n)
+    slots = torch.arange(n, device="cuda")
+    bare = {k: v for k, v in inst.cache.items()
+            if not k.startswith("cross_")}
+    blobs = export(inst.cache, slots)
+    out = {"slots": n, "live": live, "cross_bytes_per_slot": sum(
+        inst.cache[k][:, 0].numel() * inst.cache[k].element_size()
+        for k in ("cross_k", "cross_v"))}
+    for name, cache in (("with_cross", inst.cache), ("without", bare)):
+        out[f"export_{name}_ms"] = _time_ms(
+            torch, lambda: export(cache, slots), 20)
+        out[f"import_{name}_ms"] = _time_ms(
+            torch, lambda: StepFunctions.import_batch(cache, slots, blobs),
+            20)
+    return out
+
+
+def rec_engine_check(torch, np, cfg, params, n_tokens: int = 24,
+                     embeds=None) -> dict:
+    """One full-width instance of an SSM, hybrid or audio model driven
+    with good drafts (from a draft-free run of the same requests) on even
+    slots and bad ones (the good ones perturbed) on odd slots.  Once the
+    prompts are prefilled, before each fused step the instance is
+    snapshotted and the sync oracle (host acceptance; on a recurrent
+    model the host-side restore and replay) runs on the snapshot with the
+    same drafts: both commit the same tokens and accept counts and leave
+    every cache leaf (``ssm``, ``conv``, K/V, ``slot_pos``, the
+    cross-attention memory) bitwise equal.  Each fused step dispatches
+    under ``set_sync_debug_mode("error")``, costs one host sync, replays
+    on a recurrent model, and launches K4 once per block and K1 once per
+    attention layer and cross block per forward.  An audio instance is
+    built on ``embeds`` (its frames)."""
     from repro_torch.engine import EngineSeq, Instance, StepFunctions
-    from repro_torch.models.transformer import n_attn_layers, n_ssm_layers
+    from repro_torch.models.transformer import (n_attn_layers,
+                                                n_cross_layers, n_ssm_layers)
     V = cfg.vocab_size
-    L_ssm, L_attn = n_ssm_layers(cfg), n_attn_layers(cfg)
+    L_ssm = n_ssm_layers(cfg)
+    L_attn = n_attn_layers(cfg) + n_cross_layers(cfg)
     rng = np.random.default_rng(21)
     prompts = [rng.integers(0, V, size=int(n)).tolist()
                for n in rng.integers(100, 300, size=8)]
 
     def new_instance():
         inst = Instance(cfg, params, StepFunctions(cfg), max_slots=8,
-                        cache_len=2048, device="cuda")
+                        cache_len=2048, modality_embeds=embeds,
+                        device="cuda")
         seqs = [EngineSeq(f"h{i}", f"g{i}", p, seed=i, temperature=1.0,
                           max_new_tokens=n_tokens)
                 for i, p in enumerate(prompts)]
@@ -1887,7 +2293,7 @@ def rec_engine_check(torch, np, cfg, params, n_tokens: int = 24) -> dict:
         check(inst.steps.host_syncs - h0 == 1,
               f"{cfg.name} step {steps}: {inst.steps.host_syncs - h0} host "
               "syncs")
-        check(rp == (1 if drafts else 0),
+        check(rp == (1 if drafts and L_ssm else 0),
               f"{cfg.name} step {steps}: {rp} replays with drafts {drafts}")
         check(n1["ssd_scan"] - n0["ssd_scan"] == (1 + rp) * L_ssm and
               n1["spec_verify"] - n0["spec_verify"] == (1 + rp) * L_attn,
@@ -2382,6 +2788,8 @@ def main() -> int:
     log("kernels: spec_verify (K1) against its plain version")
     report["kernel_checks"] = kernels_check(torch, np, B=B, S=S,
                                             T_list=CHECK_WIDTHS)
+    log("kernels: spec_verify (K1) at the cross blocks' shapes")
+    report["cross_kernel_checks"] = cross_kernels_check(torch, np, B=B)
 
     log("kernels: tree_verify (K2) against its plain version")
     report["tree_kernel_checks"] = tree_kernels_check(
@@ -2711,10 +3119,81 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("MoE tree engine")
 
+    cross = {}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        kind = "VLM" if arch == VLM_ARCH else "audio"
+        log(f"{kind} slice: {arch} Seer rollout on the card, {CROSS_GROUPS} "
+            f"groups x {GROUP_SIZE}, {CROSS_NEW_TOKENS} new tokens")
+        xcfg, xparams = build_model(torch, arch)
+        sd = sync_debug_steps(torch, np, xcfg, xparams)
+        log(f"  dispatch under sync debug 'error': T per step "
+            f"{sd['step_T']}, host syncs {sd['host_syncs_per_step']}")
+        rep_ = rec_slice(torch, np, xcfg, xparams, groups=CROSS_GROUPS,
+                         new_tokens=CROSS_NEW_TOKENS, seed=1)
+        rep_["sync_debug"] = sd
+        c_ = rep_["cold"]
+        log(f"  K1 launches in the cold pass {c_['launches']['spec_verify']}"
+            f", of them in cross blocks {c_['cross_launches']}; K3 launches "
+            f"per rollout build {rep_['k3_per_build']}")
+        phase_done(f"{kind} slice")
+        bt = rep_["blob_time"] = blob_time(torch, xcfg, xparams)
+        log(f"  one batched export of {bt['slots']} slots ({bt['live']} "
+            f"positions each) {bt['export_with_cross_ms']:.4f} ms, "
+            f"{bt['export_without_ms']:.4f} ms without the cross memory "
+            f"({bt['cross_bytes_per_slot'] / 1e6:.1f} MB a slot); its import "
+            f"{bt['import_with_cross_ms']:.4f} ms, "
+            f"{bt['import_without_ms']:.4f} ms without")
+        embeds = modality_embeds(torch, np, xcfg, 8, seed=7)
+        if kind == "VLM":
+            log(f"VLM tree engine: {arch} fused tree steps against the sync "
+                "oracle, seeded random image embeddings")
+            te_ = tree_engine_check(torch, np, xcfg, xparams, embeds=embeds)
+            rep_["tree_engine"] = te_
+            log(f"  {te_['steps']} steps, each equal to the sync oracle from "
+                f"the same state (tokens, accept counts, slot_pos, K/V at "
+                f"committed slots), 1 host sync, {xcfg.num_layers} K2 and "
+                f"{xcfg.num_layers // xcfg.cross_attn_every} K1 launches "
+                f"each, dispatch clean under sync debug 'error'; "
+                f"{te_['accepted']} drafts accepted, "
+                f"{te_['side_branch_steps']} row-steps along the side "
+                f"branch; tree nodes {te_['tree_nodes']} (branching "
+                f"{te_['tree_branch_nodes']}); K2 launches in the phase "
+                f"{te_['launches']['tree_verify']}; steps by T "
+                f"{te_['steps_by_T']}")
+        else:
+            log(f"audio engine: {arch} fused steps against the sync oracle, "
+                "seeded random audio frames")
+            ae = rec_engine_check(torch, np, xcfg, xparams, embeds=embeds)
+            rep_["engine"] = ae
+            log(f"  {ae['steps']} steps, each equal to the sync oracle from "
+                f"the same state (tokens, accept counts, K/V, slot_pos, "
+                f"cross memory bitwise), 1 host sync each, dispatch clean "
+                f"under sync debug 'error'; {ae['accepted']} drafts "
+                f"accepted, {ae['rejected_rows']} row-steps with a rejected "
+                "draft")
+        if args.profile:
+            rep_["profile"] = profile_steps(torch, xcfg, xparams,
+                                            args.profile)
+            p = rep_["profile"]
+            log(f"  profile of {p['steps']} steps: wall {p['wall_ms']:.1f} "
+                f"ms, device {p['device_ms']:.1f} ms (busy share "
+                f"{p['busy_share']:.3f}); K1 "
+                f"{p['shares']['spec_verify']:.3f} of device time")
+            for k_, t_, n_ in p["top"][:12]:
+                log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
+        cross[arch] = rep_
+        del xparams, embeds
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done(f"{kind} engine")
+    vlm, aud = cross[VLM_ARCH], cross[AUDIO_ARCH]
+    report["vlm_slice"], report["audio_slice"] = vlm, aud
+
     log("serving CLI: repro_torch.launch.serve on cuda")
     from repro_torch.launch import serve
     report["serve"] = {}
-    for flags in ([], ["--arch", MOE_ARCH]):
+    for flags in ([], ["--arch", MOE_ARCH], ["--arch", VLM_ARCH],
+                  ["--arch", AUDIO_ARCH]):
         t_ = time.perf_counter()
         rep_ = serve.main(flags + ["--max-new-tokens", str(SERVE_NEW_TOKENS),
                                    "--device", "cuda"])
@@ -2795,6 +3274,48 @@ def main() -> int:
             f"{f_['library_backward_ms']:.4f}, forward + backward "
             f"{f_['library_fwd_bwd_ms']:.4f}")
 
+    # the VLM and audio slices: K1 at each model's self-attention (the
+    # cold pass's commonest width, contexts halfway through the responses
+    # of the first CROSS_GROUPS groups' prompts) and cross blocks (that
+    # width, then CROSS_WIDTHS), K2 at the VLM tree engine's commonest
+    # width, K3 at the encoder
+    x_live = np.asarray([min(len(p) + CROSS_NEW_TOKENS // 2, S)
+                         for p in prompts[:CROSS_GROUPS]
+                         for _ in range(GROUP_SIZE)][:B])
+    x_T = {a: commonest_T(cross[a]["cold"]["fused_by_T"]) for a in cross}
+    self_t = {a: kernels_time(torch, np, B=B, S=S, T=x_T[a], live=x_live,
+                              model=a) for a in cross}
+    cross_t = {a: [cross_kernels_time(torch, np, model=a, T=T)
+                   for T in dict.fromkeys((x_T[a],) + CROSS_WIDTHS)]
+               for a in cross}
+    vte = vlm["tree_engine"]
+    vte_T = max(vte["steps_by_T"], key=vte["steps_by_T"].get)
+    vlm_tree_t = tree_kernels_time(torch, np, B=B, S=S, T=vte_T,
+                                   live=np.full(B, int(vte["live_mean"])),
+                                   model=VLM_ARCH)
+    enc_t = encoder_flash_time(torch, np)
+    report["cross_kernel_time"] = {"self": self_t, "cross": cross_t,
+                                   "vlm_tree": vlm_tree_t, "encoder": enc_t}
+    for a in cross:
+        log_verify_time(f"spec_verify/{a} (self-attention)", self_t[a])
+        for tm in cross_t[a]:
+            log(f"  spec_verify/{a} cross timing T={tm['T']} over "
+                f"{tm['Tm']} keys Hq={tm['Hq']} Hk={tm['Hk']} D={tm['D']} "
+                f"bf16, route {tm['route']} (n_split {tm['n_split']}): "
+                f"{_spread(tm['ms_spread'])} ms, host {tm['host_us']:.1f} "
+                f"us/call; other route (K3 non-causal forward) "
+                f"{_spread(tm['k3_spread'])} ms; plain {tm['plain_ms']:.4f} "
+                f"ms; SDPA {_spread(tm['library_spread'])} ms; bound "
+                f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+    log_verify_time(f"tree_verify/{VLM_ARCH}", vlm_tree_t)
+    log(f"  flash_attention encoder timing ({AUDIO_ARCH}) B={enc_t['B']} "
+        f"T={enc_t['T']} Hq={enc_t['Hq']} Hk={enc_t['Hk']} D={enc_t['D']} "
+        f"non-causal bf16 ({enc_t['route']}): forward "
+        f"{_spread(enc_t['ms_spread'])} ms ({enc_t['tflops']:.1f} TFLOP/s), "
+        f"host {enc_t['host_us']:.1f} us/call; plain {enc_t['plain_ms']:.4f} "
+        f"ms; SDPA {_spread(enc_t['library_spread'])} ms; bound "
+        f"{enc_t['bound_ms']:.4f} ms ({enc_t['bound_by']})")
+
     def kernel_row(name, tpu, path, launches, checks, tm,
                    source=SPEC_VERIFY_SRC):
         return {"name": name, "route": "cuda", "source": source,
@@ -2827,10 +3348,29 @@ def main() -> int:
         shapes = {shape} if isinstance(shape, str) else set(shape)
         return [c for c in rows_ if (c.get("shape") in shapes) != other]
     z_cold, m_cold = hyb["cold"], rec["mamba2-370m"]["cold"]
+    k1_checks = report["kernel_checks"] + report["cross_kernel_checks"]
+    cross_shapes = [f"{a}/cross" for a in cross]
+
+    def cross_rows(a, kind):
+        """K1 on the ``a`` slice's cold pass: its self-attention (heads
+        checked as ``shape``) and its cross blocks."""
+        cold = cross[a]["cold"]
+        n_cross = cold["cross_launches"]
+        shape = "granite-3-8b" if a == VLM_ARCH else a
+        return [kernel_row(f"spec_verify/{a}", SPEC_VERIFY_TPU,
+                           f"{a} {kind} slice, cold pass, self-attention",
+                           cold["launches"]["spec_verify"] - n_cross,
+                           checks_of(k1_checks, shape) + [self_t[a]],
+                           self_t[a]),
+                kernel_row(f"spec_verify/{a}/cross", SPEC_VERIFY_TPU,
+                           f"{a} {kind} slice, cold pass, cross blocks",
+                           n_cross, checks_of(k1_checks, f"{a}/cross")
+                           + cross_t[a], cross_t[a][0])]
     rows = [kernel_row("spec_verify", SPEC_VERIFY_TPU,
                        "granite-3-8b linear slice, cold pass", k1_launches,
-                       checks_of(report["kernel_checks"],
-                                 ("zamba2-1.2b", MOE_ARCH), other=True),
+                       checks_of(k1_checks, ["zamba2-1.2b", MOE_ARCH,
+                                             AUDIO_ARCH] + cross_shapes,
+                                 other=True),
                        report["kernel_time"][0]),
             kernel_row("spec_verify/zamba2-1.2b", SPEC_VERIFY_TPU,
                        "zamba2-1.2b hybrid slice, cold pass",
@@ -2842,11 +3382,18 @@ def main() -> int:
                        moe["cold"]["launches"]["spec_verify"],
                        checks_of(report["kernel_checks"], MOE_ARCH),
                        report["moe_kernel_time"][0]),
+            *cross_rows(VLM_ARCH, "VLM"),
+            *cross_rows(AUDIO_ARCH, "audio"),
             kernel_row("tree_verify", TREE_VERIFY_TPU,
                        "granite-3-8b tree slice, measured pass", k2_launches,
-                       checks_of(report["tree_kernel_checks"], MOE_ARCH,
-                                 other=True),
+                       checks_of(report["tree_kernel_checks"],
+                                 (MOE_ARCH, AUDIO_ARCH), other=True),
                        report["tree_kernel_time"][0]),
+            kernel_row(f"tree_verify/{VLM_ARCH}", TREE_VERIFY_TPU,
+                       f"{VLM_ARCH} VLM tree engine (fused steps and their "
+                       "sync oracle)", vte["launches"]["tree_verify"],
+                       checks_of(report["tree_kernel_checks"],
+                                 "granite-3-8b") + [vlm_tree_t], vlm_tree_t),
             kernel_row(f"tree_verify/{MOE_ARCH}", TREE_VERIFY_TPU,
                        f"{MOE_ARCH} MoE tree engine (fused steps and their "
                        "sync oracle)", mte["launches"]["tree_verify"],
@@ -2858,6 +3405,11 @@ def main() -> int:
                       "library_backward_ms"),
             flash_row("flash_attention_dkdv", "dkdv", "plain_backward_ms",
                       "library_backward_ms"),
+            kernel_row(f"flash_attention/{AUDIO_ARCH}", FLASH_TPU,
+                       f"{AUDIO_ARCH} audio slice, the cold pass's rollout "
+                       "build (the encoder on each instance)",
+                       aud["k3_per_build"], [enc_t], enc_t,
+                       source=FLASH_SRC),
             kernel_row("ssd_scan", SSD_TPU,
                        "zamba2-1.2b hybrid slice, cold pass",
                        z_cold["launches"]["ssd_scan"],

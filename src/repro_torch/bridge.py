@@ -48,9 +48,11 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
     experts' ``wg``/``wu`` from ``(E, d, eff)`` to the port's
     ``(d, E * eff)``, ``models.moe``), ssm ``layers[i]``, hybrid
     ``cells[c]["ssm"][j]`` and ``tail[j]``, with the one ``shared_attn`` /
-    ``shared_mlp`` block held once.  Matrices and the embedding are stored
-    once in ``dtype`` (default ``cfg.dtype``): exact, because the JAX
-    forward casts them to the activation dtype where it uses them
+    ``shared_mlp`` block held once, vlm ``cells[c]["self"][j]`` (stacked
+    twice in the reference) and ``cells[c]["cross"]``, audio
+    ``enc_layers[i]`` and ``dec_layers[i]``.  Matrices and the embedding
+    are stored once in ``dtype`` (default ``cfg.dtype``): exact, because
+    the JAX forward casts them to the activation dtype where it uses them
     (``lin``, the embed gather and the tied unembed).  Norms and the
     Mamba2 vectors stay f32, and so do the conv weights, which the
     reference uses in f32 (``causal_conv``), and the MoE router, on which
@@ -112,6 +114,22 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
                          for j in range(L - nd)]
     elif cfg.arch_type == "ssm":
         out["layers"] = [block(tree["layers"], i) for i in range(L)]
+    elif cfg.arch_type == "vlm":
+        every, cells = cfg.cross_attn_every, tree["cells"]
+        sa, sm = cells["self"]["attn"], cells["self"]["mlp"]
+        out["cells"] = [
+            {"self": [{"attn": attn(sa, (c, j)), "mlp": mlp(sm, (c, j))}
+                      for j in range(every)],
+             "cross": attn(cells["cross"], c)}
+            for c in range(L // every)]
+    elif cfg.arch_type == "audio":
+        enc, dec = tree["enc_layers"], tree["dec_layers"]
+        out["enc_layers"] = [{"attn": attn(enc["attn"], i),
+                              "mlp": mlp(enc["mlp"], i)}
+                             for i in range(cfg.encoder_layers)]
+        out["dec_layers"] = [{"attn": attn(dec["attn"], i),
+                              "cross": attn(dec["cross"], i),
+                              "mlp": mlp(dec["mlp"], i)} for i in range(L)]
     else:
         every = cfg.hybrid_attn_every
         cells = tree["cells"]["ssm"]
@@ -153,8 +171,9 @@ def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
 def cache_from_jax(cfg: ModelConfig, cache: Dict[str, np.ndarray],
                    device: DeviceLike = None) -> dict:
     """A reference cache (``k``/``v`` (L,B,S,Hk,D), ``slot_pos`` (B,S),
-    ``conv`` (n_ssm,B,K-1,ch), ``ssm`` (n_ssm,B,nh,P,N)) -> a port cache
-    with the same contents."""
+    ``conv`` (n_ssm,B,K-1,ch), ``ssm`` (n_ssm,B,nh,P,N), ``cross_k`` /
+    ``cross_v`` (n_cross,B,Tm,Hk,D)) -> a port cache with the same
+    contents."""
     dev = resolve_device(device)
     lead = cache["k"] if "k" in cache else cache["conv"]
     B = lead.shape[1]

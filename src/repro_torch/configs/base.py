@@ -209,11 +209,10 @@ def _ensure_loaded():
     # import the per-arch modules exactly once
     if _REGISTRY:
         return
-    # the port registers the architectures it runs; the others arrive
-    # with the slices that port their layers (VLM, audio)
     from repro_torch.configs import (  # noqa: F401
-        deepseek_moe_16b, granite_3_8b, mamba2_370m, mixtral_8x7b,
-        moonshot_v1_16b_a3b, phi4_mini_3_8b, yi_6b, zamba2_1_2b,
+        deepseek_moe_16b, granite_3_8b, llama_3_2_vision_11b, mamba2_370m,
+        mixtral_8x7b, moonshot_v1_16b_a3b, phi4_mini_3_8b, whisper_tiny,
+        yi_6b, zamba2_1_2b,
     )
 
 

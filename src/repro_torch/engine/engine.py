@@ -64,7 +64,9 @@ from repro_torch.engine.sampling import (draft_acceptance, position_keys,
                                          token_logprobs_at, tree_acceptance)
 from repro_torch.engine.token_tree import TokenTree, bucket_pow2, chain_tree
 from repro_torch.models import forward, init_cache
-from repro_torch.models.transformer import with_scratch
+from repro_torch.models.model import modality_inputs
+from repro_torch.models.transformer import (build_cross_cache, cross_len,
+                                            with_scratch)
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -468,7 +470,9 @@ def _slot_slice(key: str) -> int:
 
 
 def _pos_axis(key: str) -> Optional[int]:
-    """Axis of the cache-position dim in a per-slot blob leaf."""
+    """Axis of the cache-position dim in a per-slot blob leaf, or None
+    for leaves without one (recurrent state, cross-attention memory):
+    those ride a blob whole."""
     return {"k": 1, "v": 1, "slot_pos": 0}.get(key)
 
 
@@ -533,7 +537,15 @@ class _TreeBatch:
 
 
 class Instance:
-    """One inference instance (a model replica with its own KV buffer)."""
+    """One inference instance (a model replica with its own KV buffer).
+
+    A VLM or audio instance builds its cross-attention memory at
+    construction (``build_cross_cache``, the audio encoder included) from
+    ``modality_embeds`` (max_slots, Tm, d_model) — slot i's image
+    embeddings or audio frames — or, when none are given, from the zero
+    stub (``models.model.modality_inputs``), as the JAX package does.
+    A slot keeps its memory across requests; a KV blob carries the
+    slot's memory whole, and an import writes it into the new slot."""
 
     def __init__(self, cfg: ModelConfig, params, steps: StepFunctions, *,
                  tp: Optional[int] = None,
@@ -547,6 +559,7 @@ class Instance:
                  instance_id: str = "inst0", node: str = "n0",
                  admit_into_draining: Optional[bool] = None,
                  base_seed: int = 0,
+                 modality_embeds: Optional[torch.Tensor] = None,
                  device: DeviceLike = None):
         if prefill_mode not in ("batched", "sync"):
             raise ValueError(f"prefill_mode={prefill_mode!r}")
@@ -600,6 +613,17 @@ class Instance:
         self.tp = None
         self.base_key = prng_key(base_seed)
         self.cache = init_cache(cfg, max_slots, cache_len, device=self.device)
+        if "cross_k" in self.cache:
+            if modality_embeds is None:
+                (modality_embeds,) = modality_inputs(
+                    cfg, max_slots, device=self.device).values()
+            want = (max_slots, cross_len(cfg), cfg.d_model)
+            if tuple(modality_embeds.shape) != want:
+                raise ValueError(f"modality_embeds of shape "
+                                 f"{tuple(modality_embeds.shape)}; want "
+                                 f"{want}")
+            self.cache["cross_k"], self.cache["cross_v"] = build_cross_cache(
+                cfg, params, modality_embeds.to(self.device))
         self.slots: List[Optional[EngineSeq]] = [None] * max_slots
         self._inflight: Optional[StepTicket] = None
         self.alive = True
@@ -987,7 +1011,8 @@ class Instance:
     def _clear_slot_cache(self, slot: int) -> None:
         """Empty a slot in place, on the device: ``slot_pos`` -1, the
         recurrent state and conv window 0 (each through a view, never an
-        indexed assignment of a Python scalar, which syncs the host)."""
+        indexed assignment of a Python scalar, which syncs the host).
+        The cross-attention memory stays, as in the JAX package."""
         if "slot_pos" in self.cache:
             self.cache["slot_pos"][slot].fill_(-1)
         for k in ("ssm", "conv"):

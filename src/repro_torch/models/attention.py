@@ -7,12 +7,15 @@ masked by each slot's absolute position.  The JAX package computes it
 with ``_plain`` (its forward never calls the Pallas kernel); in the port
 the hand-written spec-verify kernel (K1) *is* that attention on the
 card, and the tree-verify kernel (K2) is the attention of a forward that
-carries an ``allowed_mask`` (tree speculation).  The cache-free forward
-(training) attends a sequence to itself at positions 0..T-1; the JAX
-package runs ``_plain`` (or its XLA ``_flash`` scan for long sequences)
-and differentiates it by autodiff, the port runs the flash-attention
-kernel (K3) with its hand-written backward.  The plain versions of all
-three — which follow ``_plain`` op for op — run on a CPU tensor.
+carries an ``allowed_mask`` (tree speculation).  A VLM or audio model's
+cross-attention to its cached memory is K1 too, at zero positions
+(``transformer._cross_attn`` says why that is the non-causal mask).
+The cache-free forward (training, and the audio encoder) attends a
+sequence to itself at positions 0..T-1, causal or not; the JAX package
+runs ``_plain`` (or its XLA ``_flash`` scan for long sequences) and
+differentiates it by autodiff, the port runs the flash-attention kernel
+(K3) with its hand-written backward.  The plain versions of all three —
+which follow ``_plain`` op for op — run on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -46,10 +49,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     step's slots ancestor-or-self columns at positions <= the query's);
     the tests check that subset on the engine's tree batches.
 
-    ``contiguous=True`` (the cache-free forward): q_pos and k_pos are
-    0..T-1 in every row, which the caller checked, and the mask is
-    causal (or none) & window, through K3.  No ``kv_valid`` there:
-    ``grpo_loss`` never passes a token mask."""
+    ``contiguous=True`` (the cache-free forward and the audio encoder):
+    q_pos and k_pos are 0..T-1 in every row, which the caller made or
+    checked, and the mask is causal (or none) & window, through K3.  No
+    ``kv_valid`` there: ``grpo_loss`` never passes a token mask."""
     if softcap:
         raise NotImplementedError(
             "attention softcap is not on a ported path")

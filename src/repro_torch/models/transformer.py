@@ -1,12 +1,16 @@
-"""The config-driven model on the dense, MoE, SSM (Mamba2) and hybrid
-(Zamba2) archs, with a slot-indexed KV cache and recurrent state, and the
-dense cache-free forward (training).
+"""The config-driven model on every arch of the JAX package — dense,
+MoE, SSM (Mamba2), hybrid (Zamba2), VLM (Llama-3.2-Vision) and audio
+(Whisper) — with a slot-indexed KV cache, recurrent state and
+cross-attention memory, and the dense cache-free forward (training).
 
-Counterpart of ``repro.models.transformer`` on those archs:
-``init_params``, ``init_cache``, ``_project_qkv``, the slot-scatter and
-``ck is None`` branches of ``_self_attn``, ``_mlp``, ``_dense_layer``,
-``_moe_layer``, ``_decoder_stack``, ``_ssm_stack``, ``_hybrid_stack``
-(Python loops over layers instead of ``lax.scan``) and ``forward``.
+Counterpart of ``repro.models.transformer``: ``init_params``,
+``init_cache``, ``_project_qkv``, the slot-scatter and ``ck is None``
+branches of ``_self_attn``, ``_cross_attn``, ``_mlp``, ``_dense_layer``,
+``_moe_layer``, ``_decoder_stack``, ``_ssm_stack``, ``_hybrid_stack``,
+``build_cross_cache``, ``_vlm_stack``, ``encode_audio``,
+``_audio_stack`` (Python loops over layers instead of ``lax.scan``) and
+``forward``.  The VLM and audio archs are served; their cache-free
+forward (training, with ``aux_inputs``) is a later slice.
 With a cache, one forward covers chunked prefill, decode (T=1) and
 speculative verify
 (T=gamma+1), and mixes them row by row under ``token_mask``.  Without
@@ -32,6 +36,7 @@ never read.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -45,7 +50,7 @@ from repro_torch.models.common import apply_rope, lin, rms_norm
 from repro_torch.models.mamba2 import init_mamba_block, mamba_block
 from repro_torch.models.moe import init_moe, moe_forward
 
-PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
+PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_arch(cfg: ModelConfig) -> None:
@@ -70,7 +75,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     its router in f32); ssm ``layers[i]`` (one Mamba2 block each);
     hybrid ``cells[c]["ssm"][j]``, ``tail[j]`` (the blocks past the last
     whole cell) and one ``shared_attn`` and ``shared_mlp``, used by every
-    cell.  ``generator`` must live on
+    cell; vlm ``cells[c]`` (``{"self": [dense layer] * cross_attn_every,
+    "cross": attention block}``); audio ``enc_layers[i]`` (dense layers)
+    and ``dec_layers[i]`` (``{"attn", "cross", "mlp"}``).  A cross block
+    is a plain attention block at the same scales (the JAX package's
+    ``_init_attn(cross=True)``).  ``generator`` must live on
     ``device``."""
     check_arch(cfg)
     dev = resolve_device(device)
@@ -102,6 +111,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "wu": normal((d, f), 1.0 / math.sqrt(d)),
                 "wd": normal((f, d), 1.0 / math.sqrt(f))}
 
+    def dense():
+        return {"attn": attn(), "mlp": mlp()}
+
     def block():
         return init_mamba_block(cfg, normal, ones, zeros)
 
@@ -111,12 +123,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["unembed"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
     L = cfg.num_layers
     if cfg.arch_type == "dense":
-        params["layers"] = [{"attn": attn(), "mlp": mlp()} for _ in range(L)]
+        params["layers"] = [dense() for _ in range(L)]
     elif cfg.arch_type == "moe":
         nd = cfg.first_dense_layers
         if nd:
-            params["dense_layers"] = [{"attn": attn(), "mlp": mlp()}
-                                      for _ in range(nd)]
+            params["dense_layers"] = [dense() for _ in range(nd)]
         params["layers"] = [
             {"attn": attn(), "ln2": ones(d),
              "moe": init_moe(d, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts,
@@ -124,7 +135,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             for _ in range(L - nd)]
     elif cfg.arch_type == "ssm":
         params["layers"] = [block() for _ in range(L)]
-    else:
+    elif cfg.arch_type == "hybrid":
         every = cfg.hybrid_attn_every
         n_cells = L // every
         params["cells"] = [{"ssm": [block() for _ in range(every)]}
@@ -133,6 +144,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             params["tail"] = [block() for _ in range(L - n_cells * every)]
         params["shared_attn"] = attn()
         params["shared_mlp"] = mlp()
+    elif cfg.arch_type == "vlm":
+        every = cfg.cross_attn_every
+        params["cells"] = [{"self": [dense() for _ in range(every)],
+                            "cross": attn()} for _ in range(L // every)]
+    else:
+        params["enc_layers"] = [dense() for _ in range(cfg.encoder_layers)]
+        params["dec_layers"] = [{"attn": attn(), "cross": attn(),
+                                 "mlp": mlp()} for _ in range(L)]
     return params
 
 
@@ -154,14 +173,32 @@ def n_ssm_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
 
 
+def n_cross_layers(cfg: ModelConfig) -> int:
+    """Cross-attention blocks: one per VLM cell, one per audio decoder
+    layer."""
+    if cfg.arch_type == "vlm":
+        return cfg.num_layers // cfg.cross_attn_every
+    return cfg.num_layers if cfg.arch_type == "audio" else 0
+
+
+def cross_len(cfg: ModelConfig) -> int:
+    """Positions of the cross-attention memory: image tokens or audio
+    frames."""
+    return cfg.num_image_tokens if cfg.arch_type == "vlm" \
+        else cfg.num_audio_frames
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None) -> dict:
     """The JAX package's cache layout.  Attention layers: zero K/V
     ``(n_attn,B,S,Hk,D)`` and ``slot_pos (B,S)`` filled with -1, each a
     view of a buffer one slot wider (the scratch slot of masked writes).
     Mamba2 blocks: the conv window ``conv (n_ssm,B,K-1,ch)`` in ``dtype``
-    and the state ``ssm (n_ssm,B,nh,P,N)`` in f32, both zero; they have
-    no position axis and no scratch slot."""
+    and the state ``ssm (n_ssm,B,nh,P,N)`` in f32, both zero.  VLM and
+    audio models: the cross-attention memory ``cross_k`` / ``cross_v``
+    ``(n_cross,B,Tm,Hk,D)`` in ``dtype``, zero until
+    :func:`build_cross_cache` fills it.  Neither has a position axis or
+    a scratch slot: nothing writes them by position."""
     check_arch(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
@@ -182,6 +219,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         cache["ssm"] = torch.zeros(
             (n_ssm, batch, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state),
             dtype=torch.float32, device=dev)
+    n_cross = n_cross_layers(cfg)
+    if n_cross:
+        shape = (n_cross, batch, cross_len(cfg), cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
 
 
@@ -237,14 +280,49 @@ def _self_attn(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
     return x + lin(o.reshape(B, T, -1), p["wo"])
 
 
-def _self_attn_nocache(p, x, cfg, positions):
-    """The ``ck is None`` branch: causal self-attention over the
-    sequence itself (positions 0..T-1), through K3."""
+def _self_attn_nocache(p, x, cfg, positions, causal=True):
+    """The ``ck is None`` branch: self-attention over the sequence itself
+    (positions 0..T-1), causal or (the audio encoder) bidirectional,
+    through K3."""
     B, T = x.shape[:2]
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     q, k, v = _project_qkv(p, xn, cfg, positions)
-    o = attention(q, k, v, positions, positions, window=cfg.sliding_window,
+    o = attention(q, k, v, positions, positions, causal=causal,
+                  window=cfg.sliding_window,
                   softcap=cfg.attn_logit_softcap, contiguous=True)
+    return x + lin(o.reshape(B, T, -1), p["wo"])
+
+
+@functools.lru_cache(maxsize=64)
+def _zero_positions(B: int, T: int, device: torch.device) -> torch.Tensor:
+    """(B, T) int32 zeros, made once per shape and device: a per-call
+    allocation would cost host time on every cross layer.  An engine
+    meets a few widths T and one memory length, so 64 entries hold them
+    all."""
+    return torch.zeros((B, T), dtype=torch.int32, device=device)
+
+
+def _cross_kv(p, mem, cfg):
+    """K/V of one cross block from the memory (B, Tm, d)."""
+    B, Tm, _ = mem.shape
+    k = lin(mem, p["wk"]).reshape(B, Tm, cfg.num_kv_heads, cfg.head_dim)
+    v = lin(mem, p["wv"]).reshape(B, Tm, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _cross_attn(p, x, cfg, k, v):
+    """Cross-attention to static memory (image or audio embeddings) from
+    its cached K/V, (B, Tm, Hk, D) each (``_cross_kv``).  No RoPE.
+
+    The JAX package attends with ``causal=False`` at ``q_pos = k_pos =
+    0``.  Through K1 that mask is ``(k_pos >= 0) & (k_pos <= q_pos)``,
+    which at zero positions admits every key: the non-causal mask, with
+    no check on the host (a check would sync it)."""
+    xn = rms_norm(x, p["ln"], cfg.rms_eps)
+    B, T, _ = xn.shape
+    q = lin(xn, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    o = attention(q, k, v, _zero_positions(B, T, q.device),
+                  _zero_positions(B, k.shape[1], q.device))
     return x + lin(o.reshape(B, T, -1), p["wo"])
 
 
@@ -293,6 +371,43 @@ def _decoder_stack(cfg, params, x, cache, attn_args):
 def _dense_layer_nocache(p, x, cfg, positions):
     x = _self_attn_nocache(p["attn"], x, cfg, positions)
     return _mlp(p["mlp"], x, cfg)
+
+
+@torch.no_grad()
+def encode_audio(cfg: ModelConfig, params: dict,
+                 frames: torch.Tensor) -> torch.Tensor:
+    """The bidirectional audio encoder over (stubbed) frame embeddings
+    (B, Tf, d): each ``enc_layers`` layer attends the frames to each
+    other at positions 0..Tf-1 (RoPE included), non-causal, through K3,
+    then its MLP."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    B, Tf, _ = x.shape
+    pos = torch.arange(Tf, dtype=torch.int32, device=x.device).expand(B, Tf)
+    for p in params["enc_layers"]:
+        x = _self_attn_nocache(p["attn"], x, cfg, pos, causal=False)
+        x = _mlp(p["mlp"], x, cfg)
+    return x
+
+
+@torch.no_grad()
+def build_cross_cache(cfg: ModelConfig, params: dict,
+                      embeds: torch.Tensor):
+    """K/V of every cross block, ``(n_cross, B, Tm, Hk, D)`` each in
+    ``cfg.dtype``, from the modality embeddings (B, Tm, d): the image
+    embeddings themselves, or the audio encoder's output over the
+    frames."""
+    if cfg.arch_type == "vlm":
+        blocks = [cell["cross"] for cell in params["cells"]]
+    elif cfg.arch_type == "audio":
+        embeds = encode_audio(cfg, params, embeds)
+        blocks = [layer["cross"] for layer in params["dec_layers"]]
+    else:
+        raise ValueError(f"arch_type={cfg.arch_type!r} has no "
+                         "cross-attention")
+    dt = torch_dtype(cfg.dtype)
+    kv = [_cross_kv(p, embeds, cfg) for p in blocks]
+    return (torch.stack([k for k, _ in kv]).to(dt),
+            torch.stack([v for _, v in kv]).to(dt))
 
 
 def _forward_nocache(cfg, params, tokens, positions, train):
@@ -381,6 +496,37 @@ def _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args):
                       rec, len(params["cells"]) * every)
 
 
+def _vlm_stack(cfg, params, x, cache, attn_args):
+    """Llama-3.2-Vision: each cell runs its ``cross_attn_every`` dense
+    layers on the slot cache (self layer ``c * every + j`` of ``k`` /
+    ``v``), then its cross block on ``cross_k[c]`` / ``cross_v[c]``."""
+    every = cfg.cross_attn_every
+    positions, bidx, slots, slot_pos, allowed = attn_args
+    for c, cell in enumerate(params["cells"]):
+        for j, p in enumerate(cell["self"]):
+            i = c * every + j
+            x = _dense_layer(p, x, cfg, positions, bidx, slots,
+                             cache["k"][i], cache["v"][i], slot_pos,
+                             allowed)
+        x = _cross_attn(cell["cross"], x, cfg, cache["cross_k"][c],
+                        cache["cross_v"][c])
+    return x
+
+
+def _audio_stack(cfg, params, x, cache, attn_args):
+    """Whisper's decoder: each layer's self-attention on the slot cache,
+    then its cross block on the encoder's memory (``cross_k[i]`` /
+    ``cross_v[i]``), then its MLP."""
+    positions, bidx, slots, slot_pos, allowed = attn_args
+    for i, p in enumerate(params["dec_layers"]):
+        x = _self_attn(p["attn"], x, cfg, positions, bidx, slots,
+                       cache["k"][i], cache["v"][i], slot_pos, allowed)
+        x = _cross_attn(p["cross"], x, cfg, cache["cross_k"][i],
+                        cache["cross_v"][i])
+        x = _mlp(p["mlp"], x, cfg)
+    return x
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor, cache: Optional[dict] = None, *,
             token_mask: Optional[torch.Tensor] = None,
@@ -397,7 +543,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``train=True`` recomputes each layer in the backward.  It takes no
     ``token_mask`` (``grpo_loss`` passes none) and no tree inputs.  Dense
     models only: training an SSM or hybrid needs a backward of K4, and
-    MoE training (its aux loss in ``grpo_loss``) is a later slice.
+    MoE training (its aux loss in ``grpo_loss``) and the VLM / audio
+    forward over ``aux_inputs`` are later slices.
 
     With a cache, the cache is updated in place and returned, and the
     third output is the MoE layers' summed load-balance loss (an f32
@@ -411,14 +558,21 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     layer then attends under one allowed-mask built from it, through K2.
     Mamba2 blocks read the recurrent state from the cache and write it to
     ``rec_out`` (``{"conv", "ssm"}`` shaped like the cache's leaves) when
-    given, else back into the cache.  ``logits=False`` skips the unembed
-    and returns None in their place (the engine's replay)."""
+    given, else back into the cache.  VLM and audio models read their
+    cross-attention memory from ``cross_k`` / ``cross_v`` of the cache
+    (:func:`build_cross_cache`).  ``logits=False`` skips the unembed and
+    returns None in their place (the engine's replay)."""
     check_arch(cfg)
     if cache is None:
         if cfg.arch_type == "moe":
             raise NotImplementedError(
                 "arch_type='moe': the cache-free (training) forward of MoE "
                 "models arrives with the MoE training slice of the port")
+        if cfg.arch_type in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"arch_type={cfg.arch_type!r}: the cache-free forward over "
+                "aux_inputs (image embeddings or audio frames) arrives with "
+                "the VLM / audio training slice of the port")
         if cfg.arch_type != "dense":
             raise NotImplementedError(
                 f"arch_type={cfg.arch_type!r}: the cache-free (training) "
@@ -468,8 +622,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x, aux = _decoder_stack(cfg, params, x, cache, attn_args)
     elif cfg.arch_type == "ssm":
         x = _ssm_stack(cfg, params["layers"], x, token_mask, cache, rec, 0)
-    else:
+    elif cfg.arch_type == "hybrid":
         x = _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args)
+    elif cfg.arch_type == "vlm":
+        x = _vlm_stack(cfg, params, x, cache, attn_args)
+    else:
+        x = _audio_stack(cfg, params, x, cache, attn_args)
     if not logits:
         return None, cache, aux
     return _unembed(cfg, params, x), cache, aux

@@ -161,6 +161,12 @@ class RLTrainer:
                 "arch_type='moe': MoE training (the cache-free MoE forward "
                 "and the router's aux loss in grpo_loss) arrives with the "
                 "MoE training slice of the port; this slice serves them")
+        if cfg.arch_type in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"arch_type={cfg.arch_type!r}: VLM / audio training (the "
+                "cache-free forward over image embeddings or audio frames) "
+                "arrives with a later slice of the port; this slice serves "
+                "them")
         if cfg.arch_type != "dense":
             raise NotImplementedError(
                 f"arch_type={cfg.arch_type!r}: training an SSM or hybrid "

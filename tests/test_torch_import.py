@@ -37,7 +37,10 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.yi_6b",
-            "repro_torch.configs.phi4_mini_3_8b"} <= set(mods)
+            "repro_torch.configs.phi4_mini_3_8b",
+            "repro_torch.configs.llama_3_2_vision_11b",
+            "repro_torch.configs.whisper_tiny",
+            "repro_torch.models.model"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
@@ -83,8 +86,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.core import SeerRollout
     from repro_torch.engine import Instance, StepFunctions
     from repro_torch.models import init_cache, init_params
+    from repro_torch.models.model import modality_inputs
     for arch in ("granite-3-8b", "mamba2-370m", "zamba2-1.2b",
-                 "moonshot-v1-16b-a3b"):
+                 "moonshot-v1-16b-a3b", "llama-3.2-vision-11b",
+                 "whisper-tiny"):
         cfg = get_tiny_config(arch)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_cache(cfg, 1, 8)
@@ -99,6 +104,9 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                      cache_len=8)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SeerRollout(cfg, params, max_slots=1, cache_len=8)
+        if cfg.arch_type in ("vlm", "audio"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                modality_inputs(cfg, 1)
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--groups", "1"])

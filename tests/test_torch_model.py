@@ -37,8 +37,9 @@ def jax_params():
 
 def test_configs_equal_the_reference():
     archs = [ARCH, "mamba2-370m", "zamba2-1.2b", "moonshot-v1-16b-a3b",
-             "deepseek-moe-16b", "mixtral-8x7b", "yi-6b", "phi4-mini-3.8b"]
-    assert tcfgs.list_archs() == sorted(archs)
+             "deepseek-moe-16b", "mixtral-8x7b", "yi-6b", "phi4-mini-3.8b",
+             "llama-3.2-vision-11b", "whisper-tiny"]
+    assert tcfgs.list_archs() == sorted(archs) == jcfgs.list_archs()
     for arch in archs:
         for get in ("get_config", "get_tiny_config"):
             ref = getattr(jcfgs, get)(arch)
@@ -209,11 +210,17 @@ def test_unported_paths_raise():
     cache = init_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError):
         forward(cfg, params, tok, tok, cache, contiguous_update=True)
-    # the archs still refused: vlm and audio
-    for arch_type in ("vlm", "audio"):
-        other = replace(cfg, arch_type=arch_type)
-        with pytest.raises(NotImplementedError):
-            init_cache(other, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError):
-            init_params(other, torch.Generator().manual_seed(0),
+    # VLM and audio models are served; their cache-free forward (over
+    # image embeddings or audio frames) and their training are refused
+    from repro_torch.data.tasks import make_task
+    from repro_torch.training import RLConfig, RLTrainer
+    for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
+        other = tcfgs.get_tiny_config(arch)
+        p = init_params(other, torch.Generator().manual_seed(0),
                         device="cpu")
+        with pytest.raises(NotImplementedError, match="VLM / audio"):
+            forward(other, p, tok, tok, None)
+        task = make_task("copy", other.vocab_size, prompt_len=4,
+                         response_len=4)
+        with pytest.raises(NotImplementedError, match="VLM / audio"):
+            RLTrainer(other, task, RLConfig(device="cpu"), params=p)

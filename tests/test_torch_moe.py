@@ -12,12 +12,11 @@ yi-6b and phi4-mini-3.8b tiny configs (G = 4 and G = 3 at head dim
 32).
 
 Each tolerance (1e-5 at f32, 3e-2 at bf16) is taken of the compared
-tensor's own scale as well as of each element (``_close``): at the
-reference's init scales an MoE layer's outputs reach ~100 and nearly
-cancel in places, so rounding at the terms' scale (1e-7 in f32, an ulp
-of 0.25-0.5 in bf16) is far above an element's own tolerance there."""
-from dataclasses import replace
-
+tensor's own scale as well as of each element (``close``'s
+``of_scale``): at the reference's init scales an MoE layer's outputs
+reach ~100 and nearly cancel in places, so rounding at the terms' scale
+(1e-7 in f32, an ulp of 0.25-0.5 in bf16) is far above an element's own
+tolerance there."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,32 +24,20 @@ import pytest
 import torch
 
 import repro.configs as jcfgs
+import repro_torch.configs as tcfgs
+from _torch_rec import (MODEL_TOL, close, forward_layers_match_bf16,
+                        forward_steps, model_pair)
 from repro.models import forward as jforward
 from repro.models import init_cache as jinit_cache
-from repro.models import init_params as jinit_params
 from repro.models import moe as jmoe
-from repro.models import transformer as jtr
-from repro.models.common import rms_norm as jrms_norm
-import repro_torch.configs as tcfgs
-from repro_torch.bridge import (cache_from_jax, cache_to_numpy,
-                                params_from_jax, to_numpy)
+from repro_torch.bridge import cache_from_jax, cache_to_numpy, to_numpy
 from repro_torch.models import forward, init_cache, init_params
 from repro_torch.models import moe as tmoe
-from repro_torch.models import transformer as ttr
-from repro_torch.models.transformer import with_scratch
 
 torch.set_num_threads(2)
 MOE = ["moonshot-v1-16b-a3b", "deepseek-moe-16b", "mixtral-8x7b"]
 DENSE = ["yi-6b", "phi4-mini-3.8b"]
-TOL = {"float32": 1e-5, "bfloat16": 3e-2}
-
-
-def _models(arch, dtype):
-    jcfg = replace(jcfgs.get_tiny_config(arch), dtype=dtype)
-    tcfg = replace(tcfgs.get_tiny_config(arch), dtype=dtype)
-    jp, _ = jinit_params(jcfg, jax.random.PRNGKey(1))
-    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
-    return jcfg, jp, tcfg, tp
+TOL = MODEL_TOL
 
 
 @pytest.fixture(scope="module")
@@ -59,17 +46,9 @@ def models():
 
     def get(arch, dtype):
         if (arch, dtype) not in cache:
-            cache[arch, dtype] = _models(arch, dtype)
+            cache[arch, dtype] = model_pair(arch, dtype)
         return cache[arch, dtype]
     return get
-
-
-def _close(got, want, tol, err_msg=""):
-    """|got - want| <= tol * (|want| + max(1, max |want|))."""
-    want = np.asarray(want, np.float32)
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), want, rtol=tol,
-        atol=tol * max(1.0, float(np.abs(want).max())), err_msg=err_msg)
 
 
 def _jlayer(tree, i):
@@ -85,8 +64,9 @@ def test_moe_layer_matches_jax(models, arch, dtype):
     """``_route``, ``_aux_loss`` and ``moe_dense_all`` on the same
     inputs (unit normals, the scale of the normed hidden state the layer
     takes): the same expert ids, weights, probabilities and loss, and the
-    output within 1e-5 (f32) or 3e-2 (bf16) (``_close``)."""
-    jcfg, jp, tcfg, tp = models(arch, dtype)
+    output within 1e-5 (f32) or 3e-2 (bf16) (``close``, of the scale)."""
+    m = models(arch, dtype)
+    jcfg, jp, tcfg, tp = m.jcfg, m.jp, m.tcfg, m.tp
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     tol = TOL[dtype]
     rng = np.random.default_rng(0)
@@ -111,7 +91,7 @@ def test_moe_layer_matches_jax(models, arch, dtype):
     ty, tya = tmoe.moe_forward(xt, tl, tcfg)
     assert ty.dtype == tdt and ty.shape == xt.shape
     assert tya.dtype == torch.float32
-    _close(to_numpy(ty), y, tol)
+    close(to_numpy(ty), y, tol, of_scale=True)
     assert abs(float(tya) - float(ya)) <= tol * abs(float(ya))
     assert ("sg" in tl) == bool(tcfg.num_shared_experts)
 
@@ -137,7 +117,8 @@ def test_route_ties_pick_the_lower_expert(tie):
 
 
 def test_tensor_parallel_and_training_refused(models):
-    jcfg, jp, tcfg, tp = models("moonshot-v1-16b-a3b", "float32")
+    m = models("moonshot-v1-16b-a3b", "float32")
+    tcfg, tp = m.tcfg, m.tp
     x = torch.zeros((1, 2, tcfg.d_model))
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         tmoe.moe_forward(x, tp["layers"][0]["moe"], tcfg, sctx=object())
@@ -160,7 +141,8 @@ def test_init_scales_match_the_reference(models, arch):
     dtypes and scales, leaf for leaf; ``wg``/``wu`` at the reference's
     1/sqrt(E) (``Builder.param``'s 1/sqrt(shape[0]) of (E, d, eff)), the
     router in f32."""
-    _, jp, tcfg, ref = models(arch, "bfloat16")
+    m = models(arch, "bfloat16")
+    jp, tcfg, ref = m.jp, m.tcfg, m.tp
     a = init_params(tcfg, torch.Generator().manual_seed(3), device="cpu")
     b = init_params(tcfg, torch.Generator().manual_seed(3), device="cpu")
 
@@ -199,47 +181,31 @@ def test_init_scales_match_the_reference(models, arch):
 # ----------------------------------------------------------- forward ----
 
 
-def _steps(V, long):
-    """(tokens, positions, mask) of padded prefill chunks (a row half
-    padded, a row all padding), a decode step and a verify step; with
-    ``long`` the prefill runs past a 64-slot ring."""
-    rng = np.random.default_rng(2)
-    B = 3
-    chunks = [(24, [24, 20, 0]), (24, [24, 24, 10]), (24, [24, 24, 24])] \
-        if long else [(8, [8, 5, 0])]
-    steps, start = [], np.zeros(B, np.int64)
-    for T, n in chunks + [(1, [1, 1, 1]), (4, [3, 4, 4])]:
-        tok = rng.integers(0, V, (B, T)).astype(np.int32)
-        pos = (start[:, None] + np.arange(T)[None]).astype(np.int32)
-        mask = np.arange(T)[None] < np.asarray(n)[:, None]
-        steps.append((tok, pos, mask))
-        start += np.asarray(n)
-    return steps
-
-
 @pytest.mark.parametrize("arch", MOE)
 def test_forward_matches_jax_f32(models, arch):
     """Logits, every cache leaf and the summed aux loss of ``forward``
     within 1e-5 of the reference's, step after step on one cache (the
     ring wraps on mixtral's 64-slot window)."""
-    jcfg, jp, tcfg, tp = models(arch, "float32")
+    m = models(arch, "float32")
+    jcfg, jp, tcfg, tp = m.jcfg, m.jp, m.tcfg, m.tp
     B, S = 3, 96
     jc = jinit_cache(jcfg, B, S)
     tc = cache_from_jax(tcfg, jax.tree.map(np.asarray, jc), device="cpu")
     assert tc["slot_pos"].shape[1] == (64 if tcfg.sliding_window else S)
-    for tok, pos, mask in _steps(tcfg.vocab_size, long=True):
+    for tok, pos, mask in forward_steps(tcfg.vocab_size, long=True, seed=2):
         lj, jc, aj = jforward(jcfg, jp, jnp.asarray(tok), jnp.asarray(pos),
                               jc, token_mask=jnp.asarray(mask))
         lt, tc2, at = forward(tcfg, tp, torch.from_numpy(tok),
                               torch.from_numpy(pos), tc,
                               token_mask=torch.from_numpy(mask))
         assert tc2 is tc
-        _close(to_numpy(lt)[mask], np.asarray(lj)[mask], 1e-5)
+        close(to_numpy(lt)[mask], np.asarray(lj)[mask], 1e-5,
+              of_scale=True)
         got = cache_to_numpy(tc)
         np.testing.assert_array_equal(got["slot_pos"],
                                       np.asarray(jc["slot_pos"]))
         for k in ("k", "v"):
-            _close(got[k], jc[k], 1e-5, err_msg=k)
+            close(got[k], jc[k], 1e-5, err_msg=k, of_scale=True)
         assert at.dtype == torch.float32
         assert abs(float(at) - float(aj)) <= 1e-5 * abs(float(aj))
     if tcfg.sliding_window:
@@ -258,58 +224,15 @@ def test_forward_layers_match_jax_bf16(models, arch):
     attention into the logits, and a near-tied router flips an expert;
     so does the reference's own jitted layer against its eager one.  The
     reference runs eagerly here, as its ``forward`` does when called.)"""
-    jcfg, jp, tcfg, tp = models(arch, "bfloat16")
-    B, S = 3, 96
-    tc = init_cache(tcfg, B, S, device="cpu")
-    Sc = tc["slot_pos"].shape[1]
-    nd = tcfg.first_dense_layers
-    layers = [("dense", _jlayer(jp["dense_layers"], i),
-               tp["dense_layers"][i]) for i in range(nd)]
-    layers += [("moe", _jlayer(jp["layers"], j), tp["layers"][j])
-               for j in range(tcfg.num_layers - nd)]
-    tol = TOL["bfloat16"]
-    for tok, pos, mask in _steps(tcfg.vocab_size, long=True):
-        t_pos, t_mask = torch.from_numpy(pos), torch.from_numpy(mask)
-        jpos, jmask = jnp.asarray(pos), jnp.asarray(mask)
-        # the step's slots and slot positions, as both forwards make them
-        jslots = jpos % Sc if tcfg.sliding_window else jpos
-        jslots = jnp.where(jmask, jslots, Sc)
-        jsp = jnp.asarray(to_numpy(tc["slot_pos"])).at[
-            jnp.arange(B)[:, None], jslots].set(jpos, mode="drop")
-        slots = t_pos.long() % Sc if tcfg.sliding_window else t_pos.long()
-        slots = torch.where((slots < Sc) & t_mask, slots, Sc)
-        bidx = torch.arange(B)[:, None]
-        with_scratch(tc["slot_pos"], 1)[bidx, slots] = t_pos
-        np.testing.assert_array_equal(to_numpy(tc["slot_pos"]),
-                                      np.asarray(jsp))
-        x = tp["embed"][torch.from_numpy(tok).long()].to(torch.bfloat16)
-        aux_t, aux_j = 0.0, 0.0
-        for i, (kind, pj, pt) in enumerate(layers):
-            ck = jnp.asarray(to_numpy(tc["k"][i]), jnp.bfloat16)
-            cv = jnp.asarray(to_numpy(tc["v"][i]), jnp.bfloat16)
-            xj = jnp.asarray(to_numpy(x), jnp.bfloat16)
-            args = (t_pos, bidx, slots, tc["k"][i], tc["v"][i],
-                    tc["slot_pos"])
-            if kind == "dense":
-                xt = ttr._dense_layer(pt, x, tcfg, *args)
-                yj, nk, nv = jtr._dense_layer(pj, xj, jcfg, jpos, jslots,
-                                              ck, cv, jsp, jmask)
-            else:
-                xt, at = ttr._moe_layer(pt, x, tcfg, *args)
-                yj, nk, nv, aj = jtr._moe_layer(pj, xj, jcfg, jpos, jslots,
-                                                ck, cv, jsp, jmask, None)
-                aux_t, aux_j = aux_t + float(at), aux_j + float(aj)
-            _close(to_numpy(xt)[mask], np.asarray(yj, np.float32)[mask],
-                   tol, err_msg=f"layer {i} ({kind})")
-            for name, t, j in (("k", tc["k"][i], nk), ("v", tc["v"][i], nv)):
-                _close(to_numpy(t), j, tol, err_msg=f"layer {i} {name}")
-            x = xt
-        assert abs(aux_t - aux_j) <= tol * abs(aux_j)
-        w = jp["embed"].T if jcfg.tie_embeddings else jp["unembed"]
-        lj = jrms_norm(jnp.asarray(to_numpy(x), jnp.bfloat16),
-                       jp["final_ln"], jcfg.rms_eps) @ w.astype(jnp.bfloat16)
-        lt = ttr._unembed(tcfg, tp, x)
-        _close(to_numpy(lt)[mask], np.asarray(lj, np.float32)[mask], tol)
+    m = models(arch, "bfloat16")
+    nd = m.tcfg.first_dense_layers
+    layers = [(f"layer {i} (dense)", "dense", _jlayer(m.jp["dense_layers"], i),
+               m.tp["dense_layers"][i], i) for i in range(nd)]
+    layers += [(f"layer {nd + j} (moe)", "moe", _jlayer(m.jp["layers"], j),
+                m.tp["layers"][j], nd + j)
+               for j in range(m.tcfg.num_layers - nd)]
+    forward_layers_match_bf16(m, layers, S=96, long=True, seed=2,
+                              of_scale=True)
 
 
 # --------------------------------------------------- dense: yi, phi4 ----
@@ -321,26 +244,28 @@ def test_dense_configs_forward_matches_jax(models, arch, dtype):
     """yi-6b tiny (4/1 heads of 32: G = 4) and phi4-mini-3.8b tiny (3/1
     heads of 32: G = 3, tied embeddings): logits and caches of prefill,
     decode and verify steps within 1e-5 (f32) and 3e-2 (bf16)."""
-    jcfg, jp, tcfg, tp = models(arch, dtype)
+    m = models(arch, dtype)
+    jcfg, jp, tcfg, tp = m.jcfg, m.jp, m.tcfg, m.tp
     assert tcfg.num_heads // tcfg.num_kv_heads == \
         {"yi-6b": 4, "phi4-mini-3.8b": 3}[arch]
     tol = TOL[dtype]
     B, S = 3, 32
     jc = jinit_cache(jcfg, B, S)
     tc = init_cache(tcfg, B, S, device="cpu")
-    for tok, pos, mask in _steps(tcfg.vocab_size, long=False):
+    for tok, pos, mask in forward_steps(tcfg.vocab_size, seed=2):
         lj, jc, _ = jforward(jcfg, jp, jnp.asarray(tok), jnp.asarray(pos),
                              jc, token_mask=jnp.asarray(mask))
         lt, _, aux = forward(tcfg, tp, torch.from_numpy(tok),
                              torch.from_numpy(pos), tc,
                              token_mask=torch.from_numpy(mask))
         assert aux == 0.0
-        _close(to_numpy(lt)[mask], np.asarray(lj, np.float32)[mask], tol)
+        close(to_numpy(lt)[mask], np.asarray(lj, np.float32)[mask], tol,
+              of_scale=True)
         got = cache_to_numpy(tc)
         np.testing.assert_array_equal(got["slot_pos"],
                                       np.asarray(jc["slot_pos"]))
         for k in ("k", "v"):
-            _close(got[k], jc[k], tol, err_msg=k)
+            close(got[k], jc[k], tol, err_msg=k, of_scale=True)
 
 
 def test_full_configs_count_the_reference_params():

@@ -50,7 +50,8 @@ def test_serve_reports_like_the_reference(tmp_path):
     assert got["tokens"] == want["tokens"] == 6 * 12
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "moonshot-v1-16b-a3b",
+                                  "llama-3.2-vision-11b", "whisper-tiny"])
 def test_serve_f32_equals_the_reference(tmp_path, monkeypatch, arch):
     jget, tget = jcfgs.get_tiny_config, tcfgs.get_tiny_config
     monkeypatch.setattr(jcfgs, "get_tiny_config",

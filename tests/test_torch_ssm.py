@@ -298,12 +298,19 @@ def test_trainer_refuses_ssm(m):
 
 
 def test_moe_still_refused():
-    """MoE is served now; the archs still refused are vlm and audio."""
+    """Every arch is served now; what the port still refuses is an arch
+    it does not know, and the cache-free forward of a VLM or audio
+    model (their training slice)."""
     from repro_torch.configs import get_tiny_config
-    for arch_type in ("vlm", "audio"):
-        cfg = replace(get_tiny_config(ARCH), arch_type=arch_type)
-        with pytest.raises(NotImplementedError):
-            init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError):
-            init_params(cfg, torch.Generator().manual_seed(0),
-                        device="cpu")
+    unknown = replace(get_tiny_config(ARCH), arch_type="diffusion")
+    with pytest.raises(NotImplementedError):
+        init_cache(unknown, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError):
+        init_params(unknown, torch.Generator().manual_seed(0), device="cpu")
+    for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
+        cfg = get_tiny_config(arch)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        tok = torch.zeros((1, 2), dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="aux_inputs"):
+            forward(cfg, params, tok, tok, None)
