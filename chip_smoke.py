@@ -28,10 +28,16 @@ Phases, in this order:
    zero positions, bf16 and f32; each route also held to the f32 plain
    version at the reference's own scale, where planted faults, the last
    key dropped or a ragged tile's padding let in, must fail:
-   ``scaled_check``), and both at every other head dim they
-   are built for; K2 on random draft trees (siblings at one position, a
-   query that sees no key) and, under an all-true mask, bitwise equal to
-   K1 on each route, every wrapper call free of host syncs under
+   ``scaled_check``), K1 at phase 7's own shapes (granite's heads in
+   bf16, B = 2 slots on caches of 60 at T = 1, 5, 8, 9 and of 128 at
+   T = 1, 16, at live counts its workloads reach and on permuted slots;
+   each route also under the scaled check, where planted faults, a
+   row's newest key dropped, its empty slots or a ragged tile's padding
+   let in, must fail: ``serving_kernels_check``), and both at every
+   other head dim they are built for; K2 on random draft trees
+   (siblings at one position, a query that sees no key) and, under an
+   all-true mask, bitwise equal to K1 on each route, every wrapper
+   call free of host syncs under
    ``torch.cuda.set_sync_debug_mode("error")``; K3 (flash_attention: the forward,
    dQ and dK/dV) against the plain forward and backward on both routes
    of its (dtype, D) table (the tensor cores for bf16 at D 64 and 128,
@@ -68,25 +74,49 @@ Phases, in this order:
    warm group suffix trees (every attention through K2, none through K1,
    at most one host sync per step, drafts accepted, branching trees
    verified), set beside the linear slice's warm pass;
-7. training: ``RLTrainer`` at granite-3-8b's full width and 12 layers
+7. serving, faults and tracing: the reference's own real-engine
+   workloads (``bench_engine_faults``, ``bench_observability`` and
+   ``bench_serving`` of ``benchmarks/common.py``) on the full granite-3-8b
+   of phase 4, every dispatch under sync debug 'error'
+   (``serving_phase``).  Faults: a warm no-fault oracle, then the bench's
+   schedule (a crash, a short stall, a long stall the watchdog escalates,
+   a fetch failing past its retries, a corrupt blob), and its traced
+   repeat: every request at the oracle's length, every recovery path
+   fired, one host sync per engine step, the repeat bit-identical, no
+   token lost against the oracle (a request that differs is printed with
+   its first differing position and its recovery path before the check
+   fails).  Tracing: an untraced and two traced runs,
+   traced = untraced bitwise, conserved timelines whose ticks tile, a
+   lossless Chrome round trip, the same JSON twice, the shared schema.
+   Open-loop serving: seeded Poisson arrivals through ``serve``, the
+   t = 0 trace equal to the closed loop, nothing shed at 1x, something
+   shed at 2x, its repeat identical.  K1 once per layer per fused step,
+   no other kernel and no plain attention call; then K1 on copies of
+   the inputs the phase gave it (``_k1_inputs``: layer 0's call at the
+   1st, 2nd, 4th, 8th ... step of each shape, every width the phase ran)
+   against its plain version through the wrapper and on both routes,
+   and against the f32 plain version at the reference's scale
+   (``phase_kernels_check``);
+8. training: ``RLTrainer`` at granite-3-8b's full width and 12 layers
    (f32 masters, AdamW, bf16 activations), two sync iterations of
    rollout -> reward -> GRPO train step -> weight push on the copy task
    (see ``training_phase`` for its checks: K3 launches per train step,
    no plain attention, the rollout on the pushed weights, a bitwise
    repeat of a train step, K3 against the plain attention);
-8. hybrid slice: a full-width, full-depth zamba2-1.2b Seer rollout (38
-   Mamba2 blocks, the shared attention after every 6th; random bf16
-   weights from seed 0) with the linear slice's settings, a cold pass,
+9. hybrid slice: a full-width zamba2-1.2b Seer rollout at 14 of its 38
+   Mamba2 blocks (``CUT_LAYERS``: two cells of 6 blocks, each followed
+   by the shared attention, and the 2-block tail; random bf16 weights
+   from seed 0) with the linear slice's settings, a cold pass,
    its bit-identical repeat and a warm pass (``rec_slice``): K4 once per
    block and K1 once per attention application per forward, replays
    included, no plain attention or SSD call, at most one host sync per
    step, dispatch free of host syncs; then the hybrid engine phase, the
    fused step against the sync oracle from the same state, bitwise
    (``rec_engine_check``);
-9. SSM slice: the same for a full-width, full-depth mamba2-370m (48
-   blocks, no attention), 4 groups x 4, 64 new tokens;
-10. MoE slice: a full-width, full-depth moonshot-v1-16b-a3b Seer rollout
-   (48 layers: one dense, 47 MoE of 64 experts top-6 and 2 shared, each
+10. SSM slice: the same for a full-width mamba2-370m at 16 of its 48
+   blocks (no attention), 4 groups x 4, 64 new tokens;
+11. MoE slice: a full-width moonshot-v1-16b-a3b Seer rollout at 16 of
+   its 48 layers (one dense, 15 MoE of 64 experts top-6 and 2 shared, each
    expert run on every token as the reference serves; 16/16 heads of 128;
    random bf16 weights from seed 0, the router in f32) with the linear
    slice's settings on caches of 1024 positions: a cold pass, its
@@ -97,8 +127,8 @@ Phases, in this order:
    engine phase (``tree_engine_check`` on moonshot); then the serving
    CLI (``repro_torch.launch.serve.main``) on cuda with its default arch
    (yi-6b tiny) and with moonshot-v1-16b-a3b, llama-3.2-vision-11b and
-   whisper-tiny tiny, every request finished (it runs after phase 11);
-11. VLM and audio slices: a full-width, full-depth llama-3.2-vision-11b
+   whisper-tiny tiny, every request finished (it runs after phase 12);
+12. VLM and audio slices: a full-width, full-depth llama-3.2-vision-11b
    (40 self layers, a cross block over 1601 image tokens after every
    5th; random bf16 weights from seed 0) and whisper-tiny (4 encoder
    and 4 decoder layers, 1500 frames) Seer rollout, 4 groups x 4, 64
@@ -115,7 +145,7 @@ Phases, in this order:
    from the same state, every cache leaf bitwise); and for each model
    the device time of one batched export and import of 8 slots with and
    without the cross memory their blobs carry (``blob_time``);
-12. timing: each kernel at the shape its slice gave it, beside its plain
+13. timing: each kernel at the shape its slice gave it, beside its plain
    version, a library call where one computes the same function, and
    the card's bound, each held against its plain version on the timed
    inputs; K1 and K2 also at fixed widths (T = 1, 9, 33, 64 at 384 live
@@ -136,8 +166,9 @@ Phases, in this order:
    device work only.  The ``kernels`` line has one
    row per kernel and path that runs it (its ``path``), with that path's
    ``launches`` (K1:
-   the granite linear slice, the hybrid cold pass, the MoE cold pass,
-   and the VLM and whisper cold passes, each as self-attention and
+   the granite linear slice, the serving, faults and tracing phase, the
+   hybrid cold pass, the MoE cold pass, and the VLM and whisper cold
+   passes, each as self-attention and
    cross blocks; K2: the tree slice and the MoE and VLM tree engine
    phases; K3: the training phase's two train steps and the building of
    the whisper cold pass's rollout; K4: the hybrid and the SSM cold
@@ -207,11 +238,17 @@ K1_SHAPES = {"granite-3-8b": (32, 8, 128, 0),
              "phi4-mini-3.8b": (24, 8, 128, 0),
              "llama-3.2-vision-11b": (32, 8, 128, 0),
              "whisper-tiny": (6, 6, 64, 0)}
-# the MoE slice: moonshot-v1-16b-a3b at full width and depth (56.8 GB of
-# bf16 weights) on 2 x 8 slots of this many positions (K/V 393,216 bytes
-# a position: 6.4 GB for both instances), 64 new tokens (as the SSM
-# slice: the script's time limit)
+# the MoE slice: moonshot-v1-16b-a3b at full width on 2 x 8 slots of
+# this many positions, 64 new tokens (as the SSM slice: the script's time
+# limit)
 MOE_ARCH, MOE_CACHE_LEN, MOE_NEW_TOKENS = "moonshot-v1-16b-a3b", 1024, 64
+# depth of the hybrid, SSM and MoE slices, cut for the script's time
+# limit (the host's eager dispatch makes a pass's time grow with depth;
+# the serving phase shares the granite slices' full depth, so these are
+# cut instead): zamba2-1.2b keeps two cells of 6 blocks and the 2-block
+# tail of its 38, mamba2-370m 16 of 48 blocks, moonshot-v1-16b-a3b 16 of
+# 48 layers (one dense, 15 MoE)
+CUT_LAYERS = {"zamba2-1.2b": 14, "mamba2-370m": 16, MOE_ARCH: 16}
 # the configs whose heads K1 / K2 are checked at beside granite's
 NEW_HEADS = ("moonshot-v1-16b-a3b", "yi-6b", "phi4-mini-3.8b",
              "whisper-tiny")
@@ -603,28 +640,32 @@ def _planted_faults(torch, plain, k, v, dtype, tile: int = 64) -> dict:
             plain(torch.cat([k, z], 1), torch.cat([v, z], 1)).to(dtype)}
 
 
-def scaled_check(torch, outs: dict, plain, k, v, what: str) -> dict:
+def scaled_check(torch, outs: dict, plain, k, v, what: str,
+                 faults=None) -> dict:
     """Holds each output of ``outs`` ({name: tensor}) to the plain version
     computed in f32 from the same inputs (``plain(k, v)``, k and v f32)
     within REL_RMS_TOL / REL_MAX_TOL of the reference's scale, and checks
-    that each planted fault (``_planted_faults``) fails that bound.
-    Returns {name: (rel rms, rel max)}, the faults' included."""
+    that each planted fault fails that bound: ``faults`` ({name: a wrong
+    kernel's output}), by default ``_planted_faults``.  Returns {name:
+    (rel rms, rel max)}, the faults' included."""
     k32, v32 = k.float(), v.float()
     ref32 = plain(k32, v32)
     dtype = next(iter(outs.values())).dtype
+    if faults is None:
+        faults = _planted_faults(torch, plain, k32, v32, dtype)
     errs = {n: _scaled_err(o, ref32) for n, o in outs.items()}
     for n, e in errs.items():
         check(_scaled_ok(e), f"{what}: {n} off its f32 plain version: "
               f"rms(err)/rms(ref) {e[0]:.2e} (limit {REL_RMS_TOL}), "
               f"max|err|/max|ref| {e[1]:.2e} (limit {REL_MAX_TOL:.2e})")
-    for n, f in _planted_faults(torch, plain, k32, v32, dtype).items():
+    for n, f in faults.items():
         e = errs[f"fault: {n}"] = _scaled_err(f, ref32)
         check(not _scaled_ok(e), f"{what}: the planted fault '{n}' passes "
               f"the scaled check ({e[0]:.2e}, {e[1]:.2e})")
     log(f"  {what} against f32: " + ", ".join(
         f"{n} {a:.2e}/{b:.2e}" for n, (a, b) in errs.items())
-        + f" (rel rms/rel max; limits {REL_RMS_TOL}/{REL_MAX_TOL:.2e}, "
-        "faults must exceed them)")
+        + f" (rel rms/rel max; limits {REL_RMS_TOL}/{REL_MAX_TOL:.2e}"
+        + (", faults must exceed them)" if faults else ")"))
     return errs
 
 
@@ -1659,7 +1700,7 @@ def tree_engine_check(torch, np, cfg, params, n_tokens: int = 24,
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 8-10: the SSD kernel (K4), the hybrid and SSM slices
+# phases 3 and 9-11: the SSD kernel (K4), the hybrid and SSM slices
 # ---------------------------------------------------------------------------
 
 
@@ -2318,7 +2359,7 @@ def rec_engine_check(torch, np, cfg, params, n_tokens: int = 24,
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the GRPO trainer
+# phase 8: the GRPO trainer
 # ---------------------------------------------------------------------------
 
 
@@ -2684,6 +2725,651 @@ def _profile_summary(prof, wall: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: serving, faults and tracing.  The reference's three real-engine
+# workloads (benchmarks/common.py: bench_engine_faults, bench_observability
+# and bench_serving) restated on a package's API (``port_api``): the card
+# runs them on the port, and the CPU tests run the same functions on the
+# JAX package and on the port and hold the two equal
+# ---------------------------------------------------------------------------
+
+# the faults and tracing workloads: 3 groups x 2, 14 new tokens, seed 5;
+# the faults workload on 3 instances, the tracing workload on 2
+BENCH_GROUPS, BENCH_GROUP_SIZE, BENCH_NEW_TOKENS, BENCH_SEED = 3, 2, 14, 5
+FAULT_INSTANCES, TRACE_INSTANCES = 3, 2
+# the open-loop workload: 12 groups x 2 of 10-token prompts and 10 new
+# tokens (no spread), two tenants (name, weight, tokens/s), chunks of 16
+SERVE_GROUPS, SERVE_PROMPT, SERVE_GEN, SERVE_SEED = 12, 10, 10, 11
+SERVE_TENANTS = (("a", 2.0, 120.0), ("b", 1.0, 120.0))
+SERVE_CHUNK, SERVE_CACHE = 16, 128
+# the faults and tracing workloads' cache: the longest prompt, the new
+# tokens and 32 slots of headroom (60 slots, no multiple of K1's 64-key
+# tile)
+BENCH_CACHE = 6 + 4 * (BENCH_GROUPS - 1) + BENCH_NEW_TOKENS + 32
+# K1 at the phase's own shapes, B = 2 slots: (cache, T, the two rows'
+# live counts).  The faults and tracing cache at decode, the crash
+# replay's widths 5 and 9 and prefill chunks of 8; the open-loop cache at
+# decode and prefill chunks of 16; live counts from a prompt's first
+# chunk to a whole response (a row with fewer live slots than T has
+# queries that see no key, as a short prompt's padded chunk)
+SERVING_K1_CASES = ((BENCH_CACHE, 1, (7, 28)), (BENCH_CACHE, 5, (12, 28)),
+                    (BENCH_CACHE, 8, (6, 14)), (BENCH_CACHE, 9, (9, 27)),
+                    (SERVE_CACHE, 1, (11, 20)), (SERVE_CACHE, 16, (10, 20)))
+# K1 calls kept from the phase's own run (``_k1_inputs``): per (B, T, S),
+# layer 0's call of the 1st, 2nd, 4th, 8th ... engine step of that shape
+K1_KEPT_PER_SHAPE = 12
+# the RolloutStats counters of the faults workload's record
+FAULT_COUNTERS = (
+    "instance_crashes", "watchdog_escalations", "stuck_ticks",
+    "recovered_requests", "recovered_via_blob", "recovered_via_replay",
+    "recovery_redecode_tokens", "recovery_replay_tokens",
+    "faulted_remaining_tokens", "fetch_failures", "fetch_degraded",
+    "corrupt_blobs", "fetch_backoff_seconds")
+
+
+def port_api(device):
+    """The names the three workloads call, from the port, its rollouts
+    on ``device``."""
+    import functools
+    import types
+    from repro_torch.core import (FaultEvent, FaultInjector, SeerRollout,
+                                  make_groups)
+    from repro_torch.core.workload import (ArrivalFeed, LengthSampler,
+                                           PoissonArrivals, TenantSpec,
+                                           TraceArrivals, serve)
+    from repro_torch.engine import StepFunctions
+    from repro_torch.obs import (PHASES, Tracer, format_attribution,
+                                 tail_attribution, timelines_from_events)
+    from repro_torch.obs.trace import SCHEMA_KEYS, schema_keys
+    return types.SimpleNamespace(
+        SeerRollout=functools.partial(SeerRollout, device=device),
+        make_groups=make_groups, FaultEvent=FaultEvent,
+        FaultInjector=FaultInjector, ArrivalFeed=ArrivalFeed,
+        LengthSampler=LengthSampler, PoissonArrivals=PoissonArrivals,
+        TenantSpec=TenantSpec, TraceArrivals=TraceArrivals, serve=serve,
+        StepFunctions=StepFunctions, PHASES=PHASES, Tracer=Tracer,
+        format_attribution=format_attribution,
+        tail_attribution=tail_attribution,
+        timelines_from_events=timelines_from_events,
+        SCHEMA_KEYS=SCHEMA_KEYS, schema_keys=schema_keys)
+
+
+def bench_prompts(cfg) -> list:
+    """Prompts of 6, 10 and 14 tokens: slots reach their chunk boundaries
+    out of step, so a crash finds victims both at a boundary and inside a
+    chunk."""
+    return [[(7 * g + 3 * j) % (cfg.vocab_size - 2) + 1
+             for j in range(6 + 4 * g)] for g in range(BENCH_GROUPS)]
+
+
+def bench_groups(api, cfg):
+    return api.make_groups(bench_prompts(cfg), group_size=BENCH_GROUP_SIZE,
+                           max_new_tokens=BENCH_NEW_TOKENS, seed=BENCH_SEED)
+
+
+def bench_rollout(api, cfg, params, n_instances: int, **kw):
+    """The faults and tracing workloads' rollout: 2 slots an instance
+    on caches of ``BENCH_CACHE``, chunks of 5, prefill chunks of 8, no
+    drafting (``gamma_max`` 8 sizes the crash replay's verify steps),
+    takeover and in-place renewal off (every chunk boundary is a pool
+    round trip), the watchdog at 3 ticks and 3 fetch retries."""
+    args = dict(n_instances=n_instances, max_slots=2,
+                cache_len=BENCH_CACHE, chunk_size=5, prefill_chunk=8,
+                admit_into_draining=False,
+                final_chunk_inplace=False, policy="seer", spec_decode=False,
+                gamma_max=8, base_seed=7, watchdog_ticks=3, fetch_retries=3)
+    args.update(kw)
+    return api.SeerRollout(cfg, params, **args)
+
+
+def _kinds_since(steps, kinds0: dict) -> dict:
+    """Fused steps by kind (``"fused:T"``) since ``kinds0``."""
+    return {k: n - kinds0.get(k, 0) for k, n in
+            steps.invocations_by_kind.items() if n - kinds0.get(k, 0)}
+
+
+def _measured_run(ro, run):
+    """``run()`` (a ``ro.run`` or ``serve``) -> (its value, its engine
+    steps, host syncs, fused steps by kind and host seconds)."""
+    st = ro.steps
+    hs0, by0 = st.host_syncs, dict(st.invocations_by_kind)
+    n0 = sum(i.steps_run for i in ro.instances)
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    return out, {"engine_steps": sum(i.steps_run for i in ro.instances) - n0,
+                 "host_syncs": st.host_syncs - hs0,
+                 "fused_by_T": _kinds_since(st, by0), "wall_s": wall}
+
+
+def fault_schedule(api, ticks: int) -> list:
+    """The faults workload's schedule on an oracle run of ``ticks`` ticks:
+    a late crash, a short stall below the watchdog, a long stall it
+    escalates, fetch failures past the retry budget on the first
+    re-admission wave, a corrupt blob mid-run, and failures within the
+    budget later."""
+    T = ticks
+    return [api.FaultEvent(tick=max(2, (3 * T) // 5), kind="crash",
+                           instance_id="inst1"),
+            api.FaultEvent(tick=3, kind="stuck", instance_id="inst2",
+                           ticks=2),
+            api.FaultEvent(tick=max(4, T // 3), kind="stuck",
+                           instance_id="inst0", ticks=8),
+            api.FaultEvent(tick=2, kind="fetch_fail", count=3),
+            api.FaultEvent(tick=max(3, T // 2), kind="corrupt", count=1),
+            api.FaultEvent(tick=max(4, T // 2 + 2), kind="fetch_fail",
+                           count=2)]
+
+
+def faults_workload(api, cfg, params, guard=None, steps=None) -> dict:
+    """bench_engine_faults's real-engine runs: a warm no-fault oracle,
+    then the schedule on a fresh rollout sharing the oracle's step
+    functions (a crashed instance stays dead), each measured run after a
+    fault-free warm run of its rollout; then the faulted run again on
+    another fresh rollout, traced, whose ``recovery`` instants name each
+    victim's path.  ``tokens_lost`` counts as the bench does: mismatches
+    plus length differences against the oracle.  ``guard(ro)`` wraps a
+    rollout's dispatch before its measured run; ``steps``: the rollouts'
+    step functions (new ones by default)."""
+    def one(ro, injector=None, tracer=None):
+        ro.run(bench_groups(api, cfg))
+        ro.faults = injector
+        ro.tracer = tracer
+        if guard is not None:
+            guard(ro)
+        res, rec = _measured_run(ro, lambda: ro.run(bench_groups(api, cfg)))
+        s = res.stats.snapshot()
+        rec.update(ticks=s["ticks"], **{k: s[k] for k in FAULT_COUNTERS})
+        return res.responses(), rec
+
+    steps = steps or api.StepFunctions(cfg)
+    kinds0 = dict(steps.invocations_by_kind)
+    oracle, orec = one(bench_rollout(api, cfg, params, FAULT_INSTANCES,
+                                     steps=steps))
+    faulted, frec = one(
+        bench_rollout(api, cfg, params, FAULT_INSTANCES, steps=steps),
+        api.FaultInjector(fault_schedule(api, orec["ticks"])))
+    tr = api.Tracer()
+    again, arec = one(
+        bench_rollout(api, cfg, params, FAULT_INSTANCES, steps=steps),
+        api.FaultInjector(fault_schedule(api, orec["ticks"])), tracer=tr)
+    paths: dict = {}
+    for e in tr.events():
+        if e["name"] == "recovery" and e["ph"] == "i":
+            paths.setdefault(e["track"], set()).add(e["args"]["kind"])
+    lost, first = {}, {}
+    for rid, want in oracle.items():
+        got = faulted.get(rid, [])
+        n = sum(a != b for a, b in zip(want, got)) + abs(len(want) -
+                                                         len(got))
+        if n:
+            lost[rid] = n
+            first[rid] = next((j for j, (a, b) in enumerate(zip(want, got))
+                               if a != b), min(len(want), len(got)))
+    return {"schedule": [{"tick": e.tick, "kind": e.kind,
+                          "instance_id": e.instance_id, "ticks": e.ticks,
+                          "count": e.count}
+                         for e in fault_schedule(api, orec["ticks"])],
+            "oracle": orec, "faulted": frec, "repeat": arec,
+            "responses": {"oracle": oracle, "faulted": faulted},
+            "lengths_equal": all(len(faulted.get(r, ())) == len(t)
+                                 for r, t in oracle.items()),
+            "tokens_lost": sum(lost.values()), "lost_by_request": lost,
+            "first_difference": first,
+            "recovery_paths": {r: sorted(k) for r, k in
+                               sorted(paths.items())},
+            "repeat_identical": again == faulted and all(
+                arec[k] == frec[k] for k in frec if k != "wall_s"),
+            "step_kinds": _kinds_since(steps, kinds0)}
+
+
+def trace_workload(api, cfg, params, guard=None, steps=None) -> dict:
+    """bench_observability's engine runs: one untraced run and two traced
+    ones of the faults workload's rollout on 2 instances, fault-free.
+    The first traced run's Chrome JSON, timelines and tail attribution,
+    and the invariants the bench gates: traced = untraced (responses,
+    engine steps, host syncs), conservation, exact tick tiling, a lossless
+    Chrome round trip, the same JSON from both traced runs, the shared
+    schema and phase names.  ``guard(ro)`` wraps each traced rollout's
+    dispatch; ``steps`` as in ``faults_workload``."""
+    import json as _json
+    steps = steps or api.StepFunctions(cfg)
+    kinds0 = dict(steps.invocations_by_kind)
+
+    def one(tracer=None):
+        ro = bench_rollout(api, cfg, params, TRACE_INSTANCES, steps=steps,
+                           tracer=tracer)
+        if guard is not None and tracer is not None:
+            guard(ro)
+        return _measured_run(ro, lambda: ro.run(bench_groups(api, cfg)))
+
+    res_off, off = one()
+    tr, tr2 = api.Tracer(), api.Tracer()
+    res_on, on = one(tr)
+    _, on2 = one(tr2)
+    evs = tr.events()
+    tls = api.timelines_from_events(evs)
+    rep = api.tail_attribution(tls)
+    done = [tl for tl in tls.values() if tl.finished]
+    chrome = tr.to_chrome()
+    text = _json.dumps(chrome, sort_keys=True)
+    phases = sorted({e["name"] for e in evs
+                     if e["cat"] == "request" and e["ph"] == "X"})
+    return {"untraced": off, "traced": on, "traced_again": on2,
+            "bit_identical": res_on.responses() == res_off.responses()
+            and on["engine_steps"] == off["engine_steps"]
+            and on["host_syncs"] == off["host_syncs"],
+            "events": len(evs), "finished": len(done),
+            "conserved": rep["conserved"]
+            and all(tl.conserved() for tl in done),
+            "tick_tiling_exact": all(
+                sum(b - a for _, a, b in tl.segments)
+                == tl.end_tick - tl.submit_tick for tl in done),
+            "chrome_roundtrip": api.Tracer.from_chrome(
+                _json.loads(text)) == evs,
+            "chrome_deterministic": _json.dumps(
+                tr2.to_chrome(), sort_keys=True) == text,
+            "schema_ok": api.schema_keys(evs) == sorted(api.SCHEMA_KEYS),
+            "phases": phases, "phases_ok": set(phases) <= set(api.PHASES),
+            "chrome": chrome, "attribution": rep,
+            "attribution_text": api.format_attribution(rep),
+            "responses": res_on.responses(),
+            "step_kinds": _kinds_since(steps, kinds0)}
+
+
+def serving_workload(api, cfg, params, guard=None, steps=None) -> dict:
+    """bench_serving's engine runs: seeded Poisson arrivals of 12 groups
+    through ``serve`` (``run_stream(arrivals=)``).  The closed-loop run of
+    the same groups calibrates the sustainable rate (groups per tick), a
+    t = 0 trace of them must reproduce it (tokens, engine steps, host
+    syncs), a deadline-free run at 0.75x sets the SLO deadline (1.5x its
+    largest modeled admission delay), then 1x (0.75x sustainable), 2x and
+    a repeat of 2x run under that deadline.  ``guard(ro)`` wraps each
+    rollout's dispatch; ``steps`` as in ``faults_workload``."""
+    import dataclasses
+    steps = steps or api.StepFunctions(cfg)
+    kinds0 = dict(steps.invocations_by_kind)
+    tenants = tuple(api.TenantSpec(n, weight=w, token_rate=r)
+                    for n, w, r in SERVE_TENANTS)
+    lengths = api.LengthSampler(prompt_len=SERVE_PROMPT, gen_mean=SERVE_GEN,
+                                gen_sigma=0.0)
+
+    def rollout():
+        ro = api.SeerRollout(cfg, params, n_instances=2, max_slots=2,
+                             cache_len=SERVE_CACHE, chunk_size=SERVE_CHUNK,
+                             base_seed=0, steps=steps)
+        if guard is not None:
+            guard(ro)
+        return ro
+
+    def proc(rate):
+        return api.PoissonArrivals(rate, SERVE_GROUPS, seed=SERVE_SEED,
+                                   tenants=tenants, lengths=lengths)
+
+    def feed_for(process, groups=None):
+        return api.ArrivalFeed(process, vocab_size=cfg.vocab_size,
+                               group_size=BENCH_GROUP_SIZE,
+                               ticks_per_second=1.0, seed=SERVE_SEED,
+                               groups=groups)
+
+    def build_groups(trace):
+        builder = feed_for(api.TraceArrivals(trace))
+        return [builder._build_group(a) for a in trace]
+
+    def open_run(rate, deadline):
+        ro = rollout()
+        feed = feed_for(proc(rate))
+        rep, m = _measured_run(ro, lambda: api.serve(
+            ro, feed, slo_deadline_s=deadline))
+        res = rep.pop("result")
+        rep.update(rate_groups_per_tick=rate, engine_steps=res.stats.steps,
+                   idle_ticks=res.stats.idle_ticks,
+                   offer_delay_max=res.stats.offer_delay_max,
+                   host_syncs=m["host_syncs"], fused_by_T=m["fused_by_T"],
+                   wall_s=m["wall_s"])
+        return rep
+
+    cal_trace = proc(1.0).trace()
+    ro = rollout()
+    res_cl, cl = _measured_run(ro, lambda: ro.run(build_groups(cal_trace)))
+    sustainable = SERVE_GROUPS / max(res_cl.stats.ticks, 1)
+    t0_trace = [dataclasses.replace(a, t=0.0) for a in cal_trace]
+    ro_eq = rollout()
+    feed_eq = feed_for(api.TraceArrivals(t0_trace),
+                       groups=build_groups(cal_trace))
+    rep_eq, eq = _measured_run(ro_eq, lambda: api.serve(ro_eq, feed_eq))
+    res_eq = rep_eq.pop("result")
+    rate_1x, rate_2x = 0.75 * sustainable, 2.0 * sustainable
+    floor = rollout()._queue_cost_per_token * SERVE_CHUNK
+    cal = open_run(rate_1x, None)
+    deadline = 1.5 * max(cal["offer_delay_max"], floor)
+    one_x = open_run(rate_1x, deadline)
+    two_x = open_run(rate_2x, deadline)
+    two_x_rep = open_run(rate_2x, deadline)
+    return {"closed_loop": {"ticks": res_cl.stats.ticks,
+                            "engine_steps": res_cl.stats.steps,
+                            "tokens": res_cl.stats.tokens,
+                            "host_syncs": cl["host_syncs"],
+                            "fused_by_T": cl["fused_by_T"],
+                            "wall_s": cl["wall_s"]},
+            "closed_loop_equivalent":
+                res_eq.responses() == res_cl.responses()
+                and res_eq.stats.steps == res_cl.stats.steps
+                and eq["host_syncs"] == cl["host_syncs"],
+            "sustainable_rate_groups_per_tick": sustainable,
+            "slo_deadline_s": deadline, "calibration": cal,
+            "one_x": one_x, "two_x": two_x, "two_x_repeat": two_x_rep,
+            "deterministic":
+                two_x_rep["shed_indices"] == two_x["shed_indices"]
+                and two_x_rep["latency_ticks"] == two_x["latency_ticks"]
+                and two_x_rep["admitted_groups"] == two_x["admitted_groups"],
+            "responses": res_cl.responses(),
+            "step_kinds": _kinds_since(steps, kinds0)}
+
+
+def dispatch_guard(torch):
+    """``guard(ro)``: each of ``ro``'s instances dispatches its steps under
+    ``set_sync_debug_mode("error")``, so a host sync in a dispatch
+    raises."""
+    def guard(ro):
+        for inst in ro.instances:
+            def guarded(*a, _inner=inst.dispatch_step, **kw):
+                return _no_sync(torch, lambda: _inner(*a, **kw))
+            inst.dispatch_step = guarded
+    return guard
+
+
+def _slot_faults(torch, k, v, kp, tile: int = 64) -> dict:
+    """Inputs of three wrong K1s over a slot cache (f32 k, v (B,S,Hk,D),
+    k_pos (B,S)): each row's newest key dropped, its empty slots let in
+    at position 0, and, where S is no multiple of ``tile``, the last
+    tile's padding (zero keys at position 0) let in.  {name: (k, v,
+    k_pos)}."""
+    B, S = kp.shape
+    newest = kp.clone()
+    rows = torch.arange(B, device=kp.device)
+    # an empty row's argmax is one of its -1 slots: it stays empty
+    newest[rows, kp.long().argmax(1)] = -1
+    out = {"newest key dropped": (k, v, newest),
+           "empty slots let in": (k, v, kp.clamp(min=0))}
+    pad = -S % tile
+    if pad:
+        z = k.new_zeros((B, pad) + tuple(k.shape[2:]))
+        out[f"{pad} padded keys let in"] = (
+            torch.cat([k, z], 1), torch.cat([v, z], 1),
+            torch.cat([kp, kp.new_zeros((B, pad))], 1))
+    return out
+
+
+def slot_scaled_check(torch, q, k, v, qp, kp, window, what: str,
+                      faults: bool) -> dict:
+    """``scaled_check`` of each route K1 takes at this slot-cache shape,
+    with ``faults`` against the planted faults of ``_slot_faults``.
+    Where no query sees a key the outputs must be exactly 0 (there is no
+    scale to hold them to)."""
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_ref
+    dtype = str(q.dtype).removeprefix("torch.")
+    outs = {r: ops.launch_on_route(r, q, k, v, qp, kp, window=window)
+            for r in _routes(dtype, q.shape[3])}
+    q32 = q.float()
+
+    def plain(k_, v_, kp_=kp):
+        return spec_verify_ref(q32, k_, v_, qp, kp_, window=window)
+    if not bool(plain(k.float(), v.float()).abs().max() > 0):
+        for r, o in outs.items():
+            check(not bool(o.abs().max() > 0), f"{what}: {r} is not 0 "
+                  "where no query sees a key")
+        log(f"  {what}: no query sees a key, every route 0")
+        return {}
+    wrong = {n: plain(*args).to(q.dtype) for n, args in _slot_faults(
+        torch, k.float(), v.float(), kp).items()} if faults else {}
+    return scaled_check(torch, outs, plain, k, v, what, faults=wrong)
+
+
+def serving_kernels_check(torch, np) -> list:
+    """K1 at the serving phase's own shapes (``SERVING_K1_CASES``:
+    granite-3-8b's heads in bf16, B = 2 slots on the faults and tracing
+    workloads' cache of 60 and the open-loop workload's of 128, at each
+    width the phase runs), through the wrapper and on both routes
+    (``_k1_case``): at the cases' live counts, then with permuted slots,
+    an empty row and a blind query; each route also held to the f32
+    plain version at the reference's scale, where planted faults must
+    fail (``slot_scaled_check``)."""
+    hq, hk, d, window = K1_SHAPES["granite-3-8b"]
+    rows = []
+    for S, T, live in SERVING_K1_CASES:
+        for lv in (list(live), None):
+            q, k, v, qp, kp = _sv_inputs(
+                torch, np, B=2, T=T, S=S, Hq=hq, Hk=hk, D=d,
+                dtype="bfloat16", seed=S + T, live=lv)
+            note = "permuted slots" if lv is None else f"live {lv}"
+            row = _k1_case(torch, "granite-3-8b/serving", q, k, v, qp, kp,
+                           window, empty_rows=lv is None, note=note)
+            row["scaled_errs"] = slot_scaled_check(
+                torch, q, k, v, qp, kp, window,
+                f"spec_verify serving B=2 T={T} S={S} {note}", faults=True)
+            rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def _k1_inputs(n_layers: int, per_shape: int = K1_KEPT_PER_SHAPE):
+    """Keeps device copies (no host sync) of the inputs the model gives
+    K1 while the block runs: per (B, T, S), layer 0's call of the 1st,
+    2nd, 4th, 8th ... engine step of that shape, at most ``per_shape``.
+    Yields {(B, T, S): [(step, q, k, v, q_pos, k_pos, window)]}."""
+    from repro_torch.models import attention
+    inner, calls, kept = attention.spec_verify, {}, {}
+
+    def keep(q, k, v, q_pos, k_pos, *, window=0):
+        key = (q.shape[0], q.shape[1], k.shape[1])
+        i = calls[key] = calls.get(key, -1) + 1
+        step, layer = divmod(i, n_layers)
+        got = kept.setdefault(key, [])
+        if layer == 0 and step & (step - 1) == 0 and len(got) < per_shape:
+            got.append((step,) + tuple(x.clone() for x in
+                                       (q, k, v, q_pos, k_pos)) + (window,))
+        return inner(q, k, v, q_pos, k_pos, window=window)
+    attention.spec_verify = keep
+    try:
+        yield kept
+    finally:
+        attention.spec_verify = inner
+
+
+def phase_kernels_check(torch, kept: dict) -> list:
+    """K1 on the inputs the phase gave it (``_k1_inputs``): each kept
+    call through the wrapper and on both routes against the plain
+    version (``_k1_case``), and against the f32 plain version at the
+    reference's scale (``slot_scaled_check``)."""
+    rows = []
+    for (B, T, S), calls in sorted(kept.items()):
+        for step, q, k, v, qp, kp, window in calls:
+            live = [int(n) for n in (kp >= 0).sum(1).tolist()]
+            note = f"the phase's own call, step {step} of its shape, " \
+                f"live {live}"
+            row = _k1_case(torch, "granite-3-8b/serving", q, k, v, qp, kp,
+                           window, empty_rows=False, note=note)
+            row.update(kept_step=step, live=live)
+            row["scaled_errs"] = slot_scaled_check(
+                torch, q, k, v, qp, kp, window,
+                f"spec_verify serving B={B} T={T} S={S} {note}",
+                faults=False)
+            rows.append(row)
+    return rows
+
+
+def _reference_record() -> dict:
+    """The reference's own record of the three workloads on granite-3-8b
+    tiny (``results/bench/BENCH_rollout.json``), printed beside the
+    card's."""
+    with open(os.path.join(ROOT, "results", "bench",
+                           "BENCH_rollout.json")) as f:
+        rec = json.load(f)
+    return {k: rec.get(k, {}) for k in ("engine_faults", "serving",
+                                        "observability")}
+
+
+SERVE_REPORT_KEYS = ("offered_groups", "admitted_groups", "shed_groups",
+                     "shed_indices", "elapsed_ticks", "latency_ticks",
+                     "completed_requests", "goodput_tokens_per_tick",
+                     "queue_depth_peak", "queue_depth_mean", "engine_steps",
+                     "idle_ticks")
+
+
+def serving_phase(torch, np, cfg, params) -> dict:
+    """Phase 7: the faults, tracing and open-loop workloads on the card
+    (``faults_workload``, ``trace_workload``, ``serving_workload``), every
+    dispatch under sync debug 'error', the launch counts set to 0 just
+    before and read just after.  Each workload's numbers are printed
+    (beside the reference's record on granite-3-8b tiny) before its
+    gates are checked."""
+    api = port_api("cuda")
+    guard = dispatch_guard(torch)
+    L = cfg.num_layers
+    ref = _reference_record()
+    plain0 = _plain_calls()
+    _reset_launches()
+    with _k1_inputs(L) as kept:
+        t0 = time.perf_counter()
+        f = faults_workload(api, cfg, params, guard)
+        t1 = time.perf_counter()
+        o = trace_workload(api, cfg, params, guard)
+        t2 = time.perf_counter()
+        s = serving_workload(api, cfg, params, guard)
+        t3 = time.perf_counter()
+    launches = _launches()
+    plain = _plain_calls() - plain0
+    by_T: dict = {}
+    for w in (f, o, s):
+        for k, n in w["step_kinds"].items():
+            by_T[k] = by_T.get(k, 0) + n
+    fused = sum(by_T.values())
+    # K1 on the inputs the run gave it (its launches are not the phase's)
+    kept_T = {T for _, T, _ in kept}
+    k1_checks = phase_kernels_check(torch, kept)
+    del kept
+    out = {"faults": f, "trace": o, "serving": s, "launches": launches,
+           "plain_calls": plain, "fused_steps": fused, "fused_by_T": by_T,
+           "k1_checks": k1_checks,
+           "wall_s": {"faults": t1 - t0, "trace": t2 - t1,
+                      "serving": t3 - t2}}
+
+    rf = ref["engine_faults"].get("faulted", {})
+    log(f"  faults ({t1 - t0:.1f} s): schedule {f['schedule']}")
+    for which in ("oracle", "faulted", "repeat"):
+        r_ = f[which]
+        log(f"  {which}: engine steps {r_['engine_steps']}, ticks "
+            f"{r_['ticks']}, host syncs {r_['host_syncs']}, wall "
+            f"{r_['wall_s']:.3f} s, steps by T {r_['fused_by_T']}")
+    log("  recovery counters, card vs the reference's record: " + ", ".join(
+        f"{k} {f['faulted'][k]}/{rf.get(k)}" for k in ("engine_steps",
+                                                       "ticks")
+        + FAULT_COUNTERS) + "; equal: " + str(all(
+            f["faulted"][k] == rf.get(k) for k in ("engine_steps", "ticks")
+            + FAULT_COUNTERS)))
+    log(f"  tokens_lost {f['tokens_lost']} (reference "
+        f"{ref['engine_faults'].get('tokens_lost')}); recovery paths "
+        f"{f['recovery_paths']}; repeat (traced) bit-identical "
+        f"{f['repeat_identical']}")
+    for rid, n in f["lost_by_request"].items():
+        log(f"  differs from the oracle: {rid}, {n} tokens, first at "
+            f"position {f['first_difference'][rid]}, recovery path "
+            f"{f['recovery_paths'].get(rid, 'none')}")
+    ro_ = ref["observability"]
+    log(f"  tracing ({t2 - t1:.1f} s): {o['events']} events (reference "
+        f"{ro_.get('events')}), {o['finished']} finished timelines, "
+        f"traced = untraced {o['bit_identical']}, conserved "
+        f"{o['conserved']}, ticks tile {o['tick_tiling_exact']}, Chrome "
+        f"round trip {o['chrome_roundtrip']}, same JSON twice "
+        f"{o['chrome_deterministic']}, schema {o['schema_ok']}, phases "
+        f"{o['phases']}; host syncs untraced {o['untraced']['host_syncs']} "
+        f"/ traced {o['traced']['host_syncs']} for engine steps "
+        f"{o['untraced']['engine_steps']} / {o['traced']['engine_steps']}")
+    for line in o["attribution_text"].splitlines():
+        log(f"    {line}")
+    rs = ref["serving"]
+    log(f"  open-loop serving ({t3 - t2:.1f} s): closed loop "
+        f"{s['closed_loop']}, t = 0 trace equivalent "
+        f"{s['closed_loop_equivalent']}; sustainable "
+        f"{s['sustainable_rate_groups_per_tick']:.6f} groups/tick "
+        f"(reference {rs.get('sustainable_rate_groups_per_tick')}), SLO "
+        f"deadline {s['slo_deadline_s']:.6e} s (reference "
+        f"{rs.get('slo_deadline_s')})")
+    for which, key in (("calibration (0.75x, no deadline)", "calibration"),
+                       ("1x", "one_x"), ("2x", "two_x"),
+                       ("2x repeat", "two_x_repeat")):
+        r_ = s[key]
+        log(f"  {which}: " + ", ".join(f"{k} {r_[k]}"
+                                      for k in SERVE_REPORT_KEYS)
+            + f", host syncs {r_['host_syncs']}, wall {r_['wall_s']:.3f} s")
+        if key in rs:
+            log(f"    reference: " + ", ".join(
+                f"{k} {rs[key].get(k)}" for k in SERVE_REPORT_KEYS))
+    log(f"  K1 launches {launches['spec_verify']} = {fused} fused steps x "
+        f"{L}; steps by T {by_T}")
+    rel = [e for c in k1_checks for e in c["scaled_errs"].values()]
+    log(f"  K1 on {len(k1_checks)} of the phase's own calls (widths "
+        f"{sorted(kept_T)}): max|err| "
+        f"{max(c['max_abs_err'] for c in k1_checks):.3e} (tol "
+        f"{TOL['bfloat16']}), rel rms / rel max against f32 at most "
+        f"{max((e[0] for e in rel), default=0.0):.2e} / "
+        f"{max((e[1] for e in rel), default=0.0):.2e}")
+
+    # faults
+    check(f["lengths_equal"] and all(
+        len(t) == BENCH_NEW_TOKENS for t in f["responses"]["oracle"].values()),
+        "faults: a request did not finish at the oracle's length")
+    fr = f["faulted"]
+    for k in ("recovered_via_blob", "recovered_via_replay",
+              "watchdog_escalations", "corrupt_blobs", "fetch_degraded"):
+        check(fr[k] > 0, f"faults: recovery path {k} never fired")
+    for which in ("oracle", "faulted", "repeat"):
+        check(f[which]["host_syncs"] == f[which]["engine_steps"],
+              f"faults ({which}): host syncs {f[which]['host_syncs']} != "
+              f"engine steps {f[which]['engine_steps']}")
+    check(f["repeat_identical"], "faults: the repeat of the faulted run "
+          "is not bit-identical")
+    check(f["tokens_lost"] == 0, f"faults: tokens_lost "
+          f"{f['tokens_lost']} (printed above, by request)")
+    # tracing
+    check(o["bit_identical"], "tracing: traced run differs from untraced")
+    for which in ("untraced", "traced", "traced_again"):
+        check(o[which]["host_syncs"] == o[which]["engine_steps"],
+              f"tracing ({which}): host syncs != engine steps")
+    check(o["finished"] == BENCH_GROUPS * BENCH_GROUP_SIZE,
+          f"tracing: {o['finished']} finished timelines")
+    for k in ("conserved", "tick_tiling_exact", "chrome_roundtrip",
+              "chrome_deterministic", "schema_ok", "phases_ok"):
+        check(o[k], f"tracing: {k} fails")
+    # open-loop serving
+    check(s["closed_loop_equivalent"], "serving: the t = 0 trace differs "
+          "from the closed-loop run")
+    check(s["one_x"]["shed_groups"] == 0 and
+          s["one_x"]["admitted_groups"] == SERVE_GROUPS,
+          f"serving: 1x shed {s['one_x']['shed_indices']}")
+    check(s["two_x"]["shed_groups"] >= 1, "serving: 2x shed nothing")
+    check(s["deterministic"], "serving: the 2x repeat differs")
+    check(s["closed_loop"]["host_syncs"] == s["closed_loop"]["engine_steps"],
+          "serving (closed loop): host syncs != engine steps")
+    for key in ("calibration", "one_x", "two_x", "two_x_repeat"):
+        check(s[key]["host_syncs"] == s[key]["engine_steps"],
+              f"serving ({key}): host syncs {s[key]['host_syncs']} != "
+              f"engine steps {s[key]['engine_steps']}")
+    # kernels
+    check(launches["spec_verify"] > 0, "the phase launched K1 no time")
+    check(launches["spec_verify"] == fused * L, f"K1 launches "
+          f"{launches['spec_verify']} != {fused} fused steps x {L}")
+    for k in ("tree_verify", "flash_attention", "ssd_scan"):
+        check(launches[k] == 0, f"the phase launched {k}")
+    check(plain == 0, f"{plain} plain attention calls on the card")
+    run_T = {int(k.split(":")[1]) for k in by_T}
+    check(kept_T == run_T, f"K1 checked on the phase's own calls at widths "
+          f"{sorted(kept_T)}, the phase ran {sorted(run_T)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2790,6 +3476,8 @@ def main() -> int:
                                             T_list=CHECK_WIDTHS)
     log("kernels: spec_verify (K1) at the cross blocks' shapes")
     report["cross_kernel_checks"] = cross_kernels_check(torch, np, B=B)
+    log("kernels: spec_verify (K1) at the serving phase's shapes")
+    report["serving_kernel_checks"] = serving_kernels_check(torch, np)
 
     log("kernels: tree_verify (K2) against its plain version")
     report["tree_kernel_checks"] = tree_kernels_check(
@@ -2981,11 +3669,16 @@ def main() -> int:
         f", tokens/s {tree_rep['tokens_per_s']:.1f} vs "
         f"{w_['tokens_per_s']:.1f}, responses equal "
         f"{tree_rep['same_responses_as_linear']}/{len(lens)}")
+    phase_done("tree slice")
+
+    log("serving, faults and tracing: the reference's faults, tracing and "
+        "open-loop workloads on granite-3-8b")
+    srv = serving_phase(torch, np, cfg, params)
+    report["serving_phase"] = srv
     del params
     gc.collect()
     torch.cuda.empty_cache()
-
-    phase_done("tree slice")
+    phase_done("serving, faults and tracing")
 
     log(f"training: GRPO trainer at granite-3-8b width, {TRAIN_LAYERS} "
         "layers, 2 sync iterations")
@@ -3032,7 +3725,7 @@ def main() -> int:
         kind = "hybrid" if arch.startswith("zamba2") else "SSM"
         log(f"{kind} slice: {arch} Seer rollout on the card, {groups} groups "
             f"x {GROUP_SIZE}, {new_tokens} new tokens")
-        rcfg, rparams = build_model(torch, arch)
+        rcfg, rparams = build_model(torch, arch, CUT_LAYERS[arch])
         sd = sync_debug_steps(torch, np, rcfg, rparams)
         log(f"  dispatch under sync debug 'error': T per step "
             f"{sd['step_T']}, host syncs {sd['host_syncs_per_step']}")
@@ -3071,7 +3764,7 @@ def main() -> int:
     log(f"MoE slice: {MOE_ARCH} Seer rollout on the card, {GROUPS} groups x "
         f"{GROUP_SIZE}, {MOE_NEW_TOKENS} new tokens, {MOE_CACHE_LEN} "
         "positions a slot")
-    mcfg, mparams = build_model(torch, MOE_ARCH)
+    mcfg, mparams = build_model(torch, MOE_ARCH, CUT_LAYERS[MOE_ARCH])
     log(f"  {mcfg.num_layers} layers: {mcfg.first_dense_layers} dense (d_ff "
         f"{mcfg.d_ff}), {mcfg.num_layers - mcfg.first_dense_layers} MoE "
         f"({mcfg.num_experts} experts of {mcfg.moe_d_ff}, top-"
@@ -3239,6 +3932,14 @@ def main() -> int:
     report["tree_kernel_time"] = vt["tree_verify"]
     report["moe_kernel_time"] = vt[f"spec_verify/{MOE_ARCH}"]
     report["moe_tree_kernel_time"] = vt[f"tree_verify/{MOE_ARCH}"]
+    # K1 at the serving phase's shape: its commonest width on 2 slots of
+    # the open-loop workload's cache (most of the phase's steps), contexts
+    # halfway through its responses
+    srv_t = kernels_time(torch, np, B=2, S=SERVE_CACHE,
+                         T=commonest_T(srv["fused_by_T"]),
+                         live=np.full(2, SERVE_PROMPT + SERVE_GEN // 2))
+    report["serving_kernel_time"] = srv_t
+    log_verify_time("spec_verify (serving, faults and tracing)", srv_t)
 
     # K4 at each SSM slice's cold and warm passes' commonest widths, then
     # the fixed widths (no single PyTorch call computes SSD); the kernels
@@ -3372,6 +4073,11 @@ def main() -> int:
                                              AUDIO_ARCH] + cross_shapes,
                                  other=True),
                        report["kernel_time"][0]),
+            kernel_row("spec_verify/serving", SPEC_VERIFY_TPU,
+                       "granite-3-8b serving, faults and tracing phase",
+                       srv["launches"]["spec_verify"],
+                       report["serving_kernel_checks"] + srv["k1_checks"]
+                       + [srv_t], srv_t),
             kernel_row("spec_verify/zamba2-1.2b", SPEC_VERIFY_TPU,
                        "zamba2-1.2b hybrid slice, cold pass",
                        z_cold["launches"]["spec_verify"],

@@ -1,6 +1,8 @@
 """Seer core of the port: divided rollout, context-aware scheduling,
-grouped speculative decoding.  The scheduling, pool, CST/DGDS and cost
-model modules are copies of ``repro.core``'s pure-Python modules."""
+grouped speculative decoding, open-loop serving and the cluster
+simulator.  The scheduling, pool, CST/DGDS, cost model, fault, workload
+(arrival processes, tenant limits, SLO admission, ``serve``) and
+simulator modules are copies of ``repro.core``'s pure-Python modules."""
 from repro_torch.core.context import ContextManager, GroupContext
 from repro_torch.core.cst import DraftPath, GroupCST, SuffixTree
 from repro_torch.core.dgds import DraftClient, DraftServer, SpeculationArgs
@@ -13,6 +15,12 @@ from repro_torch.core.rollout import RolloutResult, RolloutStats, SeerRollout
 from repro_torch.core.scheduler import InstanceView, Scheduler
 from repro_torch.core.sdmodel import (H800, TPU_V5E, ForwardCostModel,
                                       HardwareSpec, SDThroughputModel)
+from repro_torch.core.workload import (Arrival, ArrivalFeed, ArrivalProcess,
+                                       ArrivalQueue, ArrivalSpec,
+                                       LengthSampler, PoissonArrivals,
+                                       TenantRateLimiter, TenantSpec,
+                                       TraceArrivals, latency_percentiles,
+                                       serve)
 
 __all__ = [
     "ContextManager", "GroupContext", "DraftPath", "GroupCST", "SuffixTree",
@@ -22,4 +30,7 @@ __all__ = [
     "RolloutResult", "RolloutStats", "SeerRollout", "InstanceView",
     "Scheduler", "H800", "TPU_V5E", "ForwardCostModel", "HardwareSpec",
     "SDThroughputModel",
+    "Arrival", "ArrivalFeed", "ArrivalProcess", "ArrivalQueue",
+    "ArrivalSpec", "LengthSampler", "PoissonArrivals", "TenantRateLimiter",
+    "TenantSpec", "TraceArrivals", "latency_percentiles", "serve",
 ]

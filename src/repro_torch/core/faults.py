@@ -108,8 +108,7 @@ class FaultInjector:
                     stacklevel=2)
         self._armed: List[_ArmedFetch] = []
         self.fired: List[FaultEvent] = []
-        # optional flight-recorder hook (a tracer; the port's obs
-        # layer is a later slice) — set by
+        # optional flight-recorder hook (repro_torch.obs.Tracer) — set by
         # run_stream; each armed event emits a fault_<kind> instant
         self.tracer = None
 

@@ -114,8 +114,7 @@ class GlobalKVPool:
         # at export time instead of at fetch time
         self.export_placed_remote = 0
         self.export_placed_remote_bytes = 0
-        # optional flight-recorder hook (a tracer; the port's obs
-        # layer is a later slice) — set by
+        # optional flight-recorder hook (repro_torch.obs.Tracer) — set by
         # run_stream; put/get/miss traffic emits instant events
         self.tracer = None
 

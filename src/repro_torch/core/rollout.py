@@ -5,8 +5,12 @@ pool, DGDS drafting and chunk migration, driving the port's
 :class:`~repro_torch.engine.engine.Instance`s.  Instances live on
 ``cuda`` unless the rollout is built with ``device="cpu"``.  The cost
 model that sizes the adaptive prefill budget stays ``TPU_V5E`` so the
-step plan matches the JAX package's; tracing (``tracer``) and tensor
-parallelism (``tp``) arrive with later slices and raise here.
+step plan matches the JAX package's.  The flight recorder (``tracer``,
+a :class:`~repro_torch.obs.trace.Tracer`), open-loop arrivals
+(``run_stream(arrivals=)``, an
+:class:`~repro_torch.core.workload.ArrivalFeed`) and the fault paths run
+as in the reference; tensor parallelism (``tp``) arrives with a later
+slice and raises here.
 
 Drives a pool of :class:`~repro_torch.engine.engine.Instance`s through one
 synchronous rollout iteration:
@@ -191,9 +195,6 @@ class SeerRollout:
         if tp is not None:
             raise NotImplementedError(
                 "tensor parallelism arrives with a later slice of the port")
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracing arrives with the observability slice of the port")
         self.cfg = cfg
         self.chunk_size = chunk_size
         self.policy = policy
@@ -321,7 +322,7 @@ class SeerRollout:
         self._cur_tick = 0
         self._stream_drained = False
         # -- observability ----------------------------------------------
-        # optional tracer (the obs slice): all hooks are host-side
+        # optional repro_torch.obs.trace.Tracer: all hooks are host-side
         # metadata recorded at tick boundaries — tracing adds ZERO
         # device reads, and a traced run is bit-identical (tokens,
         # steps, host syncs) to an untraced one.  Settable between
@@ -916,7 +917,7 @@ class SeerRollout:
         :meth:`inject` and :meth:`refresh_params` are legal at ANY yield
         point, not just bubbles.
 
-        ``arrivals`` (an arrival feed, as ``repro.core.workload``'s)
+        ``arrivals`` (an :class:`~repro_torch.core.workload.ArrivalFeed`)
         switches the loop open-loop: the feed is polled at every tick
         boundary — the same no-ticket-in-flight contract as
         :meth:`inject` — and released groups go through the scheduler's
@@ -927,9 +928,6 @@ class SeerRollout:
         admitted finished.  With ``arrivals=None`` every branch below is
         a no-op and the run is bit-identical to the closed-loop path.
         """
-        if self.tracer is not None:
-            raise NotImplementedError(
-                "tracing arrives with the observability slice of the port")
         t0 = time.monotonic()
         stats = RolloutStats()
         sched = Scheduler(list(groups), self.ctx, policy=self.policy,
@@ -967,7 +965,14 @@ class SeerRollout:
             self.faults.tracer = tr
         if arrivals is not None:
             arrivals.tracer = tr
-        self._stream_rec = None
+        rec = None
+        if tr is not None:
+            from repro_torch.obs.timeline import TimelineRecorder
+            rec = TimelineRecorder(tr)
+            for g in groups:
+                for r in g.requests:
+                    rec.on_submit(r.req_id, g.group_id, 0)
+        self._stream_rec = rec
 
         try:
             yield from self._stream_loop(sched, stats, all_groups,

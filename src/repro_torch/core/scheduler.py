@@ -87,8 +87,7 @@ class Scheduler:
         # the decision is a pure function of scheduler state, so a
         # seeded arrival trace sheds identically on every run.
         self.slo_deadline_s = slo_deadline_s
-        # optional flight-recorder hook (a tracer; the port's obs
-        # layer is a later slice) — set by
+        # optional flight-recorder hook (repro_torch.obs.Tracer) — set by
         # run_stream; offer/select decisions emit instant events
         self.tracer = None
         self.shed_groups = 0

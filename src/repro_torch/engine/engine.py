@@ -594,8 +594,8 @@ class Instance:
         self.prefill_latency_factor = prefill_latency_factor
         self.instance_id = instance_id
         self.node = node
-        # flight-recorder hook of the JAX package; tracing is a later
-        # slice, so it stays None (every hook below is guarded on it)
+        # optional flight recorder (repro_torch.obs.Tracer), set by
+        # run_stream; its hooks read only host ints the engine holds
         self.tracer = None
         # admit-into-draining: a draining slot counts as admittable one
         # tick early; the new seq's import/clear is deferred until the
@@ -1133,6 +1133,11 @@ class Instance:
         plan = self._prefill_plan()
         if not decode and not plan:
             return None
+        if self.tracer is not None:
+            self.tracer.instant(
+                "step_dispatch", "instance", self.instance_id,
+                decode_rows=len(decode), prefill_rows=len(plan),
+                prefill_tokens=sum(plan.values()))
         if self.spec_mode == "tree":
             return self._dispatch_tree(decode, plan, drafts)
         gamma = max((len(drafts.get(i, [])) for i in decode), default=0)
@@ -1378,6 +1383,12 @@ class Instance:
             ticket.ready.synchronize()
         arr = ticket.block.numpy()
         self.steps.host_syncs += 1
+        if self.tracer is not None:
+            # stamped right after the step's one host sync; the tracer
+            # reads only host ints
+            self.tracer.instant(
+                "step_commit", "instance", self.instance_id,
+                rows=len(ticket.sample_slots))
         BT = ticket.B * ticket.T
         sampled = arr[:BT].reshape(ticket.B, ticket.T)
         lps = arr[BT:2 * BT].view(np.float32).reshape(ticket.B, ticket.T)

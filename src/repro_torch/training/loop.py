@@ -67,7 +67,9 @@ class RLConfig:
     # deterministic fault schedule for the rollout stream
     fault_injector: Optional[object] = None
     watchdog_ticks: int = 3
-    # tracing arrives with the observability slice of the port
+    # optional repro_torch.obs.Tracer: threaded into the rollout stream,
+    # with the trainer stamping train/refresh instants on the "trainer"
+    # track at the rollout's current tick (host metadata only)
     tracer: Optional[object] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
@@ -153,9 +155,6 @@ class RLTrainer:
     def __init__(self, cfg: ModelConfig, task: Task, rl: RLConfig,
                  gcfg: GRPOConfig = GRPOConfig(),
                  ocfg: Optional[OptConfig] = None, params=None):
-        if rl.tracer is not None:
-            raise NotImplementedError(
-                "tracing arrives with the observability slice of the port")
         if cfg.arch_type == "moe":
             raise NotImplementedError(
                 "arch_type='moe': MoE training (the cache-free MoE forward "
@@ -193,7 +192,8 @@ class RLTrainer:
             cache_len=rl.cache_len, chunk_size=rl.chunk_size,
             policy=rl.policy, spec_decode=rl.spec_decode,
             base_seed=rl.seed, fault_injector=rl.fault_injector,
-            watchdog_ticks=rl.watchdog_ticks, device=self.device)
+            watchdog_ticks=rl.watchdog_ticks, tracer=rl.tracer,
+            device=self.device)
         self.updater = WeightUpdater(self.rollout.instances)
         self.rewards = RewardWorker(task)
         self.history: List[IterStats] = []
@@ -361,6 +361,12 @@ class RLTrainer:
                 tokens=sum(len(t) for t in responses.values()),
                 mean_acceptance=acc, metrics=metrics)
             self.history.append(st)
+            if rl.tracer is not None:
+                rl.tracer.instant(
+                    "train_iteration", "train", "trainer",
+                    tick=self.rollout._cur_tick, iteration=j,
+                    live=live, version=self.updater.version,
+                    tokens=st.tokens)
             rl.log(f"[iter {j:3d}] reward={mean_r:.3f} "
                    f"loss={loss:+.4f} rollout={t_roll:.1f}s "
                    f"train={t_train:.1f}s acc={acc:.2f}"

@@ -40,7 +40,10 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.phi4_mini_3_8b",
             "repro_torch.configs.llama_3_2_vision_11b",
             "repro_torch.configs.whisper_tiny",
-            "repro_torch.models.model"} <= set(mods)
+            "repro_torch.models.model", "repro_torch.obs",
+            "repro_torch.obs.trace", "repro_torch.obs.timeline",
+            "repro_torch.core.workload", "repro_torch.core.simulator",
+            "repro_torch.data.workload"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"

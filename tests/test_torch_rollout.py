@@ -63,8 +63,20 @@ def test_rollout_matches_reference(models, temp):
 
 
 def test_tracer_and_tp_raise(models):
+    """Tensor parallelism still raises; a tracer now runs, and a traced
+    run is the untraced run bit for bit (its trace is held to the
+    reference's in tests/test_torch_obs.py)."""
+    from repro_torch.obs import Tracer
     _, _, tcfg, tp = models
     with pytest.raises(NotImplementedError):
-        SeerRollout(tcfg, tp, device="cpu", tracer=object(), **ROLLOUT)
-    with pytest.raises(NotImplementedError):
         SeerRollout(tcfg, tp, device="cpu", tp=2, **ROLLOUT)
+    kw = dict(group_size=2, max_new_tokens=8, seed=5, temperature=1.0)
+    tr = Tracer()
+    runs = []
+    for tracer in (None, tr):
+        ro = SeerRollout(tcfg, tp, device="cpu", tracer=tracer, **ROLLOUT)
+        runs.append(_summary(ro, ro.run(make_groups(PROMPTS, **kw))))
+    assert runs[1] == runs[0]
+    assert runs[1]["host_syncs"] == runs[1]["steps"]
+    names = {e["name"] for e in tr.events()}
+    assert {"step_dispatch", "step_commit"} <= names

@@ -437,9 +437,6 @@ def test_trainer_and_cli_refuse_the_cpu_unless_asked(trainer_model):
         RLTrainer(tcfg, _task(make_task), RLConfig(**RL_KW))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--iterations", "1"])
-    with pytest.raises(NotImplementedError, match="tracing"):
-        RLTrainer(tcfg, _task(make_task),
-                  RLConfig(**RL_KW, device="cpu", tracer=object()))
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
