@@ -54,7 +54,15 @@ Phases, in this order:
    each case on every route its shape can take (the recurrent route up to
    T = 64, the tensor cores for bf16, the CUDA cores) and at every n_split
    of each route, bitwise the same across n_split (see
-   ``ssd_kernels_check``), the N = 16 and 32 instances included;
+   ``ssd_kernels_check``), the N = 16 and 32 instances included; K4's
+   backward (ssd_scan_bwd) against its plain version ``ssd_bwd_ref`` and
+   autograd through the plain forward at the tiny configs', mamba2-370m's
+   and zamba2-1.2b's heads (b 2, and the models' heads also at the
+   trainers' 16 x 448), T on and off the chunk, f32 and bf16, with
+   and without an initial state, zero-dt steps and rows, repeat calls
+   bitwise equal, bf16 under ``scaled_check``'s measure with planted
+   faults (``ssd_bwd_check``); K3's backward at the cross blocks'
+   training shapes under ``scaled_check`` (``cross_bwd_check``);
 4. linear slice: a full-width, full-depth granite-3-8b Seer rollout
    (40 layers, random weights from a seed, bf16) on two instances
    through the port's entry points, with its checks: every group finishes, every
@@ -102,7 +110,22 @@ Phases, in this order:
    rollout -> reward -> GRPO train step -> weight push on the copy task
    (see ``training_phase`` for its checks: K3 launches per train step,
    no plain attention, the rollout on the pushed weights, a bitwise
-   repeat of a train step, K3 against the plain attention);
+   repeat of a train step, K3 against the plain attention); then the
+   crash gap: the same granite, two sync iterations of a small rollout
+   without and with one crash, the differences in losses, grad norms and
+   rollout logprobs printed (``crash_gap_phase``); then the training of
+   every other arch the reference trains, at full width: one sync
+   ``RLTrainer`` iteration of moonshot-v1-16b-a3b (at
+   ``moe_train_layers()``: 1 dense + 3 MoE layers), mamba2-370m and
+   zamba2-1.2b whole (``rl_training_phase``), and ``make_train_step`` of
+   llama-3.2-vision-11b (one cell: 5 self layers and its cross block) and
+   whisper-tiny whole on a batch with seeded image embeddings or audio
+   frames (``modality_training_phase``); each checks its train step's
+   launches (K3 twice per attention application forward, one dQ and one
+   dK/dV; K4 twice per Mamba2 block forward, one backward; no K1/K2, no
+   plain call), a nonzero gradient in every leaf, a MoE model's aux
+   loss, a bitwise repeat of the train step, and its rollout's K1 / K4
+   launches and host syncs;
 9. hybrid slice: a full-width zamba2-1.2b Seer rollout at 14 of its 38
    Mamba2 blocks (``CUT_LAYERS``: two cells of 6 blocks, each followed
    by the shared attention, and the 2-block tail; random bf16 weights
@@ -172,7 +195,8 @@ Phases, in this order:
    cross blocks; K2: the tree slice and the MoE and VLM tree engine
    phases; K3: the training phase's two train steps and the building of
    the whisper cold pass's rollout; K4: the hybrid and the SSM cold
-   passes) and
+   passes; K4's backward: the zamba2 and mamba2 train steps, timed at
+   their shape, 16 x 448, by ``ssd_bwd_time``) and
    that path's shape's timing; K4 also at fixed
    widths (``ssd_time_table``: T = 1, 3, 5, 9, 33, 64 and each SSM slice's
    cold and warm commonest, both models' heads on 8 slots) with route,
@@ -217,6 +241,7 @@ FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:89"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_TPU = "src/repro/kernels/ssd_scan/kernel.py:57"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_BWD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
 # tolerances of K4 against its plain version (tests/test_kernels.py holds
 # the Pallas kernel to its oracle at 1e-4 in f32)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -2079,6 +2104,238 @@ def ssd_kernels_time(torch, np, *, name, b, nh, P, G, N, T, iters=50,
             "bound_share": bound_ms / tm["ms"], "sweep_ms": sweep_ms}
 
 
+# K4's backward: (name, nh, P, G, N, chunk, widths) of the tiny configs'
+# heads and both models', each at b 2 with T on the chunk, off it (a ragged
+# last chunk) and, at the models' chunk of 256, one short chunk (Q = T);
+# both models' heads also at the shape their trainers give it
+# (``ssd_bwd_train_shape``)
+SSD_BWD_SHAPES = [("tiny", 8, 32, 1, 16, 32, (64, 45)),
+                  ("mamba2-370m", 32, 64, 1, 128, 256, (256, 300, 130)),
+                  ("zamba2-1.2b", 64, 64, 1, 64, 256, (256, 300, 130))]
+SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def ssd_bwd_train_shape() -> tuple:
+    """(b, T) of the SSM and hybrid trainers' K4 backward calls: the
+    training batch, 16 rows of 448 tokens (a chunk of 256 and a ragged
+    one of 192)."""
+    return ARCH_TRAIN_GROUPS * GROUP_SIZE, ARCH_TRAIN_PROMPT + ARCH_TRAIN_NEW
+
+
+def _ssd_bwd_inputs(torch, np, *, b, T, nh, P, G, N, dtype, seed, init):
+    """K4's inputs (``_ssd_inputs``: the last row's dt 0 throughout) with
+    five more zero-dt steps inside row 0, and a seeded dy in x's dtype."""
+    x, dt, A, Bm, Cm, S0 = _ssd_inputs(torch, np, b=b, T=T, nh=nh, P=P,
+                                       G=G, N=N, dtype=dtype, seed=seed,
+                                       init=init, strided=False)
+    dt[0, T // 3:T // 3 + 5] = 0.0
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.normal(size=(b, T, nh, P)).astype(
+        np.float32)).to("cuda", x.dtype)
+    return x, dt, A, Bm, Cm, S0, dy
+
+
+def _ssd_autograd(torch, x, dt, A, Bm, Cm, S0, chunk, dy):
+    """The gradients by autograd through the plain forward ``ssd_ref``
+    (f32), in ``SSD_BWD_GRADS`` order."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    ins = [t.detach().float().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    s0 = None if S0 is None else S0.detach().clone().requires_grad_()
+    y, _ = ssd_ref(*ins, s0, chunk)
+    grads = torch.autograd.grad((y * dy.float()).sum(),
+                                ins + ([s0] if s0 is not None else []))
+    return list(grads) + ([None] if s0 is None else [])
+
+
+def ssd_bwd_check(torch, np) -> list:
+    """K4's backward (``ops.ssd_scan_bwd``) on the card at SSD_BWD_SHAPES'
+    heads (b 2, and the models' heads also at the trainers' b 16 x T 448),
+    f32 and bf16, with and without an initial state, zero-dt steps and a
+    zero-dt row: f32 held to its plain version
+    ``ref.ssd_bwd_ref`` and to autograd through ``ssd_ref`` at 1e-4 of
+    each gradient's scale (tests/test_kernels.py's SSD tolerance); bf16
+    by ``scaled_check``'s measure against the f32 plain version on the
+    same inputs, with two planted faults (the last step's dy dropped;
+    the initial state, or else the chunk boundary's state, ignored) that
+    must fail it; a repeated call bitwise equal."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+    n0 = dict(ops.launches)
+    rows, seed = [], 100
+    for name, nh, P, G, N, chunk, widths in SSD_BWD_SHAPES:
+        cases = [(2, T) for T in widths]
+        if name != "tiny":
+            cases.append(ssd_bwd_train_shape())
+        for b, T in cases:
+            for dtype in ("float32", "bfloat16"):
+                for init in (False, True):
+                    seed += 1
+                    args = _ssd_bwd_inputs(torch, np, b=b, T=T, nh=nh, P=P,
+                                           G=G, N=N, dtype=dtype, seed=seed,
+                                           init=init)
+                    x, dt, A, Bm, Cm, S0, dy = args
+                    got = ops.ssd_scan_bwd(x, dt, A, Bm, Cm, S0, chunk, dy)
+                    again = ops.ssd_scan_bwd(x, dt, A, Bm, Cm, S0, chunk, dy)
+                    torch.cuda.synchronize()
+                    same = all(a is None and b_ is None or torch.equal(a, b_)
+                               for a, b_ in zip(got, again))
+                    what = (f"ssd_scan_bwd {name} b={b} T={T} "
+                            f"chunk={chunk} {dtype}{' init' if init else ''}")
+                    check(same, f"{what}: a repeated call differs")
+                    f32 = [t.float() for t in (x, dt, A, Bm, Cm)]
+                    want = ssd_bwd_ref(*f32, S0, chunk, dy.float())
+                    errs = {}
+                    for g, a, w in zip(SSD_BWD_GRADS, got, want):
+                        check((a is None) == (w is None),
+                              f"{what}: {g} made where it should not be, "
+                              "or not made")
+                        if a is None:
+                            continue
+                        check(bool(torch.isfinite(a).all()),
+                              f"{what}: {g} not finite")
+                        errs[g] = _scaled_err(a, w)
+                    row = {"shape": name, "b": b, "T": T, "chunk": chunk,
+                           "dtype": dtype, "init": init,
+                           "max_abs_err": max(
+                               float((a.float() - w).abs().max())
+                               for a, w in zip(got, want) if a is not None),
+                           "errs": errs}
+                    if dtype == "float32":
+                        auto = _ssd_autograd(torch, x, dt, A, Bm, Cm, S0,
+                                             chunk, dy)
+                        for g, a, w, v in zip(SSD_BWD_GRADS, got, want,
+                                              auto):
+                            if a is None:
+                                continue
+                            rel = errs[g][1]
+                            rel_auto = float((a - v).abs().max()
+                                             / v.abs().max().clamp_min(1e-30))
+                            check(rel <= SSD_TOL["float32"] and
+                                  rel_auto <= SSD_TOL["float32"],
+                                  f"{what}: {g} max|err|/max|ref| {rel:.2e} "
+                                  f"against ssd_bwd_ref, {rel_auto:.2e} "
+                                  f"against autograd (limit "
+                                  f"{SSD_TOL['float32']})")
+                        row["autograd_ok"] = True
+                    else:
+                        for g, e in errs.items():
+                            check(_scaled_ok(e), f"{what}: {g} off its f32 "
+                                  f"plain version: {e[0]:.2e}/{e[1]:.2e} "
+                                  f"(limits {REL_RMS_TOL}/{REL_MAX_TOL:.2e})")
+                        dy_cut = dy.float().clone()
+                        dy_cut[:, -1] = 0.0
+                        faults = {"last step's dy dropped": ssd_bwd_ref(
+                            *f32, S0, chunk, dy_cut)}
+                        if init:
+                            faults["initial state ignored"] = ssd_bwd_ref(
+                                *f32, None, chunk, dy.float())
+                        elif T > chunk:
+                            faults["chunk boundary's state ignored"] = \
+                                ssd_bwd_ref(*[t[:, chunk:] for t in
+                                              (f32[0], f32[1])], f32[2],
+                                            *[t[:, chunk:] for t in
+                                              (f32[3], f32[4])], None, chunk,
+                                            dy.float()[:, chunk:])
+                        row["faults"] = {}
+                        for fname, fgrads in faults.items():
+                            ferrs = {}
+                            for g, f, w in zip(SSD_BWD_GRADS, fgrads, want):
+                                if f is None or w is None:
+                                    continue
+                                if f.shape != w.shape:   # the cut: its tail
+                                    w = w[:, chunk:] if w.dim() > 1 else w
+                                ferrs[g] = _scaled_err(f, w)
+                            row["faults"][fname] = ferrs
+                            check(not all(_scaled_ok(e)
+                                          for e in ferrs.values()),
+                                  f"{what}: the planted fault '{fname}' "
+                                  "passes the scaled check")
+                    rows.append(row)
+                    log(f"  {what}: " + ", ".join(
+                        f"{g} {a:.1e}/{b_:.1e}" for g, (a, b_) in
+                        errs.items()) + " (rel rms/rel max against the f32 "
+                        "plain version)" + (
+                            "; faults fail: " + ", ".join(
+                                f"{k} (worst {max(e[0] for e in v.values()):.1e})"
+                                for k, v in row["faults"].items())
+                            if "faults" in row else
+                            "; autograd through ssd_ref agrees"))
+    ops.launches.update(n0)      # check launches are not a path's
+    return rows
+
+
+def _ssd_bwd_bound_ms(b, T, nh, P, G, N, es, chunk=256, init=False):
+    """Least time of one K4 backward call (no final state's gradient, as
+    in training), its deciding unit and its byte time.  Bytes: x, dy, B,
+    C, dt read once and dx, ddt, dB, dC (f32) written once, over the
+    memory rate.  Operations (2 per multiply-add) that these inputs need,
+    each product over the rate of its operands' type: per causal pair of
+    a chunk, C.B once per group (every head of a group shares it) and
+    dy.x per head, both of bf16 operands (bf16 tensor cores); dx's term
+    (P) per head, and dB's and dC's (N each) once per group, the heads'
+    f32 weights summed first; per head, token and state element (P N, f32
+    CUDA cores) only where the chunk's boundary state or its gradient is
+    nonzero: the chunk states (every chunk but the last: the last one's
+    output is not used), r = dS.B (dx's and ddt's boundary term) and dB's
+    boundary term (every chunk but the last: its dS is 0), the reverse
+    pass and dC's boundary term (every chunk but the first, whose input
+    state is 0, unless ``init``).  The unit bound is the larger of the
+    two types' times."""
+    nbytes = b * T * (2 * nh * P * es + 2 * G * N * es + nh * 4) \
+        + b * T * (nh * P * es + nh * 4 + 2 * G * N * 4) + nh * 8
+    Q = min(chunk, T)
+    full, rest = divmod(T, Q)
+    pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
+    t_head = T - (rest or Q)          # tokens of every chunk but the last
+    t_tail = T if init else T - Q     # ... but the first
+    ops_bf16 = 2 * b * pairs * (G * N + nh * P)
+    ops_f32 = 2 * b * (pairs * (2 * G * N + nh * P)
+                       + nh * P * N * (3 * t_head + 2 * t_tail))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops_bf16 / PEAK_OPS["bfloat16"],
+                ops_f32 / PEAK_OPS["float32"])
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations", 1e3 * t_bytes
+
+
+def ssd_bwd_time(torch, np, *, name, b, nh, P, G, N, T, iters=20) -> dict:
+    """K4's backward timed at a training call's shape (bf16 x, B, C, dy,
+    f32 dt, no initial state, L2 flushed before each call; a training
+    batch of b rows of T tokens), beside its plain version and its bound;
+    no single PyTorch call computes it (library: none).  The timed call's
+    gradients are first held to the f32 plain version by ``scaled_check``'s
+    measure."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+    x, dt, A, Bm, Cm, _, dy = _ssd_bwd_inputs(
+        torch, np, b=b, T=T, nh=nh, P=P, G=G, N=N, dtype="bfloat16",
+        seed=11, init=False)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda").zero_
+    n0 = dict(ops.launches)
+    got = ops.ssd_scan_bwd(x, dt, A, Bm, Cm, None, 256, dy)
+    want = ssd_bwd_ref(*[t.float() for t in (x, dt, A, Bm, Cm)], None, 256,
+                       dy.float())
+    err = max(float((a.float() - w).abs().max())
+              for a, w in zip(got, want) if a is not None)
+    for g, a, w in zip(SSD_BWD_GRADS, got, want):
+        if a is not None:
+            e = _scaled_err(a, w)
+            check(_scaled_ok(e), f"ssd_scan_bwd timing ({name} heads) b={b} "
+                  f"T={T}: {g} off its f32 plain version: {e[0]:.2e}/"
+                  f"{e[1]:.2e} (limits {REL_RMS_TOL}/{REL_MAX_TOL:.2e})")
+    t = _time_rounds(torch, lambda: ops.ssd_scan_bwd(
+        x, dt, A, Bm, Cm, None, 256, dy), iters, flush)
+    plain_ms = _time_ms(torch, lambda: ssd_bwd_ref(
+        x, dt, A, Bm, Cm, None, 256, dy), max(iters // 5, 3), flush)
+    ops.launches.update(n0)
+    bound_ms, bound_by, bytes_ms = _ssd_bwd_bound_ms(b, T, nh, P, G, N, 2)
+    return {"model": name, "b": b, "T": T, "nh": nh, "P": P, "N": N,
+            "dtype": "bfloat16", "ms": t["median"], "ms_spread": t,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
+            "bound_share": bound_ms / t["median"], "max_abs_err": err}
+
+
 # K4's fixed widths: decode, the warm passes' verify widths (T = 3, 5, 9),
 # a verify width past 32 and the prefill chunk
 SSD_WIDTHS = (1, 3, 5, 9, 33, 64)
@@ -2441,7 +2698,6 @@ def training_phase(torch, np, profile: bool = False) -> dict:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.spec_verify import ops as sv
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import init_params
     from repro_torch.training.loop import RLConfig, RLTrainer
     from repro_torch.training.optim import tree_items
 
@@ -2469,28 +2725,9 @@ def training_phase(torch, np, profile: bool = False) -> dict:
         f"f32 master params + AdamW moments + bf16 serving copy, made in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    steps, rollouts, first = [], [], {}
+    rollouts = []
     train_step, roll_run = tr.train_step, tr.rollout.run
-
-    def counted_step(params, opt_state, batch):
-        n_fa, n_sv = dict(fa.launches), dict(sv.launches)
-        plain0 = dict(fa_ref.calls)
-        torch.use_deterministic_algorithms(True)
-        try:
-            out = train_step(params, opt_state, batch)
-            torch.cuda.synchronize()
-        finally:
-            torch.use_deterministic_algorithms(False)
-        rec = {name: fa.launches[name] - n_fa[name] for name in fa.launches}
-        rec["spec_verify"] = sv.launches["spec_verify"] - n_sv["spec_verify"]
-        rec["plain_calls"] = sum(fa_ref.calls[k] - plain0[k]
-                                 for k in plain0)
-        rec["loss"] = float(out[2])
-        steps.append(rec)
-        if not first:
-            first.update(batch=batch, loss=out[2].clone(),
-                         digest=_digest(torch, params))
-        return out
+    rec = _StepRecorder(torch, train_step)
 
     def counted_rollout(groups):
         st = tr.rollout.steps
@@ -2509,7 +2746,7 @@ def training_phase(torch, np, profile: bool = False) -> dict:
             "finished": all(g.all_finished for g in res.groups)})
         return res
 
-    tr.train_step, tr.rollout.run = counted_step, counted_rollout
+    tr.train_step, tr.rollout.run = rec, counted_rollout
     fa.reset_launches()
     sv.reset_launches()
     plain0 = sum(fa_ref.calls.values())
@@ -2524,16 +2761,14 @@ def training_phase(torch, np, profile: bool = False) -> dict:
 
     check(len(hist) == 2 and all(np.isfinite(h.loss) for h in hist),
           f"training losses {[h.loss for h in hist]}")
-    adv = first["batch"]["advantages"]
+    adv = rec.first["batch"]["advantages"]
     check(bool((adv != 0).any()) and all(
         h.metrics["grad_norm"] > 0 for h in hist),
           "zero advantages or a zero gradient: the train steps test nothing")
     check(plain_calls == 0, f"{plain_calls} plain attention calls on the "
           "card")
-    for i, st in enumerate(steps):
-        want = {"flash_attention": 2 * L, "flash_attention_dq": L,
-                "flash_attention_dkdv": L, "spec_verify": 0,
-                "plain_calls": 0}
+    want = _train_step_want(cfg)
+    for i, st in enumerate(rec.steps):
         got = {k: st[k] for k in want}
         check(got == want, f"train step {i}: launches {got}, want {want}")
     for i, ro in enumerate(rollouts):
@@ -2556,33 +2791,14 @@ def training_phase(torch, np, profile: bool = False) -> dict:
     # the first train step again, from the same state: masters re-made
     # from the seed, zero moments, the same batch
     log("  repeat of the first train step from the same state")
-    gen = torch.Generator(device="cuda").manual_seed(rl.seed)
-    fresh = init_params(cfg, gen, device="cuda", dtype="float32")
-    with torch.no_grad():
-        for (_, a), (_, b) in zip(tree_items(tr.params), tree_items(fresh)):
-            a.copy_(b)
-        for _, m in tree_items(tr.opt_state.mu):
-            m.zero_()
-        for _, v in tree_items(tr.opt_state.nu):
-            v.zero_()
-        tr.opt_state.step.zero_()
-    del fresh
-    torch.use_deterministic_algorithms(True)
-    try:
-        _, _, loss2, _ = train_step(tr.params, tr.opt_state, first["batch"])
-        digest2 = _digest(torch, tr.params)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    repeat_equal = bool(torch.equal(loss2, first["loss"])) and \
-        digest2 == first["digest"]
-    check(repeat_equal, f"repeated train step not bitwise equal: loss "
-          f"{float(loss2)!r} vs {float(first['loss'])!r}, parameter "
-          f"digests equal: {digest2 == first['digest']}")
+    repeat_equal = _repeat_first_step(torch, cfg, rec, tr.params,
+                                      tr.opt_state, seed=rl.seed)
+    check(repeat_equal, "repeated train step not bitwise equal")
 
     # K3 against the plain attention, forward and backward, on 4 of the
     # batch's sequences
     log("  K3 against the plain attention on 4 sequences of the batch")
-    sub = {k: v[:4] for k, v in first["batch"].items()}
+    sub = {k: v[:4] for k, v in rec.first["batch"].items()}
     torch.use_deterministic_algorithms(True)
     try:
         loss_k3, norms_k3, total_k3 = _grad_norms(torch, cfg, tr, sub)
@@ -2611,7 +2827,7 @@ def training_phase(torch, np, profile: bool = False) -> dict:
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
-            train_step(tr.params, tr.opt_state, first["batch"])
+            train_step(tr.params, tr.opt_state, rec.first["batch"])
             torch.cuda.synchronize()
             t_step = time.perf_counter() - t1
         prof_rep = _profile_summary(prof, t_step)
@@ -2619,7 +2835,7 @@ def training_phase(torch, np, profile: bool = False) -> dict:
         "profile": prof_rep,
         "layers": L, "params": n_params, "wall_s": wall,
         "peak_mem_gb": peak_gb, "launches": launches,
-        "plain_calls": plain_calls, "train_steps": steps,
+        "plain_calls": plain_calls, "train_steps": rec.steps,
         "rollouts": rollouts,
         "iterations": [{"loss": h.loss, "reward": h.mean_reward,
                         "rollout_s": h.rollout_seconds,
@@ -2633,6 +2849,496 @@ def training_phase(torch, np, profile: bool = False) -> dict:
         "oracle": {"loss_k3": loss_k3, "loss_plain": loss_pl,
                    "grad_norm_k3": total_k3, "grad_norm_plain": total_pl,
                    "worst_leaf_norm_rel_gap": worst}}
+
+
+def _step_counts() -> dict:
+    """Launches of every kernel and calls of every plain version so far."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.spec_verify import ref as sv_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    out = _launches()
+    out["plain_calls"] = sum(sv_ref.calls.values()) + sum(
+        ssd_ref.calls.values()) + sum(fa_ref.calls.values())
+    return out
+
+
+def _attn_ssm_layers(cfg) -> tuple:
+    """(attention applications, Mamba2 blocks) of one cache-free forward:
+    self-attention layers, a hybrid's shared attention once per cell, a
+    VLM's cross blocks, an audio model's encoder layers and its decoder's
+    self and cross blocks."""
+    L = cfg.num_layers
+    if cfg.arch_type == "ssm":
+        return 0, L
+    if cfg.arch_type == "hybrid":
+        return L // cfg.hybrid_attn_every, L
+    if cfg.arch_type == "vlm":
+        return L + L // cfg.cross_attn_every, 0
+    if cfg.arch_type == "audio":
+        return cfg.encoder_layers + 2 * L, 0
+    return L, 0
+
+
+def _train_step_want(cfg) -> dict:
+    """Launches of one train step (forward, recomputed forward, backward):
+    K3's forward twice per attention application and one dQ and one
+    dK/dV; K4's forward twice per Mamba2 block and one backward; no K1
+    or K2 and no plain version."""
+    n_attn, n_ssm = _attn_ssm_layers(cfg)
+    return {"flash_attention": 2 * n_attn, "flash_attention_dq": n_attn,
+            "flash_attention_dkdv": n_attn, "ssd_scan": 2 * n_ssm,
+            "ssd_scan_bwd": n_ssm, "spec_verify": 0, "tree_verify": 0,
+            "plain_calls": 0}
+
+
+class _StepRecorder:
+    """Wraps a train step: each call under deterministic algorithms, its
+    launch and plain-call counts, loss and the first call's batch, loss
+    and parameter digest (the repeat's bar)."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step = torch, step
+        self.steps, self.first = [], {}
+
+    def __call__(self, params, opt_state, batch):
+        torch = self.torch
+        n0 = _step_counts()
+        torch.use_deterministic_algorithms(True)
+        try:
+            out = self.step(params, opt_state, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n1 = _step_counts()
+        rec = {k: n1[k] - n0.get(k, 0) for k in n1}
+        rec["loss"] = float(out[2])
+        rec["metrics"] = {k: float(v) for k, v in out[3].items()}
+        self.steps.append(rec)
+        if not self.first:
+            self.first.update(batch=batch, loss=out[2].clone(),
+                              digest=_digest(torch, params))
+        return out
+
+
+def _repeat_first_step(torch, cfg, rec, params, opt_state, seed=0) -> bool:
+    """The first recorded train step again from the same state: masters
+    re-made from ``seed``, zero moments and step, the same batch; True
+    when its loss and parameters equal the first's bitwise."""
+    from repro_torch.models import init_params
+    from repro_torch.training.optim import tree_items
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fresh = init_params(cfg, gen, device="cuda", dtype="float32")
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(tree_items(params), tree_items(fresh)):
+            a.copy_(b)
+        for tree in (opt_state.mu, opt_state.nu):
+            for _, t in tree_items(tree):
+                t.zero_()
+        opt_state.step.zero_()
+    del fresh
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, _, loss, _ = rec.step(params, opt_state, rec.first["batch"])
+        digest = _digest(torch, params)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return bool(torch.equal(loss, rec.first["loss"])) and \
+        digest == rec.first["digest"]
+
+
+def _train_checks(torch, np, cfg, name, rec, grad_norms, repeat_equal):
+    """The gates every new arch's training shares: finite losses, each
+    train step's launches as ``_train_step_want``, a nonzero gradient in
+    every parameter leaf, a MoE model's aux loss finite and nonzero, the
+    repeat of the first train step bitwise equal."""
+    want = _train_step_want(cfg)
+    for i, st in enumerate(rec.steps):
+        check(np.isfinite(st["loss"]), f"{name}: train step {i} loss "
+              f"{st['loss']}")
+        got = {k: st.get(k, 0) for k in want}
+        check(got == want, f"{name}: train step {i} launches {got}, want "
+              f"{want}")
+        if cfg.num_experts:
+            aux = st["metrics"]["aux_loss"]
+            check(np.isfinite(aux) and aux > 0, f"{name}: aux loss {aux}")
+    zero = [k for k, v in grad_norms.items() if not v > 0]
+    check(not zero, f"{name}: zero gradient in {zero}")
+    check(repeat_equal, f"{name}: the repeated first train step is not "
+          "bitwise equal")
+
+
+# the new archs' trainers: the training phase's prompts (BOS + 383
+# copy-task tokens over the whole vocabulary, so that a random policy's
+# rewards differ within a group), 64 new tokens, 4 groups of 4 (a
+# training batch of 16 x 448 tokens: two SSD chunks at the models' chunk
+# of 256, the second ragged); moonshot's vocabulary of 163,840 makes an
+# in-prompt hit rarer, so it decodes 128 tokens (16 x 512)
+ARCH_TRAIN_PROMPT, ARCH_TRAIN_NEW, ARCH_TRAIN_GROUPS = TRAIN_PROMPT, 64, 4
+ARCH_NEW_TOKENS = {MOE_ARCH: 128}
+# the VLM / audio train step's batch: 8 sequences of 128 tokens
+MODAL_TRAIN_BATCH = 8
+# depth of the new archs' training phases where their training state does
+# not fit (or the script's time would not): moonshot-v1-16b-a3b at the
+# depth whose f32 masters, gradients and AdamW moments (16 bytes a
+# parameter) are no larger than the granite training phase's
+# (``moe_train_layers``), llama-3.2-vision-11b at one cell (5 self layers
+# and its cross block); mamba2-370m, zamba2-1.2b and whisper-tiny whole
+TRAIN_CUT = {VLM_ARCH: 5}
+
+
+def moe_train_layers(arch=MOE_ARCH) -> int:
+    """The deepest cut of ``arch`` whose parameters are no more than the
+    granite training phase's (granite-3-8b at TRAIN_LAYERS)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    budget = dataclasses.replace(get_config("granite-3-8b"),
+                                 num_layers=TRAIN_LAYERS).num_params()
+    cfg = get_config(arch)
+    L = 1
+    while L < cfg.num_layers and dataclasses.replace(
+            cfg, num_layers=L + 1).num_params() <= budget:
+        L += 1
+    return L
+
+
+def _arch_cfg(arch, layers=0):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def rl_training_phase(torch, np, arch, layers=0) -> dict:
+    """One sync ``RLTrainer`` iteration of ``arch`` at full width (at
+    ``layers`` layers when given), f32 masters from seed 0, bf16
+    activations: a Seer rollout of ARCH_TRAIN_GROUPS x 4 requests (copy
+    task over the whole vocabulary, prompts of ARCH_TRAIN_PROMPT, 64 new
+    tokens, moonshot 128, 2 instances x 8 slots of 512, chunk 32, linear
+    speculation), a
+    GRPO train step, the weight push.  Checks (``_train_checks``): the
+    train step's launches (K3 and K4 forward twice per layer, one dQ,
+    dK/dV and K4 backward per layer, no K1/K2, no plain version), a
+    nonzero gradient in every parameter leaf, a MoE model's aux loss,
+    the first train step repeated bitwise; the rollout: every group
+    finished, no K3 or K4 backward, K1 once per attention layer per fused
+    step, at most one host sync per engine step."""
+    from repro_torch.data.tasks import make_task
+    from repro_torch.training.loop import RLConfig, RLTrainer
+    from repro_torch.training.optim import tree_items
+    cfg = _arch_cfg(arch, layers)
+    new_tokens = ARCH_NEW_TOKENS.get(arch, ARCH_TRAIN_NEW)
+    task = make_task("copy", cfg.vocab_size,
+                     prompt_len=ARCH_TRAIN_PROMPT - 1,
+                     response_len=new_tokens, content_vocab=0)
+    rl = RLConfig(n_groups=ARCH_TRAIN_GROUPS,
+                  group_size=GROUP_SIZE, max_new_tokens=new_tokens,
+                  temperature=1.0, iterations=1, train_steps_per_iter=1,
+                  seed=0, n_instances=2, max_slots=8, cache_len=512,
+                  chunk_size=CHUNK_SIZE, spec_decode=True, device="cuda",
+                  log=log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = RLTrainer(cfg, task, rl)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(tr.params))
+    log(f"  trainer: {arch} at full width, {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B f32 master params + AdamW moments + bf16 "
+        f"serving copy, made in {time.perf_counter() - t0:.1f} s")
+    rec = _StepRecorder(torch, tr.train_step)
+    rollouts, roll_run = [], tr.rollout.run
+
+    def counted_rollout(groups):
+        st = tr.rollout.steps
+        inv0, hs0, rp0 = st.invocations, st.host_syncs, st.replays
+        n0 = _step_counts()
+        res = roll_run(groups)
+        n1 = _step_counts()
+        rollouts.append({"fused_steps": st.invocations - inv0,
+                         "replays": st.replays - rp0,
+                         "host_syncs": st.host_syncs - hs0,
+                         "steps": res.stats.steps, "tokens": res.stats.tokens,
+                         "launches": {k: n1[k] - n0.get(k, 0) for k in n1},
+                         "finished": all(g.all_finished
+                                         for g in res.groups)})
+        return res
+    tr.train_step, tr.rollout.run = rec, counted_rollout
+    t0 = time.perf_counter()
+    hist = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tr.train_step, tr.rollout.run = rec.step, roll_run
+    n_attn, n_ssm = _attn_ssm_layers(cfg)
+    for i, ro in enumerate(rollouts):
+        n = ro["launches"]
+        fw = ro["fused_steps"] + ro["replays"]
+        check(ro["finished"], f"{arch} rollout {i}: not every group "
+              "finished")
+        check(n["flash_attention"] + n["flash_attention_dq"]
+              + n["flash_attention_dkdv"] + n["ssd_scan_bwd"]
+              + n["tree_verify"] == 0,
+              f"{arch} rollout {i}: a training kernel or K2 launched ({n})")
+        check(n["spec_verify"] == fw * n_attn and
+              n["ssd_scan"] == fw * n_ssm,
+              f"{arch} rollout {i}: K1 {n['spec_verify']}, K4 "
+              f"{n['ssd_scan']}; want ({ro['fused_steps']} steps + "
+              f"{ro['replays']} replays) x {n_attn} and x {n_ssm}")
+        check(n["plain_calls"] == 0, f"{arch} rollout {i}: plain calls")
+        check(ro["host_syncs"] <= ro["steps"], f"{arch} rollout {i}: host "
+              f"syncs {ro['host_syncs']} > steps {ro['steps']}")
+    adv = rec.first["batch"]["advantages"]
+    check(bool((adv != 0).any()), f"{arch}: zero advantages: the train "
+          "step tests nothing")
+    _, norms, total = _grad_norms(torch, cfg, tr, rec.first["batch"])
+    repeat_equal = _repeat_first_step(torch, cfg, rec, tr.params,
+                                      tr.opt_state)
+    _train_checks(torch, np, cfg, arch, rec, norms, repeat_equal)
+    out = {"arch": arch, "layers": cfg.num_layers, "params": n_params,
+           "wall_s": wall, "peak_mem_gb": peak_gb,
+           "train_steps": rec.steps, "rollouts": rollouts,
+           "repeat_bitwise": repeat_equal, "grad_norm_total": total,
+           "iterations": [{"loss": h.loss, "reward": h.mean_reward,
+                           "rollout_s": h.rollout_seconds,
+                           "train_s": h.train_seconds,
+                           "push_s": h.weight_update_seconds,
+                           "tokens": h.tokens, "metrics": h.metrics}
+                          for h in hist]}
+    del tr
+    return out
+
+
+def modality_training_phase(torch, np, arch, layers=0) -> dict:
+    """``make_train_step`` of ``arch`` (a VLM or audio model, which no
+    ``RLTrainer`` trains in either package) at full width (``layers``
+    layers when given), f32 masters from seed 0, on a packed GRPO batch
+    of MODAL_TRAIN_BATCH sequences of ARCH_TRAIN_PROMPT prompt and 64
+    response tokens
+    carrying seeded ``image_embeds`` / ``audio_frames``; then the same
+    gates as the trainers' (``_train_checks``)."""
+    import types
+    from repro_torch.models import init_params
+    from repro_torch.training.grpo import GRPOConfig
+    from repro_torch.training.loop import make_train_step, master_params
+    from repro_torch.training.optim import (OptConfig, init_opt_state,
+                                            tree_items)
+    cfg = _arch_cfg(arch, layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = master_params(init_params(cfg, gen, device="cuda",
+                                       dtype="float32"), "cuda")
+    opt_state = init_opt_state(params)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    B, S = MODAL_TRAIN_BATCH, ARCH_TRAIN_PROMPT + ARCH_TRAIN_NEW
+    rng = np.random.default_rng(5)
+    mask = np.zeros((B, S), np.float32)
+    mask[:, ARCH_TRAIN_PROMPT:] = 1.0
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).astype(
+                 np.int32),
+             "loss_mask": mask,
+             "old_logprobs": (-np.log(cfg.vocab_size) + rng.normal(
+                 0, 0.3, size=(B, S))).astype(np.float32),
+             "advantages": rng.normal(size=(B,)).astype(np.float32),
+             "rewards": rng.random(B).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    key = "image_embeds" if cfg.arch_type == "vlm" else "audio_frames"
+    batch[key] = modality_embeds(torch, np, cfg, B, seed=9)
+    gcfg = GRPOConfig()
+    rec = _StepRecorder(torch, make_train_step(cfg, gcfg, OptConfig()))
+    log(f"  {arch}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B f32 "
+        f"master params; a train step on {B} x {S} tokens with seeded "
+        f"{key} {tuple(batch[key].shape)}")
+    t0 = time.perf_counter()
+    params, opt_state, loss, _ = rec(params, opt_state, batch)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, norms, total = _grad_norms(
+        torch, cfg, types.SimpleNamespace(params=params, gcfg=gcfg), batch)
+    repeat_equal = _repeat_first_step(torch, cfg, rec, params, opt_state)
+    _train_checks(torch, np, cfg, arch, rec, norms, repeat_equal)
+    return {"arch": arch, "layers": cfg.num_layers, "params": n_params,
+            "step_s": wall, "peak_mem_gb": peak_gb, "train_steps": rec.steps,
+            "repeat_bitwise": repeat_equal, "grad_norm_total": total}
+
+
+def log_arch_training(r) -> None:
+    st = r["train_steps"][0]
+    launches = ", ".join(f"{k} {st[k]}" for k in (
+        "flash_attention", "flash_attention_dq", "flash_attention_dkdv",
+        "ssd_scan", "ssd_scan_bwd", "spec_verify", "tree_verify",
+        "plain_calls"))
+    m = st["metrics"]
+    log(f"  {r['arch']} ({r['layers']} layers, {r['params'] / 1e9:.3f} B "
+        f"params): loss {st['loss']:+.6e}, grad norm {m['grad_norm']:.4f}, "
+        f"aux loss {m['aux_loss']:.6f}; per train step {launches}; repeat "
+        f"bitwise equal: {r['repeat_bitwise']}; every leaf's gradient "
+        f"nonzero; peak memory {r['peak_mem_gb']:.1f} GB")
+    for i, (it, ro) in enumerate(zip(r.get("iterations", ()),
+                                     r.get("rollouts", ()))):
+        log(f"  iteration {i}: rollout {it['rollout_s']:.3f} s "
+            f"({ro['steps']} engine steps, {ro['host_syncs']} host syncs, "
+            f"K1 {ro['launches']['spec_verify']}, K4 "
+            f"{ro['launches']['ssd_scan']}), train {it['train_s']:.3f} s, "
+            f"push {it['push_s']:.3f} s; reward {it['reward']:.4f}")
+    if "step_s" in r:
+        log(f"  train step {r['step_s']:.3f} s (first, with its warm-up)")
+
+
+def _crash_run(torch, cfg, task, crash: bool) -> dict:
+    """Two sync iterations of the crash-gap trainer (see
+    ``crash_gap_phase``), with or without the crash; the trainer is
+    dropped on return."""
+    from repro_torch.core.faults import FaultEvent, FaultInjector
+    from repro_torch.training.loop import RLConfig, RLTrainer
+    inj = FaultInjector([FaultEvent(tick=4, kind="crash",
+                                    instance_id="inst0")]) if crash else None
+    rl = RLConfig(n_groups=8, group_size=2, max_new_tokens=32,
+                  temperature=1.0, iterations=2, seed=0, n_instances=2,
+                  max_slots=4, cache_len=512, chunk_size=8,
+                  spec_decode=False, fault_injector=inj, device="cuda",
+                  log=lambda s: None)
+    tr = RLTrainer(cfg, task, rl)
+    sampled, groups_of = [], tr._sample_groups
+
+    def keep(it):
+        groups = groups_of(it)
+        sampled.extend(groups)
+        return groups
+    tr._sample_groups = keep
+    hist = tr.run()
+    torch.cuda.synchronize()
+    out = {"losses": [h.loss for h in hist],
+           "grad_norms": [h.metrics["grad_norm"] for h in hist],
+           "rewards": [h.mean_reward for h in hist],
+           "responses": {r.req_id: list(r.generated)
+                         for g in sampled for r in g.requests},
+           "logprobs": {r.req_id: [float(x) for x in r.logprobs]
+                        for g in sampled for r in g.requests},
+           "finished": all(r.finished for g in sampled for r in g.requests),
+           "crashes": sum(i.crashes for i in tr.rollout.instances)}
+    tr._sample_groups = groups_of = None
+    return out
+
+
+def crash_gap_phase(torch, np) -> dict:
+    """What a crash changes in the trainer's inputs on the card: the
+    training phase's granite (TRAIN_LAYERS layers, f32 masters, bf16
+    rollout), two sync iterations of a small rollout (8 groups x 2 of the
+    training phase's prompts, 32 new tokens, 2 instances x 4 slots,
+    chunks of 8, no drafting) without and with one crash of inst0 at
+    tick 4; the differences in losses, grad norms and rollout logprobs,
+    and whether the responses and rewards are equal.  The crash replay
+    keeps the logprobs its tokens were recorded with.  Checks: the crash
+    happened and every group finished."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import make_task
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    task = make_task("copy", cfg.vocab_size, prompt_len=TRAIN_PROMPT - 1,
+                     response_len=32, content_vocab=0)
+    runs = []
+    for crash in (False, True):
+        runs.append(_crash_run(torch, cfg, task, crash))
+        gc.collect()
+        torch.cuda.empty_cache()
+    base, crashed = runs
+    check(crashed["crashes"] >= 1 and base["crashes"] == 0,
+          f"crash gap: crashes {base['crashes']} / {crashed['crashes']}")
+    check(base["finished"] and crashed["finished"],
+          "crash gap: a request did not finish")
+    per_iter = {}
+    for rid, toks in base["responses"].items():
+        other = crashed["responses"][rid]
+        first = next((i for i, (a, b) in enumerate(zip(toks, other))
+                      if a != b), None)
+        if first is None and len(toks) != len(other):
+            first = min(len(toks), len(other))
+        # logprobs compared over the tokens both runs share
+        n = len(toks) if first is None else first
+        lp_a, lp_b = base["logprobs"][rid][:n], crashed["logprobs"][rid][:n]
+        it = per_iter.setdefault(rid.split("-")[0], {
+            "responses": 0, "responses_differing": 0, "first_differing": [],
+            "logprobs": 0, "logprobs_differing": 0, "logprob_max_gap": 0.0})
+        it["responses"] += 1
+        if first is not None:
+            it["responses_differing"] += 1
+            it["first_differing"].append(first)
+        it["logprobs"] += n
+        it["logprobs_differing"] += sum(a != b for a, b in zip(lp_a, lp_b))
+        it["logprob_max_gap"] = max([it["logprob_max_gap"]] + [
+            abs(a - b) for a, b in zip(lp_a, lp_b)])
+    out = {"loss_gaps": [abs(a - b) for a, b in zip(base["losses"],
+                                                    crashed["losses"])],
+           "grad_norm_gaps": [abs(a - b) for a, b in zip(
+               base["grad_norms"], crashed["grad_norms"])],
+           "losses": [base["losses"], crashed["losses"]],
+           "iterations": per_iter,
+           "responses_equal": base["responses"] == crashed["responses"],
+           "rewards_equal": base["rewards"] == crashed["rewards"],
+           "crashes": crashed["crashes"]}
+    log(f"  crash gap (granite, {TRAIN_LAYERS} layers, 2 sync iterations, "
+        f"inst0 crashed at tick 4 of the first rollout): loss gaps "
+        f"{out['loss_gaps']}, grad-norm gaps {out['grad_norm_gaps']}; "
+        f"responses equal {out['responses_equal']}, rewards equal "
+        f"{out['rewards_equal']}")
+    for name, it in sorted(per_iter.items()):
+        log(f"    {name}: {it['responses_differing']} of {it['responses']} "
+            f"responses differ (first differing token at "
+            f"{sorted(it['first_differing'])}); over the tokens both runs "
+            f"share, {it['logprobs_differing']} of {it['logprobs']} "
+            f"logprobs differ, by at most {it['logprob_max_gap']:.3e}")
+    return out
+
+
+def cross_bwd_check(torch, np) -> list:
+    """K3's backward at the cross blocks' training shapes (``CROSS_SHAPES``:
+    the VLM's 32/8 heads of 128 over 1601 image tokens, whisper's 6/6
+    heads of 64 over 1500 frames), non-causal, bf16, a batch of 2 rows
+    of the training batch's 448 queries: ``_flash_case`` (forward, dQ, dK/dV at TOL,
+    repeat bitwise, the forward at the reference's scale), then dQ, dK
+    and dV each held to the f32 plain backward at the reference's scale
+    (``scaled_check``), with planted faults that must fail: for dQ the
+    last key dropped and a ragged tile's padding let in, for dK and dV
+    the last query's dO dropped and the padding let in."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    rows = []
+    for arch, (Hq, Hk, D, Tm) in CROSS_SHAPES.items():
+        B, T = 2, ARCH_TRAIN_PROMPT + ARCH_TRAIN_NEW
+        q, k, v, do = _fa_inputs(torch, np, B=B, Tq=T, Tk=Tm, Hq=Hq, Hk=Hk,
+                                 D=D, dtype="bfloat16", seed=Tm + D)
+        row = _flash_case(torch, q, k, v, do, q_offset=0, causal=False,
+                          window=0, scaled=True)
+        o, lse = ops.forward_kernel(q, k, v, causal=False)
+        dq, dk, dv = ops.backward_kernels(q, k, v, o, lse, do, causal=False)
+        q32, do32 = q.float(), do.float()
+
+        def plain(k_, v_, do_=do32, q_=q32):
+            o_, lse_ = flash_attention_fwd_ref(q_, k_, v_, causal=False)
+            return flash_attention_bwd_ref(q_, k_, v_, o_, lse_, do_,
+                                           causal=False)
+        what = f"flash_attention backward {arch} cross B={B} Tq={T} Tk={Tm}"
+        errs = scaled_check(torch, {"dq": dq}, lambda k_, v_: plain(
+            k_, v_)[0], k, v, what)
+        k32, v32 = k.float(), v.float()
+        z = k32.new_zeros((B, -Tm % 64) + tuple(k.shape[2:]))
+        padded = plain(torch.cat([k32, z], 1), torch.cat([v32, z], 1))
+        do_cut = do32.clone()
+        do_cut[:, -1] = 0.0
+        cut = plain(k32, v32, do_cut)
+        for i, name in ((1, "dk"), (2, "dv")):
+            errs.update(scaled_check(
+                torch, {name: (dk, dv)[i - 1]},
+                lambda k_, v_, i=i: plain(k_, v_)[i], k, v, what,
+                faults={"last query's dO dropped": cut[i].to(q.dtype),
+                        f"{z.shape[1]} padded keys admitted":
+                        padded[i][:, :Tm].to(q.dtype)}))
+        row["arch"], row["bwd_scaled_errs"] = arch, errs
+        rows.append(row)
+    return rows
 
 
 # the record_function range around each MoE layer in ``profile_steps``
@@ -3419,7 +4125,8 @@ def main() -> int:
         log(f"phase {name}: {now - t_phase[0]:.1f} s")
         t_phase[0] = now
 
-    libs = (ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY)
+    libs = (ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY,
+            ssd_ops.BWD_LIBRARY)
     build.build_all(libs)
     log("build (one nvcc each, in parallel): " + ", ".join(
         f"{lib.source.name} -> sm_90a in {lib.seconds:.1f} s"
@@ -3470,6 +4177,9 @@ def main() -> int:
         report["ssd_kernel_checks"] = ssd_kernels_check(torch, np)
         log("ssd_scan: the tensor-core route's operand choices, emulated")
         report["ssd_operand_errors"] = ssd_operand_errors(torch, np)
+        log("kernels: ssd_scan_bwd (K4's backward) against its plain "
+            "version and autograd through the plain forward")
+        report["ssd_bwd_checks"] = ssd_bwd_check(torch, np)
 
     log("kernels: spec_verify (K1) against its plain version")
     report["kernel_checks"] = kernels_check(torch, np, B=B, S=S,
@@ -3494,6 +4204,9 @@ def main() -> int:
     log("kernels: flash_attention (K3) forward, dQ and dK/dV against "
         "their plain versions")
     report["flash_kernel_checks"] = flash_kernels_check(torch, np)
+    log("kernels: flash_attention (K3) backward at the cross blocks' "
+        "training shapes")
+    report["cross_bwd_checks"] = cross_bwd_check(torch, np)
 
     ssd_kernels()
     phase_done("kernel checks")
@@ -3717,6 +4430,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("training")
+
+    log("crash gap: the training phase's granite with and without a crash")
+    report["crash_gap"] = crash_gap_phase(torch, np)
+    phase_done("crash gap")
+
+    arch_train = report["arch_training"] = {}
+    for arch, layers, kind in (
+            (MOE_ARCH, moe_train_layers(), "rl"),
+            ("mamba2-370m", TRAIN_CUT.get("mamba2-370m", 0), "rl"),
+            ("zamba2-1.2b", TRAIN_CUT.get("zamba2-1.2b", 0), "rl"),
+            (VLM_ARCH, TRAIN_CUT.get(VLM_ARCH, 0), "modal"),
+            (AUDIO_ARCH, TRAIN_CUT.get(AUDIO_ARCH, 0), "modal")):
+        log(f"training: {arch} at full width" + (
+            f", {layers} layers" if layers else ", full depth") + (
+            ": one sync RLTrainer iteration" if kind == "rl" else
+            ": make_train_step on a batch with seeded modality inputs"))
+        fn = rl_training_phase if kind == "rl" else modality_training_phase
+        arch_train[arch] = fn(torch, np, arch, layers)
+        log_arch_training(arch_train[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done(f"training {arch}")
 
     rec = {}
     for arch, groups, new_tokens in (("zamba2-1.2b", GROUPS, NEW_TOKENS),
@@ -3954,6 +4689,22 @@ def main() -> int:
         next(tm for tm in st_[arch] if tm["T"] == cold_T[arch])
         for arch, *_ in SSD_MODEL_SHAPES]
 
+    # K4's backward at the SSM and hybrid trainers' train step shape: 16
+    # rows of 448 tokens (a chunk of 256 and a ragged one), bf16, no
+    # initial state
+    bwd_b, bwd_T = ssd_bwd_train_shape()
+    bwd_t = report["ssd_bwd_time"] = [
+        ssd_bwd_time(torch, np, name=name, b=bwd_b, nh=nh, P=P, G=G, N=N,
+                     T=bwd_T)
+        for name, _, nh, P, G, N in SSD_MODEL_SHAPES]
+    for tm in bwd_t:
+        log(f"  ssd_scan_bwd timing ({tm['model']} heads) b={tm['b']} "
+            f"T={tm['T']} nh={tm['nh']} P={tm['P']} N={tm['N']} bf16: "
+            f"{_spread(tm['ms_spread'])} ms; plain {tm['plain_ms']:.4f} ms; "
+            f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}, "
+            f"{tm['bound_share']:.3f} of it; bytes alone "
+            f"{tm['bytes_bound_ms']:.4f} ms); library: none")
+
     # K3 at granite-3-8b's heads (the training phase's shape) and at
     # zamba2-1.2b's (Hq = Hk = 32, D 64)
     ft = flash_kernels_time(torch, np)
@@ -4126,7 +4877,16 @@ def main() -> int:
                        "mamba2-370m SSM slice, cold pass",
                        m_cold["launches"]["ssd_scan"],
                        checks_of(report["ssd_kernel_checks"], "mamba2-370m"),
-                       report["ssd_kernel_time"][1], source=SSD_SRC)]
+                       report["ssd_kernel_time"][1], source=SSD_SRC),
+            *[kernel_row(
+                "ssd_scan_bwd" + ("" if name == "zamba2-1.2b" else
+                                  f"/{name}"),
+                SSD_TPU,
+                f"{name} training, one train step",
+                arch_train[name]["train_steps"][0]["ssd_scan_bwd"],
+                checks_of(report["ssd_bwd_checks"], name) + [tm], tm,
+                source=SSD_BWD_SRC)
+              for name, tm in zip(("zamba2-1.2b", "mamba2-370m"), bwd_t)]]
 
     phase_done("timing")
     report["wall_total_s"] = time.perf_counter() - t0

@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import (DeviceLike, dtype_name, resolve_device,
                                 torch_dtype)
 from repro_torch.engine.engine import KVBlob
+from repro_torch.layout import jax_layout
 from repro_torch.models.mamba2 import F32_PARAMS
 from repro_torch.models.transformer import check_arch, init_cache
 
@@ -143,29 +144,38 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
     return out
 
 
+def _n_layers(cfg: ModelConfig, params: dict) -> int:
+    """The layer count a port tree holds (blocks of a hybrid's cells and
+    tail, self layers of a VLM's cells, an audio model's decoder)."""
+    if cfg.arch_type == "moe":
+        return len(params.get("dense_layers", [])) + len(params["layers"])
+    if cfg.arch_type == "hybrid":
+        return sum(len(c["ssm"]) for c in params["cells"]) \
+            + len(params.get("tail", []))
+    if cfg.arch_type == "vlm":
+        return sum(len(c["self"]) for c in params["cells"])
+    if cfg.arch_type == "audio":
+        return len(params["dec_layers"])
+    return len(params["layers"])
+
+
 def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
-    """The port's params -> the JAX package's tree (numpy): each
-    per-layer leaf restacked along a leading ``(L, ...)`` axis; bfloat16
-    leaves arrive as float32 (exact).  Dense models (the trainer's)."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: checkpoints of the port are "
-            "written by its trainer, which runs dense models")
-    layers = params["layers"]
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"{len(layers)} layers, config has "
-                         f"{cfg.num_layers}")
+    """The port's params -> the JAX package's tree (numpy), the exact
+    inverse of :func:`params_from_jax` on every arch: per-layer lists
+    restacked along a leading axis (a cell's lists twice), a MoE block's
+    ``wg`` / ``wu`` back to ``(E, d, eff)``
+    (``layout.jax_layout``); bfloat16 leaves arrive as
+    float32 (exact)."""
+    check_arch(cfg)
+    n = _n_layers(cfg, params)
+    if n != cfg.num_layers:
+        raise ValueError(f"{n} layers, config has {cfg.num_layers}")
 
-    def stacked(blk):
-        return {name: np.stack([to_numpy(lyr[blk][name]) for lyr in layers])
-                for name in layers[0][blk]}
-
-    out = {"embed": to_numpy(params["embed"]),
-           "final_ln": to_numpy(params["final_ln"]),
-           "layers": {"attn": stacked("attn"), "mlp": stacked("mlp")}}
-    if "unembed" in params:
-        out["unembed"] = to_numpy(params["unembed"])
-    return out
+    def numpy_tree(t):
+        if isinstance(t, dict):
+            return {k: numpy_tree(v) for k, v in t.items()}
+        return to_numpy(t)
+    return numpy_tree(jax_layout(params))
 
 
 def cache_from_jax(cfg: ModelConfig, cache: Dict[str, np.ndarray],

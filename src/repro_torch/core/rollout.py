@@ -302,6 +302,12 @@ class SeerRollout:
         # their prompt stash the old-params generation here; _admit
         # feeds it back as the slot's prefix-revalidation queue
         self._pending_rewind: Dict[str, List[int]] = {}
+        # crash replay under unchanged params: the tokens and the
+        # logprobs the request had recorded before the crash; the commit
+        # puts these logprobs back in place of the verify step's
+        # recomputed ones while the replayed tokens come back unchanged,
+        # so a crash leaves the trainer's inputs as they were
+        self._replay_logprobs: Dict[str, Tuple[List[int], List[float]]] = {}
         # -- fault tolerance --------------------------------------------
         # deterministic fault schedule consumed at tick boundaries (one
         # injector per stream: its armed state is stateful).  Settable
@@ -629,6 +635,7 @@ class SeerRollout:
                 replay = list(r.generated) + tail
                 if replay:
                     self._pending_rewind[r.req_id] = replay
+                self._keep_logprobs(r, replay)
                 stats.recovery_replay_tokens += len(replay)
                 r.generated = []
                 r.logprobs = []
@@ -639,6 +646,44 @@ class SeerRollout:
                                               "replay")
             stats.recovered_requests += 1
             sched.requeue(r)
+
+    def _keep_logprobs(self, r: RolloutRequest, replay: List[int]) -> None:
+        """Record the logprobs of a crash replay's tokens: those ``r``
+        holds, then those of an earlier crash replay that this one cut
+        short (its unreplayed tail comes back in ``replay``).  Only where
+        every token of ``r`` was sampled under the live params: a token
+        kept across a refresh (mode "keep") carries the old params'
+        logprob, and its replay recomputes it under the new ones."""
+        old = self._replay_logprobs.pop(r.req_id, None)
+        versions = {v for v, _ in r.version_runs}.union(r.token_versions())
+        if versions - {self.param_version}:
+            return
+        lps = list(r.logprobs)
+        if old is not None:
+            toks, olps = old
+            n = len(lps)
+            while n < min(len(replay), len(olps)) and toks[n] == replay[n]:
+                lps.append(olps[n])
+                n += 1
+        if lps:
+            self._replay_logprobs[r.req_id] = (replay[:len(lps)], lps)
+
+    def _restore_logprobs(self, seq: EngineSeq, n_new: int) -> None:
+        """After a commit of ``n_new`` tokens: where they replay a
+        crashed request's tokens unchanged, put back the logprobs it had
+        recorded; the first token that differs ends the record."""
+        rec = self._replay_logprobs.get(seq.req_id)
+        if rec is None:
+            return
+        toks, lps = rec
+        end = len(seq.generated)
+        for k in range(end - n_new, min(end, len(toks))):
+            if seq.generated[k] != toks[k]:
+                del self._replay_logprobs[seq.req_id]
+                return
+            seq.logprobs[k] = lps[k]
+        if end >= len(toks):
+            del self._replay_logprobs[seq.req_id]
 
     # -- drafts --------------------------------------------------------------------
 
@@ -798,6 +843,8 @@ class SeerRollout:
             if inst.step_in_flight:
                 raise RuntimeError(
                     "refresh_params() with a step ticket in flight")
+        # a replay under the new params recomputes its logprobs
+        self._replay_logprobs.clear()
         self.param_version = self.param_version + 1 \
             if version is None else int(version)
         sched = self._stream_sched
@@ -1164,6 +1211,8 @@ class SeerRollout:
                     d = drafts.get(slot, [])
                     n_draft = len(d)
                     stats.tokens += len(new_toks)
+                    if new_toks:
+                        self._restore_logprobs(seq, len(new_toks))
                     # staleness ledger: note only genuinely-new tokens.
                     # Replayed/re-decoded tokens from crash recovery are
                     # already recorded under the param versions they

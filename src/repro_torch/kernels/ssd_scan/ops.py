@@ -19,8 +19,18 @@ rest the CUDA cores; each route splits the state's P rows over
 the same whatever ``n_split`` is.  A shape no route takes (N not a
 multiple of 4) is refused.  A call counts one launch whatever it runs.
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``, into
+Training differentiates it: where autograd records (grad mode on and an
+input that requires a gradient), ``ssd_chunk_scan`` is a
+``torch.autograd.Function`` whose forward is K4 and whose backward is
+:func:`ssd_scan_bwd`, K4's backward (``csrc/ssd_scan_bwd.cu``, which the
+port adds: the JAX package differentiates its plain ``ssd`` by
+autodiff), or on a CPU tensor their plain versions (``ref.ssd_ref`` and
+``ref.ssd_bwd_ref``).  The Function keeps nothing outside its ``ctx``,
+so ``torch.utils.checkpoint``'s recompute may run its forward again.
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
+shared libraries with a plain C interface (one for the forward, one for
+the backward), loaded with ``ctypes``, into
 ``repro_torch/kernels/_build/`` (see ``kernels/build.py``).  Nothing is
 compiled or loaded when the module is imported.
 """
@@ -33,15 +43,17 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import KernelLibrary
-from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_split_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_bwd_ref, ssd_ref,
+                                              ssd_split_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_bwd.cu"
 MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the kernel since the last reset (the wrapper adds one where
 # it launches it, and nowhere else)
-launches = {"ssd_scan": 0}
+launches = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -72,7 +84,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
 
 
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_bwd_launch.argtypes = [i32] + [vp] * 21 + [i32] * 7 \
+        + [i64] * 14 + [vp]
+    lib.ssd_scan_bwd_launch.restype = i32
+    lib.ssd_scan_bwd_error_string.argtypes = [i32]
+    lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
+
+
 LIBRARY = KernelLibrary("ssd_scan", SOURCE, _declare)
+BWD_LIBRARY = KernelLibrary("ssd_scan_bwd", BWD_SOURCE, _declare_bwd)
 
 
 def build() -> ctypes.CDLL:
@@ -209,14 +231,79 @@ def _launch(x, dt, A, Bm, Cm, init_state, chunk, out_state, route=None,
     return y, out_state
 
 
-def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                   Bm: torch.Tensor, Cm: torch.Tensor,
-                   init_state: Optional[torch.Tensor], chunk: int, *,
-                   out_state: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4.  x (b,T,nh,P); dt (b,T,nh); A (nh,); Bm, Cm (b,T,G,N);
-    init_state (b,nh,P,N) f32 or None -> (y (b,T,nh,P) in x's dtype,
-    final state (b,nh,P,N) f32, which is ``out_state`` when given)."""
+def _check_grad_state(name: str, t, shape) -> None:
+    if t is not None and (tuple(t.shape) != shape or not t.is_contiguous()
+                          or t.dtype != torch.float32 or t.data_ptr() % 16):
+        raise ValueError(f"ssd_scan_bwd: {name} must be a contiguous f32 "
+                         f"{shape} on a 16-byte boundary")
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate):
+    """K4's backward on x's current stream -> (dx, ddt, dA, dBm, dCm,
+    dinit or None); raise on what it does not take and on a refused
+    launch."""
+    check_inputs(x, dt, A, Bm, Cm, init_state, None, chunk)
+    b, T, nh, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dy.dtype != x.dtype or tuple(dy.shape) != (b, T, nh, P) \
+            or dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype}; "
+                         f"want x's {(b, T, nh, P)} {x.dtype}")
+    dy = dy if dy.stride(3) == 1 else dy.contiguous()
+    _check_grad_state("dstate", dstate, (b, nh, P, N))
+    Q = min(chunk, T)
+    nc = -(-T // Q)
+    lib = BWD_LIBRARY.load()
+    dev, f32 = x.device, torch.float32
+
+    def empty(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    dx = empty(b, T, nh, P, dtype=x.dtype)
+    ddt, dA = empty(b, T, nh), empty(nh)
+    dB, dC = empty(b, T, G, N), empty(b, T, G, N)
+    dinit = None if init_state is None else empty(b, nh, P, N)
+    S, dS = empty(b, nc, nh, P, N), empty(b, nc, nh, P, N)
+    qq, qp = empty(b, nc, nh, 3, Q, Q), empty(b, nc, nh, 2, Q, P)
+    dBh, dCh = empty(b, T, nh, N), empty(b, T, nh, N)
+    dA_part = empty(b, nc, nh)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_scan_bwd_launch(
+            _DTYPES[x.dtype], *map(ptr, (
+                x, dt, A, Bm, Cm, init_state, dy, dstate, dx, ddt, dA, dB,
+                dC, dinit, S, dS, qq, qp, dBh, dCh, dA_part)),
+            b, T, nh, P, G, N, Q, x.stride(0), x.stride(1), x.stride(2),
+            dy.stride(0), dy.stride(1), dy.stride(2), dt.stride(0),
+            dt.stride(1), Bm.stride(0), Bm.stride(1), Bm.stride(2),
+            Cm.stride(0), Cm.stride(1), Cm.stride(2), stream)
+    if err:
+        raise RuntimeError("ssd_scan_bwd launch failed: "
+                           + lib.ssd_scan_bwd_error_string(err).decode())
+    launches["ssd_scan_bwd"] += 1
+    return dx, ddt, dA, dB, dC, dinit
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 init_state: Optional[torch.Tensor], chunk: int,
+                 dy: torch.Tensor, dstate: Optional[torch.Tensor] = None):
+    """K4's backward: the gradients of ``ssd_chunk_scan``'s (y, final
+    state) given ``dy`` (b,T,nh,P) in x's dtype and ``dstate``
+    (b,nh,P,N) f32 or None (zero) -> (dx in x's dtype, ddt, dA, dBm,
+    dCm f32, dinit f32 or None when ``init_state`` is None).  A CPU
+    tensor goes to ``ref.ssd_bwd_ref``, a CUDA tensor to the kernel."""
+    if x.device.type == "cpu":
+        return ssd_bwd_ref(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
+    return _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate)
+
+
+def _forward(x, dt, A, Bm, Cm, init_state, chunk, out_state):
+    """K4 on a CUDA tensor, its plain version ``ssd_ref`` on a CPU one."""
     if x.device.type == "cpu":
         y, state = ssd_ref(x, dt, A, Bm, Cm, init_state, chunk)
         if out_state is not None:
@@ -225,6 +312,45 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan: no kernel for device {x.device}")
     return _launch(x, dt, A, Bm, Cm, init_state, chunk, out_state)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        y, state = _forward(x, dt, A, Bm, Cm, init_state, chunk, None)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_scan_bwd(x, dt, A, Bm, Cm, init_state, ctx.chunk, dy,
+                             dstate)
+        return (*grads, None)
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor,
+                   init_state: Optional[torch.Tensor], chunk: int, *,
+                   out_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4.  x (b,T,nh,P); dt (b,T,nh); A (nh,); Bm, Cm (b,T,G,N);
+    init_state (b,nh,P,N) f32 or None -> (y (b,T,nh,P) in x's dtype,
+    final state (b,nh,P,N) f32, which is ``out_state`` when given).
+    Differentiable (K4's backward) where autograd records; ``out_state``
+    (an in-place update, the cached path's) is then refused."""
+    if out_state is None:
+        return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        raise ValueError("ssd_chunk_scan: out_state (an in-place state "
+                         "update) is not differentiable")
+    return _forward(x, dt, A, Bm, Cm, init_state, chunk, out_state)
 
 
 def launch_on_route(route: str, x, dt, A, Bm, Cm, init_state, chunk, *,

@@ -19,6 +19,11 @@ A row whose every ``dt`` is 0 leaves its state exactly as it was
 inactive slots and padded tokens.  ``calls`` counts calls, so that a run
 on the card can show that its main path never took the plain version.
 
+``ssd_bwd_ref`` is the plain version of K4's backward (the port adds it:
+the JAX package differentiates its plain ``ssd`` by autodiff): the same
+chunked backward the kernel computes, written out op by op, not a call
+to autograd.  ``calls["ssd_bwd"]`` counts its calls.
+
 ``ssd_split_ref`` is the plain version of the kernel's own decomposition
 on one of its routes (what ``ops.launch_on_route`` runs for CPU tensors):
 the state's rows cut into ``n_split`` slices, each computed alone, in one
@@ -31,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-calls = {"ssd": 0}
+calls = {"ssd": 0, "ssd_bwd": 0}
 
 # the form each of the kernel's routes computes: T steps of the one-pass
 # recurrence, or chunks of Q = min(chunk, T) as ``ssd_ref``
@@ -99,6 +104,117 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y_diag + y_off)
     y = torch.stack(ys, dim=1).reshape(b, Tp, nh, Pd)[:, :T]
     return y.to(x.dtype), S
+
+
+def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor,
+                init_state: Optional[torch.Tensor], chunk: int,
+                dy: torch.Tensor, dstate: Optional[torch.Tensor] = None):
+    """Gradients of ``ssd_ref``'s (y, final state) -> (dx in x's dtype,
+    ddt, dA, dBm, dCm f32, dinit f32 or None).  ``dy`` (b,T,nh,P) is
+    y's gradient, ``dstate`` (b,nh,P,N) or None (zero) the final
+    state's; ``dinit`` is made only when ``init_state`` is given.
+
+    Per chunk of Q tokens, with a_k = dt_k A, cs_i = sum_{k<=i} a_k, S
+    the chunk's input state and dS the gradient of its output state:
+
+      states:  S_{c+1} = exp(cs_Q) S_c + sum_j exp(cs_Q - cs_j) dt_j x_j (x) B_j
+      reverse: dS_{c-1} = exp(cs_Q) dS_c + sum_i exp(cs_i) dy_i (x) C_i
+      E_ij = exp(cs_i - cs_j) [j <= i],  W = (C B^T) o E dt_j,
+      M = (dy x^T) o E dt_j,  G = (C B^T) o (dy x^T) o E
+      dx_j = sum_i W_ij dy_i + e2_j dt_j dS B_j        (e2_j = exp(cs_Q - cs_j))
+      dB_j = sum_i M_ij C_i + e2_j dt_j x_j^T dS
+      dC_i = sum_j M_ij B_j + exp(cs_i) dy_i^T S
+      ddt_j = sum_i G_ij + e2_j u_j + da_j A          (u_j = x_j^T dS B_j)
+      dcs_i = sum_j dt_j G_ij - dt_i sum_k G_ki + exp(cs_i) dy_i . (S C_i)
+              - e2_i dt_i u_i  [+ exp(cs_Q) <dS, S> + sum_j e2_j dt_j u_j
+              at the chunk's last step]
+      da_k = sum_{i>=k} dcs_i,   dA = sum da_k dt_k
+
+    B and C gradients are summed over the heads of their group.  T off
+    the chunk is padded as the forward pads it (dt = 0); padded steps'
+    gradients are dropped."""
+    calls["ssd_bwd"] += 1
+    b, T, nh, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Hg = nh // G
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    Tp = T + pad
+    nc = Tp // Q
+    f32 = torch.float32
+
+    def chunks(t, last):
+        t = F.pad(t.to(f32), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((b, nc, Q) + tuple(last))
+
+    xc = chunks(x, (nh, Pd))
+    dyc = chunks(dy, (nh, Pd))
+    dtc = chunks(dt, (nh,))
+    Bh = chunks(Bm, (G, N)).repeat_interleave(Hg, dim=3)     # (b,nc,Q,nh,N)
+    Ch = chunks(Cm, (G, N)).repeat_interleave(Hg, dim=3)
+    A = A.to(f32)
+    cs = torch.cumsum(dtc * A, dim=2)                          # (b,nc,Q,nh)
+    last = cs[:, :, -1]                                        # (b,nc,nh)
+
+    S = (torch.zeros((b, nh, Pd, N), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    states = []
+    for c in range(nc):
+        states.append(S)
+        w = dtc[:, c] * torch.exp(last[:, c, None] - cs[:, c])
+        S = torch.exp(last[:, c])[..., None, None] * S + torch.einsum(
+            "bjhn,bjhp,bjh->bhpn", Bh[:, c], xc[:, c], w)
+    dS = (torch.zeros((b, nh, Pd, N), dtype=f32, device=x.device)
+          if dstate is None else dstate.to(f32))
+    dstates = [None] * nc
+    for c in reversed(range(nc)):
+        dstates[c] = dS
+        dS = torch.exp(last[:, c])[..., None, None] * dS + torch.einsum(
+            "bihp,bihn,bih->bhpn", dyc[:, c], Ch[:, c], torch.exp(cs[:, c]))
+    dinit = dS if init_state is not None else None
+
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    dx, ddt, dBh, dCh = [], [], [], []
+    dA = torch.zeros((nh,), dtype=f32, device=x.device)
+    for c in range(nc):
+        S0, dS1 = states[c], dstates[c]
+        xq, dyq, dtq = xc[:, c], dyc[:, c], dtc[:, c]
+        Bq, Cq, csq = Bh[:, c], Ch[:, c], cs[:, c]
+        seg = csq[:, :, None, :] - csq[:, None, :, :]          # (b,i,j,h)
+        E = torch.exp(torch.where(tril[None, :, :, None], seg,
+                                  float("-inf")))
+        CB = torch.einsum("bihn,bjhn->bijh", Cq, Bq)
+        DX = torch.einsum("bihp,bjhp->bijh", dyq, xq)
+        dtj = dtq[:, None]                                     # (b,1,j,h)
+        W, M, Gm = CB * E * dtj, DX * E * dtj, CB * DX * E
+        e2 = torch.exp(last[:, c, None] - csq)                 # (b,Q,h)
+        r = torch.einsum("bhpn,bjhn->bjhp", dS1, Bq)
+        dx.append(torch.einsum("bijh,bihp->bjhp", W, dyq)
+                  + (e2 * dtq)[..., None] * r)
+        dBh.append(torch.einsum("bijh,bihn->bjhn", M, Cq)
+                   + (e2 * dtq)[..., None]
+                   * torch.einsum("bjhp,bhpn->bjhn", xq, dS1))
+        dCh.append(torch.einsum("bijh,bjhn->bihn", M, Bq)
+                   + torch.exp(csq)[..., None]
+                   * torch.einsum("bihp,bhpn->bihn", dyq, S0))
+        u = (xq * r).sum(-1)                                   # (b,Q,h)
+        v = (dyq * torch.einsum("bihn,bhpn->bihp", Cq, S0)).sum(-1)
+        rows = (dtj * Gm).sum(2)                               # (b,i,h)
+        cols = Gm.sum(1)                                       # (b,j,h)
+        dcs = rows - dtq * cols + torch.exp(csq) * v - e2 * dtq * u
+        dcs[:, -1] += torch.exp(last[:, c]) * (dS1 * S0).sum((-2, -1)) \
+            + (e2 * dtq * u).sum(1)
+        da = torch.flip(torch.cumsum(torch.flip(dcs, [1]), 1), [1])
+        ddt.append(cols + e2 * u + da * A)
+        dA = dA + (da * dtq).sum((0, 1))
+
+    def whole(parts):
+        return torch.stack(parts, 1).reshape((b, Tp) + parts[0].shape[2:])[
+            :, :T]
+    dBm = whole(dBh).reshape(b, T, G, Hg, N).sum(3)
+    dCm = whole(dCh).reshape(b, T, G, Hg, N).sum(3)
+    return (whole(dx).to(x.dtype), whole(ddt), dA, dBm, dCm, dinit)
 
 
 def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -11,10 +11,11 @@ carries an ``allowed_mask`` (tree speculation).  A VLM or audio model's
 cross-attention to its cached memory is K1 too, at zero positions
 (``transformer._cross_attn`` says why that is the non-causal mask).
 The cache-free forward (training, and the audio encoder) attends a
-sequence to itself at positions 0..T-1, causal or not; the JAX package
-runs ``_plain`` (or its XLA ``_flash`` scan for long sequences) and
-differentiates it by autodiff, the port runs the flash-attention kernel
-(K3) with its hand-written backward.  The plain versions of all three —
+sequence to itself at positions 0..T-1, causal or not, and in training
+a cross block's queries to the whole memory (non-causal); the JAX
+package runs ``_plain`` (or its XLA ``_flash`` scan for long sequences)
+and differentiates it by autodiff, the port runs the flash-attention
+kernel (K3) with its hand-written backward.  The plain versions of all three —
 which follow ``_plain`` op for op — run on a CPU tensor.
 """
 from __future__ import annotations
@@ -51,8 +52,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``contiguous=True`` (the cache-free forward and the audio encoder):
     q_pos and k_pos are 0..T-1 in every row, which the caller made or
-    checked, and the mask is causal (or none) & window, through K3.  No
-    ``kv_valid`` there: ``grpo_loss`` never passes a token mask."""
+    checked (or, non-causal, a cross block's zero positions: no mask
+    reads them), and the mask is causal (or none) & window, through K3.
+    No ``kv_valid`` there: ``grpo_loss`` never passes a token mask."""
     if softcap:
         raise NotImplementedError(
             "attention softcap is not on a ported path")

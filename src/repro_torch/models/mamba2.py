@@ -5,7 +5,9 @@ Counterpart of ``repro.models.mamba2`` (``init_mamba_block``,
 ``causal_conv``, ``mamba_block``), dtype step for dtype step.  The SSD
 itself is ``kernels.ssd_scan.ssd_chunk_scan``: the hand-written chunk-scan
 kernel (K4) on the card, its plain version (``ssd_ref``, the JAX
-package's ``ssd`` op for op) on the CPU.
+package's ``ssd`` op for op) on the CPU; in training (the cache-free
+forward: a zero conv history and no initial state) it is differentiated
+by K4's backward.
 
 In-place recurrent state: :func:`mamba_block` reads the conv window and
 the SSM state of its layer and writes the new ones into ``conv_out`` and

@@ -1,7 +1,7 @@
 """The config-driven model on every arch of the JAX package — dense,
 MoE, SSM (Mamba2), hybrid (Zamba2), VLM (Llama-3.2-Vision) and audio
 (Whisper) — with a slot-indexed KV cache, recurrent state and
-cross-attention memory, and the dense cache-free forward (training).
+cross-attention memory, and the cache-free forward (training) of each.
 
 Counterpart of ``repro.models.transformer``: ``init_params``,
 ``init_cache``, ``_project_qkv``, the slot-scatter and ``ck is None``
@@ -9,15 +9,19 @@ branches of ``_self_attn``, ``_cross_attn``, ``_mlp``, ``_dense_layer``,
 ``_moe_layer``, ``_decoder_stack``, ``_ssm_stack``, ``_hybrid_stack``,
 ``build_cross_cache``, ``_vlm_stack``, ``encode_audio``,
 ``_audio_stack`` (Python loops over layers instead of ``lax.scan``) and
-``forward``.  The VLM and audio archs are served; their cache-free
-forward (training, with ``aux_inputs``) is a later slice.
+``forward``.
 With a cache, one forward covers chunked prefill, decode (T=1) and
 speculative verify
 (T=gamma+1), and mixes them row by row under ``token_mask``.  Without
-one (``cache=None``, dense only) it runs a whole sequence at positions
-0..T-1 through the flash-attention kernel (K3); with ``train=True`` each
-layer is recomputed in the backward (``torch.utils.checkpoint``, the JAX
-package's ``_remat``).
+one (``cache=None``: training, on every arch) it runs a whole sequence
+at positions 0..T-1: self-attention through the flash-attention kernel
+(K3), causal (with the config's window); cross blocks through K3
+non-causal over the image embeddings or the audio encoder's output
+(``aux_inputs``); Mamba2 blocks from a zero conv history and state
+through K4 and its backward; the MoE layers' router aux loss summed as
+the third output.  With ``train=True`` each layer (each cell of a
+hybrid or VLM model) is recomputed in the backward
+(``torch.utils.checkpoint``, the JAX package's ``_remat``).
 
 The cache is updated in place, which replaces JAX's buffer donation:
 ``forward`` writes this step's K/V rows and slot positions into the
@@ -379,14 +383,9 @@ def encode_audio(cfg: ModelConfig, params: dict,
     """The bidirectional audio encoder over (stubbed) frame embeddings
     (B, Tf, d): each ``enc_layers`` layer attends the frames to each
     other at positions 0..Tf-1 (RoPE included), non-causal, through K3,
-    then its MLP."""
-    x = frames.to(torch_dtype(cfg.dtype))
-    B, Tf, _ = x.shape
-    pos = torch.arange(Tf, dtype=torch.int32, device=x.device).expand(B, Tf)
-    for p in params["enc_layers"]:
-        x = _self_attn_nocache(p["attn"], x, cfg, pos, causal=False)
-        x = _mlp(p["mlp"], x, cfg)
-    return x
+    then its MLP.  Without gradients (serving); the cache-free forward
+    runs the same layers under autograd."""
+    return _encode_audio(cfg, params, frames)
 
 
 @torch.no_grad()
@@ -410,7 +409,88 @@ def build_cross_cache(cfg: ModelConfig, params: dict,
             torch.stack([v for _, v in kv]).to(dt))
 
 
-def _forward_nocache(cfg, params, tokens, positions, train):
+def _moe_layer_nocache(p, x, cfg, positions):
+    x = _self_attn_nocache(p["attn"], x, cfg, positions)
+    y, aux = moe_forward(rms_norm(x, p["ln2"], cfg.rms_eps), p["moe"], cfg)
+    return x + y, aux
+
+
+def _cross_attn_nocache(p, x, cfg, mem):
+    """A cross block over the memory (B, Tm, d) itself: its K/V from
+    ``mem``, attended by every query through K3 non-causal (the JAX
+    package's ``causal=False`` at zero positions: every key visible, no
+    RoPE, no window)."""
+    xn = rms_norm(x, p["ln"], cfg.rms_eps)
+    B, T, _ = xn.shape
+    q = lin(xn, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k, v = _cross_kv(p, mem, cfg)
+    o = attention(q, k, v, _zero_positions(B, T, q.device),
+                  _zero_positions(B, k.shape[1], q.device), causal=False,
+                  contiguous=True)
+    return x + lin(o.reshape(B, T, -1), p["wo"])
+
+
+def _mamba_nocache(p, x, cfg):
+    """A Mamba2 block over the whole sequence: zero conv history, zero
+    initial state (K4 and, under autograd, its backward)."""
+    b = x.shape[0]
+    ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    conv = torch.zeros((b, cfg.ssm_conv - 1, ch), dtype=x.dtype,
+                       device=x.device)
+    return mamba_block(p, x, cfg, conv, None)[0]
+
+
+def _hybrid_cell_nocache(cell, shared_attn, shared_mlp, x, cfg, positions):
+    for p in cell["ssm"]:
+        x = _mamba_nocache(p, x, cfg)
+    x = _self_attn_nocache(shared_attn, x, cfg, positions)
+    return _mlp(shared_mlp, x, cfg)
+
+
+def _vlm_cell_nocache(cell, x, cfg, positions, embeds):
+    for p in cell["self"]:
+        x = _dense_layer_nocache(p, x, cfg, positions)
+    return _cross_attn_nocache(cell["cross"], x, cfg, embeds)
+
+
+def _enc_layer_nocache(p, x, cfg, positions):
+    x = _self_attn_nocache(p["attn"], x, cfg, positions, causal=False)
+    return _mlp(p["mlp"], x, cfg)
+
+
+def _audio_layer_nocache(p, x, cfg, positions, enc_out):
+    x = _self_attn_nocache(p["attn"], x, cfg, positions)
+    x = _cross_attn_nocache(p["cross"], x, cfg, enc_out)
+    return _mlp(p["mlp"], x, cfg)
+
+
+def _encode_audio(cfg, params, frames, train=False):
+    x = frames.to(torch_dtype(cfg.dtype))
+    B, Tf, _ = x.shape
+    pos = torch.arange(Tf, dtype=torch.int32, device=x.device).expand(B, Tf)
+    for p in params["enc_layers"]:
+        x = _remat(_enc_layer_nocache, train, p, x, cfg, pos)
+    return x
+
+
+def _remat(fn, train, *args):
+    """``fn(*args)``, recomputed in the backward when ``train``."""
+    if train:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _modality(aux_inputs, name):
+    if not aux_inputs or name not in aux_inputs:
+        raise ValueError(f"the cache-free forward of this arch needs "
+                         f"aux_inputs[{name!r}]")
+    return aux_inputs[name]
+
+
+def _forward_nocache(cfg, params, tokens, positions, train, aux_inputs):
+    """-> (logits, aux): the layers of ``cfg.arch_type`` over positions
+    0..T-1, each (or each cell) under ``_remat``; aux the MoE layers'
+    summed router loss (0.0 on the other archs)."""
     B, T = tokens.shape
     want = torch.arange(T, dtype=positions.dtype, device=positions.device)
     if not torch.equal(positions, want.expand(B, T)):
@@ -419,13 +499,42 @@ def _forward_nocache(cfg, params, tokens, positions, train):
             "(the contiguous layout of the flash-attention kernel)")
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
-    for p in params["layers"]:
-        if train:
-            x = checkpoint(_dense_layer_nocache, p, x, cfg, positions,
-                           use_reentrant=False)
-        else:
-            x = _dense_layer_nocache(p, x, cfg, positions)
-    return _unembed(cfg, params, x)
+    aux = 0.0
+    at = cfg.arch_type
+    if at in ("dense", "moe"):
+        dense, moe = params["layers"], []
+        if at == "moe":
+            dense, moe = params.get("dense_layers", []), params["layers"]
+        for p in dense:
+            x = _remat(_dense_layer_nocache, train, p, x, cfg, positions)
+        auxes = []
+        for p in moe:
+            x, a = _remat(_moe_layer_nocache, train, p, x, cfg, positions)
+            auxes.append(a)
+        if auxes:
+            aux = torch.stack(auxes).sum()
+    elif at == "ssm":
+        for p in params["layers"]:
+            x = _remat(_mamba_nocache, train, p, x, cfg)
+    elif at == "hybrid":
+        for cell in params["cells"]:
+            x = _remat(_hybrid_cell_nocache, train, cell,
+                       params["shared_attn"], params["shared_mlp"], x, cfg,
+                       positions)
+        for p in params.get("tail", []):
+            x = _remat(_mamba_nocache, train, p, x, cfg)
+    elif at == "vlm":
+        embeds = _modality(aux_inputs, "image_embeds").to(dtype)
+        for cell in params["cells"]:
+            x = _remat(_vlm_cell_nocache, train, cell, x, cfg, positions,
+                       embeds)
+    else:
+        enc_out = _encode_audio(cfg, params,
+                                _modality(aux_inputs, "audio_frames"), train)
+        for p in params["dec_layers"]:
+            x = _remat(_audio_layer_nocache, train, p, x, cfg, positions,
+                       enc_out)
+    return _unembed(cfg, params, x), aux
 
 
 def _unembed(cfg, params, x):
@@ -529,6 +638,7 @@ def _audio_stack(cfg, params, x, cache, attn_args):
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor, cache: Optional[dict] = None, *,
+            aux_inputs: Optional[dict] = None,
             token_mask: Optional[torch.Tensor] = None,
             train: bool = False,
             contiguous_update: bool = False,
@@ -539,16 +649,16 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """tokens/positions (B,T) int32 -> (logits (B,T,V), cache, aux_loss).
 
     ``cache=None``: the cache-free (training) forward over positions
-    0..T-1 (anything else raises), returning ``(logits, None, 0.0)``;
-    ``train=True`` recomputes each layer in the backward.  It takes no
-    ``token_mask`` (``grpo_loss`` passes none) and no tree inputs.  Dense
-    models only: training an SSM or hybrid needs a backward of K4, and
-    MoE training (its aux loss in ``grpo_loss``) and the VLM / audio
-    forward over ``aux_inputs`` are later slices.
+    0..T-1 (anything else raises), returning ``(logits, None, aux)``;
+    ``train=True`` recomputes each layer (or cell) in the backward.  It
+    takes no ``token_mask`` (``grpo_loss`` passes none) and no tree
+    inputs.  VLM and audio models read ``aux_inputs["image_embeds"]``
+    (B, Tm, d) or ``aux_inputs["audio_frames"]`` (B, Tf, d) there, as the
+    JAX package does; with a cache ``aux_inputs`` is not read.
 
-    With a cache, the cache is updated in place and returned, and the
-    third output is the MoE layers' summed load-balance loss (an f32
-    scalar; 0.0 on the other archs).  Slots come from
+    Either way the third output is the MoE layers' summed load-balance
+    loss (an f32 scalar; 0.0 on the other archs).  With a cache, the
+    cache is updated in place and returned.  Slots come from
     positions (``positions % S`` on a ring cache for sliding-window
     configs), or from ``slot_index`` (B,T) when given.  Tree-verify
     inputs (both or neither): ``slot_index`` puts sibling draft nodes,
@@ -564,27 +674,14 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     returns None in their place (the engine's replay)."""
     check_arch(cfg)
     if cache is None:
-        if cfg.arch_type == "moe":
-            raise NotImplementedError(
-                "arch_type='moe': the cache-free (training) forward of MoE "
-                "models arrives with the MoE training slice of the port")
-        if cfg.arch_type in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"arch_type={cfg.arch_type!r}: the cache-free forward over "
-                "aux_inputs (image embeddings or audio frames) arrives with "
-                "the VLM / audio training slice of the port")
-        if cfg.arch_type != "dense":
-            raise NotImplementedError(
-                f"arch_type={cfg.arch_type!r}: the cache-free (training) "
-                "forward needs a backward of the SSD kernel (K4), which "
-                "arrives with a later slice")
         if token_mask is not None or slot_index is not None \
                 or within_mask is not None or contiguous_update:
             raise NotImplementedError(
                 "the cache-free forward takes no token_mask, tree inputs "
                 "or contiguous_update")
-        return _forward_nocache(cfg, params, tokens, positions, train), \
-            None, 0.0
+        logits_, aux = _forward_nocache(cfg, params, tokens, positions,
+                                        train, aux_inputs)
+        return logits_, None, aux
     if contiguous_update:
         raise NotImplementedError(
             "contiguous_update (launch/steps.py prefill) is not ported")

@@ -4,9 +4,13 @@ Counterpart of ``repro.training.checkpoint``.  ``save``/``restore`` use
 the reference's on-disk layout, so either package reads the other's
 checkpoint: one ``.npy`` per leaf of the JAX package's tree, named by its
 flattened path (``layers__attn__wq.npy``), bfloat16 leaves stored as raw
-bytes with their dtype in ``manifest.json``.  The port's per-layer list
-under ``"layers"`` is saved stacked along a leading layer axis, as the
-JAX package holds it, and unstacked again on restore.
+bytes with their dtype in ``manifest.json``.  The port's per-layer lists
+(``layers``, ``dense_layers``, ``tail``, ``enc_layers``, ``dec_layers``,
+``cells`` and a cell's ``self`` / ``ssm``) are saved stacked along a
+leading axis, as the JAX package holds them (a VLM's or hybrid's cell
+lists twice), and a MoE block's ``wg`` / ``wu`` in the reference's
+``(E, d, eff)``; restore undoes both.  Every arch's tree goes both ways
+(``layout.jax_layout``, ``layout.port_layout``).
 
 ``WeightUpdater`` pushes fresh weights to the rollout instances.  The
 trainer holds f32 master weights that require gradients; the instances
@@ -24,36 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.layout import jax_layout, port_layout
 from repro_torch.training.optim import tree_items, tree_map
-
-
-def _jax_layout(params) -> dict:
-    """Port tree -> the JAX package's tree: a list of per-layer dicts is
-    stacked leaf by leaf along a new leading axis."""
-    if isinstance(params, dict):
-        return {k: _jax_layout(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        subs = [_jax_layout(p) for p in params]
-        return _stack(subs)
-    return params.detach()
-
-
-def _stack(subs):
-    if isinstance(subs[0], dict):
-        return {k: _stack([s[k] for s in subs]) for k in subs[0]}
-    return torch.stack(subs)
-
-
-def _port_layout(tree: dict) -> dict:
-    """The JAX package's tree -> the port's: the stacked leaves under
-    ``"layers"`` become a list of per-layer dicts."""
-    out = dict(tree)
-    if isinstance(tree.get("layers"), dict):
-        stacked = tree["layers"]
-        n = next(tree_items(stacked))[1].shape[0]
-        out["layers"] = [tree_map(lambda t: t[i].clone(), stacked)
-                         for i in range(n)]
-    return out
 
 
 def _flatten(tree, prefix=""):
@@ -84,7 +60,7 @@ def _from_numpy(arr: np.ndarray, dtype: str, shape) -> torch.Tensor:
 def save(path: str, params, step: int = 0,
          extra: Optional[dict] = None) -> None:
     os.makedirs(path, exist_ok=True)
-    flat = _flatten(_jax_layout(params))
+    flat = _flatten(jax_layout(params))
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
     for key, val in flat.items():
         fname = key.replace("/", "__") + ".npy"
@@ -111,7 +87,7 @@ def restore(path: str, device: DeviceLike = None) -> Tuple[dict, int]:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = t
-    return _port_layout(tree), manifest["step"]
+    return port_layout(tree), manifest["step"]
 
 
 def serving_params(params, dtype: str):

@@ -9,7 +9,8 @@ group* to get advantages:
 
 The policy loss is the clipped PPO surrogate per token, using the
 rollout logprobs as the old policy.  The forward is the cache-free one
-(K3 on the card), each layer recomputed in the backward.
+(K3, and K4 with its backward, on the card), each layer recomputed in
+the backward.
 """
 from __future__ import annotations
 
@@ -58,11 +59,15 @@ def grpo_loss(cfg: ModelConfig, params, batch: dict, *,
               gcfg: GRPOConfig = GRPOConfig()):
     """batch: tokens (B,S) int32, loss_mask (B,S) f32 (1 on response
     tokens), advantages (B,) f32, old_logprobs (B,S) f32, optionally
-    staleness (B,S) f32.  -> (loss, metrics), metrics detached.
+    staleness (B,S) f32 and a VLM's ``image_embeds`` (B,Tm,d) or an
+    audio model's ``audio_frames`` (B,Tf,d), which go to the forward as
+    ``aux_inputs``.  -> (loss, metrics), metrics detached.
 
     tokens[:, t] predicts tokens[:, t+1]; loss_mask marks *predicted*
-    positions (shifted alignment done here).  Each layer is recomputed in
-    the backward, as the JAX package's ``train=True`` forward does."""
+    positions (shifted alignment done here).  A MoE model's loss adds
+    ``gcfg.aux_coef`` times the router's load-balance loss
+    (``metrics["aux_loss"]``).  Each layer is recomputed in the
+    backward, as the JAX package's ``train=True`` forward does."""
     tokens = batch["tokens"]
     mask = batch["loss_mask"][:, 1:]
     adv = batch["advantages"][:, None]
@@ -74,10 +79,13 @@ def grpo_loss(cfg: ModelConfig, params, batch: dict, *,
         if gcfg.staleness_discount != 1.0:
             mask = mask * torch.pow(gcfg.staleness_discount, stale)
 
+    aux_inputs = {k: v for k, v in batch.items()
+                  if k in ("image_embeds", "audio_frames")}
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    logits, _, aux = forward(cfg, params, tokens, positions, train=True)
+    logits, _, aux = forward(cfg, params, tokens, positions,
+                             aux_inputs=aux_inputs or None, train=True)
     lp = token_logprobs(logits[:, :-1], tokens[:, 1:])      # (B,S-1)
 
     ratio = torch.exp(lp - old_lp)

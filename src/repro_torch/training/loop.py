@@ -7,7 +7,8 @@ with its synchronous barrier loop (``_run_sync``) and its
 bounded-staleness streaming loop (``_run_stream``).  The trainer holds
 f32 master weights that require gradients and an AdamW state on the
 device; each train step runs ``grpo_loss`` (the cache-free forward on the
-flash-attention kernel, K3, each layer recomputed in the backward),
+flash-attention kernel, K3, and on SSM and hybrid models the SSD
+kernel, K4, and its backward; each layer recomputed in the backward),
 ``torch.autograd.grad`` and an in-place AdamW update.  The rollout
 instances decode under a detached ``cfg.dtype`` copy that
 ``WeightUpdater`` pushes after each train step, so the engine never sees
@@ -129,9 +130,10 @@ class IterStats:
 
 def make_train_step(cfg: ModelConfig, gcfg: GRPOConfig, ocfg: OptConfig):
     """step(params, opt_state, batch) -> (params, opt_state, loss,
-    metrics): value and gradient of ``grpo_loss``, then AdamW.  Params
-    and state are updated in place; loss and metrics stay on the
-    device."""
+    metrics): value and gradient of ``grpo_loss``, then AdamW, on any
+    arch's batch (a VLM's with ``image_embeds``, an audio model's with
+    ``audio_frames``).  Params and state are updated in place; loss and
+    metrics stay on the device."""
     def step(params, opt_state: OptState, batch: dict):
         loss, metrics = grpo_loss(cfg, params, batch, gcfg=gcfg)
         leaves = [t for _, t in tree_items(params)]
@@ -155,23 +157,15 @@ class RLTrainer:
     def __init__(self, cfg: ModelConfig, task: Task, rl: RLConfig,
                  gcfg: GRPOConfig = GRPOConfig(),
                  ocfg: Optional[OptConfig] = None, params=None):
-        if cfg.arch_type == "moe":
-            raise NotImplementedError(
-                "arch_type='moe': MoE training (the cache-free MoE forward "
-                "and the router's aux loss in grpo_loss) arrives with the "
-                "MoE training slice of the port; this slice serves them")
         if cfg.arch_type in ("vlm", "audio"):
             raise NotImplementedError(
-                f"arch_type={cfg.arch_type!r}: VLM / audio training (the "
-                "cache-free forward over image embeddings or audio frames) "
-                "arrives with a later slice of the port; this slice serves "
-                "them")
-        if cfg.arch_type != "dense":
-            raise NotImplementedError(
-                f"arch_type={cfg.arch_type!r}: training an SSM or hybrid "
-                "model needs a backward of the SSD kernel (K4), which "
-                "arrives with a later slice of the port; this slice serves "
-                "them")
+                f"arch_type={cfg.arch_type!r}: RLTrainer does not train VLM "
+                "or audio models, as the JAX package's does not: its "
+                "experience batch (pack_experience) carries no image_embeds "
+                "or audio_frames, so its first train step's cache-free "
+                "forward fails its assertion that they are there.  Their "
+                "train step runs through make_train_step on a batch that "
+                "carries them")
         self.cfg = cfg
         self.task = task
         self.rl = rl

@@ -7,8 +7,9 @@ the no-fault oracle; crashes at fixed ticks in linear and tree
 speculation (``top_k`` 2), with and without the pool; a stall that waits
 out, a watchdog escalation, fetch retries, a corrupt blob and
 degradation; ``fail_instance`` and the raise when every instance is
-dead; and the trainer under a crash, equal to the reference's under
-the same crash and to its own no-fault run."""
+dead; the trainer under a crash, equal to the reference's under the
+same crash and to its own no-fault run; and the bounded-staleness
+trainer under a crash that replays tokens kept across a refresh."""
 import functools
 
 import pytest
@@ -225,11 +226,16 @@ def test_trainer_under_a_crash_matches_the_no_fault_run():
     """Under the same crash the port's trainer gives the reference's
     responses exactly, and its losses, grad norms and rollout logprobs
     (the recovered requests' included) at the port's port-to-reference
-    tolerance.  Against its own no-fault run tokens and rewards are
-    exact and the losses hold that tolerance, not bitwise as in the
-    reference: a replayed token's logprob is recomputed in a verify
-    step, whose CPU matmuls over more rows round differently in the last
-    f32 bit, and the near-cancelling GRPO mean shows it."""
+    tolerance.  Against its own no-fault run, tokens and rewards are
+    exact, and the crashed iteration's losses, metrics and rollout
+    logprobs are bitwise equal, as the reference asserts of itself: a
+    crash replay keeps the logprobs its tokens were recorded with (the
+    params have not changed) instead of recomputing them in a verify
+    step, whose CPU matmuls over more rows would round differently in
+    the last f32 bit.  The next iteration holds the tolerance, not
+    bitwise: with one instance down its steps batch other rows, and a
+    CPU matmul's last bit depends on its row count (one row takes
+    another BLAS routine than two)."""
     h0, r0, lp0, _ = _trainer()
     h1, r1, lp1, tr1 = _trainer(crash_tick=4)
     jh1, jr1, jlp1, jtr1 = _trainer("jax", crash_tick=4)
@@ -241,9 +247,35 @@ def test_trainer_under_a_crash_matches_the_no_fault_run():
     assert sum(i.crashes for i in tr1.rollout.instances) >= 1
     _history_close(h1, h0, tokens=False)
     _logprobs_close(lp1, lp0)
+    assert [h.mean_reward for h in h1] == [h.mean_reward for h in h0]
+    assert (h1[0].loss, h1[0].metrics) == (h0[0].loss, h0[0].metrics)
+    first = [rid for rid in lp0 if rid.startswith("it0-")]
+    assert first and all(lp1[rid] == lp0[rid] for rid in first)
+    assert not tr1.rollout._replay_logprobs
     h2, r2, _, tr2 = _trainer(crash_tick=4, async_overlap=True,
                               staleness_bound=1)
     assert len(h2) == 2
     assert sum(i.crashes for i in tr2.rollout.instances) >= 1
     assert tr2.ledger.total_tokens() == sum(len(v) for v in r2.values())
     assert tr2.ledger.max_staleness <= 1
+
+
+def test_stream_trainer_crash_after_a_refresh_matches_reference():
+    """The bounded-staleness trainer (bound 1, refresh mode "keep") with
+    6 groups, so that iteration 1's requests still decode when iteration
+    0's weights refresh the instances; the crash at tick 57 then replays
+    requests that hold tokens sampled under both param versions.  Their
+    replay recomputes the logprobs under the live params, as the
+    reference's does: responses exact; losses, grad norms and rollout
+    logprobs at the port-to-reference tolerance (logprobs kept from the
+    old params would be ~6e-4 off)."""
+    kw = dict(crash_tick=57, async_overlap=True, staleness_bound=1,
+              n_groups=6)
+    h, r, lp, tr = _trainer(**kw)
+    jh, jr, jlp, jtr = _trainer("jax", **kw)
+    assert r == jr
+    _history_close(h, jh)
+    _logprobs_close(lp, jlp)
+    assert [i.crashes for i in tr.rollout.instances] == \
+        [i.crashes for i in jtr.rollout.instances] == [1, 0]
+    assert tr.ledger.max_staleness == 1 and tr.ledger.total_tokens(1) > 0

@@ -43,7 +43,7 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.models.model", "repro_torch.obs",
             "repro_torch.obs.trace", "repro_torch.obs.timeline",
             "repro_torch.core.workload", "repro_torch.core.simulator",
-            "repro_torch.data.workload"} <= set(mods)
+            "repro_torch.data.workload", "repro_torch.layout"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
@@ -113,6 +113,40 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--groups", "1"])
+
+
+def test_training_modules_build_nothing_on_import():
+    """The training slice's modules import without building a kernel: K4's
+    backward (``ssd_scan.ops.BWD_LIBRARY``, its own ``.cu`` source beside
+    the forward's) is compiled at first use only, the trainer's and the
+    cache-free forward's entry points are there on every arch, and the
+    bridge and the tree layouts import no training module."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "from repro_torch import bridge, layout\n"
+            "assert 'repro_torch.training' not in sys.modules\n"
+            "from repro_torch.kernels.ssd_scan import ops, ref\n"
+            "from repro_torch.kernels import build\n"
+            "from repro_torch.training import grpo, checkpoint, loop\n"
+            "from repro_torch.models import transformer\n"
+            "assert ops.BWD_LIBRARY.lib is None and ops.LIBRARY.lib is None\n"
+            "assert ops.BWD_SOURCE.name == 'ssd_scan_bwd.cu'\n"
+            "assert ops.BWD_SOURCE in build.sources_of(ops.BWD_SOURCE)\n"
+            "assert ops.launches == {'ssd_scan': 0, 'ssd_scan_bwd': 0}\n"
+            "assert ref.calls == {'ssd': 0, 'ssd_bwd': 0}\n"
+            "for f in (ops.ssd_scan_bwd, ref.ssd_bwd_ref, "
+            "layout.jax_layout, layout.port_layout, "
+            "bridge.params_to_numpy, loop.make_train_step):\n"
+            "    assert callable(f)\n"
+            "assert set(transformer.PORTED_ARCHS) == {'dense', 'moe', "
+            "'ssm', 'hybrid', 'vlm', 'audio'}\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
 
 
 def _smoke(cwd: Path, env=None):

@@ -210,17 +210,19 @@ def test_unported_paths_raise():
     cache = init_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError):
         forward(cfg, params, tok, tok, cache, contiguous_update=True)
-    # VLM and audio models are served; their cache-free forward (over
-    # image embeddings or audio frames) and their training are refused
+    # VLM and audio models: their cache-free forward needs the image
+    # embeddings or audio frames, and RLTrainer refuses them, as the
+    # reference's fails on them (its batch carries neither)
     from repro_torch.data.tasks import make_task
     from repro_torch.training import RLConfig, RLTrainer
+    pos = torch.arange(2, dtype=torch.int32)[None]
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         other = tcfgs.get_tiny_config(arch)
         p = init_params(other, torch.Generator().manual_seed(0),
                         device="cpu")
-        with pytest.raises(NotImplementedError, match="VLM / audio"):
-            forward(other, p, tok, tok, None)
+        with pytest.raises(ValueError, match="aux_inputs"):
+            forward(other, p, pos, pos, None)
         task = make_task("copy", other.vocab_size, prompt_len=4,
                          response_len=4)
-        with pytest.raises(NotImplementedError, match="VLM / audio"):
+        with pytest.raises(NotImplementedError, match="VLM or audio"):
             RLTrainer(other, task, RLConfig(device="cpu"), params=p)

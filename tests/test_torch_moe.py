@@ -117,19 +117,25 @@ def test_route_ties_pick_the_lower_expert(tie):
 
 
 def test_tensor_parallel_and_training_refused(models):
+    """Tensor parallelism is still refused.  Training no longer is (the
+    MoE training slice): the cache-free forward gives logits and the
+    router's aux loss, and ``RLTrainer`` takes the model
+    (tests/test_torch_train_archs.py and test_torch_train_loop.py hold
+    both to the reference)."""
     m = models("moonshot-v1-16b-a3b", "float32")
     tcfg, tp = m.tcfg, m.tp
     x = torch.zeros((1, 2, tcfg.d_model))
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         tmoe.moe_forward(x, tp["layers"][0]["moe"], tcfg, sctx=object())
     pos = torch.arange(2, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        forward(tcfg, tp, pos, pos, None)
+    logits, cache, aux = forward(tcfg, tp, pos, pos, None)
+    assert cache is None and logits.shape == (1, 2, tcfg.vocab_size)
+    assert float(aux) > 0
     from repro_torch.data.tasks import make_task
     from repro_torch.training.loop import RLConfig, RLTrainer
     task = make_task("copy", tcfg.vocab_size, prompt_len=4, response_len=4)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        RLTrainer(tcfg, task, RLConfig(device="cpu"), params=tp)
+    tr = RLTrainer(tcfg, task, RLConfig(device="cpu"), params=tp)
+    assert tr.params["layers"][0]["moe"]["router"].requires_grad
 
 
 # ------------------------------------------------------------- the init ----

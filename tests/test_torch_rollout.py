@@ -80,3 +80,32 @@ def test_tracer_and_tp_raise(models):
     assert runs[1]["host_syncs"] == runs[1]["steps"]
     names = {e["name"] for e in tr.events()}
     assert {"step_dispatch", "step_commit"} <= names
+
+
+def test_topology_aware_placement_matches_reference(models):
+    """Two nodes x two instances (tests/test_migration.py's
+    topology-aware case): blind and topology-aware placement give the
+    same responses, each run's ``pool.stats()`` equals the reference's,
+    and ranking placements by modeled transfer cost moves fewer bytes
+    across the fabric (152,144 blind, 128,500 aware)."""
+    jcfg, jp, tcfg, tp = models
+    prompts = [[(7 * g + j) % 19 + 2 for j in range(8 + 2 * g)]
+               for g in range(4)]
+    kw = dict(n_instances=4, max_slots=1, cache_len=96, chunk_size=6,
+              prefill_chunk=8, n_nodes=2, policy="seer", spec_decode=False,
+              base_seed=7)
+    got, want = {}, {}
+    for aware in (False, True):
+        jro = JRollout(jcfg, jp, topology_aware=aware, **kw)
+        jres = jro.run(jmake_groups(prompts, group_size=2,
+                                    max_new_tokens=16, seed=5))
+        tro = SeerRollout(tcfg, tp, device="cpu", topology_aware=aware, **kw)
+        assert {i.node for i in tro.instances} == {"n0", "n1"}
+        tres = tro.run(make_groups(prompts, group_size=2, max_new_tokens=16,
+                                   seed=5))
+        want[aware] = (jres.responses(), jro.pool.stats())
+        got[aware] = (tres.responses(), tro.pool.stats())
+        assert got[aware] == want[aware]
+    assert got[True][0] == got[False][0]
+    assert got[False][1]["cross_node_bytes"] == 152144
+    assert got[True][1]["cross_node_bytes"] == 128500

@@ -287,20 +287,35 @@ def test_replay_decided_on_the_host(m, monkeypatch):
 
 
 def test_trainer_refuses_ssm(m):
+    """The trainer no longer refuses an SSM model (K4 has its backward):
+    ``RLTrainer`` takes it, and a train forward's gradient runs through
+    K4's backward (its plain version here) once per Mamba2 block.  Still
+    refused: a cache-free forward at positions other than 0..T-1
+    (tests/test_torch_train_loop.py holds the trainer to the
+    reference's)."""
     from repro_torch.data.tasks import make_task
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.training.optim import tree_items
     task = make_task("copy", m.tcfg.vocab_size, prompt_len=4,
                      response_len=4)
-    with pytest.raises(NotImplementedError, match="K4"):
-        RLTrainer(m.tcfg, task, RLConfig(device="cpu"), params=m.tp)
-    with pytest.raises(NotImplementedError, match="K4"):
+    tr = RLTrainer(m.tcfg, task, RLConfig(device="cpu"), params=m.tp)
+    with pytest.raises(NotImplementedError, match="positions 0..T-1"):
         forward(m.tcfg, m.tp, torch.zeros((1, 2), dtype=torch.int32),
                 torch.zeros((1, 2), dtype=torch.int32), None)
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    n0 = ssd_ref.calls["ssd_bwd"]
+    logits, _, _ = forward(m.tcfg, tr.params, pos, pos, None, train=True)
+    leaves = [t for _, t in tree_items(tr.params)]
+    grads = torch.autograd.grad(logits.float().square().mean(), leaves)
+    assert ssd_ref.calls["ssd_bwd"] - n0 == m.tcfg.num_layers
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_moe_still_refused():
-    """Every arch is served now; what the port still refuses is an arch
-    it does not know, and the cache-free forward of a VLM or audio
-    model (their training slice)."""
+    """Every arch is served and trained now; what the port still refuses
+    is an arch it does not know, and the cache-free forward of a VLM or
+    audio model without its image embeddings or audio frames (the
+    reference asserts they are there)."""
     from repro_torch.configs import get_tiny_config
     unknown = replace(get_tiny_config(ARCH), arch_type="diffusion")
     with pytest.raises(NotImplementedError):
@@ -311,6 +326,6 @@ def test_moe_still_refused():
         cfg = get_tiny_config(arch)
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-        tok = torch.zeros((1, 2), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="aux_inputs"):
+        tok = torch.arange(2, dtype=torch.int32)[None]
+        with pytest.raises(ValueError, match="aux_inputs"):
             forward(cfg, params, tok, tok, None)

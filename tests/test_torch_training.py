@@ -28,6 +28,9 @@ from repro_torch.data.tasks import make_task
 from repro_torch.models import forward
 from repro_torch.training import checkpoint, grpo, optim
 from repro_torch.training.loop import RLConfig, RLTrainer
+from test_torch_train_archs import ARCHS as TRAIN_ARCHS
+from test_torch_train_archs import IDS as TRAIN_IDS
+from test_torch_train_archs import arch_model, modality_inputs
 
 torch.set_num_threads(2)
 ARCH = "granite-3-8b"
@@ -81,22 +84,49 @@ def _assert_tree_close(port_tree_np, jax_tree, atol, rtol=0.0, what=""):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 3e-2)])
-def test_cache_free_forward_matches_jax_train_forward(model, dtype, tol):
-    _, _, _, np_params = model
-    jcfg, tcfg = _cfgs(dtype)
+# the dense model at f32 and bf16, then every other arch the reference
+# trains at f32 (a MoE model's bf16 logits do not hold 3e-2 even reference
+# against reference, tests/test_torch_moe.py), a hybrid also with a tail
+FORWARD_CASES = [
+    pytest.param(ARCH, {}, "float32", 1e-5, id="float32-1e-05"),
+    pytest.param(ARCH, {}, "bfloat16", 3e-2, id="bfloat16-0.03")] + [
+    pytest.param(arch, over, "float32", 1e-5, id=f"{name}-float32")
+    for (arch, over), name in zip(TRAIN_ARCHS, TRAIN_IDS)]
+
+
+@pytest.mark.parametrize("arch,over,dtype,tol", FORWARD_CASES)
+def test_cache_free_forward_matches_jax_train_forward(model, arch, over,
+                                                      dtype, tol):
+    if arch == ARCH:
+        _, _, _, np_params = model
+        jcfg, tcfg = _cfgs(dtype)
+    else:
+        jcfg, tcfg, _, np_params = arch_model(arch, tuple(over.items()))
+    # two whole SSD chunks on the Mamba2 archs (the reference's ssd pads
+    # no ragged chunk)
+    T = 2 * jcfg.ssm_chunk if jcfg.arch_type in ("ssm", "hybrid") else 40
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, jcfg.vocab_size, size=(2, 40)).astype(np.int32)
-    pos = np.broadcast_to(np.arange(40, dtype=np.int32), (2, 40)).copy()
-    want, _, _ = jforward(jcfg, jax.tree.map(jnp.asarray, np_params),
-                          jnp.asarray(toks), jnp.asarray(pos), train=True)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, T)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32), (2, T)).copy()
+    aux_in = modality_inputs(jcfg, 2, rng)
+    want, _, jaux = jforward(jcfg, jax.tree.map(jnp.asarray, np_params),
+                             jnp.asarray(toks), jnp.asarray(pos),
+                             aux_inputs={k: jnp.asarray(v)
+                                         for k, v in aux_in.items()} or None,
+                             train=True)
     got, cache, aux = forward(tcfg, _port_params(tcfg, np_params),
                               torch.from_numpy(toks), torch.from_numpy(pos),
+                              aux_inputs={k: torch.from_numpy(v) for k, v in
+                                          aux_in.items()} or None,
                               train=True)
-    assert cache is None and aux == 0.0
-    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
-                               atol=tol, rtol=tol)
+    assert cache is None
+    if jcfg.num_experts:
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=tol)
+    else:
+        assert aux == 0.0
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(to_numpy(got), want, atol=tol * max(
+        float(np.abs(want).max()), 1.0), rtol=tol)
     with pytest.raises(NotImplementedError, match="positions 0..T-1"):
         forward(tcfg, _port_params(tcfg, np_params), torch.from_numpy(toks),
                 torch.from_numpy(pos + 1))
@@ -286,7 +316,9 @@ def test_tasks_give_the_reference_prompts_and_rewards():
 
 def test_checkpoints_cross_load(model, tmp_path):
     """A checkpoint the JAX package saves restores in the port, and the
-    port's restores in the JAX package, leaf for leaf (bf16 included)."""
+    port's restores in the JAX package, leaf for leaf (bf16 included), on
+    the dense model and then on every other arch the reference trains;
+    ``params_to_numpy`` is the exact inverse of ``params_from_jax``."""
     jcfg, tcfg, jp, np_params = model
     jckpt.save(str(tmp_path / "jax"), jp, step=7)
     got, step = checkpoint.restore(str(tmp_path / "jax"), device="cpu")
@@ -312,6 +344,25 @@ def test_checkpoints_cross_load(model, tmp_path):
                                   to_numpy(stacked_bf16["embed"]))
     back, _ = checkpoint.restore(str(tmp_path / "bf16"), device="cpu")
     assert torch.equal(back["embed"], stacked_bf16["embed"])
+    # every other arch the reference trains, both ways: MoE experts in the
+    # reference's (E, d, eff), VLM and hybrid cells stacked twice, a
+    # hybrid's tail and shared block, the audio encoder and decoder
+    for (arch, over), name in zip(TRAIN_ARCHS, TRAIN_IDS):
+        _, acfg, ajp, anp = arch_model(arch, tuple(over.items()))
+        want = _port_params(acfg, anp)
+        jckpt.save(str(tmp_path / f"jax-{name}"), ajp, step=1)
+        got, _ = checkpoint.restore(str(tmp_path / f"jax-{name}"),
+                                    device="cpu")
+        gi, wi = list(optim.tree_items(got)), list(optim.tree_items(want))
+        assert [p for p, _ in gi] == [p for p, _ in wi], name
+        assert all(torch.equal(a, b) for (_, a), (_, b) in zip(gi, wi)), \
+            name
+        checkpoint.save(str(tmp_path / f"port-{name}"), want, step=2)
+        jgot, _ = jckpt.restore(str(tmp_path / f"port-{name}"))
+        _assert_tree_close(params_to_numpy(acfg, want), jgot, atol=0.0,
+                           what=f"{name} port -> jax")
+        _assert_tree_close(params_to_numpy(acfg, want), anp, atol=0.0,
+                           what=f"{name} params_to_numpy")
 
 
 # ---------------------------------------------------------------------------
