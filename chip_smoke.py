@@ -202,7 +202,39 @@ Phases, in this order:
    cold and warm commonest, both models' heads on 8 slots) with route,
    n_split, bound on the route's units and its share, the kernel's own
    duration from torch.profiler, plain time and the wrapper's host time
-   per call.
+   per call;
+14. tensor parallel (``tp_phase``): the engine's tensor parallelism
+   (``SeerRollout(tp=)``) in two ranks that share the card over gloo
+   (``repro_torch.launch.mesh.spawn``, the backend named: NCCL refuses
+   two ranks on one device), started after every model above is freed
+   and every kernel library built.  At full width and a cut depth
+   (``TP_MODELS``), bf16, 4 groups x 4, 64 new tokens: granite-3-8b (4
+   of 40 layers), moonshot-v1-16b-a3b (4 of 48: one dense, three MoE) and
+   zamba2-1.2b (its ``CUT_LAYERS`` depth), each at tp=None and tp=1 on
+   rank 0 (the whole weights) and twice at tp=2 on both ranks (each
+   rank's shard drawn layer by layer from the same seed); granite also a
+   tree pass and a pass with every column-parallel product sliced from
+   the unsharded one (``ColumnProducts``); then granite at 4 layers in
+   f32 with TF32 off.  Gates: tp=1 bitwise tp=None (tokens, logprobs,
+   engine steps, host syncs, launches); each rank's tp=2 repeat bitwise
+   and the ranks equal (tokens, logprobs, lockstep digests); one host
+   sync per engine step on each rank; ``tokens_lost`` 0; the kernels per
+   forward as on one device; K1 and K2 at the shard shapes, each rank's
+   heads with the unsharded split bitwise the unsharded call's heads,
+   and held to the plain version; the sliced passes (bf16 and f32)
+   bitwise tp=None run under tp=2's cost model (``_schedule_of``: tp's
+   cost model sets MBA's draft budgets and so the batches), and the f32
+   sliced probe (every gathered activation of a prefill chunk and a
+   decode step, ``tp_probe``) bitwise tp=None, so that any difference the
+   port's own code makes (a gather's order, the head and K/V shards, K1's
+   split, sampling) fails.  tp=2 against tp=None in bf16 and f32 is
+   printed, with each rank's column products against the same columns of
+   the unsharded product on the same input: what differs there is
+   cuBLAS's, an open fault.
+   Per-rank walls and collectives per step are printed as what they
+   are: two ranks on one card are no measure of tp's speed.  K1 / K2 are
+   timed at rank 0's heads (the ``*/tp2`` rows of the ``kernels``
+   line).
 
 Each phase's wall time is printed as it ends.  The line before the last
 is the ``kernels`` JSON record; the last line
@@ -212,6 +244,8 @@ it, the script exits non-zero and prints no result.  ``--kernels-only``
 stops after phase 3's K1 / K2 and K4 checks and their timing tables (no
 slices, no result line; K4's table also times every route and n_split
 at the fixed widths): the quick measurements of a kernel change.
+``--tp-only`` runs phase 14 after the build and the K1 / K2 checks (no
+result line).
 """
 from __future__ import annotations
 
@@ -219,6 +253,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -341,9 +376,8 @@ def _sv_inputs(torch, np, *, B, T, S, Hq, Hk, D, dtype, seed, live=None):
     between that layout and slots permuted at random, the last row's
     cache is empty and one query of the row before it sees no key."""
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
-    k = rng.normal(size=(B, S, Hk, D)).astype(np.float32)
-    v = rng.normal(size=(B, S, Hk, D)).astype(np.float32)
+    q, k, v = _normals(torch, seed, dtype, (B, T, Hq, D), (B, S, Hk, D),
+                       (B, S, Hk, D))
     k_pos = np.full((B, S), -1, np.int32)
     if live is not None:
         q_pos = np.asarray(live)[:, None] - T + np.arange(T)[None]
@@ -358,12 +392,20 @@ def _sv_inputs(torch, np, *, B, T, S, Hq, Hk, D, dtype, seed, live=None):
             k_pos[b, slots] = np.arange(n)
         k_pos[B - 1] = -1
         q_pos[B - 2, 0] = -1
-    dt = getattr(torch, dtype)
-    return (torch.from_numpy(q).to("cuda", dt),
-            torch.from_numpy(k).to("cuda", dt),
-            torch.from_numpy(v).to("cuda", dt),
-            torch.from_numpy(q_pos.astype(np.int32)).to("cuda"),
+    return (q, k, v, torch.from_numpy(q_pos.astype(np.int32)).to("cuda"),
             torch.from_numpy(k_pos).to("cuda"))
+
+
+def _normals(torch, seed: int, dtype: str, *shapes) -> list:
+    """Standard normals of each shape, drawn on the card in f32 from a
+    generator seeded with ``seed`` and cast to ``dtype``: the kernel
+    checks' caches are drawn where they are used (a host draw of each
+    full cache is slow, and the checks run some two hundred)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return [torch.randn(s, generator=g, device="cuda").to(dt)
+            for s in shapes]
 
 
 def _bound_ms(q, k, q_pos, k_pos, window, dtype, tree=None):
@@ -745,10 +787,12 @@ def _time_routes(torch, ops, q, k, v, qp, kp, tm, window, dtype, iters,
 
 
 def kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
-                 dtype="bfloat16", iters=50) -> dict:
+                 dtype="bfloat16", iters=50, split_like=None) -> dict:
     """Time K1, its plain version and SDPA (the yardstick, never called
     by the port) on one main-path shape of ``model``'s attention
-    (``K1_SHAPES``), with L2 flushed before each."""
+    (``K1_SHAPES``), with L2 flushed before each; ``split_like``: the
+    shape is a tensor-parallel rank's heads of a layer of these (Hq,
+    Hk), whose n_split the wrapper takes."""
     import torch.nn.functional as F
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import pos_mask, spec_verify_ref
@@ -761,13 +805,15 @@ def kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
         scratch.zero_()
 
     n0 = dict(ops.launches)
-    out = ops.spec_verify(q, k, v, qp, kp, window=window)
+    out = ops.spec_verify(q, k, v, qp, kp, window=window,
+                          split_like=split_like)
     ref = spec_verify_ref(q, k, v, qp, kp, window=window)
     err = float((out.float() - ref.float()).abs().max())
     check(err <= TOL[dtype] * (1 + float(ref.float().abs().max())),
           f"spec_verify ({model} timing shape) max|err|={err}")
     def k1():
-        return ops.spec_verify(q, k, v, qp, kp, window=window)
+        return ops.spec_verify(q, k, v, qp, kp, window=window,
+                               split_like=split_like)
     t = _time_rounds(torch, k1, iters, flush)
     host_us = _host_us(torch, k1)
     plain_ms = _time_ms(torch, lambda: spec_verify_ref(q, k, v, qp, kp,
@@ -783,7 +829,9 @@ def kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
                                               enable_gqa=True)
     lt = _time_rounds(torch, lib, iters, flush)
     bound_ms, bound_by = _bound_ms(q, k, qp, kp, window, dtype)
-    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
+    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S,
+                              n_split=ops.split_of(q.dtype, B, T, D, S,
+                                                   split_like))
     route_ms = _time_routes(torch, ops, q, k, v, qp, kp, None, window, dtype,
                             iters, flush)
     ops.launches.update(n0)      # timing launches are not a slice's
@@ -805,9 +853,8 @@ def _tree_inputs(torch, np, *, B, T, S, Hq, Hk, D, dtype, seed, live=None):
     ``live[b] - 1`` (or at random); without ``live`` the last query of
     the last row sees no key."""
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
-    k = rng.normal(size=(B, S, Hk, D)).astype(np.float32)
-    v = rng.normal(size=(B, S, Hk, D)).astype(np.float32)
+    q, k, v = _normals(torch, seed, dtype, (B, T, Hq, D), (B, S, Hk, D),
+                       (B, S, Hk, D))
     anchors = (np.asarray(live) - 1 if live is not None
                else rng.integers(50, min(S - T, 700), size=B))
     q_pos = np.zeros((B, T), np.int32)
@@ -830,11 +877,7 @@ def _tree_inputs(torch, np, *, B, T, S, Hq, Hk, D, dtype, seed, live=None):
             k_pos[b, a + j] = q_pos[b, j]
     if live is None:
         tree[B - 1, T - 1] = False
-    dt = getattr(torch, dtype)
-    return (torch.from_numpy(q).to("cuda", dt),
-            torch.from_numpy(k).to("cuda", dt),
-            torch.from_numpy(v).to("cuda", dt),
-            torch.from_numpy(q_pos).to("cuda"),
+    return (q, k, v, torch.from_numpy(q_pos).to("cuda"),
             torch.from_numpy(k_pos).to("cuda"),
             torch.from_numpy(tree).to("cuda"))
 
@@ -907,11 +950,12 @@ def tree_kernels_check(torch, np, *, B, S, T_list) -> list:
 
 
 def tree_kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
-                      dtype="bfloat16", iters=50) -> dict:
+                      dtype="bfloat16", iters=50, split_like=None) -> dict:
     """Time K2, K1 on the same inputs (without the mask), K2's plain
     version and SDPA with the combined boolean mask (the yardstick, never
     called by the port), at ``model``'s heads (``K1_SHAPES``, window 0),
-    with L2 flushed before each call."""
+    with L2 flushed before each call; ``split_like`` as
+    ``kernels_time``'s."""
     import torch.nn.functional as F
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.spec_verify.ref import pos_mask, tree_verify_ref
@@ -925,17 +969,17 @@ def tree_kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
         scratch.zero_()
 
     n0 = dict(ops.launches)
-    out = ops.tree_verify(q, k, v, qp, kp, tm)
+    out = ops.tree_verify(q, k, v, qp, kp, tm, split_like=split_like)
     ref = tree_verify_ref(q, k, v, qp, kp, tm)
     err = float((out.float() - ref.float()).abs().max())
     check(err <= TOL[dtype] * (1 + float(ref.float().abs().max())),
           f"tree_verify (timing shape) max|err|={err}")
     def k2():
-        return ops.tree_verify(q, k, v, qp, kp, tm)
+        return ops.tree_verify(q, k, v, qp, kp, tm, split_like=split_like)
     t = _time_rounds(torch, k2, iters, flush)
     host_us = _host_us(torch, k2)
-    k1_ms = _time_ms(torch, lambda: ops.spec_verify(q, k, v, qp, kp), iters,
-                     flush)
+    k1_ms = _time_ms(torch, lambda: ops.spec_verify(
+        q, k, v, qp, kp, split_like=split_like), iters, flush)
     plain_ms = _time_ms(torch, lambda: tree_verify_ref(q, k, v, qp, kp, tm),
                         max(iters // 5, 5), flush)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -946,7 +990,9 @@ def tree_kernels_time(torch, np, *, B, S, T, live, model="granite-3-8b",
                                               enable_gqa=True)
     lt = _time_rounds(torch, lib, iters, flush)
     bound_ms, bound_by = _bound_ms(q, k, qp, kp, 0, dtype, tree=tm)
-    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S)
+    route, n_split = ops.plan(q.dtype, B, T, Hq, Hk, D, S,
+                              n_split=ops.split_of(q.dtype, B, T, D, S,
+                                                   split_like))
     route_ms = _time_routes(torch, ops, q, k, v, qp, kp, tm, 0, dtype, iters,
                             flush)
     ops.launches.update(n0)      # timing launches are not a slice's
@@ -1477,11 +1523,11 @@ def make_prompts(np, cfg, n_groups: int, seed: int):
             for n in lens]
 
 
-def make_rollout(cfg, params, cache_len=2048, **kw):
+def make_rollout(cfg, params, cache_len=2048, device="cuda", **kw):
     from repro_torch.core import SeerRollout
     return SeerRollout(cfg, params, n_instances=2, max_slots=8,
                        cache_len=cache_len, chunk_size=CHUNK_SIZE,
-                       policy="seer", spec_decode=True, device="cuda", **kw)
+                       policy="seer", spec_decode=True, device=device, **kw)
 
 
 def _plain_calls() -> int:
@@ -1543,6 +1589,8 @@ def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return {"responses": res.responses(), "wall_s": wall,
+            "logprobs": {r.req_id: list(r.logprobs) for g in res.groups
+                         for r in g.requests},
             "launches": _launches(), "cross_launches": cross[0],
             "replays": st.replays - rp0,
             "plain_calls": _plain_calls() - plain0,
@@ -3867,7 +3915,7 @@ def _k1_inputs(n_layers: int, per_shape: int = K1_KEPT_PER_SHAPE):
     from repro_torch.models import attention
     inner, calls, kept = attention.spec_verify, {}, {}
 
-    def keep(q, k, v, q_pos, k_pos, *, window=0):
+    def keep(q, k, v, q_pos, k_pos, *, window=0, split_like=None):
         key = (q.shape[0], q.shape[1], k.shape[1])
         i = calls[key] = calls.get(key, -1) + 1
         step, layer = divmod(i, n_layers)
@@ -3875,7 +3923,8 @@ def _k1_inputs(n_layers: int, per_shape: int = K1_KEPT_PER_SHAPE):
         if layer == 0 and step & (step - 1) == 0 and len(got) < per_shape:
             got.append((step,) + tuple(x.clone() for x in
                                        (q, k, v, q_pos, k_pos)) + (window,))
-        return inner(q, k, v, q_pos, k_pos, window=window)
+        return inner(q, k, v, q_pos, k_pos, window=window,
+                     split_like=split_like)
     attention.spec_verify = keep
     try:
         yield kept
@@ -4078,6 +4127,739 @@ def serving_phase(torch, np, cfg, params) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor parallel
+# ---------------------------------------------------------------------------
+
+# the engine's tensor parallelism on the one card: tp = 1 (a one-rank
+# group) and tp = 2 (two ranks sharing the card, over gloo, named so in
+# the launch: NCCL refuses two ranks on one device).  Each model at full
+# width and a cut depth, so that the earlier phases keep theirs: every
+# gather of a card tensor over gloo waits for the card and goes through
+# host memory, and at 40 granite layers (80 gathers a step) one tp=2
+# rollout took 42.5-46.7 s and the phase 271.6 s on an NVIDIA H100 80GB
+# HBM3 at 700 W.  granite-3-8b at TP_GRANITE_LAYERS of its 40 layers,
+# moonshot-v1-16b-a3b at 4 of 48 (one dense, three MoE, as its training
+# phase), zamba2-1.2b at its CUT_LAYERS depth; caches of 2048 positions
+# (moonshot 1024); 4 groups x 4, 64 new tokens, bf16, two tp=2 passes of
+# each (the repeat gate); then granite at 4 layers in f32 (TF32 off), 32
+# new tokens
+TP = 2
+TP_GROUPS, TP_NEW_TOKENS = 4, 64
+TP_GRANITE_LAYERS = 4
+TP_MODELS = (("granite-3-8b", TP_GRANITE_LAYERS, 2048),
+             (MOE_ARCH, 4, MOE_CACHE_LEN),
+             ("zamba2-1.2b", CUT_LAYERS["zamba2-1.2b"], 2048))
+TP_F32_LAYERS, TP_F32_NEW_TOKENS = 4, 32
+# the card both ranks run on
+TP_DEVICE = "cuda:0"
+NOT_A_SPEED = ("two ranks sharing one card over gloo (every collective "
+               "staged through host memory) are no measure of tensor "
+               "parallelism's speed")
+
+
+def _free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tp_params(torch, cfg, sctx):
+    """``cfg``'s random weights from seed 0 — the same draws at every tp
+    — whole, or this rank's shard cut layer by layer as they are drawn
+    (``init_params(sctx=)``)."""
+    from repro_torch.models import init_params
+    gen = torch.Generator(device=TP_DEVICE)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=TP_DEVICE, sctx=sctx)
+    torch.cuda.synchronize()
+    return params
+
+
+@contextlib.contextmanager
+def _schedule_of(tp):
+    """Rollouts built inside take the cost model of tensor-parallel degree
+    ``tp`` whatever their own.  ``SeerRollout(tp=k)`` models its steps
+    with ``ForwardCostModel(tp=k)``, as the reference does, and the draft
+    budgets (MBA), and with them the engine's batches and their GEMMs'
+    row counts, follow that model: a one-device rollout under tp=k's
+    model runs tp=k's schedule, the oracle of a tp=k pass whose products
+    are the one-device ones (``ColumnProducts``)."""
+    from repro_torch.core import rollout
+    inner = rollout.ForwardCostModel
+    rollout.ForwardCostModel = lambda cfg, hw, **_: inner(cfg, hw, tp=tp)
+    try:
+        yield
+    finally:
+        rollout.ForwardCostModel = inner
+
+
+def tp_run(torch, cfg, params, prompts, tp, cache_len, new_tokens=None,
+           warm=False, cols=None, schedule_tp=None, **kw) -> dict:
+    """``run_rollout`` of the phase's traffic on a ``SeerRollout(tp=tp)``,
+    with the collectives it ran (``sharding.traffic``) and each
+    instance's lockstep record (host uploads compared across the group,
+    their running digest); ``warm``: after a first pass on the same
+    rollout (its group suffix trees then draft), as the tree slice;
+    ``cols`` (a ``ColumnProducts``): every column-parallel product sliced
+    from the unsharded one (``sliced_products`` counts them);
+    ``schedule_tp``: under that degree's cost model (``_schedule_of``)."""
+    from repro_torch import sharding
+    with (_schedule_of(schedule_tp) if schedule_tp is not None
+          else contextlib.nullcontext()):
+        ro = make_rollout(cfg, params, cache_len=cache_len, tp=tp,
+                          device=TP_DEVICE, **kw)
+    if warm:
+        run_rollout(torch, ro, prompts, new_tokens=new_tokens or
+                    TP_NEW_TOKENS)
+        ro.reset_acceptance_profile()
+    sharding.reset_traffic()
+    with (cols.installed(sliced=True) if cols is not None
+          else contextlib.nullcontext()):
+        n0 = cols.calls if cols is not None else 0
+        r = run_rollout(torch, ro, prompts,
+                        new_tokens=new_tokens or TP_NEW_TOKENS)
+        r["sliced_products"] = cols.calls - n0 if cols is not None else 0
+    r["traffic"] = dict(sharding.traffic)
+    r["lockstep"] = [(i.lockstep_checks, i.lockstep_digest)
+                     for i in ro.instances]
+    del ro
+    _free(torch)
+    return r
+
+
+class ColumnProducts:
+    """The column-parallel products of a dense model's sharded forward
+    (``wq``, ``wk``, ``wv``, ``wg`` and ``wu`` of each layer), while
+    installed as ``transformer.lin`` (``installed``): each is computed as
+    the rank runs it, ``x @ W[:, cols]`` on its shard, and as the same
+    columns of the unsharded product ``x @ W`` on the same x
+    (``steps.param_shard`` of the product).  ``sliced`` hands the
+    forward the latter, so that every other piece of the sharded path
+    (the gathers' order, the head and K/V shards, K1 / K2 on them with the
+    unsharded split, sampling) meets the one-device path's inputs and
+    must give its bits; ``record`` keeps both products of each call for
+    ``product_gaps``."""
+
+    def __init__(self, cfg, whole: dict, mine: dict, sctx):
+        self.cfg, self.sctx = cfg, sctx
+        self.leaves = {}
+        for i, (lw, lm) in enumerate(zip(whole["layers"], mine["layers"])):
+            for blk, names in (("attn", ("wq", "wk", "wv")),
+                               ("mlp", ("wg", "wu"))):
+                for n in names:
+                    if lm[blk][n].shape != lw[blk][n].shape:
+                        self.leaves[id(lm[blk][n])] = (i, blk, n,
+                                                       lw[blk][n])
+        check(len(self.leaves) == 5 * len(whole["layers"]),
+              f"ColumnProducts: {len(self.leaves)} sharded column leaves "
+              f"for {len(whole['layers'])} layers")
+        self.sliced = self.record = False
+        self.width, self.calls, self.records = 0, 0, []
+
+    def lin(self, x, w):
+        from repro_torch.launch.steps import param_shard
+        from repro_torch.models.common import lin
+        hit = self.leaves.get(id(w))
+        if hit is None:
+            return lin(x, w)
+        layer, blk, name, whole = hit
+        y = lin(x, whole)
+        cut = param_shard(self.cfg, blk, name, y.reshape(-1, y.shape[-1]),
+                          self.sctx).reshape(*y.shape[:-1], -1)
+        own = lin(x, w) if self.record or not self.sliced else None
+        if self.record:
+            self.records.append((self.width, layer, name, x.shape, own, cut))
+        self.calls += self.sliced
+        return cut if self.sliced else own
+
+    @contextlib.contextmanager
+    def installed(self, sliced: bool, record: bool = False):
+        from repro_torch.models import transformer
+        inner = transformer.lin
+        self.sliced, self.record = sliced, record
+        transformer.lin = self.lin
+        try:
+            yield self
+        finally:
+            transformer.lin = inner
+            self.sliced = self.record = False
+
+    def product_gaps(self, torch) -> list:
+        """Each recorded call: the rank's product against the same
+        columns of the unsharded one, bitwise or by how much."""
+        out = []
+        for T, layer, name, xs, own, cut in self.records:
+            same = bool(torch.equal(own, cut))
+            out.append({"T": T, "layer": layer, "weight": name,
+                        "M": int(math.prod(xs[:-1])), "K": int(xs[-1]),
+                        "N": int(own.shape[-1]), "equal": same,
+                        "max_gap": 0.0 if same else
+                        float((own.float() - cut.float()).abs().max())})
+        self.records.clear()
+        return out
+
+
+def tp_probe(torch, np, cfg, params, sctx, cols=None) -> list:
+    """Every activation the exact layers gather (``sharding.whole_columns``:
+    o before ``wo``, h before ``wd``, vocab-split logits) and the logits,
+    of a 16-token prefill chunk and a decode step on 8 seeded rows, as
+    (step width T, kind, layer, tensor on the host); at tp=None the same
+    call sites see the whole activations.  ``cols``: the installed
+    ``ColumnProducts``, told each forward's width."""
+    from repro_torch import sharding
+    from repro_torch.models import forward, init_cache
+    rec = []
+    inner = sharding.whole_columns
+    width = [0]
+
+    def recording(t, full, sctx_):
+        out = inner(t, full, sctx_)
+        kind = "o" if full == cfg.num_heads * cfg.head_dim else \
+            "h" if full == cfg.d_ff else "logits"
+        layer = sum(w == width[0] and k == kind for w, k, _, _ in rec)
+        rec.append((width[0], kind, layer, out.detach().float().cpu()))
+        return out
+    rng = np.random.default_rng(5)
+    B = 8
+    cache = init_cache(cfg, B, 256, device=TP_DEVICE, sctx=sctx)
+    sharding.whole_columns = recording
+    try:
+        for T, start in ((16, 0), (1, 16)):
+            width[0] = T
+            if cols is not None:
+                cols.width = T
+            tok = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, T)).astype(np.int32)).to(TP_DEVICE)
+            pos = (start + torch.arange(T, dtype=torch.int32)).expand(
+                B, T).contiguous().to(TP_DEVICE)
+            logits, cache, _ = forward(cfg, params, tok, pos, cache,
+                                       sctx=sctx)
+            rec.append((T, "final logits", cfg.num_layers,
+                        logits.float().cpu()))
+    finally:
+        sharding.whole_columns = inner
+    return rec
+
+
+def _probe_gaps(torch, want: list, got: list) -> list:
+    """``tp_probe`` records side by side: each activation bitwise equal
+    to the one-device path's, or its largest gap."""
+    check(len(want) == len(got), f"tp probe: {len(got)} activations "
+          f"gathered, the one-device path {len(want)}")
+    return [{"T": T, "kind": k, "layer": i, "shape": list(a.shape),
+             "equal": bool(torch.equal(a, b)),
+             "max_gap": float((a - b).abs().max())}
+            for (T, k, i, a), (_, _, _, b) in zip(want, got)]
+
+
+def _tp_model(torch, np, rank, arch, layers, cache_len) -> dict:
+    """One model's runs on this rank: tp=None and tp=1 on rank 0 alone
+    (the whole weights; the other rank waits), then tp=2 twice on both
+    ranks (the repeat must be bitwise); a dense
+    model (granite) also a tree pass and a pass with every column product
+    sliced from the unsharded one (``ColumnProducts``; every rank holds
+    the whole weights for it), and on rank 0 its oracle, tp=None under
+    tp=2's schedule (``_schedule_of``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import engine_group
+    cfg = _arch_cfg(arch, layers)
+    dense = cfg.arch_type == "dense"
+    prompts = make_prompts(np, cfg, TP_GROUPS, seed=1)
+    runs = {}
+    t0 = time.perf_counter()
+    whole = _tp_params(torch, cfg, None) if rank == 0 or dense else None
+    if rank == 0:
+        for tp in (None, 1):
+            runs[tp] = tp_run(torch, cfg, whole, prompts, tp, cache_len)
+        if dense:
+            runs["oracle"] = tp_run(torch, cfg, whole, prompts, None,
+                                    cache_len, schedule_tp=TP)
+    if not dense:
+        whole = None
+        _free(torch)
+    dist.barrier()
+    sctx = engine_group(TP)
+    runs["params_s"] = -time.perf_counter()
+    params = _tp_params(torch, cfg, sctx)
+    runs["params_s"] += time.perf_counter()
+    runs["shard_gb"] = sum(w.numel() * w.element_size()
+                           for w in _tensors(params)) / 1e9
+    runs[TP] = [tp_run(torch, cfg, params, prompts, TP, cache_len)
+                for _ in range(2)]
+    if dense:
+        runs["tree"] = tp_run(torch, cfg, params, prompts, TP, cache_len,
+                              warm=True, spec_mode="tree", multipath_top_k=3)
+        runs["sliced"] = tp_run(torch, cfg, params, prompts, TP, cache_len,
+                                cols=ColumnProducts(cfg, whole, params, sctx))
+    del params, whole
+    _free(torch)
+    runs["wall_s"] = time.perf_counter() - t0
+    return runs
+
+
+def _tp_f32(torch, np, rank) -> dict:
+    """granite-3-8b at full width and TP_F32_LAYERS layers in f32: the
+    rollout and ``tp_probe`` at tp=None (rank 0; the rollout also under
+    tp=2's schedule) and at tp=2, each tp=2 one also with every column
+    product sliced from the unsharded one (``ColumnProducts``); rank 0
+    compares the probes with tp=None's, every rank its own column
+    products with the unsharded ones."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import engine_group
+    cfg = dataclasses.replace(_arch_cfg("granite-3-8b", TP_F32_LAYERS),
+                              dtype="float32")
+    prompts = make_prompts(np, cfg, TP_GROUPS, seed=1)
+    out = {}
+    whole = _tp_params(torch, cfg, None)
+    if rank == 0:
+        out["none"] = tp_run(torch, cfg, whole, prompts, None, 2048,
+                             new_tokens=TP_F32_NEW_TOKENS)
+        out["oracle"] = tp_run(torch, cfg, whole, prompts, None, 2048,
+                               new_tokens=TP_F32_NEW_TOKENS, schedule_tp=TP)
+        oracle = tp_probe(torch, np, cfg, whole, None)
+    dist.barrier()
+    sctx = engine_group(TP)
+    mine = _tp_params(torch, cfg, sctx)
+    cols = ColumnProducts(cfg, whole, mine, sctx)
+    out["two"] = tp_run(torch, cfg, mine, prompts, TP, 2048,
+                        new_tokens=TP_F32_NEW_TOKENS)
+    out["sliced"] = tp_run(torch, cfg, mine, prompts, TP, 2048,
+                           new_tokens=TP_F32_NEW_TOKENS, cols=cols)
+    with cols.installed(sliced=False, record=True):
+        own = tp_probe(torch, np, cfg, mine, sctx, cols)
+    out["products"] = cols.product_gaps(torch)
+    with cols.installed(sliced=True):
+        sliced = tp_probe(torch, np, cfg, mine, sctx, cols)
+    if rank == 0:
+        out["probe"] = _probe_gaps(torch, oracle, own)
+        out["sliced_probe"] = _probe_gaps(torch, oracle, sliced)
+    del whole, mine, cols
+    _free(torch)
+    return out
+
+
+def tp_rank(rank: int, world: int, device, out_dir: str) -> None:
+    """One rank of the tensor-parallel phase, started by ``tp_phase``
+    through ``repro_torch.launch.mesh.spawn`` (gloo, both ranks on the
+    card); writes what it saw to ``out_dir/rank{rank}.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "models": {}}
+    for arch, layers, cache_len in TP_MODELS:
+        out["models"][arch] = _tp_model(torch, np, rank, arch, layers,
+                                        cache_len)
+    out["f32"] = _tp_f32(torch, np, rank)
+    # each rollout's peak (``run_rollout`` resets the counter before it)
+    runs = [r for m in out["models"].values() for k, r in m.items()
+            if k in (None, 1, "tree", "sliced", "oracle")]
+    runs += [r for m in out["models"].values() for r in m[TP]]
+    runs += [r for k, r in out["f32"].items()
+             if k in ("none", "two", "sliced", "oracle")]
+    out["peak_mem_gb"] = max(r["peak_mem_gb"] for r in runs)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _tp_shards(Hq, Hk):
+    from repro_torch.sharding import head_shard
+    return [head_shard(Hq, Hk, TP, r) for r in range(TP)]
+
+
+def tp_kernels_check(torch, np, widths: dict, tree_widths) -> list:
+    """K1 at the phase's shard shapes: at every width each model's tp=2
+    runs used, each rank's heads through the wrapper with ``split_like``
+    (the unsharded n_split) equal those heads of the unsharded call,
+    bitwise; the shard shape also held to the plain version on both
+    routes (``_k1_case``).  K2 the same at the granite tree pass's
+    widths.  bf16, B = 8, the models' caches, permuted slots, an empty
+    row and a blind query."""
+    from repro_torch.kernels.spec_verify import ops
+    rows = []
+    for arch, (Hq, Hk, D, window), S in (
+            ("granite-3-8b", K1_SHAPES["granite-3-8b"], 2048),
+            (MOE_ARCH, K1_SHAPES[MOE_ARCH], MOE_CACHE_LEN),
+            ("zamba2-1.2b", K1_SHAPES["zamba2-1.2b"], 2048)):
+        shards = _tp_shards(Hq, Hk)
+        for T in sorted(widths[arch]):
+            q, k, v, qp, kp = _sv_inputs(torch, np, B=8, T=T, S=S, Hq=Hq,
+                                         Hk=Hk, D=D, dtype="bfloat16",
+                                         seed=300 + T, live=None)
+            whole = ops.spec_verify(q, k, v, qp, kp, window=window)
+            for r, hs in enumerate(shards):
+                qs = q[:, :, hs.q_lo:hs.q_hi].contiguous()
+                ks = k[:, :, hs.kv_lo:hs.kv_hi].contiguous()
+                vs = v[:, :, hs.kv_lo:hs.kv_hi].contiguous()
+                part = _no_sync(torch, lambda: ops.spec_verify(
+                    qs, ks, vs, qp, kp, window=window, split_like=(Hq, Hk)))
+                check(torch.equal(part, whole[:, :, hs.q_lo:hs.q_hi]),
+                      f"spec_verify {arch} T={T}: rank {r}'s heads with the "
+                      "unsharded split differ from the unsharded call's")
+            row = _k1_case(torch, f"{arch}/tp{TP}", qs, ks, vs, qp, kp,
+                           window, empty_rows=True,
+                           note=f"rank {TP - 1}'s heads of {Hq}/{Hk}; every "
+                           "rank's heads bitwise the unsharded call's")
+            row["bitwise_shards"] = True
+            rows.append(row)
+    from repro_torch.kernels.spec_verify.ref import tree_verify_ref
+    Hq, Hk, D, _ = K1_SHAPES["granite-3-8b"]
+    for T in sorted(tree_widths):
+        q, k, v, qp, kp, tm = _tree_inputs(torch, np, B=8, T=T, S=2048,
+                                           Hq=Hq, Hk=Hk, D=D,
+                                           dtype="bfloat16", seed=400 + T)
+        whole = ops.tree_verify(q, k, v, qp, kp, tm)
+        err = 0.0
+        for r, hs in enumerate(_tp_shards(Hq, Hk)):
+            qs = q[:, :, hs.q_lo:hs.q_hi].contiguous()
+            ks = k[:, :, hs.kv_lo:hs.kv_hi].contiguous()
+            vs = v[:, :, hs.kv_lo:hs.kv_hi].contiguous()
+            part = _no_sync(torch, lambda: ops.tree_verify(
+                qs, ks, vs, qp, kp, tm, split_like=(Hq, Hk)))
+            check(torch.equal(part, whole[:, :, hs.q_lo:hs.q_hi]),
+                  f"tree_verify T={T}: rank {r}'s heads differ from the "
+                  "unsharded call's")
+            ref = tree_verify_ref(qs, ks, vs, qp, kp, tm)
+            err = max(err, float((part.float() - ref.float()).abs().max()))
+            check(bool(torch.allclose(part.float(), ref.float(),
+                                      atol=TOL["bfloat16"],
+                                      rtol=TOL["bfloat16"])),
+                  f"tree_verify granite-3-8b/tp{TP} T={T}: rank {r}'s heads "
+                  f"disagree with the plain version, max|err|={err}")
+        rows.append({"shape": f"granite-3-8b/tp{TP}/tree", "T": T,
+                     "Hq": Hq // TP, "Hk": Hk // TP, "D": D,
+                     "bitwise_shards": True, "max_abs_err": err})
+        log(f"  tree_verify granite-3-8b/tp{TP} T={T}: each rank's heads "
+            f"with the unsharded split bitwise the unsharded call's; "
+            f"max|err| against the plain version {err:.3e} (tol "
+            f"{TOL['bfloat16']})")
+    return rows
+
+
+def _differing(a: dict, b: dict) -> dict:
+    """Requests whose responses differ: req -> first differing position."""
+    out = {}
+    for rid, want in a.items():
+        got = b.get(rid, [])
+        if got != want:
+            out[rid] = next((j for j, (x, y) in enumerate(zip(want, got))
+                             if x != y), min(len(want), len(got)))
+    return out
+
+
+def _tp_gates(name, cfg, runs0, runs1, new_tokens, dense=False) -> dict:
+    """The hard gates of one model's runs (rank 0's and rank 1's): tp=1
+    bitwise tp=None (tokens, logprobs, engine steps, host syncs); each
+    rank's tp=2 repeat bitwise; both ranks the same
+    tokens, logprobs and lockstep digests; one host sync per engine step
+    on each rank; every request's full length; the kernels per forward as
+    on one device.  A dense model's pass with the column products sliced
+    from the unsharded ones (``ColumnProducts``) must equal its oracle,
+    tp=None under tp=2's schedule, bitwise: what remains between tp=2 and
+    that oracle is then cuBLAS's."""
+    none, one = runs0[None], runs0[1]
+    for key in ("responses", "logprobs", "fused_steps", "host_syncs",
+                "by_kind", "launches", "replays"):
+        check(one[key] == none[key], f"tp {name}: tp=1 and tp=None differ "
+              f"in {key}")
+    extra = ("tree", "sliced") if dense else ()
+    for rank, runs in enumerate((runs0, runs1)):
+        first, again = runs[TP]
+        for key in ("responses", "logprobs", "fused_steps", "launches",
+                    "replays", "lockstep"):
+            check(again[key] == first[key], f"tp {name}: rank {rank}'s "
+                  f"tp={TP} repeat differs in {key}")
+        for r_ in runs[TP] + [runs[k] for k in extra]:
+            check(r_["host_syncs"] == r_["fused_steps"], f"tp {name}: rank "
+                  f"{rank}: host syncs {r_['host_syncs']} != engine steps "
+                  f"{r_['fused_steps']}")
+            check(all(c > 0 for c, _ in r_["lockstep"]), f"tp {name}: an "
+                  "instance compared no host batch across the ranks")
+        rec_rollout_checks(first, cfg, f"tp {name} rank {rank}")
+    for key in ("responses", "logprobs", "fused_steps", "lockstep"):
+        check(runs0[TP][0][key] == runs1[TP][0][key], f"tp {name}: the "
+              f"ranks differ in {key}")
+    a, b = runs0[TP][0], runs1[TP][0]
+    lost = sum(sum(x != y for x, y in zip(a["responses"][rid], got))
+               + abs(len(a["responses"][rid]) - len(got))
+               for rid, got in b["responses"].items())
+    short = sum(new_tokens - len(x) for x in a["responses"].values())
+    check(lost == 0 and short == 0, f"tp {name}: tokens_lost {lost}, "
+          f"{short} tokens short of the requests' lengths")
+    if dense:
+        _sliced_gates(f"tp {name}", runs0["oracle"],
+                      [runs0["sliced"], runs1["sliced"]])
+    return {"tokens_lost": lost, "short": short}
+
+
+def _sliced_gates(name, oracle, sliced) -> None:
+    """Each rank's pass with the one-device column products
+    (``ColumnProducts``) bitwise its oracle, tp=None under tp=2's schedule:
+    tokens, logprobs, engine steps by width, launches, host syncs."""
+    for rank, sl in enumerate(sliced):
+        check(sl["sliced_products"] > 0, f"{name}: rank {rank}'s sliced "
+              "pass sliced no product")
+        for key in ("responses", "logprobs", "fused_steps", "by_kind",
+                    "launches", "host_syncs"):
+            check(sl[key] == oracle[key], f"{name}: rank {rank}'s tp={TP} "
+                  f"pass with the unsharded products' columns differs from "
+                  f"tp=None under tp={TP}'s schedule in {key}: the port's "
+                  "own fault")
+
+
+def _equal_responses(a: dict, b: dict) -> int:
+    return len(a["responses"]) - len(_differing(a["responses"],
+                                                b["responses"]))
+
+
+def _feeds(p: dict, act: dict) -> bool:
+    """Whether column product ``p`` of ``tp_probe``'s forwards (a
+    prefill chunk, then a decode step on its cache) feeds the gathered
+    activation ``act``: a product of an earlier layer, or of ``act``'s
+    own (only ``wq`` / ``wk`` / ``wv`` for an attention output o); for the
+    decode step also, through the cache, the prefill's products of the
+    earlier layers and its ``wk`` / ``wv`` of ``act``'s own."""
+    if p["T"] != act["T"]:
+        return p["T"] > act["T"] and (p["layer"] < act["layer"] or (
+            p["layer"] == act["layer"] and p["weight"] in ("wk", "wv")))
+    if p["layer"] != act["layer"] or act["kind"] != "o":
+        return p["layer"] <= act["layer"]
+    return p["weight"] in ("wq", "wk", "wv")
+
+
+def _product_summary(products: list) -> dict:
+    """Column products by (T, weight): calls, how many are not bitwise
+    and the largest gap."""
+    out = {}
+    for p in products:
+        s = out.setdefault(f"T={p['T']} {p['weight']} M={p['M']} K={p['K']}"
+                           f" N={p['N']}", {"calls": 0, "not_bitwise": 0,
+                                            "max_gap": 0.0})
+        s["calls"] += 1
+        s["not_bitwise"] += not p["equal"]
+        s["max_gap"] = max(s["max_gap"], p["max_gap"])
+    return out
+
+
+def tp_phase(torch, np) -> dict:
+    """The engine's tensor parallelism on the card: ``tp_rank`` in two
+    gloo ranks on cuda:0 (the parent's models freed first; every kernel
+    library already built, so no rank builds), then, in this process,
+    the gates (``_tp_gates``), K1 / K2 at the shard shapes
+    (``tp_kernels_check``), the bf16 and f32 comparisons of tp=2 with
+    tp=None, and the K1 / K2 timings at the shard shapes.  A difference
+    the port's own code makes fails: granite's tp=2 passes (bf16, f32)
+    with every column product sliced from the unsharded one
+    (``ColumnProducts``) must equal tp=None run under tp=2's cost model
+    (``_schedule_of``) bitwise, and the f32 probe so sliced tp=None's.
+    What remains is the rank's own column products, each held to the
+    unsharded product's columns on the same input and printed by shape
+    and gap, and tp's schedule: open faults, not gated."""
+    import pickle
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    ranks = []
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        spawn(tp_rank, TP, backend="gloo", device=TP_DEVICE, args=(tmp,))
+        for r in range(TP):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    rep = {"ranks_wall_s": time.perf_counter() - t0, "models": {},
+           "peak_mem_gb": [x["peak_mem_gb"] for x in ranks]}
+    widths, tree_widths = {}, set()
+    for arch, layers, cache_len in TP_MODELS:
+        cfg = _arch_cfg(arch, layers)
+        dense = cfg.arch_type == "dense"
+        r0, r1 = (x["models"][arch] for x in ranks)
+        gates = _tp_gates(arch, cfg, r0, r1, TP_NEW_TOKENS, dense=dense)
+        none, two = r0[None], r0[TP][0]
+        diff = _differing(none["responses"], two["responses"])
+        widths[arch] = {int(k.split(":")[1]) for k in two["by_kind"]}
+        m = {"layers": cfg.num_layers, "requests": len(none["responses"]),
+             "tokens": two["stats"].tokens, "fused_steps": two["fused_steps"],
+             "k1_launches": two["launches"]["spec_verify"],
+             "k4_launches": two["launches"]["ssd_scan"],
+             "by_kind": two["by_kind"], "host_syncs": two["host_syncs"],
+             "wall_s": {"none": none["wall_s"], "one": r0[1]["wall_s"],
+                        "two": [[x["wall_s"] for x in r_[TP]]
+                                for r_ in (r0, r1)]},
+             "traffic": two["traffic"], "shard_gb": [r0["shard_gb"],
+                                                     r1["shard_gb"]],
+             "bf16_responses_equal_to_tp_none":
+                 len(none["responses"]) - len(diff),
+             "bf16_first_difference": diff, **gates,
+             "model_wall_s": [r0["wall_s"], r1["wall_s"]]}
+        steps_ = two["fused_steps"]
+        log(f"  {arch} ({cfg.num_layers} layers, full width): tp=1 bitwise "
+            f"tp=None (tokens, logprobs, {r0[1]['fused_steps']} engine "
+            f"steps, host syncs); tp={TP} repeat bitwise on both ranks, "
+            f"ranks equal, 1 host sync a step, tokens_lost 0; "
+            f"{steps_} engine steps, K1 {m['k1_launches']}"
+            + (f", K4 {m['k4_launches']}" if m["k4_launches"] else "")
+            + f" launches a rank; shard {r0['shard_gb']:.1f} GB a rank")
+        log(f"    walls: tp=None {none['wall_s']:.1f} s, tp=1 "
+            f"{r0[1]['wall_s']:.1f} s, tp={TP} ranks {m['wall_s']['two']} "
+            f"s; collectives a step {two['traffic']['all_gather'] / steps_:.1f}"
+            f" gathers, {two['traffic']['all_gather_bytes'] / steps_ / 1e6:.3f}"
+            f" MB sent a rank, {two['traffic']['lockstep'] / steps_:.1f} "
+            f"lockstep digests — {NOT_A_SPEED}")
+        log(f"    bf16: tp={TP} responses equal to tp=None "
+            f"{m['bf16_responses_equal_to_tp_none']}/{m['requests']}"
+            + (f"; first differing positions {sorted(diff.values())}"
+               if diff else ""))
+        if dense:
+            sl, orc = r0["sliced"], r0["oracle"]
+            m["same_schedule"] = {
+                "oracle_fused_steps": orc["fused_steps"],
+                "tp_none_fused_steps": none["fused_steps"],
+                "oracle_responses_equal_to_tp_none":
+                    _equal_responses(none, orc),
+                "tp2_responses_equal_to_oracle": _equal_responses(orc, two),
+                "sliced_equal_to_oracle": True,
+                "sliced_products": sl["sliced_products"],
+                "wall_s": sl["wall_s"]}
+            s_ = m["same_schedule"]
+            log(f"    tp={TP}'s cost model changes the draft budgets and so "
+                f"the batches: tp=None under tp={TP}'s schedule "
+                f"{orc['fused_steps']} engine steps (tp=None "
+                f"{none['fused_steps']}), responses equal to tp=None's "
+                f"{s_['oracle_responses_equal_to_tp_none']}/{m['requests']};"
+                f" tp={TP} equal to it {s_['tp2_responses_equal_to_oracle']}"
+                f"/{m['requests']}; with the unsharded products' columns "
+                f"({sl['sliced_products']} column products a rank) tp={TP} "
+                f"is it bitwise (tokens, logprobs, steps by width, launches,"
+                f" host syncs) on both ranks")
+            tr = r0["tree"]
+            check(tr["finished"], "tp tree pass: not every group finished")
+            check(tr["launches"]["tree_verify"] == tr["fused_steps"]
+                  * cfg.num_layers and tr["launches"]["spec_verify"] == 0,
+                  f"tp tree pass: launches {tr['launches']} for "
+                  f"{tr['fused_steps']} steps x {cfg.num_layers} layers")
+            check(tr["launches"] == r1["tree"]["launches"] and
+                  tr["responses"] == r1["tree"]["responses"],
+                  "tp tree pass: the ranks differ")
+            check(tr["stats"].accepted > 0, "tp tree pass: no draft "
+                  "accepted")
+            tree_widths = {int(k.split(":")[1]) for k in tr["by_kind"]}
+            m["tree"] = {"fused_steps": tr["fused_steps"],
+                         "k2_launches": tr["launches"]["tree_verify"],
+                         "accepted": tr["stats"].accepted,
+                         "tree_branch_nodes": tr["tree_branch_nodes"],
+                         "by_kind": tr["by_kind"], "wall_s": tr["wall_s"]}
+            log(f"    tree pass (tp={TP}, 3 paths, after a warm pass): "
+                f"{tr['fused_steps']} "
+                f"engine steps, K2 {tr['launches']['tree_verify']} launches"
+                f" a rank, accepted {tr['stats'].accepted}, branching nodes "
+                f"{tr['tree_branch_nodes']}, 1 host sync a step, ranks equal")
+        rep["models"][arch] = m
+
+    log(f"  K1 / K2 at the shard shapes against the unsharded call")
+    rep["kernel_checks"] = tp_kernels_check(torch, np, widths, tree_widths)
+
+    f0 = ranks[0]["f32"]
+    none, two, sl, orc = f0["none"], f0["two"], f0["sliced"], f0["oracle"]
+    check(two["responses"] == ranks[1]["f32"]["two"]["responses"],
+          "tp f32: the ranks differ")
+    _sliced_gates("tp f32", orc, [x["f32"]["sliced"] for x in ranks])
+    sliced_bad = [p for p in f0["sliced_probe"] if not p["equal"]]
+    check(not sliced_bad, "tp f32: with the unsharded products' columns the "
+          "sharded forward's gathered activations differ from tp=None's "
+          f"(the port's own fault): {sliced_bad[:3]}")
+    f32_diff = _differing(none["responses"], two["responses"])
+    probe = f0["probe"]
+    bad = [p for p in probe if not p["equal"]]
+    products = {f"rank {r}": _product_summary(x["f32"]["products"])
+                for r, x in enumerate(ranks)}
+    n_prod = sum(len(x["f32"]["products"]) for x in ranks)
+    n_bad = sum(not p["equal"] for x in ranks for p in x["f32"]["products"])
+    rep["f32"] = {"layers": TP_F32_LAYERS, "new_tokens": TP_F32_NEW_TOKENS,
+                  "responses_equal": len(none["responses"]) - len(f32_diff),
+                  "requests": len(none["responses"]),
+                  "first_difference": f32_diff, "probe": probe,
+                  "oracle_fused_steps": orc["fused_steps"],
+                  "tp_none_fused_steps": none["fused_steps"],
+                  "tp2_responses_equal_to_oracle": _equal_responses(orc, two),
+                  "sliced_probe_equal": True, "sliced_rollout_equal": True,
+                  "column_products": products,
+                  "fused_steps": two["fused_steps"]}
+    log(f"  f32 granite-3-8b ({TP_F32_LAYERS} layers, TF32 off, "
+        f"{TP_F32_NEW_TOKENS} tokens): tp={TP} responses equal to tp=None "
+        f"{rep['f32']['responses_equal']}/{rep['f32']['requests']}; "
+        f"gathered activations equal to tp=None's "
+        f"{len(probe) - len(bad)}/{len(probe)}; under tp={TP}'s schedule "
+        f"({orc['fused_steps']} engine steps, tp=None {none['fused_steps']})"
+        f" tp={TP} responses equal to tp=None's "
+        f"{rep['f32']['tp2_responses_equal_to_oracle']}/"
+        f"{rep['f32']['requests']}; "
+        f"with the unsharded products' columns the rollout "
+        f"({sl['sliced_products']} products) bitwise its oracle and all "
+        f"{len(probe)} activations bitwise tp=None's on both ranks")
+    for p in bad[:6]:
+        log(f"    differs (T={p['T']}): {p['kind']} of layer {p['layer']} "
+            f"{p['shape']}: max gap {p['max_gap']:.3e}")
+    log(f"  the ranks' column products against the same columns of the "
+        f"unsharded product on the same input: {n_prod - n_bad}/{n_prod} "
+        "bitwise")
+    for r, summ in products.items():
+        for k_, s_ in summ.items():
+            if s_["not_bitwise"]:
+                log(f"    {r}: {k_} {s_['not_bitwise']}/{s_['calls']} "
+                    f"layers not bitwise, max gap {s_['max_gap']:.3e}")
+    if bad:
+        first = bad[0]
+        feeding = [(r, p) for r, x in enumerate(ranks)
+                   for p in x["f32"]["products"]
+                   if not p["equal"] and _feeds(p, first)]
+        log(f"    the first differing activation ({first['kind']} of layer "
+            f"{first['layer']}, T={first['T']}) is fed by "
+            f"{len(feeding)} non-bitwise column products: " + ", ".join(
+                f"rank {r} layer {p['layer']} {p['weight']} T={p['T']} "
+                f"({p['max_gap']:.1e})" for r, p in feeding[:8]))
+        # with the sliced products bitwise tp=None, a differing activation
+        # needs a differing product at or before it
+        check(bool(feeding), "tp f32: an activation differs from tp=None "
+              "but no column product feeding it does: the port's own fault")
+    rep["open_fault"] = bool(f32_diff or bad or n_bad or any(
+        m_["bf16_first_difference"] for m_ in rep["models"].values()))
+
+    # K1 / K2 / K4 timed at the shard shapes: each model's commonest tp=2
+    # width, contexts halfway through the responses
+    timing = {}
+    for arch, layers, cache_len in TP_MODELS:
+        cfg = _arch_cfg(arch, layers)
+        Hq, Hk, D, window = K1_SHAPES[arch]
+        hs = _tp_shards(Hq, Hk)[0]
+        K1_SHAPES[f"{arch}/tp{TP}"] = (hs.q_hi - hs.q_lo, hs.kv_hi - hs.kv_lo,
+                                       D, window)
+        prompts = make_prompts(np, cfg, TP_GROUPS, seed=1)
+        live = np.asarray([min(len(p) + TP_NEW_TOKENS // 2, cache_len)
+                           for p in prompts for _ in range(GROUP_SIZE)][:8])
+        by = rep["models"][arch]["by_kind"]
+        T = int(max(by, key=by.get).split(":")[1])
+        timing[arch] = kernels_time(torch, np, B=8, S=cache_len, T=T,
+                                    live=live, model=f"{arch}/tp{TP}",
+                                    split_like=(Hq, Hk))
+        log_verify_time(f"spec_verify/{arch}/tp{TP} (rank 0's heads, the "
+                        "unsharded split)", timing[arch])
+        if arch == "granite-3-8b":
+            tby = rep["models"][arch]["tree"]["by_kind"]
+            tT = int(max(tby, key=tby.get).split(":")[1])
+            timing["tree"] = tree_kernels_time(
+                torch, np, B=8, S=cache_len, T=tT, live=live,
+                model=f"{arch}/tp{TP}", split_like=(Hq, Hk))
+            log_verify_time(f"tree_verify/{arch}/tp{TP} (rank 0's heads)",
+                            timing["tree"])
+    rep["timing"] = timing
+    rep["phase_s"] = time.perf_counter() - t0
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0,
@@ -4086,6 +4868,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, check K1, K2 and K4 and time them at the "
                     "fixed widths, then stop (no slices, no result line)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build, check K1 and K2, then run the "
+                    "tensor-parallel phase and stop (no result line)")
     ap.add_argument("--out", default=None,
                     help="directory for the full JSON report and traces")
     args = ap.parse_args()
@@ -4165,6 +4950,21 @@ def main() -> int:
 
     B, S = 8, 2048
 
+    def tensor_parallel():
+        log(f"tensor parallel: tp=1 and tp={TP} (two gloo ranks on cuda:0) "
+            f"at full width on " + ", ".join(
+                f"{a} ({n} layers)" for a, n, _ in TP_MODELS)
+            + f", {TP_GROUPS} groups x {GROUP_SIZE}, {TP_NEW_TOKENS} "
+            f"tokens, bf16; granite at {TP_F32_LAYERS} layers in f32")
+        _free(torch)
+        rep_ = report["tensor_parallel"] = tp_phase(torch, np)
+        log(f"  ranks {rep_['ranks_wall_s']:.1f} s (spawn, weights, every "
+            f"run), the largest rollout peak of each rank "
+            f"{rep_['peak_mem_gb']} GB; the phase "
+            f"{rep_['phase_s']:.1f} s — {NOT_A_SPEED}")
+        phase_done("tensor parallel")
+        return rep_
+
     def finish_kernels_only():
         if out_dir:
             with open(os.path.join(out_dir, "report.json"), "w") as f:
@@ -4192,6 +4992,10 @@ def main() -> int:
     log("kernels: tree_verify (K2) against its plain version")
     report["tree_kernel_checks"] = tree_kernels_check(
         torch, np, B=B, S=S, T_list=CHECK_WIDTHS)
+
+    if args.tp_only:
+        tensor_parallel()
+        return finish_kernels_only()
 
     if args.kernels_only:
         ssd_kernels()
@@ -4889,6 +5693,37 @@ def main() -> int:
               for name, tm in zip(("zamba2-1.2b", "mamba2-370m"), bwd_t)]]
 
     phase_done("timing")
+
+    tpr = tensor_parallel()
+    tp_checks = tpr["kernel_checks"]
+
+    def tp_row(name, tpu, arch, path, launches, shape, tm, source):
+        return kernel_row(name, tpu, f"{arch} tensor parallel tp={TP}, rank "
+                          f"0, {path}", launches,
+                          checks_of(tp_checks, shape) + [tm], tm,
+                          source=source)
+    g_ = tpr["models"]["granite-3-8b"]
+    rows += [
+        tp_row(f"spec_verify/tp{TP}", SPEC_VERIFY_TPU, "granite-3-8b",
+               f"first tp={TP} rollout", g_["k1_launches"],
+               f"granite-3-8b/tp{TP}", tpr["timing"]["granite-3-8b"],
+               SPEC_VERIFY_SRC),
+        tp_row(f"tree_verify/tp{TP}", TREE_VERIFY_TPU, "granite-3-8b",
+               "tree pass", g_["tree"]["k2_launches"],
+               f"granite-3-8b/tp{TP}/tree", tpr["timing"]["tree"],
+               SPEC_VERIFY_SRC),
+        *[tp_row(f"spec_verify/{a}/tp{TP}", SPEC_VERIFY_TPU, a,
+                 f"first tp={TP} rollout", tpr["models"][a]["k1_launches"],
+                 f"{a}/tp{TP}", tpr["timing"][a], SPEC_VERIFY_SRC)
+          for a in (MOE_ARCH, "zamba2-1.2b")],
+        kernel_row(f"ssd_scan/tp{TP}", SSD_TPU,
+                   f"zamba2-1.2b tensor parallel tp={TP}, rank 0, first "
+                   f"tp={TP} rollout (Mamba2 blocks whole on each rank)",
+                   tpr["models"]["zamba2-1.2b"]["k4_launches"],
+                   checks_of(report["ssd_kernel_checks"], "mamba2-370m",
+                             other=True),
+                   report["ssd_kernel_time"][0], source=SSD_SRC)]
+
     report["wall_total_s"] = time.perf_counter() - t0
     log(f"whole run: {report['wall_total_s']:.1f} s")
     if out_dir:

@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import (DeviceLike, dtype_name, resolve_device,
                                 torch_dtype)
 from repro_torch.engine.engine import KVBlob
+from repro_torch.launch.steps import engine_param_shards
 from repro_torch.layout import jax_layout
 from repro_torch.models.mamba2 import F32_PARAMS
 from repro_torch.models.transformer import check_arch, init_cache
@@ -42,7 +43,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
-                    dtype=None) -> dict:
+                    dtype=None, sctx=None) -> dict:
     """The JAX package's ``init_params`` tree (as numpy) -> the port's
     params.  Stacked layer leaves become per-layer weights: dense
     ``layers[i]``, moe ``dense_layers[i]`` and ``layers[j]`` (the
@@ -57,10 +58,16 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
     (``lin``, the embed gather and the tied unembed).  Norms and the
     Mamba2 vectors stay f32, and so do the conv weights, which the
     reference uses in f32 (``causal_conv``), and the MoE router, on which
-    the reference routes in f32."""
+    the reference routes in f32.  With ``sctx`` (a rank of the engine's
+    tensor-parallel group) the tree is that rank's shard
+    (``launch.steps.engine_param_shards``), each block cut as it is
+    carried over, so no rank holds a second whole copy of the model."""
     check_arch(cfg)
     dev = resolve_device(device)
     wdt = torch_dtype(dtype or cfg.dtype)
+
+    def place(block):
+        return engine_param_shards(cfg, block, sctx)
 
     def mat(a):
         return to_tensor(a, dev, wdt)
@@ -73,13 +80,13 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
                 for name, a in leaves.items()}
 
     def attn(t, idx=()):
-        return {"ln": vec(t["ln"][idx]), "wq": mat(t["wq"][idx]),
-                "wk": mat(t["wk"][idx]), "wv": mat(t["wv"][idx]),
-                "wo": mat(t["wo"][idx])}
+        return place({"ln": vec(t["ln"][idx]), "wq": mat(t["wq"][idx]),
+                      "wk": mat(t["wk"][idx]), "wv": mat(t["wv"][idx]),
+                      "wo": mat(t["wo"][idx])})
 
     def mlp(t, idx=()):
-        return {"ln": vec(t["ln"][idx]), "wg": mat(t["wg"][idx]),
-                "wu": mat(t["wu"][idx]), "wd": mat(t["wd"][idx])}
+        return place({"ln": vec(t["ln"][idx]), "wg": mat(t["wg"][idx]),
+                      "wu": mat(t["wu"][idx]), "wd": mat(t["wd"][idx])})
 
     def experts(a):
         """(E, d, eff) -> (d, E * eff)."""
@@ -92,11 +99,12 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device: DeviceLike = None,
         for name in ("sg", "su", "sd"):
             if name in t:
                 out[name] = mat(t[name][idx])
-        return out
+        return place(out)
 
     out = {"embed": mat(tree["embed"]), "final_ln": vec(tree["final_ln"])}
     if not cfg.tie_embeddings:
         out["unembed"] = mat(tree["unembed"])
+        out = place(out)
     L = cfg.num_layers
     if cfg.arch_type == "dense":
         la, lm = tree["layers"]["attn"], tree["layers"]["mlp"]

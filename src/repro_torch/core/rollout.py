@@ -9,8 +9,11 @@ step plan matches the JAX package's.  The flight recorder (``tracer``,
 a :class:`~repro_torch.obs.trace.Tracer`), open-loop arrivals
 (``run_stream(arrivals=)``, an
 :class:`~repro_torch.core.workload.ArrivalFeed`) and the fault paths run
-as in the reference; tensor parallelism (``tp``) arrives with a later
-slice and raises here.
+as in the reference.  With ``tp=k`` every instance is sharded over the
+same k ranks (``launch.mesh.engine_group``), each rank of the group
+running this same rollout in lockstep (SPMD over ``torch.distributed``:
+the engine gathers what every rank must agree on), and the cost model
+is ``ForwardCostModel(cfg, TPU_V5E, tp=k)``, as in the reference.
 
 Drives a pool of :class:`~repro_torch.engine.engine.Instance`s through one
 synchronous rollout iteration:
@@ -57,6 +60,7 @@ from repro_torch.core.sdmodel import (ForwardCostModel, SDThroughputModel,
 from repro_torch.device import DeviceLike
 from repro_torch.engine.engine import (BlobCorruptionError, EngineSeq,
                                        Instance, StepFunctions)
+from repro_torch.launch.steps import engine_param_shards
 from repro_torch.engine.token_tree import TokenTree, build_token_tree
 
 
@@ -192,9 +196,6 @@ class SeerRollout:
                  tracer=None,
                  steps: Optional[StepFunctions] = None,
                  device: DeviceLike = None):
-        if tp is not None:
-            raise NotImplementedError(
-                "tensor parallelism arrives with a later slice of the port")
         self.cfg = cfg
         self.chunk_size = chunk_size
         self.policy = policy
@@ -231,9 +232,11 @@ class SeerRollout:
         # the same config reuse compiled step/migration shapes
         self.steps = steps if steps is not None else StepFunctions(cfg)
         # every instance runs the same tp degree: equal-tp instances
-        # share one engine mesh (lru-cached) and one set of compiled
-        # step shapes in self.steps (sctx-keyed by tp_size)
+        # share one engine group (cached per degree) and one set of step
+        # functions in self.steps (keyed by the degree); the weights are
+        # cut to this rank's shard once, for all of them
         self.tp = tp
+        params = self._rank_params(params)
         fwd = ForwardCostModel(cfg, TPU_V5E, tp=tp or 1)
         n_nodes = max(1, min(n_nodes, n_instances))
         self.instances = [
@@ -247,7 +250,7 @@ class SeerRollout:
                      gamma_max=gamma_max, instance_id=f"inst{i}",
                      node=f"n{i * n_nodes // n_instances}",
                      admit_into_draining=admit_into_draining,
-                     base_seed=base_seed,
+                     base_seed=base_seed, tp=tp,
                      device=device)
             for i in range(n_instances)
         ]
@@ -808,6 +811,15 @@ class SeerRollout:
                         self._stream_rec.on_submit(
                             r.req_id, g.group_id, self._cur_tick)
 
+    def _rank_params(self, params):
+        """The weights as this rank holds them: its shard of the tp
+        group's layout (cut once and shared by every instance), or the
+        tree itself without tp."""
+        if self.tp is None:
+            return params
+        from repro_torch.launch.mesh import engine_group
+        return engine_param_shards(self.cfg, params, engine_group(self.tp))
+
     def refresh_params(self, params, *, version: Optional[int] = None,
                        mode: str = "keep") -> None:
         """Swap model weights while requests are in flight.
@@ -843,6 +855,7 @@ class SeerRollout:
             if inst.step_in_flight:
                 raise RuntimeError(
                     "refresh_params() with a step ticket in flight")
+        params = self._rank_params(params)
         # a replay under the new params recomputes its logprobs
         self._replay_logprobs.clear()
         self.param_version = self.param_version + 1 \

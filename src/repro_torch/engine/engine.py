@@ -1,8 +1,8 @@
 """Inference engine: one Seer "inference instance", in PyTorch.
 
-Counterpart of ``repro.engine.engine`` on one device, without tensor
-parallelism: ``prefill_mode`` "batched" (the device-resident hot path)
-or "sync" (the host-accept oracle), ``spec_mode`` "linear" or "tree",
+Counterpart of ``repro.engine.engine``: ``prefill_mode`` "batched" (the
+device-resident hot path) or "sync" (the host-accept oracle),
+``spec_mode`` "linear" or "tree",
 ``migration_mode`` "batched" or "perslot".  The engine behaviour is the
 JAX package's, decision for decision — the same mixed
 prefill/decode/verify batches, the same bucketing of gamma, T and export
@@ -45,7 +45,22 @@ What changes with PyTorch:
   ``device="cpu"``; there attention and the SSD run the kernels' plain
   versions.
 
-Tensor parallelism is a later slice and raises ``NotImplementedError``.
+* **Tensor parallelism** (``Instance(tp=k)``).  SPMD over
+  ``torch.distributed``: every rank of the instance's group
+  (``launch.mesh.engine_group``, one per degree) runs the same host code
+  — scheduler, pool, drafting, this engine — on its own shard of the
+  weights and of the K/V cache (``launch.steps``), under the exact
+  column-parallel scheme (``forward(sctx=)``): activations are gathered
+  before every row-parallel matmul and the vocab-split logits before
+  sampling, so every rank samples the one-device tokens and makes the
+  same host decisions.  Each upload of a host batch first compares its
+  digest across the group (``sharding.check_lockstep``).  Exports gather
+  the KV heads back into the unsharded layout (tp-invariant bytes,
+  headers and CRCs); imports take the rank's heads.  There is still one
+  host sync per step on each rank.  tp = 1 is a one-rank group, bitwise
+  the ``tp=None`` path.  The production Megatron layout (row-parallel
+  ``wo`` / ``wd``, sequence sharding, the MoE layer's capacity-bounded
+  dispatch) is not ported yet.
 """
 from __future__ import annotations
 
@@ -63,10 +78,13 @@ from repro_torch.engine.sampling import (draft_acceptance, position_keys,
                                          prng_key, sample_tokens,
                                          token_logprobs_at, tree_acceptance)
 from repro_torch.engine.token_tree import TokenTree, bucket_pow2, chain_tree
+from repro_torch.launch.steps import (cache_shard, engine_param_shards,
+                                      gather_heads)
 from repro_torch.models import forward, init_cache
 from repro_torch.models.model import modality_inputs
 from repro_torch.models.transformer import (build_cross_cache, cross_len,
                                             with_scratch)
+from repro_torch.sharding import ShardCtx, batch_digest, check_lockstep
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -74,6 +92,13 @@ _INT32_MAX = np.iinfo(np.int32).max
 # ---------------------------------------------------------------------------
 # step functions (shared per config)
 # ---------------------------------------------------------------------------
+
+
+def _sctx_key(sctx: Optional[ShardCtx]):
+    """Step-cache key of a sharding context: its degree (engine groups
+    are cached per degree, so instances of equal tp share step
+    functions)."""
+    return None if sctx is None else sctx.tp_size
 
 
 class StepFunctions:
@@ -85,7 +110,9 @@ class StepFunctions:
     device->host reads of step results; ``replays`` counts the
     recurrent-state replays inside fused steps (a second forward each);
     ``migration_calls`` counts the batched KV export/import calls (and
-    per-leaf ops of the per-slot paths)."""
+    per-leaf ops of the per-slot paths).  Each getter takes the
+    instance's sharding context (None: one device) and keys its cache on
+    the degree."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -110,7 +137,7 @@ class StepFunctions:
             return fn(*args)
         return wrapper
 
-    def fused_step(self, T: int):
+    def fused_step(self, T: int, sctx: Optional[ShardCtx] = None):
         """Device-resident step with on-device accept/commit:
 
         (params, cache, tokens(B,T), positions, mask, keys, temps,
@@ -124,7 +151,7 @@ class StepFunctions:
         bool: some row carries drafts, on a recurrent cache), the SSM and
         conv state replayed over the accepted prefix only; prefill rows
         keep their full mask, so the replay recomputes their state."""
-        key = ("fused", T)
+        key = ("fused", T, _sctx_key(sctx))
         if key in self._step_cache:
             return self._step_cache[key]
         cfg = self.cfg
@@ -134,7 +161,8 @@ class StepFunctions:
                sample_rows, anchor, n_drafts, replay=False):
             logits, cache, _ = forward(cfg, params, tokens, positions, cache,
                                        token_mask=mask,
-                                       rec_out=_fresh_rec(cache, replay))
+                                       rec_out=_fresh_rec(cache, replay),
+                                       sctx=sctx)
             logits = logits.float()
             sampled = sample_tokens(logits, keys, temps, sample_rows)
             lp = token_logprobs_at(logits, sampled)
@@ -150,7 +178,7 @@ class StepFunctions:
                 acc_mask = mask & (~sample_rows[:, None]
                                    | (cols <= (anchor + n_acc)[:, None]))
                 forward(cfg, params, tokens, positions, cache,
-                        token_mask=acc_mask, logits=False)
+                        token_mask=acc_mask, logits=False, sctx=sctx)
                 self.replays += 1
             return sampled, lp, n_acc, cache
 
@@ -158,7 +186,7 @@ class StepFunctions:
         self._step_cache[key] = counted
         return counted
 
-    def fused_tree_step(self, T: int):
+    def fused_tree_step(self, T: int, sctx: Optional[ShardCtx] = None):
         """Device-resident *tree*-verify step:
 
         (params, cache, tokens(B,T), positions, slot_index(B,T), mask,
@@ -177,7 +205,7 @@ class StepFunctions:
         state over the anchor and the accepted path, as
         :meth:`fused_step` does; recurrent caches verify single-path
         trees only (``Instance._build_tree_batch`` refuses the others)."""
-        key = ("tree", T)
+        key = ("tree", T, _sctx_key(sctx))
         if key in self._step_cache:
             return self._step_cache[key]
         cfg = self.cfg
@@ -191,7 +219,8 @@ class StepFunctions:
                                        token_mask=mask,
                                        slot_index=slot_index,
                                        within_mask=within,
-                                       rec_out=_fresh_rec(cache, replay))
+                                       rec_out=_fresh_rec(cache, replay),
+                                       sctx=sctx)
             logits = logits.float()
             sampled = sample_tokens(logits, keys, temps, sample_rows)
             lp = token_logprobs_at(logits, sampled)
@@ -217,7 +246,7 @@ class StepFunctions:
                                | (dcols <= anchor[:, None]) | acc)
                 forward(cfg, params, tokens, positions, cache,
                         token_mask=keep, slot_index=slot_index,
-                        within_mask=within, logits=False)
+                        within_mask=within, logits=False, sctx=sctx)
                 self.replays += 1
             return sampled.gather(1, pc), lp.gather(1, pc), n_acc, cache
 
@@ -225,21 +254,21 @@ class StepFunctions:
         self._step_cache[key] = counted
         return counted
 
-    def step(self, T: int):
+    def step(self, T: int, sctx: Optional[ShardCtx] = None):
         """Reference step of the sync oracle (acceptance on the host):
         (params, cache, tokens(B,T), positions, mask, keys, temps,
         sample_rows(B,)) -> (sampled(B,T), logprobs(B,T), cache)."""
-        return self._plain_step("step", T)
+        return self._plain_step("step", T, sctx)
 
-    def tree_step(self, T: int):
+    def tree_step(self, T: int, sctx: Optional[ShardCtx] = None):
         """Reference *tree* step: :meth:`fused_tree_step`'s forward and
         sampling, with acceptance and the winning-branch compaction left
         to the host (``_run_step_sync_tree``): :meth:`step`'s arguments
         plus slot_index(B,T) and within(B,T,T)."""
-        return self._plain_step("tree_ref", T)
+        return self._plain_step("tree_ref", T, sctx)
 
-    def _plain_step(self, kind: str, T: int):
-        key = (kind, T)
+    def _plain_step(self, kind: str, T: int, sctx: Optional[ShardCtx]):
+        key = (kind, T, _sctx_key(sctx))
         if key in self._step_cache:
             return self._step_cache[key]
         cfg = self.cfg
@@ -250,7 +279,7 @@ class StepFunctions:
             logits, cache, _ = forward(cfg, params, tokens, positions, cache,
                                        token_mask=mask,
                                        slot_index=slot_index,
-                                       within_mask=within)
+                                       within_mask=within, sctx=sctx)
             logits = logits.float()
             sampled = sample_tokens(logits, keys, temps, sample_rows)
             return sampled, token_logprobs_at(logits, sampled), cache
@@ -259,10 +288,10 @@ class StepFunctions:
         self._step_cache[key] = counted
         return counted
 
-    def prefill(self, T: int):
+    def prefill(self, T: int, sctx: Optional[ShardCtx] = None):
         """Admit-time prefill of the sync oracle: (params, cache,
         tokens(B,T), positions, mask) -> cache."""
-        key = ("prefill", T)
+        key = ("prefill", T, _sctx_key(sctx))
         if key in self._step_cache:
             return self._step_cache[key]
         cfg = self.cfg
@@ -270,7 +299,7 @@ class StepFunctions:
         @torch.no_grad()
         def fn(params, cache, tokens, positions, mask):
             return forward(cfg, params, tokens, positions, cache,
-                           token_mask=mask)[1]
+                           token_mask=mask, sctx=sctx)[1]
 
         counted = self._counted(fn, f"prefill:{T}")
         self._step_cache[key] = counted
@@ -283,13 +312,17 @@ class StepFunctions:
         ``from_pos`` of its row."""
         slot_pos.masked_fill_(slot_pos >= from_pos[:, None], -1)
 
-    def export_batch(self, lives: Tuple[int, ...]):
+    def export_batch(self, lives: Tuple[int, ...],
+                     sctx: Optional[ShardCtx] = None):
         """Multi-slot KV gather: ``(cache, slots(n,)) -> [blob leaf dict]
         * n``.  Each cache leaf is read by one gather (limited to the
         widest live extent) however many slots migrate; blob ``i``'s
         position-indexed leaves are then trimmed to ``lives[i]``.  The
-        outputs are fresh tensors, never views of the cache."""
+        outputs are fresh tensors, never views of the cache.  Under
+        ``sctx`` the KV heads of every rank are gathered, so the blobs
+        hold the unsharded layout."""
         max_live = max(lives)
+        cfg = self.cfg
 
         @torch.no_grad()
         def fn(cache, slots):
@@ -299,7 +332,8 @@ class StepFunctions:
                 if pax is not None:
                     v = v.narrow(pax + 1, 0, min(max_live, v.shape[pax + 1]))
                 sax = _slot_slice(k)
-                gathered[k] = v.index_select(sax, slots).movedim(sax, 0)
+                gathered[k] = gather_heads(
+                    cfg, k, v.index_select(sax, slots).movedim(sax, 0), sctx)
             out = []
             for i, live in enumerate(lives):
                 leaves = {}
@@ -545,7 +579,13 @@ class Instance:
     embeddings or audio frames — or, when none are given, from the zero
     stub (``models.model.modality_inputs``), as the JAX package does.
     A slot keeps its memory across requests; a KV blob carries the
-    slot's memory whole, and an import writes it into the new slot."""
+    slot's memory whole, and an import writes it into the new slot.
+
+    ``tp=k`` shards the instance over the k ranks of
+    ``launch.mesh.engine_group(k)`` (this process is one of them; fewer
+    ranks raise).  ``params`` may be the whole tree or this rank's shard
+    (``init_params`` / ``bridge.params_from_jax`` with the group's
+    context); assigning ``params`` later shards the same way."""
 
     def __init__(self, cfg: ModelConfig, params, steps: StepFunctions, *,
                  tp: Optional[int] = None,
@@ -571,15 +611,18 @@ class Instance:
                 else "batched"
         if migration_mode not in ("batched", "perslot"):
             raise ValueError(f"migration_mode={migration_mode!r}")
-        if tp is not None:
-            raise NotImplementedError("tensor parallelism (tp) arrives with "
-                                      "the tensor-parallel slice of the "
-                                      "PyTorch port")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, instance "
                              f"on {self.device}")
+        # tp=None: one device, no context end to end; tp>=1: this rank's
+        # view of the degree's group (tp=1 a one-rank group)
+        self.tp = tp
+        self._sctx: Optional[ShardCtx] = None
+        if tp is not None:
+            from repro_torch.launch.mesh import engine_group
+            self._sctx = engine_group(tp)
         self.params = params
         self.steps = steps
         self.max_slots = max_slots
@@ -610,9 +653,9 @@ class Instance:
                 "admit_into_draining requires prefill_mode='batched' "
                 "and migration_mode='batched'")
         self.admit_into_draining = admit_into_draining
-        self.tp = None
         self.base_key = prng_key(base_seed)
-        self.cache = init_cache(cfg, max_slots, cache_len, device=self.device)
+        self.cache = init_cache(cfg, max_slots, cache_len, device=self.device,
+                                sctx=self._sctx)
         if "cross_k" in self.cache:
             if modality_embeds is None:
                 (modality_embeds,) = modality_inputs(
@@ -623,7 +666,7 @@ class Instance:
                                  f"{tuple(modality_embeds.shape)}; want "
                                  f"{want}")
             self.cache["cross_k"], self.cache["cross_v"] = build_cross_cache(
-                cfg, params, modality_embeds.to(self.device))
+                cfg, self.params, modality_embeds.to(self.device), self._sctx)
         self.slots: List[Optional[EngineSeq]] = [None] * max_slots
         self._inflight: Optional[StepTicket] = None
         self.alive = True
@@ -655,12 +698,34 @@ class Instance:
         self.tree_steps = 0
         self.tree_nodes = 0
         self.tree_branch_nodes = 0
+        # tensor parallelism: host uploads whose digests the group
+        # compared, and a running CRC of every one of them
+        self.lockstep_checks = 0
+        self.lockstep_digest = 0
+
+    @property
+    def params(self) -> dict:
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        """The weights (whole, or this rank's shard), kept as this rank's
+        shard."""
+        self._params = engine_param_shards(self.cfg, params, self._sctx)
 
     # -- host <-> device -----------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without a host sync: staged in
-        pinned memory and copied non-blocking on the current stream."""
+        pinned memory and copied non-blocking on the current stream.
+        Under tp > 1 the group first compares the array's digest (a host
+        collective): every rank must upload the same host batch."""
+        if self._sctx is not None and self._sctx.tp_size > 1:
+            digest = batch_digest(arr)
+            check_lockstep(self._sctx, digest)
+            self.lockstep_checks += 1
+            self.lockstep_digest = zlib.crc32(
+                digest.to_bytes(4, "little"), self.lockstep_digest)
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == "cpu":
             return t
@@ -901,7 +966,8 @@ class Instance:
         order = sorted(range(len(slots)), key=lambda j: (lives[j], slots[j]))
         slots = [slots[j] for j in order]
         seqs = [seqs[j] for j in order]
-        fn = self.steps.export_batch(tuple(lives[j] for j in order))
+        fn = self.steps.export_batch(tuple(lives[j] for j in order),
+                                     self._sctx)
         leaf_dicts = fn(self.cache, self._index(slots))
         self.steps.count_migration(f"export:{len(slots)}")
         for seq, leaves in zip(seqs, leaf_dicts):
@@ -954,8 +1020,9 @@ class Instance:
             if ax is not None:
                 sl = sl.narrow(ax, 0, min(seq.next_pos, sl.shape[ax]))
                 self.steps.count_migration("export_perslot")
-            arrays[k] = sl.clone()
-            nbytes += sl.numel() * sl.element_size()
+            whole = gather_heads(self.cfg, k, sl, self._sctx)
+            arrays[k] = whole.clone() if whole is sl else whole
+            nbytes += whole.numel() * whole.element_size()
         return KVBlob(seq.req_id, arrays, seq.next_pos, nbytes)
 
     def _import_kv(self, slot: int, blob: KVBlob) -> None:
@@ -966,7 +1033,7 @@ class Instance:
         self._check_blob_fits(blob)
         for k, dst in self.cache.items():
             ax = _slot_slice(k)
-            src = blob.arrays[k].to(self.device)
+            src = self._local(k, blob.arrays[k])
             row = dst.select(ax, slot)
             pax = _pos_axis(k)
             if pax is not None and src.shape[pax] != row.shape[pax]:
@@ -1000,13 +1067,18 @@ class Instance:
                 if _pos_axis(k) is not None))
             by_extent.setdefault(ext, []).append((slot, blob))
         for group in by_extent.values():
-            blobs = [{k: v.to(self.device) for k, v in b.arrays.items()}
+            blobs = [{k: self._local(k, v) for k, v in b.arrays.items()}
                      for _, b in group]
             self.steps.import_batch(self.cache,
                                     self._index([s for s, _ in group]),
                                     blobs)
             self.steps.count_migration(f"import:{len(group)}")
         self.migration_host_seconds += time.perf_counter() - t0
+
+    def _local(self, name: str, leaf: torch.Tensor) -> torch.Tensor:
+        """A blob leaf (the unsharded layout) as this rank's cache holds
+        it, on the instance's device."""
+        return cache_shard(self.cfg, name, leaf, self._sctx).to(self.device)
 
     def _clear_slot_cache(self, slot: int) -> None:
         """Empty a slot in place, on the device: ``slot_pos`` -1, the
@@ -1034,7 +1106,7 @@ class Instance:
     def _prefill_slot(self, slot: int, tokens: List[int], start_pos: int):
         """Sync oracle: one single-row forward per chunk, at admit."""
         B, c = self.max_slots, self.prefill_chunk
-        fn = self.steps.prefill(c)
+        fn = self.steps.prefill(c, self._sctx)
         for off in range(0, len(tokens), c):
             chunk = tokens[off:off + c]
             buf = np.zeros((B, c), np.int32)
@@ -1199,7 +1271,7 @@ class Instance:
             self._upload_int32(tokens, positions, mask, seeds, sample_rows,
                                anchor, n_drafts, temps)
         keys = position_keys(self.base_key, seeds_d, pos_d)
-        fn = self.steps.fused_step(T)
+        fn = self.steps.fused_step(T, self._sctx)
         replay = "ssm" in self.cache and bool(n_drafts.any())
         sampled, lps, n_acc, self.cache = fn(
             self.params, self.cache, tok_d, pos_d, mask_d.bool(), keys,
@@ -1247,7 +1319,7 @@ class Instance:
             bt.seeds, bt.sample_rows, bt.anchor, bt.parent, bt.depth,
             bt.temps)
         keys = position_keys(self.base_key, seeds_d, pos_d)
-        fn = self.steps.fused_tree_step(T)
+        fn = self.steps.fused_tree_step(T, self._sctx)
         replay = "ssm" in self.cache and bt.n_tree_nodes > 0
         sampled, lps, n_acc, self.cache = fn(
             self.params, self.cache, tok_d, pos_d, slot_d, mask_d.bool(),
@@ -1495,7 +1567,7 @@ class Instance:
         tok_d, pos_d, mask_d, seeds_d, rows_d, temps_d = self._upload_int32(
             tokens, positions, mask, seeds, sample_rows, temps)
         keys = position_keys(self.base_key, seeds_d, pos_d)
-        fn = self.steps.step(T)
+        fn = self.steps.step(T, self._sctx)
         # the forward updates the recurrent state in place: keep a copy of
         # the pre-step state for the host-side replay
         pre_rec = {k: self.cache[k].clone() for k in ("ssm", "conv")} \
@@ -1566,7 +1638,7 @@ class Instance:
             bt.tokens, bt.positions, bt.slot_index, bt.mask, bt.within,
             bt.seeds, bt.sample_rows, bt.temps)
         keys = position_keys(self.base_key, seeds_d, pos_d)
-        fn = self.steps.tree_step(T)
+        fn = self.steps.tree_step(T, self._sctx)
         sampled_d, lps_d, self.cache = fn(
             self.params, self.cache, tok_d, pos_d, mask_d.bool(), keys,
             temps_d.view(torch.float32), rows_d.bool(), slot_d,

@@ -77,7 +77,10 @@
 //       to exactly 0.
 //     n_split is a function of (B, T, Hq, Hk, S) only and each share of
 //     the in-order tile list, so repeats stay bitwise and a step and its
-//     sync oracle, which launch the same (B, T), agree bitwise.
+//     sync oracle, which launch the same (B, T), agree bitwise.  A
+//     caller may name n_split instead (a tensor-parallel rank's shard of
+//     the heads asks for the unsharded call's, so each head's shares,
+//     and its output, are the unsharded call's).
 //
 // Both routes: only tiles some row may see are loaded (empty slots, slots
 // in the future or outside the window are not), so a half-empty cache
@@ -1034,13 +1037,17 @@ cudaError_t launch_tc(const Args& a) {
 }
 
 template <bool kTree>
-int launch_any(int dtype, int D, int want, const Args& a) {
+int launch_any(int dtype, int D, int want, int want_split, const Args& a) {
   if (a.B == 0 || a.n_t == 0) return cudaSuccess;
   switch (resolve_route(dtype, D, a.n_t, a.Hq, a.Hk, want)) {
     case kTensorCores:
+      if (want_split > 1) return cudaErrorInvalidValue;
       return D == 64 ? launch_tc<64, kTree>(a) : launch_tc<128, kTree>(a);
     case kCudaCores: {
-      const int n_split = splits_of(a.B, a.n_t, a.Hq, a.Hk, a.S);
+      const int n_split = want_split > 0
+                              ? want_split
+                              : splits_of(a.B, a.n_t, a.Hq, a.Hk, a.S);
+      if (n_split > kMaxSplits) return cudaErrorInvalidValue;
       if (n_split > 1 && a.part == nullptr) return cudaErrorInvalidValue;
       return dtype == 0 ? launch_cores_d<float, kTree>(D, a, n_split)
                         : launch_cores_d<__nv_bfloat16, kTree>(D, a, n_split);
@@ -1053,7 +1060,11 @@ int launch_any(int dtype, int D, int want, const Args& a) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  `route`: 0 the table's, 1 the CUDA
-// cores, 2 the tensor cores.
+// cores, 2 the tensor cores.  `n_split`: 0 the table's shares of the
+// cache on the CUDA cores, else that many (1..kMaxSplits; 1 on the tensor
+// cores): a rank's shard of a layer's heads asks for the unsharded
+// layer's n_split, since a head's shares depend only on its row tile, the
+// cache and n_split.
 
 // the route of a shape: 0 none, 1 the CUDA cores, 2 the tensor cores
 extern "C" int spec_verify_route(int dtype, int D, int T, int Hq, int Hk,
@@ -1079,12 +1090,13 @@ extern "C" int spec_verify_launch(int dtype, const void* q, const void* k,
                                   int B, int n_t, int S, int Hq, int Hk,
                                   int D, long long kv_b_stride,
                                   long long kpos_b_stride, int window,
-                                  float scale, int route, void* stream) {
+                                  float scale, int route, int n_split,
+                                  void* stream) {
   const Args a{q, k, v, q_pos, k_pos, nullptr, out,
                static_cast<float*>(part), B, n_t, S, Hq, Hk, kv_b_stride,
                kpos_b_stride, 0, 0, window, scale,
                static_cast<cudaStream_t>(stream)};
-  return launch_any<false>(dtype, D, route, a);
+  return launch_any<false>(dtype, D, route, n_split, a);
 }
 
 // K2: spec_verify_launch's arguments plus tree_mask, (B,T,S) bytes (0 =
@@ -1099,13 +1111,14 @@ extern "C" int tree_verify_launch(int dtype, const void* q, const void* k,
                                   long long kpos_b_stride,
                                   long long tm_b_stride,
                                   long long tm_t_stride, int window,
-                                  float scale, int route, void* stream) {
+                                  float scale, int route, int n_split,
+                                  void* stream) {
   const Args a{q, k, v, q_pos, k_pos,
                static_cast<const unsigned char*>(tree_mask), out,
                static_cast<float*>(part), B, n_t, S, Hq, Hk, kv_b_stride,
                kpos_b_stride, tm_b_stride, tm_t_stride, window, scale,
                static_cast<cudaStream_t>(stream)};
-  return launch_any<true>(dtype, D, route, a);
+  return launch_any<true>(dtype, D, route, n_split, a);
 }
 
 extern "C" const char* spec_verify_error_string(int err) {

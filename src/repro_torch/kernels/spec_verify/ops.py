@@ -15,6 +15,11 @@ cores, where a grid that would underfill the card is split along the
 cache into ``n_split`` shares (a function of the shape, :func:`plan`)
 merged by a second launch in split order.  The wrapper allocates the
 split workspace; a call counts one launch however many kernels it ran.
+A call on a rank's shard of a layer's heads (tensor parallelism) passes
+``split_like=(Hq, Hk)``, the unsharded layer's head counts, and gets the
+unsharded call's n_split: a head's shares depend only on its row tile,
+the cache and n_split, so each head's output is bitwise the unsharded
+call's.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``, into
@@ -35,6 +40,7 @@ from repro_torch.kernels.spec_verify.ref import (f32_scale, spec_verify_ref,
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "spec_verify.cu"
 HEAD_DIMS = (32, 64, 128, 256)
+MAX_SPLITS = 8          # the library's kMaxSplits
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each kernel since the last reset (a wrapper adds one where
@@ -56,11 +62,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.spec_verify_launch.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64,
-        i64, i32, ctypes.c_float, i32, vp]
+        i64, i32, ctypes.c_float, i32, i32, vp]
     lib.spec_verify_launch.restype = i32
     lib.tree_verify_launch.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-        i64, i64, i64, i64, i32, ctypes.c_float, i32, vp]
+        i64, i64, i64, i64, i32, ctypes.c_float, i32, i32, vp]
     lib.tree_verify_launch.restype = i32
     lib.spec_verify_route.argtypes = [i32] * 6
     lib.spec_verify_route.restype = i32
@@ -82,12 +88,13 @@ _PLANS = {}
 
 
 def plan(dtype: torch.dtype, B: int, T: int, Hq: int, Hk: int, D: int,
-         S: int, route: str = None) -> tuple:
+         S: int, route: str = None, n_split: int = None) -> tuple:
     """(route, n_split) of a call of this shape: the library's table, or
-    ``route`` ("cuda_cores" / "tensor_cores") where the shape can take
-    it; n_split is 1 on the tensor cores.  Kept per shape, so the hot
-    path asks the library once."""
-    key = (dtype, B, T, Hq, Hk, D, S, route)
+    ``route`` ("cuda_cores" / "tensor_cores") and ``n_split`` where the
+    shape can take them; n_split is 1 on the tensor cores, and at most
+    ``MAX_SPLITS`` on the CUDA cores.  Kept per shape, so the hot path
+    asks the library once."""
+    key = (dtype, B, T, Hq, Hk, D, S, route, n_split)
     got = _PLANS.get(key)
     if got is None:
         lib = build()
@@ -97,10 +104,23 @@ def plan(dtype: torch.dtype, B: int, T: int, Hq: int, Hk: int, D: int,
             raise ValueError(f"spec_verify: no route for {dtype}, head dim "
                              f"{D}, T={T}, Hq={Hq}, Hk={Hk}"
                              + (f" on {route}" if route else ""))
-        got = (ROUTES[code], lib.spec_verify_splits(
-            _DTYPES[dtype], D, B, T, Hq, Hk, S, want))
-        _PLANS[key] = got
+        n = n_split or lib.spec_verify_splits(_DTYPES[dtype], D, B, T, Hq,
+                                              Hk, S, want)
+        if not 1 <= n <= (MAX_SPLITS if ROUTES[code] == "cuda_cores"
+                          else 1):
+            raise ValueError(f"spec_verify: {ROUTES[code]} cannot split "
+                             f"the cache into {n}")
+        got = _PLANS[key] = (ROUTES[code], n)
     return got
+
+
+def split_of(dtype: torch.dtype, B: int, T: int, D: int, S: int,
+             split_like) -> int:
+    """n_split for a call on a shard of a layer whose unsharded head
+    counts are ``split_like`` (Hq, Hk); None without one."""
+    if split_like is None:
+        return None
+    return plan(dtype, B, T, split_like[0], split_like[1], D, S)[1]
 
 
 def check_tensor_cores(q, tree_mask=None) -> None:
@@ -180,13 +200,13 @@ def check_tree_mask(q, k, tree_mask) -> None:
 
 
 def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window,
-            route: str = None):
+            route: str = None, n_split: int = None):
     """Launch K1 (``tree_mask`` None) or K2 on q's current stream, on the
-    table's route or on ``route``; raise on what that route cannot take
-    and on a refused launch."""
+    table's route or on ``route``, in the table's shares or ``n_split``;
+    raise on what that route cannot take and on a refused launch."""
     B, T, Hq, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
-    how, n_split = plan(q.dtype, B, T, Hq, Hk, D, S, route)
+    how, n_split = plan(q.dtype, B, T, Hq, Hk, D, S, route, n_split)
     if how == "tensor_cores":
         check_tensor_cores(q, tree_mask)
     lib = build()
@@ -204,12 +224,13 @@ def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window,
         if tree_mask is None:
             err = lib.spec_verify_launch(
                 *head, out.data_ptr(), part, B, T, S, Hq, Hk, D, k.stride(0),
-                k_pos.stride(0), int(window), scale, code, stream)
+                k_pos.stride(0), int(window), scale, code, n_split, stream)
         else:
             err = lib.tree_verify_launch(
                 *head, tree_mask.data_ptr(), out.data_ptr(), part, B, T, S,
                 Hq, Hk, D, k.stride(0), k_pos.stride(0), tree_mask.stride(0),
-                tree_mask.stride(1), int(window), scale, code, stream)
+                tree_mask.stride(1), int(window), scale, code, n_split,
+                stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.spec_verify_error_string(err).decode())
@@ -219,21 +240,24 @@ def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window,
 
 def spec_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, split_like=None) -> torch.Tensor:
     """K1.  q (B,T,Hq,D); k, v (B,S,Hk,D); q_pos (B,T), k_pos (B,S)
-    int32."""
+    int32; ``split_like`` (Hq, Hk) of the unsharded layer when q, k, v
+    are a rank's head shard."""
     if q.device.type == "cpu":
         return spec_verify_ref(q, k, v, q_pos, k_pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"spec_verify: no kernel for device {q.device}")
     check_inputs(q, k, v, q_pos, k_pos)
-    return _launch("spec_verify", q, k, v, q_pos, k_pos, None, window)
+    return _launch("spec_verify", q, k, v, q_pos, k_pos, None, window,
+                   n_split=split_of(q.dtype, q.shape[0], q.shape[1],
+                                    q.shape[3], k.shape[1], split_like))
 
 
 def tree_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_pos: torch.Tensor, k_pos: torch.Tensor,
                 tree_mask: torch.Tensor, *,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, split_like=None) -> torch.Tensor:
     """K2: K1's arguments plus ``tree_mask`` (B,T,S) bool or uint8, ANDed
     into the positional mask."""
     if q.device.type == "cpu":
@@ -243,7 +267,9 @@ def tree_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"tree_verify: no kernel for device {q.device}")
     check_inputs(q, k, v, q_pos, k_pos)
     check_tree_mask(q, k, tree_mask)
-    return _launch("tree_verify", q, k, v, q_pos, k_pos, tree_mask, window)
+    return _launch("tree_verify", q, k, v, q_pos, k_pos, tree_mask, window,
+                   n_split=split_of(q.dtype, q.shape[0], q.shape[1],
+                                    q.shape[3], k.shape[1], split_like))
 
 
 def launch_on_route(route: str, q, k, v, q_pos, k_pos, tree_mask=None, *,

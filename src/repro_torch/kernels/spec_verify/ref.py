@@ -99,13 +99,18 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exceeds n).  Returns (m, l, acc): m and l (n_split, B, T, Hq) f32 —
     the share's max score (NEG_INF where it sees no key) and its sum of
     exp(score - m) — and acc (n_split, B, T, Hq, D) f32, the unnormalised
-    sum of exp(score - m) v."""
+    sum of exp(score - m) v.  Each query head's products are computed on
+    their own, at shapes that do not depend on the number of heads, as
+    the kernel's CTAs each take one KV head: a rank's shard of the heads
+    (tensor parallelism) gives bitwise those heads of the whole call."""
     B, T, Hq, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
-    qg = (q.float() * f32_scale(D)).reshape(B, T, Hk, G, D)
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float())    # (B,T,Hk,G,S)
-    s = s.reshape(B, T, Hq, S)
+    qf = q.float() * f32_scale(D)
+    kf, vf = k.float(), v.float()
+    s = torch.stack([torch.einsum("bqd,bkd->bqk", qf[:, :, h].contiguous(),
+                                  kf[:, :, h // G].contiguous())
+                     for h in range(Hq)], dim=2)             # (B,T,Hq,S)
     n_tiles = -(-S // tile)
     seen = torch.zeros(B, n_tiles * tile, dtype=torch.bool)
     seen[:, :S] = mask.any(dim=1).cpu()
@@ -118,7 +123,6 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             for t in listed[n * sp // n_split:n * (sp + 1) // n_split]:
                 share[b, t * tile:(t + 1) * tile] = sp
     share = share.to(q.device)
-    vf = v.float().repeat_interleave(G, dim=2)                # (B,S,Hq,D)
     ms, ls, accs = [], [], []
     for sp in range(n_split):
         vis = mask & (share == sp)[:, None, :]                 # (B,T,S)
@@ -128,7 +132,9 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         0.0)
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bthk,bkhd->bthd", p, vf))
+        accs.append(torch.stack(
+            [torch.bmm(p[:, :, h].contiguous(), vf[:, :, h // G].contiguous())
+             for h in range(Hq)], dim=2))                     # (B,T,Hq,D)
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 

@@ -1,0 +1,121 @@
+"""Tensor-parallel groups of the engine, and a launcher for their ranks.
+
+Counterpart of ``repro.launch.mesh``'s engine half: :func:`engine_group`
+is ``engine_mesh`` (one group per tensor-parallel degree, cached, so
+every tp=k instance of a process shares it) and
+:func:`make_engine_shard_ctx` is ``make_engine_shard_ctx``.  The
+reference's per-instance mesh is a set of JAX devices; here it is a set
+of ``torch.distributed`` ranks, each a process that runs the same host
+code over its own shard (SPMD).  A process group needs its ranks
+launched first: :func:`spawn` starts them (``torch.multiprocessing``,
+"spawn", a file store in a temporary directory), as ``torchrun
+--nproc-per-node k`` would.  The backend is named by the caller, never
+chosen by what the machine has: NCCL for one rank per card, gloo on the
+CPU and for ranks that share one card (NCCL refuses two ranks on one
+device).
+
+``make_production_mesh``, ``make_shard_ctx`` and ``small_mesh`` (the
+production Megatron layout) have no counterpart yet.
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+from functools import lru_cache
+from typing import Callable
+
+import torch
+
+from repro_torch.sharding import ShardCtx
+
+LAUNCH_HINT = ("launch one process per rank and join them with "
+               "torch.distributed.init_process_group first: "
+               "repro_torch.launch.mesh.spawn(fn, world=k, backend=...) "
+               "or torchrun --nproc-per-node k")
+
+
+def _world() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _check_ranks(needed: int, what: str) -> None:
+    have = _world()
+    if needed > have:
+        raise ValueError(f"{what} needs {needed} ranks but this process "
+                         f"group has {have}; {LAUNCH_HINT}")
+
+
+@lru_cache(maxsize=None)
+def engine_group(tp: int) -> ShardCtx:
+    """The tensor-parallel group of one rollout ``Instance`` of degree
+    ``tp``, as this rank sees it, with the engine's exact context.
+
+    tp = 1 is a one-rank group: no collective runs.  tp > 1 is the
+    whole process group, which must have exactly tp ranks.  Cached per
+    degree: every tp=k instance shares one group and one set of step
+    functions."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp == 1:
+        return make_engine_shard_ctx(None, 1, 0)
+    _check_ranks(tp, f"engine group (tp={tp})")
+    import torch.distributed as dist
+    if dist.get_world_size() != tp:
+        raise ValueError(f"tp={tp} runs on a process group of exactly {tp} "
+                         f"ranks, not {dist.get_world_size()}")
+    backend = dist.get_backend()
+    # the lockstep digests are host tensors: a gloo group carries them
+    host = dist.group.WORLD if backend == "gloo" else dist.new_group(
+        backend="gloo")
+    return make_engine_shard_ctx(dist.group.WORLD, tp, dist.get_rank(),
+                                 host_group=host, backend=backend)
+
+
+def make_engine_shard_ctx(group, tp_size: int, rank: int, *,
+                          host_group=None, backend: str = "gloo"
+                          ) -> ShardCtx:
+    """The engine hot path's context: column-parallel weights and KV
+    heads over the group, batch and sequence replicated (``dp=()``,
+    ``seq_shard=False``), and ``exact`` execution, so a tp>1 step samples
+    bitwise the same tokens as one device."""
+    return ShardCtx(group=group, tp_size=tp_size, rank=rank,
+                    host_group=host_group, backend=backend, dp=(),
+                    fsdp=None, seq_shard=False, exact=True)
+
+
+def _rank_main(rank: int, fn: Callable, world: int, backend: str,
+               device: str, store: str, args: tuple) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if dev.index is None else dev.index)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        fn(rank, world, dev, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, *, backend: str, device: str,
+          args: tuple = ()) -> None:
+    """Run ``fn(rank, world, device, *args)`` in ``world`` fresh
+    processes joined in one process group over ``backend`` ("gloo" or
+    "nccl"), each on ``device``: "cpu", "cuda" (rank r on card r) or
+    "cuda:i" (every rank on card i; gloo only).  ``fn`` must be
+    importable by name (a module-level function), and takes one thread
+    per rank.  Returns when every rank has; raises if one failed."""
+    import torch.multiprocessing as mp
+    if backend == "nccl" and ":" in device:
+        raise ValueError("NCCL takes one rank per card; ranks that share "
+                         "a card need backend='gloo'")
+    with tempfile.TemporaryDirectory(prefix="tp_store_") as tmp:
+        store = os.path.join(tmp, "store")
+        ctx = mp.start_processes(
+            _rank_main, args=(fn, world, backend, device, store, args),
+            nprocs=world, join=False, start_method="spawn")
+        while not ctx.join():
+            pass

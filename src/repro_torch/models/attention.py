@@ -20,7 +20,7 @@ which follow ``_plain`` op for op — run on a CPU tensor.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,7 +34,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_valid: Optional[torch.Tensor] = None,
               softcap: float = 0.0,
               allowed_mask: Optional[torch.Tensor] = None,
-              contiguous: bool = False) -> torch.Tensor:
+              contiguous: bool = False,
+              split_like: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """q: (B,T,Hq,D); k,v: (B,S,Hk,D); q_pos (B,T) and k_pos (B,S)
     absolute positions -> (B,T,Hq,D).
 
@@ -54,7 +55,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos and k_pos are 0..T-1 in every row, which the caller made or
     checked (or, non-causal, a cross block's zero positions: no mask
     reads them), and the mask is causal (or none) & window, through K3.
-    No ``kv_valid`` there: ``grpo_loss`` never passes a token mask."""
+    No ``kv_valid`` there: ``grpo_loss`` never passes a token mask.
+
+    ``split_like`` (Hq, Hk): q, k, v hold a rank's shard of a layer of Hq
+    query and Hk KV heads; K1 / K2 then cut the cache into the shares the
+    unsharded call would, so each head's result does not depend on the
+    tensor-parallel degree."""
     if softcap:
         raise NotImplementedError(
             "attention softcap is not on a ported path")
@@ -69,5 +75,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "the slot-cache path is causal with kv_valid = k_pos >= 0")
     if allowed_mask is not None:
         return tree_verify(q, k, v, q_pos, k_pos, allowed_mask,
-                           window=window)
-    return spec_verify(q, k, v, q_pos, k_pos, window=window)
+                           window=window, split_like=split_like)
+    return spec_verify(q, k, v, q_pos, k_pos, window=window,
+                       split_like=split_like)

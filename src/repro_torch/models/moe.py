@@ -1,12 +1,16 @@
 """Mixture-of-Experts layer of the port.
 
-Counterpart of ``repro.models.moe`` on one device: ``init_moe``,
-``_route``, ``_aux_loss``, ``moe_dense_all`` (without its sharding
-constraints), ``_shared`` and the ``sctx is None`` branch of
-``moe_forward``.  As the reference serves, every expert runs on every
-token and the router's top-k weights pick what is kept, so no token is
-dropped and the tokens match the reference's.  The expert products are
-plain matrix products (the reference has no kernel on this layer).
+Counterpart of ``repro.models.moe``: ``init_moe``, ``_route``,
+``_aux_loss``, ``moe_dense_all`` and ``_shared`` (with the engine's
+exact tensor parallelism, ``sctx``), and the ``sctx is None`` and
+``sctx.exact`` branches of ``moe_forward``.  As the reference serves,
+every expert runs on every token and the router's top-k weights pick
+what is kept, so no token is dropped and the tokens match the
+reference's.  The expert products are plain matrix products (the
+reference has no kernel on this layer).  The production layout's
+capacity-bounded expert/tensor-parallel dispatch (``_capacity``,
+``_moe_body`` and the ``shard_map`` branches of ``moe_forward``) is not
+ported yet.
 
 Layout: ``wg`` and ``wu`` are stored as ``(d, E * eff)``, expert ``e``
 in columns ``e * eff .. (e + 1) * eff - 1`` (the reference's
@@ -22,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models.common import lin
 
 
@@ -78,14 +83,20 @@ def _silu(h: torch.Tensor) -> torch.Tensor:
     return h * (1 / (1 + torch.exp(-h)))
 
 
-def _shared(xf: torch.Tensor, p: dict):
+def _shared(xf: torch.Tensor, p: dict, sctx=None):
     if "sg" not in p:
         return 0.0
-    return lin(_silu(lin(xf, p["sg"])) * lin(xf, p["su"]), p["sd"])
+    g = _silu(lin(xf, p["sg"])) * lin(xf, p["su"])
+    return lin(sharding.whole_columns(g, p["sd"].shape[0], sctx), p["sd"])
 
 
-def moe_dense_all(x: torch.Tensor, p: dict, cfg):
-    """Exact MoE: all experts on all tokens.  x (B, S, d) -> (y, aux)."""
+def moe_dense_all(x: torch.Tensor, p: dict, cfg, sctx=None):
+    """Exact MoE: all experts on all tokens.  x (B, S, d) -> (y, aux).
+
+    With an ``sctx`` the up-projections run column-parallel (each
+    expert's hidden dim ``eff`` split, ``launch.steps``) and the hidden
+    activations are gathered before the down-projection: no capacity
+    buffer, no dropped token, and bitwise the one-device output."""
     B, S, d = x.shape
     E = cfg.num_experts
     xf = x.reshape(-1, d)
@@ -96,21 +107,27 @@ def moe_dense_all(x: torch.Tensor, p: dict, cfg):
     # every expert's hidden rows in one product: (T, E, eff)
     h = lin(xf, p["wg"]).view(T, E, -1)
     u = lin(xf, p["wu"]).view(T, E, -1)
-    g = (_silu(h) * u).transpose(0, 1)                       # (E, T, eff)
+    g = sharding.whole_columns(_silu(h) * u, p["wd"].shape[1],
+                               sctx).transpose(0, 1)
     y_all = torch.bmm(g, p["wd"].to(x.dtype))                # (E, T, d)
     # each (t, e) holds at most one of the token's k weights: exact
     comb = (onehot * w[..., None]).sum(dim=1)                # (T, E)
     y = torch.bmm(comb.to(x.dtype)[:, None, :],
                   y_all.transpose(0, 1))[:, 0]               # (T, d)
-    y = y + _shared(xf, p)
+    y = y + _shared(xf, p, sctx)
     return y.reshape(B, S, d), aux
 
 
 def moe_forward(x: torch.Tensor, p: dict, cfg, sctx=None):
-    """x (B, S, d) -> (y, aux f32).  One device only: the expert- and
-    tensor-parallel dispatch (``sctx``) is not ported."""
-    if sctx is not None:
+    """x (B, S, d) -> (y, aux f32).  No context: every expert on one
+    device.  The engine's exact context (``sctx.exact``): the same dense
+    combine with each expert's hidden dim split across the ranks.  The
+    production layout's capacity-bounded expert/tensor-parallel dispatch
+    (``sctx.exact`` False) is not ported yet and raises."""
+    if sctx is not None and not sctx.exact:
         raise NotImplementedError(
-            "the MoE layer's expert/tensor-parallel dispatch arrives with "
-            "the tensor-parallel slice of the port")
-    return moe_dense_all(x, p, cfg)
+            "the MoE layer's capacity-bounded expert/tensor-parallel "
+            "dispatch (the production layout: _capacity, _moe_body, the "
+            "shard_map branches) is not ported yet; the engine's exact "
+            "context runs")
+    return moe_dense_all(x, p, cfg, sctx)

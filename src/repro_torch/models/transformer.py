@@ -23,6 +23,13 @@ the third output.  With ``train=True`` each layer (each cell of a
 hybrid or VLM model) is recomputed in the backward
 (``torch.utils.checkpoint``, the JAX package's ``_remat``).
 
+Tensor parallelism (``forward(sctx=)``, the exact branches of the JAX
+package's ``_self_attn``, ``_cross_attn``, ``_mlp`` and the MoE layer):
+each rank holds its shard of the weights and of the K/V cache
+(``launch.steps``), and the activations are gathered before every
+matmul whose reduction would otherwise be sharded, so the logits, and
+the sampled tokens, are bitwise the one-device ones.
+
 The cache is updated in place, which replaces JAX's buffer donation:
 ``forward`` writes this step's K/V rows and slot positions into the
 tensors of ``cache`` and returns the same dict.  The recurrent leaves
@@ -49,10 +56,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.launch.steps import engine_param_shards, kv_heads
 from repro_torch.models.attention import attention
 from repro_torch.models.common import apply_rope, lin, rms_norm
 from repro_torch.models.mamba2 import init_mamba_block, mamba_block
 from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch import sharding
+from repro_torch.sharding import ShardCtx
 
 PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -64,7 +74,8 @@ def check_arch(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = None, dtype=None) -> dict:
+                device: DeviceLike = None, dtype=None,
+                sctx: Optional[ShardCtx] = None) -> dict:
     """Random weights at the JAX package's scales (``init_params``,
     ``_init_attn``, ``_init_mlp``, ``init_mamba_block`` and
     ``Builder.param``): normals scaled by 1/sqrt(fan_in), the embedding
@@ -84,7 +95,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     and ``dec_layers[i]`` (``{"attn", "cross", "mlp"}``).  A cross block
     is a plain attention block at the same scales (the JAX package's
     ``_init_attn(cross=True)``).  ``generator`` must live on
-    ``device``."""
+    ``device``.  With ``sctx`` the tree is this rank's shard
+    (``launch.steps.engine_param_shards``), each layer cut as it is
+    drawn, so no rank holds the whole model; the weights are the same
+    draws as without it."""
     check_arch(cfg)
     dev = resolve_device(device)
     wdt = torch_dtype(dtype or cfg.dtype)
@@ -115,8 +129,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "wu": normal((d, f), 1.0 / math.sqrt(d)),
                 "wd": normal((f, d), 1.0 / math.sqrt(f))}
 
+    def place(tree):
+        return engine_param_shards(cfg, tree, sctx)
+
     def dense():
-        return {"attn": attn(), "mlp": mlp()}
+        return place({"attn": attn(), "mlp": mlp()})
 
     def block():
         return init_mamba_block(cfg, normal, ones, zeros)
@@ -125,6 +142,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               "final_ln": ones(d)}
     if not cfg.tie_embeddings:
         params["unembed"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+        params = place(params)
     L = cfg.num_layers
     if cfg.arch_type == "dense":
         params["layers"] = [dense() for _ in range(L)]
@@ -133,9 +151,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if nd:
             params["dense_layers"] = [dense() for _ in range(nd)]
         params["layers"] = [
-            {"attn": attn(), "ln2": ones(d),
-             "moe": init_moe(d, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts,
-                             cfg.num_shared_experts, normal)}
+            place({"attn": attn(), "ln2": ones(d),
+                   "moe": init_moe(d, cfg.moe_d_ff or cfg.d_ff,
+                                   cfg.num_experts, cfg.num_shared_experts,
+                                   normal)})
             for _ in range(L - nd)]
     elif cfg.arch_type == "ssm":
         params["layers"] = [block() for _ in range(L)]
@@ -146,16 +165,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                            for _ in range(n_cells)]
         if L - n_cells * every:
             params["tail"] = [block() for _ in range(L - n_cells * every)]
-        params["shared_attn"] = attn()
-        params["shared_mlp"] = mlp()
+        params["shared_attn"] = place(attn())
+        params["shared_mlp"] = place(mlp())
     elif cfg.arch_type == "vlm":
         every = cfg.cross_attn_every
         params["cells"] = [{"self": [dense() for _ in range(every)],
-                            "cross": attn()} for _ in range(L // every)]
+                            "cross": place(attn())}
+                           for _ in range(L // every)]
     else:
         params["enc_layers"] = [dense() for _ in range(cfg.encoder_layers)]
-        params["dec_layers"] = [{"attn": attn(), "cross": attn(),
-                                 "mlp": mlp()} for _ in range(L)]
+        params["dec_layers"] = [place({"attn": attn(), "cross": attn(),
+                                       "mlp": mlp()}) for _ in range(L)]
     return params
 
 
@@ -193,7 +213,8 @@ def cross_len(cfg: ModelConfig) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None,
+               sctx: Optional[ShardCtx] = None) -> dict:
     """The JAX package's cache layout.  Attention layers: zero K/V
     ``(n_attn,B,S,Hk,D)`` and ``slot_pos (B,S)`` filled with -1, each a
     view of a buffer one slot wider (the scratch slot of masked writes).
@@ -202,15 +223,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     audio models: the cross-attention memory ``cross_k`` / ``cross_v``
     ``(n_cross,B,Tm,Hk,D)`` in ``dtype``, zero until
     :func:`build_cross_cache` fills it.  Neither has a position axis or
-    a scratch slot: nothing writes them by position."""
+    a scratch slot: nothing writes them by position.  With ``sctx`` the
+    K/V and cross-attention leaves hold this rank's KV heads only
+    (``launch.steps.kv_heads``)."""
     check_arch(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     S = cache_len_for(cfg, max_len)
     cache = {}
     n_attn = n_attn_layers(cfg)
+    hk = kv_heads(cfg, sctx) if n_attn else 0
     if n_attn:
-        shape = (n_attn, batch, S + 1, cfg.num_kv_heads, cfg.head_dim)
+        shape = (n_attn, batch, S + 1, hk, cfg.head_dim)
         k = torch.zeros(shape, dtype=dt, device=dev)
         v = torch.zeros(shape, dtype=dt, device=dev)
         sp = torch.full((batch, S + 1), -1, dtype=torch.int32, device=dev)
@@ -225,8 +249,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             dtype=torch.float32, device=dev)
     n_cross = n_cross_layers(cfg)
     if n_cross:
-        shape = (n_cross, batch, cross_len(cfg), cfg.num_kv_heads,
-                 cfg.head_dim)
+        shape = (n_cross, batch, cross_len(cfg), hk, cfg.head_dim)
         cache["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
@@ -259,42 +282,62 @@ def clone_cache(cache: dict) -> dict:
 
 
 def _project_qkv(p, xn, cfg, positions):
+    """q, k, v (B, T, heads, hd): as many heads as the weights hold (all,
+    or a rank's shard)."""
     B, T, _ = xn.shape
     hd = cfg.head_dim
-    q = lin(xn, p["wq"]).reshape(B, T, cfg.num_heads, hd)
-    k = lin(xn, p["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
-    v = lin(xn, p["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    q = lin(xn, p["wq"]).reshape(B, T, -1, hd)
+    k = lin(xn, p["wk"]).reshape(B, T, -1, hd)
+    v = lin(xn, p["wv"]).reshape(B, T, -1, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def _split_like(cfg, sctx):
+    """The unsharded layer's head counts for K1/K2's split choice on a
+    sharded layer: a head's result then does not depend on tp."""
+    if sctx is None or sctx.tp_size == 1:
+        return None
+    return cfg.num_heads, cfg.num_kv_heads
+
+
+def _out_proj(p, o, cfg, sctx):
+    """x's update from the attention output o (B, T, heads, hd): the head
+    shards gathered before ``wo`` (its reduction stays whole)."""
+    B, T = o.shape[:2]
+    o = sharding.whole_columns(o.reshape(B, T, -1),
+                               cfg.num_heads * cfg.head_dim, sctx)
+    return lin(o, p["wo"])
+
+
 def _self_attn(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
-               allowed=None):
+               allowed=None, sctx=None):
     """Slot-scatter branch: write this step's K/V rows in place, then
     attend over the whole slot cache (under ``allowed`` (B,T,S) when the
-    step verifies draft trees)."""
-    B, T = x.shape[:2]
+    step verifies draft trees).  Under ``sctx`` q/k/v and the cache hold
+    this rank's heads (``sharding.head_shard``): the attention runs with
+    no traffic, and o is gathered before ``wo``."""
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     q, k, v = _project_qkv(p, xn, cfg, positions)
     with_scratch(ck, 1)[bidx, slots] = k.to(ck.dtype)
     with_scratch(cv, 1)[bidx, slots] = v.to(cv.dtype)
     o = attention(q, ck, cv, positions, slot_pos, window=cfg.sliding_window,
-                  softcap=cfg.attn_logit_softcap, allowed_mask=allowed)
-    return x + lin(o.reshape(B, T, -1), p["wo"])
+                  softcap=cfg.attn_logit_softcap, allowed_mask=allowed,
+                  split_like=_split_like(cfg, sctx))
+    return x + _out_proj(p, o, cfg, sctx)
 
 
-def _self_attn_nocache(p, x, cfg, positions, causal=True):
+def _self_attn_nocache(p, x, cfg, positions, causal=True, sctx=None):
     """The ``ck is None`` branch: self-attention over the sequence itself
     (positions 0..T-1), causal or (the audio encoder) bidirectional,
     through K3."""
-    B, T = x.shape[:2]
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     q, k, v = _project_qkv(p, xn, cfg, positions)
     o = attention(q, k, v, positions, positions, causal=causal,
                   window=cfg.sliding_window,
                   softcap=cfg.attn_logit_softcap, contiguous=True)
-    return x + lin(o.reshape(B, T, -1), p["wo"])
+    return x + _out_proj(p, o, cfg, sctx)
 
 
 @functools.lru_cache(maxsize=64)
@@ -307,52 +350,59 @@ def _zero_positions(B: int, T: int, device: torch.device) -> torch.Tensor:
 
 
 def _cross_kv(p, mem, cfg):
-    """K/V of one cross block from the memory (B, Tm, d)."""
+    """K/V of one cross block from the memory (B, Tm, d), as many heads as
+    the weights hold."""
     B, Tm, _ = mem.shape
-    k = lin(mem, p["wk"]).reshape(B, Tm, cfg.num_kv_heads, cfg.head_dim)
-    v = lin(mem, p["wv"]).reshape(B, Tm, cfg.num_kv_heads, cfg.head_dim)
+    k = lin(mem, p["wk"]).reshape(B, Tm, -1, cfg.head_dim)
+    v = lin(mem, p["wv"]).reshape(B, Tm, -1, cfg.head_dim)
     return k, v
 
 
-def _cross_attn(p, x, cfg, k, v):
+def _cross_attn(p, x, cfg, k, v, sctx=None):
     """Cross-attention to static memory (image or audio embeddings) from
     its cached K/V, (B, Tm, Hk, D) each (``_cross_kv``).  No RoPE.
 
     The JAX package attends with ``causal=False`` at ``q_pos = k_pos =
     0``.  Through K1 that mask is ``(k_pos >= 0) & (k_pos <= q_pos)``,
     which at zero positions admits every key: the non-causal mask, with
-    no check on the host (a check would sync it)."""
+    no check on the host (a check would sync it).  Under ``sctx`` the
+    query heads and the memory's KV heads are this rank's, and o is
+    gathered before ``wo``."""
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     B, T, _ = xn.shape
-    q = lin(xn, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    q = lin(xn, p["wq"]).reshape(B, T, -1, cfg.head_dim)
     o = attention(q, k, v, _zero_positions(B, T, q.device),
-                  _zero_positions(B, k.shape[1], q.device))
-    return x + lin(o.reshape(B, T, -1), p["wo"])
+                  _zero_positions(B, k.shape[1], q.device),
+                  split_like=_split_like(cfg, sctx))
+    return x + _out_proj(p, o, cfg, sctx)
 
 
-def _mlp(p, x, cfg):
+def _mlp(p, x, cfg, sctx=None):
+    """SwiGLU; under ``sctx`` the hidden h is this rank's ``ff`` columns,
+    gathered before ``wd``."""
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     g = lin(xn, p["wg"])
     h = g * torch.sigmoid(g) * lin(xn, p["wu"])
-    return x + lin(h, p["wd"])
+    return x + lin(sharding.whole_columns(h, cfg.d_ff, sctx), p["wd"])
 
 
 def _dense_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
-                 allowed=None):
+                 allowed=None, sctx=None):
     x = _self_attn(p["attn"], x, cfg, positions, bidx, slots, ck, cv,
-                   slot_pos, allowed)
-    return _mlp(p["mlp"], x, cfg)
+                   slot_pos, allowed, sctx)
+    return _mlp(p["mlp"], x, cfg, sctx)
 
 
 def _moe_layer(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
-               allowed=None):
+               allowed=None, sctx=None):
     x = _self_attn(p["attn"], x, cfg, positions, bidx, slots, ck, cv,
-                   slot_pos, allowed)
-    y, aux = moe_forward(rms_norm(x, p["ln2"], cfg.rms_eps), p["moe"], cfg)
+                   slot_pos, allowed, sctx)
+    y, aux = moe_forward(rms_norm(x, p["ln2"], cfg.rms_eps), p["moe"], cfg,
+                         sctx)
     return x + y, aux
 
 
-def _decoder_stack(cfg, params, x, cache, attn_args):
+def _decoder_stack(cfg, params, x, cache, attn_args, sctx=None):
     """Dense and MoE layers over the K/V cache: a MoE model's first
     ``first_dense_layers`` (``dense_layers``) take cache layers
     0..nd-1 and its MoE layers the rest.  Returns (x, summed aux f32)."""
@@ -363,7 +413,7 @@ def _decoder_stack(cfg, params, x, cache, attn_args):
     aux = 0.0
     for i, p in enumerate(dense + moe):
         args = (x, cfg, positions, bidx, slots, cache["k"][i], cache["v"][i],
-                slot_pos, allowed)
+                slot_pos, allowed, sctx)
         if i < len(dense):
             x = _dense_layer(p, *args)
         else:
@@ -378,27 +428,30 @@ def _dense_layer_nocache(p, x, cfg, positions):
 
 
 @torch.no_grad()
-def encode_audio(cfg: ModelConfig, params: dict,
-                 frames: torch.Tensor) -> torch.Tensor:
+def encode_audio(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+                 sctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """The bidirectional audio encoder over (stubbed) frame embeddings
     (B, Tf, d): each ``enc_layers`` layer attends the frames to each
     other at positions 0..Tf-1 (RoPE included), non-causal, through K3,
     then its MLP.  Without gradients (serving); the cache-free forward
-    runs the same layers under autograd."""
-    return _encode_audio(cfg, params, frames)
+    runs the same layers under autograd.  Under ``sctx`` each layer runs
+    on this rank's heads and ``ff`` columns with the exact gathers."""
+    return _encode_audio(cfg, params, frames, sctx=sctx)
 
 
 @torch.no_grad()
 def build_cross_cache(cfg: ModelConfig, params: dict,
-                      embeds: torch.Tensor):
+                      embeds: torch.Tensor,
+                      sctx: Optional[ShardCtx] = None):
     """K/V of every cross block, ``(n_cross, B, Tm, Hk, D)`` each in
     ``cfg.dtype``, from the modality embeddings (B, Tm, d): the image
     embeddings themselves, or the audio encoder's output over the
-    frames."""
+    frames.  With a rank's shard of the params (``sctx``), Hk is that
+    rank's KV heads."""
     if cfg.arch_type == "vlm":
         blocks = [cell["cross"] for cell in params["cells"]]
     elif cfg.arch_type == "audio":
-        embeds = encode_audio(cfg, params, embeds)
+        embeds = encode_audio(cfg, params, embeds, sctx)
         blocks = [layer["cross"] for layer in params["dec_layers"]]
     else:
         raise ValueError(f"arch_type={cfg.arch_type!r} has no "
@@ -453,9 +506,10 @@ def _vlm_cell_nocache(cell, x, cfg, positions, embeds):
     return _cross_attn_nocache(cell["cross"], x, cfg, embeds)
 
 
-def _enc_layer_nocache(p, x, cfg, positions):
-    x = _self_attn_nocache(p["attn"], x, cfg, positions, causal=False)
-    return _mlp(p["mlp"], x, cfg)
+def _enc_layer_nocache(p, x, cfg, positions, sctx=None):
+    x = _self_attn_nocache(p["attn"], x, cfg, positions, causal=False,
+                           sctx=sctx)
+    return _mlp(p["mlp"], x, cfg, sctx)
 
 
 def _audio_layer_nocache(p, x, cfg, positions, enc_out):
@@ -464,12 +518,12 @@ def _audio_layer_nocache(p, x, cfg, positions, enc_out):
     return _mlp(p["mlp"], x, cfg)
 
 
-def _encode_audio(cfg, params, frames, train=False):
+def _encode_audio(cfg, params, frames, train=False, sctx=None):
     x = frames.to(torch_dtype(cfg.dtype))
     B, Tf, _ = x.shape
     pos = torch.arange(Tf, dtype=torch.int32, device=x.device).expand(B, Tf)
     for p in params["enc_layers"]:
-        x = _remat(_enc_layer_nocache, train, p, x, cfg, pos)
+        x = _remat(_enc_layer_nocache, train, p, x, cfg, pos, sctx)
     return x
 
 
@@ -537,12 +591,15 @@ def _forward_nocache(cfg, params, tokens, positions, train, aux_inputs):
     return _unembed(cfg, params, x), aux
 
 
-def _unembed(cfg, params, x):
+def _unembed(cfg, params, x, sctx=None):
+    """Logits; an untied ``unembed`` split by vocab gives this rank's
+    columns, gathered whole before sampling."""
     dtype = torch_dtype(cfg.dtype)
     x = rms_norm(x, params["final_ln"], cfg.rms_eps)
     if cfg.tie_embeddings:
         return x @ params["embed"].T.to(dtype)
-    return x @ params["unembed"].to(dtype)
+    return sharding.whole_columns(x @ params["unembed"].to(dtype),
+                                  cfg.vocab_size, sctx)
 
 
 def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
@@ -589,23 +646,26 @@ def _ssm_stack(cfg, blocks, x, token_mask, cache, rec, first):
     return x
 
 
-def _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args):
+def _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args,
+                  sctx=None):
     """Zamba2: each cell runs its ``hybrid_attn_every`` Mamba2 blocks,
     then the one shared attention + MLP block over that cell's K/V layer;
-    the ``tail`` blocks follow the last cell."""
+    the ``tail`` blocks follow the last cell.  Under ``sctx`` the Mamba2
+    blocks and their state are whole on every rank (the reference's
+    replicated specs) and the shared block is head- and ff-sharded."""
     every = cfg.hybrid_attn_every
     positions, bidx, slots, slot_pos, allowed = attn_args
     for c, cell in enumerate(params["cells"]):
         x = _ssm_stack(cfg, cell["ssm"], x, token_mask, cache, rec,
                        c * every)
         x = _self_attn(params["shared_attn"], x, cfg, positions, bidx, slots,
-                       cache["k"][c], cache["v"][c], slot_pos, allowed)
-        x = _mlp(params["shared_mlp"], x, cfg)
+                       cache["k"][c], cache["v"][c], slot_pos, allowed, sctx)
+        x = _mlp(params["shared_mlp"], x, cfg, sctx)
     return _ssm_stack(cfg, params.get("tail", []), x, token_mask, cache,
                       rec, len(params["cells"]) * every)
 
 
-def _vlm_stack(cfg, params, x, cache, attn_args):
+def _vlm_stack(cfg, params, x, cache, attn_args, sctx=None):
     """Llama-3.2-Vision: each cell runs its ``cross_attn_every`` dense
     layers on the slot cache (self layer ``c * every + j`` of ``k`` /
     ``v``), then its cross block on ``cross_k[c]`` / ``cross_v[c]``."""
@@ -616,23 +676,23 @@ def _vlm_stack(cfg, params, x, cache, attn_args):
             i = c * every + j
             x = _dense_layer(p, x, cfg, positions, bidx, slots,
                              cache["k"][i], cache["v"][i], slot_pos,
-                             allowed)
+                             allowed, sctx)
         x = _cross_attn(cell["cross"], x, cfg, cache["cross_k"][c],
-                        cache["cross_v"][c])
+                        cache["cross_v"][c], sctx)
     return x
 
 
-def _audio_stack(cfg, params, x, cache, attn_args):
+def _audio_stack(cfg, params, x, cache, attn_args, sctx=None):
     """Whisper's decoder: each layer's self-attention on the slot cache,
     then its cross block on the encoder's memory (``cross_k[i]`` /
     ``cross_v[i]``), then its MLP."""
     positions, bidx, slots, slot_pos, allowed = attn_args
     for i, p in enumerate(params["dec_layers"]):
         x = _self_attn(p["attn"], x, cfg, positions, bidx, slots,
-                       cache["k"][i], cache["v"][i], slot_pos, allowed)
+                       cache["k"][i], cache["v"][i], slot_pos, allowed, sctx)
         x = _cross_attn(p["cross"], x, cfg, cache["cross_k"][i],
-                        cache["cross_v"][i])
-        x = _mlp(p["mlp"], x, cfg)
+                        cache["cross_v"][i], sctx)
+        x = _mlp(p["mlp"], x, cfg, sctx)
     return x
 
 
@@ -645,7 +705,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             slot_index: Optional[torch.Tensor] = None,
             within_mask: Optional[torch.Tensor] = None,
             rec_out: Optional[dict] = None,
-            logits: bool = True):
+            logits: bool = True,
+            sctx: Optional[ShardCtx] = None):
     """tokens/positions (B,T) int32 -> (logits (B,T,V), cache, aux_loss).
 
     ``cache=None``: the cache-free (training) forward over positions
@@ -671,8 +732,26 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     given, else back into the cache.  VLM and audio models read their
     cross-attention memory from ``cross_k`` / ``cross_v`` of the cache
     (:func:`build_cross_cache`).  ``logits=False`` skips the unembed and
-    returns None in their place (the engine's replay)."""
+    returns None in their place (the engine's replay).
+
+    ``sctx`` (the engine's exact tensor parallelism, ``sctx.exact``):
+    ``params`` and ``cache`` are this rank's shards
+    (``launch.steps``); attention runs on the rank's heads, the MLP and
+    MoE experts on its hidden columns, Mamba2 blocks whole, and every
+    activation a row-parallel matmul would reduce over is gathered first
+    (o before ``wo``, h before ``wd``, vocab-split logits before they are
+    returned), so the logits are bitwise the one-device ones.  The
+    production layout's contexts (``exact=False``: row-parallel ``wo`` /
+    ``wd`` with a reduction, sequence sharding, FSDP) and the cache-free
+    forward under a context are the production-layout slice's, and
+    raise."""
     check_arch(cfg)
+    if sctx is not None and (not sctx.exact or cache is None):
+        raise NotImplementedError(
+            "forward under a tensor-parallel context runs the engine's "
+            "exact layout with a cache; the production layout (row-"
+            "parallel wo/wd, sequence sharding, FSDP, the cache-free "
+            "forward) is not ported yet")
     if cache is None:
         if token_mask is not None or slot_index is not None \
                 or within_mask is not None or contiguous_update:
@@ -684,7 +763,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         return logits_, None, aux
     if contiguous_update:
         raise NotImplementedError(
-            "contiguous_update (launch/steps.py prefill) is not ported")
+            "contiguous_update (the production layout's contiguous prefill "
+            "of launch/steps.py, with K3 at q_offset) is not ported yet")
     if (slot_index is None) != (within_mask is None):
         raise ValueError("slot_index and within_mask come together")
     B, T = tokens.shape
@@ -716,15 +796,16 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     rec = cache if rec_out is None else rec_out
     aux = 0.0
     if cfg.arch_type in ("dense", "moe"):
-        x, aux = _decoder_stack(cfg, params, x, cache, attn_args)
+        x, aux = _decoder_stack(cfg, params, x, cache, attn_args, sctx)
     elif cfg.arch_type == "ssm":
         x = _ssm_stack(cfg, params["layers"], x, token_mask, cache, rec, 0)
     elif cfg.arch_type == "hybrid":
-        x = _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args)
+        x = _hybrid_stack(cfg, params, x, token_mask, cache, rec, attn_args,
+                          sctx)
     elif cfg.arch_type == "vlm":
-        x = _vlm_stack(cfg, params, x, cache, attn_args)
+        x = _vlm_stack(cfg, params, x, cache, attn_args, sctx)
     else:
-        x = _audio_stack(cfg, params, x, cache, attn_args)
+        x = _audio_stack(cfg, params, x, cache, attn_args, sctx)
     if not logits:
         return None, cache, aux
-    return _unembed(cfg, params, x), cache, aux
+    return _unembed(cfg, params, x, sctx), cache, aux

@@ -1,0 +1,337 @@
+"""Logical-axis sharding rules and the collectives of the port's tensor
+parallelism.
+
+Counterpart of ``repro.sharding``.  The reference maps each parameter's
+logical axes (``models/common.Builder``) onto the axes of a JAX
+``Mesh`` and lets GSPMD insert the collectives.  The port runs SPMD over
+``torch.distributed`` instead: every rank runs the same host code and
+holds its own shard of each sharded tensor, so a :class:`ShardCtx` names
+a process group and this rank's place in it, and a placement function
+answers, for one leaf, which dimension rank r splits (or none).  The
+placement functions are the reference's, guard for guard, on one
+tensor-parallel axis ``"model"``: :func:`logical_to_spec` (with its
+used-axis bookkeeping), :func:`param_rules`, :func:`exact_col_spec`,
+:func:`head_axis`, :func:`batch_axes` and :func:`seq_axis`.  They return
+tuples of axis names (``None`` for a replicated dim) where the reference
+returns a ``PartitionSpec``.  The production rules (``param_rules`` with
+row-parallel ``wo`` / ``wd``, ``seq_axis``, FSDP) are kept as pure
+functions for the production layout; the engine's token-exact path uses
+only :func:`exact_col_spec`, :func:`head_axis` and
+:func:`head_shard`.
+
+The reference's ``resolve_shard_map`` / ``shard_map_available`` shim
+across JAX versions and have no counterpart; ``constrain`` (a GSPMD
+annotation) neither: the port gathers explicitly.
+
+The collectives sit here: :func:`all_gather` concatenates every rank's
+piece in rank order (the token-exact layer gathers each activation
+before the matmul whose reduction would otherwise be sharded), and
+:func:`check_lockstep` compares a digest of a host batch across the
+ranks, so ranks whose host decisions diverged fail at once instead of
+deadlocking in the next collective.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+# Logical axis vocabulary of model init (the reference's):
+#   layers        stacked-layer axis (never sharded)
+#   embed         d_model rows (FSDP target in train mode)
+#   heads, kv     attention head dims (merged H*hd)
+#   ff            MLP hidden
+#   vocab         embedding rows / logits
+#   expert        MoE expert axis
+#   eff           per-expert hidden
+#   state, conv, ssm_in   mamba dims (replicated)
+#   batch, seq, cache_seq activation/cache axes
+
+TP_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """One rank's view of a tensor-parallel group.
+
+    ``group`` is the ``torch.distributed`` process group of the
+    ``tp_size`` ranks that share each sharded tensor (None when
+    ``tp_size`` is 1: nothing is sent), ``rank`` this process's index in
+    it; ``host_group`` carries the host-side lockstep digests (a gloo
+    group: the same group when the collectives run over gloo).
+    ``dp``, ``fsdp``, ``seq_shard`` and ``exact`` mean what they mean in
+    the reference; ``axis_sizes`` gives the size of each mesh axis the
+    production rules may name (``{"model": tp_size}`` by default), so the
+    pure placement functions can be held to the reference's on any
+    mesh shape."""
+    group: object = None
+    tp_size: int = 1
+    rank: int = 0
+    host_group: object = None
+    backend: str = "gloo"
+    dp: tuple = ()
+    tp: str = TP_AXIS
+    fsdp: Optional[str] = None
+    seq_shard: bool = True
+    exact: bool = False
+    axis_sizes: Tuple[Tuple[str, int], ...] = ()
+
+    def axis_size(self, axis: str) -> int:
+        if axis == self.tp:
+            return self.tp_size
+        return dict(self.axis_sizes).get(axis, 1)
+
+
+def _mesh_axis_size(sctx: ShardCtx, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    s = 1
+    for a in axes:
+        s *= sctx.axis_size(a)
+    return s
+
+
+def logical_to_spec(axes: tuple, rules: dict, sctx: ShardCtx,
+                    shape: tuple) -> tuple:
+    """Map one leaf's logical axes to a spec (one entry per dim: a mesh
+    axis, a tuple of them, or None) with the divisibility guards; a mesh
+    axis already used by another dim of the leaf is dropped."""
+    out = []
+    used = set()
+    for dim, name in zip(shape, axes):
+        mesh_axes = rules.get(name)
+        if mesh_axes is None:
+            out.append(None)
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        mesh_axes = tuple(a for a in mesh_axes if a not in used)
+        size = _mesh_axis_size(sctx, mesh_axes)
+        if mesh_axes and size > 0 and dim % size == 0:
+            out.append(mesh_axes if len(mesh_axes) > 1 else mesh_axes[0])
+            used.update(mesh_axes)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def param_rules(sctx: ShardCtx, train: bool) -> dict:
+    """The production (Megatron) rules: heads, kv, ff, vocab, expert and
+    eff on the tensor-parallel axis (``expert`` first: ``eff`` is the
+    fallback when the experts do not divide it), ``embed`` on the FSDP
+    axis in training."""
+    tp = sctx.tp
+    rules = {
+        "heads": tp, "kv": tp, "ff": tp, "vocab": tp,
+        "expert": tp, "eff": tp,
+        "embed": None, "state": None, "conv": None, "ssm_in": None,
+        "layers": None, "norm": None,
+    }
+    if train and sctx.fsdp:
+        rules["embed"] = sctx.fsdp
+    return rules
+
+
+def batch_axes(sctx: Optional[ShardCtx], batch_size: int):
+    """Mesh axes for the batch dim, guarded on divisibility (a shorter
+    prefix of ``dp`` when the whole does not divide)."""
+    if sctx is None:
+        return None
+    axes = tuple(sctx.dp)
+    if not axes:
+        return None
+    size = _mesh_axis_size(sctx, axes)
+    if size and batch_size % size == 0:
+        return axes
+    for k in range(len(axes) - 1, 0, -1):
+        sub = axes[:k]
+        if batch_size % _mesh_axis_size(sctx, sub) == 0:
+            return sub
+    return None
+
+
+def seq_axis(sctx: Optional[ShardCtx], seq_len: int):
+    """The tensor-parallel axis for a residual sequence dim (Megatron
+    sequence sharding), when ``seq_shard`` and it divides."""
+    if sctx is None or not sctx.seq_shard:
+        return None
+    if seq_len % sctx.tp_size == 0:
+        return sctx.tp
+    return None
+
+
+def head_axis(sctx: Optional[ShardCtx], n_heads: int):
+    """The tensor-parallel axis for an attention-head dim, guarded on
+    divisibility (4 KV heads on an 8-way axis stay replicated)."""
+    if sctx is None:
+        return None
+    if n_heads % sctx.tp_size == 0:
+        return sctx.tp
+    return None
+
+
+# The engine's token-exact rules: a weight dim is split iff it is the
+# leaf's LAST dim and one of these column (matmul-output) axes, so no
+# matmul's reduction is ever sharded; the row-parallel counterparts (wo,
+# wd) stay whole and the model gathers the activation before them.
+_EXACT_COL_AXES = frozenset({"heads", "kv", "ff", "eff", "vocab"})
+
+
+def exact_col_spec(axes: tuple, shape: tuple, sctx: ShardCtx) -> tuple:
+    """Column-parallel-only spec of one parameter leaf."""
+    out = [None] * len(shape)
+    if axes and axes[-1] in _EXACT_COL_AXES \
+            and shape[-1] % sctx.tp_size == 0:
+        out[-1] = sctx.tp
+    return tuple(out)
+
+
+class HeadShard(NamedTuple):
+    """The query heads ``[q_lo, q_hi)`` and KV heads ``[kv_lo, kv_hi)``
+    one rank holds of an attention layer."""
+    q_lo: int
+    q_hi: int
+    kv_lo: int
+    kv_hi: int
+
+
+def head_shard(n_heads: int, n_kv: int, tp_size: int, rank: int) -> HeadShard:
+    """Rank ``rank``'s heads of an attention layer of ``n_heads`` query
+    and ``n_kv`` KV heads on a ``tp_size``-way group.
+
+    Query heads split evenly where :func:`head_axis` allows (else every
+    rank holds them all).  KV heads split evenly where they divide too;
+    where they do not but the query heads do (4 query / 1 KV head on 2
+    ranks), rank r holds the KV heads its query heads read, ``h //
+    (n_heads / n_kv)``, so each rank's kernel sees a whole ratio of query
+    to KV heads — a smaller one than the layer's when a rank holds fewer
+    query heads than a KV group, which gives the attention's products
+    other shapes (the tokens stay the one-device ones; f32 logprobs may
+    move in the last bit).  When even that leaves a ragged ratio, the
+    layer is replicated.  The reference splits ``wk`` by columns whenever they
+    divide, in the middle of a head if need be, and GSPMD gathers what a
+    head needs; the port keeps whole heads on a rank (its contract is
+    the reference's tokens, not GSPMD's layout)."""
+    if tp_size == 1 or n_heads % tp_size:
+        return HeadShard(0, n_heads, 0, n_kv)
+    hq = n_heads // tp_size
+    q_lo = rank * hq
+    if n_kv % tp_size == 0:
+        hk = n_kv // tp_size
+        return HeadShard(q_lo, q_lo + hq, rank * hk, rank * hk + hk)
+    group = n_heads // n_kv
+    if group % hq == 0 or hq % group == 0:
+        kv_lo = q_lo // group
+        return HeadShard(q_lo, q_lo + hq, kv_lo, kv_lo + max(1, hq // group))
+    return HeadShard(0, n_heads, 0, n_kv)
+
+
+def split_range(n: int, tp_size: int, rank: int) -> Tuple[int, int]:
+    """Rank ``rank``'s contiguous piece of a dim of ``n`` split evenly."""
+    step = n // tp_size
+    return rank * step, (rank + 1) * step
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+# bytes moved by all_gather since the last reset (each rank's input, as
+# sent), and the number of collectives
+traffic = {"all_gather": 0, "all_gather_bytes": 0, "lockstep": 0}
+
+
+def reset_traffic() -> None:
+    for name in traffic:
+        traffic[name] = 0
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor any gloo build takes, bit for bit: 2-byte
+    floats travel as bytes (a gather does no arithmetic; the last dim
+    doubles and halves back)."""
+    t = t.contiguous()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.view(torch.uint8)
+    return t
+
+
+def all_gather(t: torch.Tensor, dim: int, sctx: Optional[ShardCtx]
+               ) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (``t``
+    itself on a one-rank context).  Over NCCL the gather runs on the
+    card; over gloo a card tensor is staged through host memory (gloo
+    gathers host tensors), which costs a device->host copy per call."""
+    if sctx is None or sctx.tp_size == 1:
+        return t
+    import torch.distributed as dist
+    wire = _wire(t)
+    staged = wire.device.type == "cuda" and sctx.backend == "gloo"
+    src = wire.cpu() if staged else wire
+    parts = [torch.empty_like(src) for _ in range(sctx.tp_size)]
+    dist.all_gather(parts, src, group=sctx.group)
+    out = torch.cat(parts, dim=dim)
+    if staged:
+        out = out.to(t.device)
+    traffic["all_gather"] += 1
+    traffic["all_gather_bytes"] += src.numel() * src.element_size()
+    return out.view(t.dtype) if out.dtype != t.dtype else out
+
+
+def whole_columns(t: torch.Tensor, full: int,
+                  sctx: Optional[ShardCtx]) -> torch.Tensor:
+    """``t`` (..., n) whole: gathered from every rank (in rank order) when
+    it is a shard of a dim ``full`` wide.  The exact layers gather each
+    activation before the matmul that would reduce over its sharded dim
+    (``wo``, ``wd``, sampling), so every reduction keeps its one-device
+    order (the reference's ``constrain(..., None)`` of the exact
+    mode)."""
+    if sctx is None or t.shape[-1] == full:
+        return t
+    return all_gather(t, -1, sctx)
+
+
+def all_gather_parts(t: torch.Tensor, sctx: ShardCtx) -> list:
+    """Every rank's ``t`` as a list in rank order (the pieces of a leaf
+    whose ranks may hold overlapping ranges)."""
+    if sctx.tp_size == 1:
+        return [t]
+    whole = all_gather(t.unsqueeze(0), 0, sctx)
+    return list(whole.unbind(0))
+
+
+def batch_digest(*arrays: np.ndarray) -> int:
+    """CRC32 of host arrays' shapes, dtypes and bytes."""
+    crc = 0
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        crc = zlib.crc32(f"{a.shape}{a.dtype.str}".encode(), crc)
+        crc = zlib.crc32(a.view(np.uint8).reshape(-1), crc)
+    return crc & 0xFFFFFFFF
+
+
+class LockstepError(RuntimeError):
+    """The ranks of a tensor-parallel group built different host
+    batches: their host decisions diverged."""
+
+
+def check_lockstep(sctx: Optional[ShardCtx], digest: int) -> None:
+    """Gather every rank's host-batch ``digest`` on the host group and
+    raise :class:`LockstepError` on every rank unless they are equal."""
+    if sctx is None or sctx.tp_size == 1:
+        return
+    import torch.distributed as dist
+    mine = torch.tensor([digest], dtype=torch.int64)
+    got = [torch.empty_like(mine) for _ in range(sctx.tp_size)]
+    dist.all_gather(got, mine, group=sctx.host_group)
+    traffic["lockstep"] += 1
+    seen = [int(g) for g in got]
+    if len(set(seen)) != 1:
+        raise LockstepError(
+            f"rank {sctx.rank}: host batch digests differ across the "
+            f"tensor-parallel group: {seen}")

@@ -233,6 +233,9 @@ def test_takeover_cancel_and_crash_match(models):
 
 
 def test_unported_modes_raise(models):
+    """Tensor parallelism runs now (tests/test_torch_tp.py); tp=2 in a
+    process that is no rank of a two-rank group raises the launch
+    hint."""
     _, _, tcfg, tp = models["float32"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="launch one process per rank"):
         Instance(tcfg, tp, StepFunctions(tcfg), device="cpu", tp=2)

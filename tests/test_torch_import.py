@@ -43,7 +43,9 @@ def test_imports_with_jax_and_repro_blocked():
             "repro_torch.models.model", "repro_torch.obs",
             "repro_torch.obs.trace", "repro_torch.obs.timeline",
             "repro_torch.core.workload", "repro_torch.core.simulator",
-            "repro_torch.data.workload", "repro_torch.layout"} <= set(mods)
+            "repro_torch.data.workload", "repro_torch.layout",
+            "repro_torch.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.steps"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"

@@ -117,16 +117,20 @@ def test_route_ties_pick_the_lower_expert(tie):
 
 
 def test_tensor_parallel_and_training_refused(models):
-    """Tensor parallelism is still refused.  Training no longer is (the
-    MoE training slice): the cache-free forward gives logits and the
+    """The production layout's expert/tensor-parallel dispatch (a
+    context that is not the engine's exact one) is still refused; the
+    exact context runs (tests/test_torch_tp.py).  Training no longer is
+    (the MoE training slice): the cache-free forward gives logits and the
     router's aux loss, and ``RLTrainer`` takes the model
     (tests/test_torch_train_archs.py and test_torch_train_loop.py hold
     both to the reference)."""
+    from repro_torch.sharding import ShardCtx
     m = models("moonshot-v1-16b-a3b", "float32")
     tcfg, tp = m.tcfg, m.tp
     x = torch.zeros((1, 2, tcfg.d_model))
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tmoe.moe_forward(x, tp["layers"][0]["moe"], tcfg, sctx=object())
+        tmoe.moe_forward(x, tp["layers"][0]["moe"], tcfg,
+                         sctx=ShardCtx(tp_size=2, exact=False))
     pos = torch.arange(2, dtype=torch.int32)[None]
     logits, cache, aux = forward(tcfg, tp, pos, pos, None)
     assert cache is None and logits.shape == (1, 2, tcfg.vocab_size)

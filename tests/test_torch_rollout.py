@@ -63,12 +63,13 @@ def test_rollout_matches_reference(models, temp):
 
 
 def test_tracer_and_tp_raise(models):
-    """Tensor parallelism still raises; a tracer now runs, and a traced
-    run is the untraced run bit for bit (its trace is held to the
-    reference's in tests/test_torch_obs.py)."""
+    """Tensor parallelism needs its ranks: tp=2 outside a two-rank group
+    raises the launch hint (tests/test_torch_tp.py runs it in one); a
+    tracer runs, and a traced run is the untraced run bit for bit (its
+    trace is held to the reference's in tests/test_torch_obs.py)."""
     from repro_torch.obs import Tracer
     _, _, tcfg, tp = models
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="launch one process per rank"):
         SeerRollout(tcfg, tp, device="cpu", tp=2, **ROLLOUT)
     kw = dict(group_size=2, max_new_tokens=8, seed=5, temperature=1.0)
     tr = Tracer()

@@ -238,3 +238,45 @@ def test_tree_forward_mask_rows_take_tma(S):
     ext = within.gather(2, col.clamp(0, T - 1)[:, None, :].expand(B, T, S))
     want = torch.where((col >= 0)[:, None, :], ext, (kp >= 0) & (kp <= qp))
     assert torch.equal(got, want)
+
+
+SHARD_CASES = [(2, 5, 256, 4, 2, 64, 0), (1, 1, 128, 8, 8, 128, 0),
+               (2, 1, 256, 32, 8, 128, 0), (2, 4, 256, 4, 2, 64, 64),
+               (3, 9, 384, 4, 1, 64, 0)]
+
+
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", SHARD_CASES)
+def test_head_shard_with_the_unsharded_split_is_bitwise(case, dtype, tree):
+    """What a tensor-parallel rank runs: its heads
+    (``sharding.head_shard``) of K1 / K2 cut into the unsharded call's
+    n_split shares (the wrappers' ``split_like``) give exactly those heads
+    of the unsharded call, for every n_split, through the split route's
+    plain version on the CPU.  A head's shares depend only on its own
+    rows and the cache (the kernel's CTAs each take one KV head)."""
+    from repro_torch.sharding import head_shard
+    _, tdt, _ = DTYPES[dtype]
+    B, T, S, Hq, Hk, D, win = case
+    if tree:
+        q, k, v, q_pos, k_pos, mask = _tree_inputs(B, T, S, Hq, Hk, D, 3)
+        mask = torch.from_numpy(mask)
+    else:
+        q, k, v, q_pos, k_pos = _inputs(case, 7)
+        mask = None
+    tq, tk, tv, tqp, tkp = _torch((q, k, v, q_pos, k_pos), tdt)
+    for n_split in (1, 2, 3, 8):
+        whole = split_verify_ref(tq, tk, tv, tqp, tkp, n_split, window=win,
+                                 tree_mask=mask)
+        for tp in (2, 4, 8):
+            if Hk % tp:
+                continue
+            for r in range(tp):
+                hs = head_shard(Hq, Hk, tp, r)
+                qs = tq[:, :, hs.q_lo:hs.q_hi].contiguous()
+                ks = tk[:, :, hs.kv_lo:hs.kv_hi].contiguous()
+                vs = tv[:, :, hs.kv_lo:hs.kv_hi].contiguous()
+                got = split_verify_ref(qs, ks, vs, tqp, tkp, n_split,
+                                       window=win, tree_mask=mask)
+                assert torch.equal(got, whole[:, :, hs.q_lo:hs.q_hi]), \
+                    (n_split, tp, r)

@@ -269,8 +269,8 @@ def test_replay_decided_on_the_host(m, monkeypatch):
     flags = []
     fn_of = port.steps.fused_step
 
-    def spy(T):
-        fn = fn_of(T)
+    def spy(T, sctx=None):
+        fn = fn_of(T, sctx)
 
         def wrapped(*args):
             flags.append(args[-1])
