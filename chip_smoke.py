@@ -59,10 +59,12 @@ Phases, in this order:
    autograd through the plain forward at the tiny configs', mamba2-370m's
    and zamba2-1.2b's heads (b 2, and the models' heads also at the
    trainers' 16 x 448), T on and off the chunk, f32 and bf16, with
-   and without an initial state, zero-dt steps and rows, repeat calls
-   bitwise equal, bf16 under ``scaled_check``'s measure with planted
-   faults (``ssd_bwd_check``); K3's backward at the cross blocks'
-   training shapes under ``scaled_check`` (``cross_bwd_check``);
+   and without an initial state, zero-dt steps and rows, on each route
+   of its table (the tensor cores for bf16, the CUDA cores for both),
+   repeat calls bitwise equal, bf16 under ``scaled_check``'s measure
+   with planted faults fed through each route (``ssd_bwd_check``); K3's
+   backward at the cross blocks' training shapes under
+   ``scaled_check`` (``cross_bwd_check``);
 4. linear slice: a full-width, full-depth granite-3-8b Seer rollout
    (40 layers, random weights from a seed, bf16) on two instances
    through the port's entry points, with its checks: every group finishes, every
@@ -196,7 +198,8 @@ Phases, in this order:
    phases; K3: the training phase's two train steps and the building of
    the whisper cold pass's rollout; K4: the hybrid and the SSM cold
    passes; K4's backward: the zamba2 and mamba2 train steps, timed at
-   their shape, 16 x 448, by ``ssd_bwd_time``) and
+   their shape, 16 x 448, on both routes with each of its kernels'
+   profiled time, by ``ssd_bwd_time``) and
    that path's shape's timing; K4 also at fixed
    widths (``ssd_time_table``: T = 1, 3, 5, 9, 33, 64 and each SSM slice's
    cold and warm commonest, both models' heads on 8 slots) with route,
@@ -2058,12 +2061,13 @@ def _ssd_bound_ms(b, T, nh, P, G, N, es, route, chunk=256):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _kernel_us(torch, fn, flush, match: str, calls: int = 30):
-    """The median device duration, in microseconds, of the kernels whose
-    name holds ``match`` over ``calls`` calls of ``fn`` (each after
-    ``flush``), from torch.profiler's kernel records: the kernel's own
-    time, with no event or launch overhead in it; None where the profiler
-    saw no such kernel."""
+def _kernels_us(torch, fn, flush, match: str, calls: int = 10) -> dict:
+    """The median device duration per call, in microseconds, of each
+    kernel whose name holds ``match`` (keyed by the name after it, up to
+    its template arguments) over ``calls`` calls of ``fn`` (each after
+    ``flush``), from torch.profiler's kernel records in launch order; a
+    kernel launched k times a call sums each call's k records, or, where
+    the profiler lost a record, takes k times their mean."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2071,9 +2075,20 @@ def _kernel_us(torch, fn, flush, match: str, calls: int = 30):
             flush()
             fn()
         torch.cuda.synchronize()
-    durs = sorted(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type.name == "CUDA" and match in e.name)
-    return durs[len(durs) // 2] if durs else None
+    durs = {}
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.device_type.name == "CUDA" and match in e.name:
+            key = e.name.split(match, 1)[1].split("<")[0].split("(")[0]
+            durs.setdefault(key, []).append(e.time_range.elapsed_us())
+    out = {}
+    for key, d in durs.items():
+        per = max(1, round(len(d) / calls))
+        if len(d) == per * calls:
+            d = sorted(sum(d[i:i + per]) for i in range(0, len(d), per))
+            out[key] = d[len(d) // 2]
+        else:
+            out[key] = per * sum(d) / len(d)
+    return out
 
 
 def _ssd_timing_inputs(torch, np, *, b, nh, P, G, N, T):
@@ -2091,7 +2106,7 @@ def ssd_call_time(torch, np, *, b, nh, P, G, N, T, iters=50) -> dict:
     tree's kernel), at one main-path call: bf16 x, B, C strided as the
     model passes them, f32 dt and state, the state updated in place, L2
     flushed before each call.  The timed window (``_time_rounds``), the
-    kernel's own duration (``_kernel_us``; K4's kernels are all named
+    kernel's own duration (``_kernels_us``; K4's kernels are all named
     ssd_*), the wrapper's host us per call, the plain version's time and
     the error against it."""
     from repro_torch.kernels.ssd_scan import ops
@@ -2113,7 +2128,8 @@ def ssd_call_time(torch, np, *, b, nh, P, G, N, T, iters=50) -> dict:
         return ops.ssd_chunk_scan(x, dt, A, Bm, Cm, state, 256,
                                   out_state=state)
     t = _time_rounds(torch, k4, iters, flush)
-    kernel_us = _kernel_us(torch, k4, flush, "ssd_")
+    kernel_us = sum(_kernels_us(torch, k4, flush, "ssd_", 30).values()) \
+        or None
     host_us = _host_us(torch, k4)
     plain_ms = _time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, state, 256),
                         max(iters // 5, 5), flush)
@@ -2153,14 +2169,28 @@ def ssd_kernels_time(torch, np, *, name, b, nh, P, G, N, T, iters=50,
 
 
 # K4's backward: (name, nh, P, G, N, chunk, widths) of the tiny configs'
-# heads and both models', each at b 2 with T on the chunk, off it (a ragged
-# last chunk) and, at the models' chunk of 256, one short chunk (Q = T);
-# both models' heads also at the shape their trainers give it
-# (``ssd_bwd_train_shape``)
+# heads, two groups of four heads (chunks of two blocks, so that the group
+# logic meets off-diagonal tiles and slices of heads) and both models'
+# heads, each at b 2 with T on the chunk, off it (a ragged last chunk) and
+# one short chunk (Q = T); all but the tiny heads also at the shape the
+# trainers give it (``ssd_bwd_train_shape``); each also under strong decay
+# (``_ssd_bwd_inputs``) at its second width
 SSD_BWD_SHAPES = [("tiny", 8, 32, 1, 16, 32, (64, 45)),
+                  ("two groups", 8, 32, 2, 32, 128, (128, 300, 100)),
                   ("mamba2-370m", 32, 64, 1, 128, 256, (256, 300, 130)),
                   ("zamba2-1.2b", 64, 64, 1, 64, 256, (256, 300, 130))]
 SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+# the tensor-core route against the CUDA-core route on the same bf16
+# inputs: hi + lo operands round to ~2^-16, so each gradient agrees to
+# 2^-12 of its scale (dx beyond its own bf16 rounding); a route that fed
+# only the hi halves would miss by ~2^-9
+ROUTE_GAP_TOL = 2 ** -12
+# dA under strong decay in f32: a sum of large terms of both signs, so
+# that f32 plain versions in other orders land ~1e-4 of its scale apart
+# (against the same computation in f64: ssd_bwd_ref up to 9.4e-5, the
+# routes' decomposition 1.7e-4, at the models' heads), held at 1e-3;
+# every other gradient, and dA elsewhere, at SSD_TOL
+SSD_DA_STRONG_TOL = 1e-3
 
 
 def ssd_bwd_train_shape() -> tuple:
@@ -2170,12 +2200,22 @@ def ssd_bwd_train_shape() -> tuple:
     return ARCH_TRAIN_GROUPS * GROUP_SIZE, ARCH_TRAIN_PROMPT + ARCH_TRAIN_NEW
 
 
-def _ssd_bwd_inputs(torch, np, *, b, T, nh, P, G, N, dtype, seed, init):
+def _ssd_bwd_inputs(torch, np, *, b, T, nh, P, G, N, dtype, seed, init,
+                    strong=False):
     """K4's inputs (``_ssd_inputs``: the last row's dt 0 throughout) with
-    five more zero-dt steps inside row 0, and a seeded dy in x's dtype."""
+    five more zero-dt steps inside row 0, and a seeded dy in x's dtype.
+    ``strong``: dt in (1, 3) and A = -1, so that the decay summed over a
+    block of 64 steps passes 64 (exp of it overflows f32 past ~88)."""
     x, dt, A, Bm, Cm, S0 = _ssd_inputs(torch, np, b=b, T=T, nh=nh, P=P,
                                        G=G, N=N, dtype=dtype, seed=seed,
                                        init=init, strided=False)
+    if strong:
+        rng = np.random.default_rng(seed + 2)
+        dt = torch.from_numpy(rng.uniform(1.0, 3.0, size=(b, T, nh)).astype(
+            np.float32)).cuda()
+        if b > 1:
+            dt[b - 1] = 0.0
+        A = torch.full_like(A, -1.0)
     dt[0, T // 3:T // 3 + 5] = 0.0
     rng = np.random.default_rng(seed + 1)
     dy = torch.from_numpy(rng.normal(size=(b, T, nh, P)).astype(
@@ -2195,121 +2235,195 @@ def _ssd_autograd(torch, x, dt, A, Bm, Cm, S0, chunk, dy):
     return list(grads) + ([None] if s0 is None else [])
 
 
+def _ssd_bwd_errs(torch, what, got, want) -> dict:
+    """Each gradient's (rel rms, rel max) against the f32 plain version;
+    None gradients where the plain version makes none; finite values."""
+    errs = {}
+    for g, a, w in zip(SSD_BWD_GRADS, got, want):
+        check((a is None) == (w is None),
+              f"{what}: {g} made where it should not be, or not made")
+        if a is None:
+            continue
+        check(bool(torch.isfinite(a).all()), f"{what}: {g} not finite")
+        errs[g] = _scaled_err(a, w)
+    return errs
+
+
+def _route_gaps(torch, got, base) -> dict:
+    """Each gradient of one route against another route's on the same
+    inputs, as a share of the latter's scale: max |a - b| / max |b|; a
+    bf16 gradient (dx) counts each element's gap only beyond one bf16 step
+    of its magnitude, since the routes may round one value to
+    neighbours."""
+    out = {}
+    for g, a, b_ in zip(SSD_BWD_GRADS, got, base):
+        if a is None:
+            continue
+        a, b_, bf16 = a.float(), b_.float(), a.dtype == torch.bfloat16
+        gap = (a - b_).abs()
+        if bf16:
+            mag = torch.maximum(a.abs(), b_.abs()).clamp_min(1e-30)
+            gap = (gap - torch.exp2(torch.floor(torch.log2(mag)) - 7)
+                   ).clamp_min(0.0)
+        out[g] = float(gap.max() / b_.abs().max().clamp_min(1e-30))
+    return out
+
+
 def ssd_bwd_check(torch, np) -> list:
-    """K4's backward (``ops.ssd_scan_bwd``) on the card at SSD_BWD_SHAPES'
-    heads (b 2, and the models' heads also at the trainers' b 16 x T 448),
-    f32 and bf16, with and without an initial state, zero-dt steps and a
-    zero-dt row: f32 held to its plain version
+    """K4's backward on the card at SSD_BWD_SHAPES' heads (b 2, and all
+    but the tiny heads also at the trainers' b 16 x T 448), f32 and bf16,
+    with and without an initial state, zero-dt steps and a zero-dt row,
+    under Mamba2's usual decay and under strong decay, on every route the
+    shape can take (``ops.launch_bwd_on_route``: the tensor cores for
+    bf16, the CUDA cores for both dtypes): f32 held to its plain version
     ``ref.ssd_bwd_ref`` and to autograd through ``ssd_ref`` at 1e-4 of
-    each gradient's scale (tests/test_kernels.py's SSD tolerance); bf16
-    by ``scaled_check``'s measure against the f32 plain version on the
-    same inputs, with two planted faults (the last step's dy dropped;
-    the initial state, or else the chunk boundary's state, ignored) that
-    must fail it; a repeated call bitwise equal."""
+    each gradient's scale (tests/test_kernels.py's SSD tolerance; dA
+    under strong decay at ``SSD_DA_STRONG_TOL``); bf16 by
+    ``scaled_check``'s measure against the f32 plain version on the same
+    inputs, with two planted faults fed through the same route (the last
+    step's dy dropped; the initial state, or else the chunk boundary's
+    state, ignored) that must fail it, and the tensor-core route within
+    ``ROUTE_GAP_TOL`` of the CUDA-core route on the same inputs; a
+    repeated call bitwise equal; the entry point ``ops.ssd_scan_bwd``
+    bitwise equal to the table's route."""
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
     n0 = dict(ops.launches)
     rows, seed = [], 100
     for name, nh, P, G, N, chunk, widths in SSD_BWD_SHAPES:
-        cases = [(2, T) for T in widths]
+        cases = [(2, T, False) for T in widths] + [(2, widths[1], True)]
         if name != "tiny":
-            cases.append(ssd_bwd_train_shape())
-        for b, T in cases:
+            cases.append(ssd_bwd_train_shape() + (False,))
+        for b, T, strong in cases:
             for dtype in ("float32", "bfloat16"):
                 for init in (False, True):
                     seed += 1
                     args = _ssd_bwd_inputs(torch, np, b=b, T=T, nh=nh, P=P,
                                            G=G, N=N, dtype=dtype, seed=seed,
-                                           init=init)
+                                           init=init, strong=strong)
                     x, dt, A, Bm, Cm, S0, dy = args
-                    got = ops.ssd_scan_bwd(x, dt, A, Bm, Cm, S0, chunk, dy)
-                    again = ops.ssd_scan_bwd(x, dt, A, Bm, Cm, S0, chunk, dy)
-                    torch.cuda.synchronize()
-                    same = all(a is None and b_ is None or torch.equal(a, b_)
-                               for a, b_ in zip(got, again))
-                    what = (f"ssd_scan_bwd {name} b={b} T={T} "
-                            f"chunk={chunk} {dtype}{' init' if init else ''}")
-                    check(same, f"{what}: a repeated call differs")
                     f32 = [t.float() for t in (x, dt, A, Bm, Cm)]
                     want = ssd_bwd_ref(*f32, S0, chunk, dy.float())
-                    errs = {}
-                    for g, a, w in zip(SSD_BWD_GRADS, got, want):
-                        check((a is None) == (w is None),
-                              f"{what}: {g} made where it should not be, "
-                              "or not made")
-                        if a is None:
-                            continue
-                        check(bool(torch.isfinite(a).all()),
-                              f"{what}: {g} not finite")
-                        errs[g] = _scaled_err(a, w)
-                    row = {"shape": name, "b": b, "T": T, "chunk": chunk,
-                           "dtype": dtype, "init": init,
-                           "max_abs_err": max(
-                               float((a.float() - w).abs().max())
-                               for a, w in zip(got, want) if a is not None),
-                           "errs": errs}
-                    if dtype == "float32":
-                        auto = _ssd_autograd(torch, x, dt, A, Bm, Cm, S0,
-                                             chunk, dy)
-                        for g, a, w, v in zip(SSD_BWD_GRADS, got, want,
-                                              auto):
-                            if a is None:
-                                continue
-                            rel = errs[g][1]
-                            rel_auto = float((a - v).abs().max()
-                                             / v.abs().max().clamp_min(1e-30))
-                            check(rel <= SSD_TOL["float32"] and
-                                  rel_auto <= SSD_TOL["float32"],
-                                  f"{what}: {g} max|err|/max|ref| {rel:.2e} "
-                                  f"against ssd_bwd_ref, {rel_auto:.2e} "
-                                  f"against autograd (limit "
-                                  f"{SSD_TOL['float32']})")
-                        row["autograd_ok"] = True
-                    else:
-                        for g, e in errs.items():
-                            check(_scaled_ok(e), f"{what}: {g} off its f32 "
-                                  f"plain version: {e[0]:.2e}/{e[1]:.2e} "
-                                  f"(limits {REL_RMS_TOL}/{REL_MAX_TOL:.2e})")
-                        dy_cut = dy.float().clone()
-                        dy_cut[:, -1] = 0.0
-                        faults = {"last step's dy dropped": ssd_bwd_ref(
-                            *f32, S0, chunk, dy_cut)}
-                        if init:
-                            faults["initial state ignored"] = ssd_bwd_ref(
-                                *f32, None, chunk, dy.float())
-                        elif T > chunk:
-                            faults["chunk boundary's state ignored"] = \
-                                ssd_bwd_ref(*[t[:, chunk:] for t in
-                                              (f32[0], f32[1])], f32[2],
-                                            *[t[:, chunk:] for t in
-                                              (f32[3], f32[4])], None, chunk,
-                                            dy.float()[:, chunk:])
-                        row["faults"] = {}
-                        for fname, fgrads in faults.items():
-                            ferrs = {}
-                            for g, f, w in zip(SSD_BWD_GRADS, fgrads, want):
-                                if f is None or w is None:
+                    auto = _ssd_autograd(torch, x, dt, A, Bm, Cm, S0, chunk,
+                                         dy) if dtype == "float32" else None
+                    routes = ops.bwd_routes_of(x.dtype, P, N, min(chunk, T))
+                    entry = ops.ssd_scan_bwd(x, dt, A, Bm, Cm, S0, chunk, dy)
+                    case = (f"ssd_scan_bwd {name} b={b} T={T} "
+                            f"chunk={chunk} {dtype}"
+                            f"{' init' if init else ''}"
+                            f"{' strong decay' if strong else ''}")
+                    by_route = {}
+                    for route in routes:
+                        what = f"{case} on {route}"
+                        got = by_route[route] = ops.launch_bwd_on_route(
+                            route, x, dt, A, Bm, Cm, S0, chunk, dy)
+                        again = ops.launch_bwd_on_route(route, x, dt, A, Bm,
+                                                        Cm, S0, chunk, dy)
+                        torch.cuda.synchronize()
+                        same = all(a is None and b_ is None
+                                   or torch.equal(a, b_)
+                                   for a, b_ in zip(got, again))
+                        check(same, f"{what}: a repeated call differs")
+                        if route == routes[0]:
+                            check(all(a is None and e is None
+                                      or torch.equal(a, e)
+                                      for a, e in zip(got, entry)),
+                                  f"{what}: ssd_scan_bwd differs from the "
+                                  "table's route")
+                        errs = _ssd_bwd_errs(torch, what, got, want)
+                        row = {"shape": name, "b": b, "T": T, "chunk": chunk,
+                               "dtype": dtype, "init": init,
+                               "strong_decay": strong, "route": route,
+                               "max_abs_err": max(
+                                   float((a.float() - w).abs().max())
+                                   for a, w in zip(got, want)
+                                   if a is not None),
+                               "errs": errs}
+                        if dtype == "float32":
+                            for g, a, w, v in zip(SSD_BWD_GRADS, got, want,
+                                                  auto):
+                                if a is None:
                                     continue
-                                if f.shape != w.shape:   # the cut: its tail
-                                    w = w[:, chunk:] if w.dim() > 1 else w
-                                ferrs[g] = _scaled_err(f, w)
-                            row["faults"][fname] = ferrs
-                            check(not all(_scaled_ok(e)
-                                          for e in ferrs.values()),
-                                  f"{what}: the planted fault '{fname}' "
-                                  "passes the scaled check")
-                    rows.append(row)
-                    log(f"  {what}: " + ", ".join(
-                        f"{g} {a:.1e}/{b_:.1e}" for g, (a, b_) in
-                        errs.items()) + " (rel rms/rel max against the f32 "
-                        "plain version)" + (
-                            "; faults fail: " + ", ".join(
-                                f"{k} (worst {max(e[0] for e in v.values()):.1e})"
-                                for k, v in row["faults"].items())
-                            if "faults" in row else
-                            "; autograd through ssd_ref agrees"))
+                                rel = errs[g][1]
+                                rel_auto = float(
+                                    (a - v).abs().max()
+                                    / v.abs().max().clamp_min(1e-30))
+                                tol = (SSD_DA_STRONG_TOL if strong and
+                                       g == "dA" else SSD_TOL["float32"])
+                                check(rel <= tol and rel_auto <= tol,
+                                      f"{what}: {g} max|err|/max|ref| "
+                                      f"{rel:.2e} against ssd_bwd_ref, "
+                                      f"{rel_auto:.2e} against autograd "
+                                      f"(limit {tol})")
+                            row["autograd_ok"] = True
+                        else:
+                            for g, e in errs.items():
+                                check(_scaled_ok(e), f"{what}: {g} off its "
+                                      f"f32 plain version: {e[0]:.2e}/"
+                                      f"{e[1]:.2e} (limits {REL_RMS_TOL}/"
+                                      f"{REL_MAX_TOL:.2e})")
+                            row["faults"] = _ssd_bwd_faults(
+                                torch, ops, route, args, chunk, want, what)
+                        rows.append(row)
+                        log(f"  {what}: " + ", ".join(
+                            f"{g} {a:.1e}/{b_:.1e}" for g, (a, b_) in
+                            errs.items()) + " (rel rms/rel max against the "
+                            "f32 plain version)" + (
+                                "; faults fail: " + ", ".join(
+                                    f"{k} (worst "
+                                    f"{max(e[0] for e in v.values()):.1e})"
+                                    for k, v in row["faults"].items())
+                                if "faults" in row else
+                                "; autograd through ssd_ref agrees"))
+                    if dtype == "bfloat16":
+                        gaps = _route_gaps(torch, by_route["tensor_cores"],
+                                          by_route["cuda_cores"])
+                        check(max(gaps.values()) <= ROUTE_GAP_TOL,
+                              f"{case}: the tensor-core route off the "
+                              "CUDA-core route: " + ", ".join(
+                                  f"{g} {v:.2e}" for g, v in gaps.items())
+                              + f" of scale (limit {ROUTE_GAP_TOL:.2e})")
+                        rows[-1]["route_gap"] = gaps
+                        log(f"  {case}: tensor cores against CUDA cores "
+                            + ", ".join(f"{g} {v:.1e}"
+                                        for g, v in gaps.items())
+                            + " of scale")
     ops.launches.update(n0)      # check launches are not a path's
     return rows
+
+
+def _ssd_bwd_faults(torch, ops, route, args, chunk, want, what) -> dict:
+    """Two planted faults fed through ``route``: the last step's dy
+    dropped; the initial state ignored, or else (T past one chunk) the
+    first chunk's output state, by running the route on the tail alone.
+    Each must fail the scaled check against the f32 plain version
+    ``want``; returns each fault's errors."""
+    x, dt, A, Bm, Cm, S0, dy = args
+    T = x.shape[1]
+    dy_cut = dy.clone()
+    dy_cut[:, -1] = 0
+    faults = {"last step's dy dropped": (ops.launch_bwd_on_route(
+        route, x, dt, A, Bm, Cm, S0, chunk, dy_cut), want)}
+    if S0 is not None:
+        faults["initial state ignored"] = (ops.launch_bwd_on_route(
+            route, x, dt, A, Bm, Cm, None, chunk, dy), want)
+    elif T > chunk:
+        tail = [t[:, chunk:] for t in (x, dt)] + [A] + \
+            [t[:, chunk:] for t in (Bm, Cm)]
+        faults["chunk boundary's state ignored"] = (
+            ops.launch_bwd_on_route(route, *tail, None, chunk,
+                                    dy[:, chunk:]),
+            [w if w is None or w.dim() == 1 else w[:, chunk:]
+             for w in want])
+    out = {}
+    for fname, (fgot, fwant) in faults.items():
+        ferrs = {g: _scaled_err(f, w) for g, f, w in
+                 zip(SSD_BWD_GRADS, fgot, fwant)
+                 if f is not None and w is not None}
+        out[fname] = ferrs
+        check(not all(_scaled_ok(e) for e in ferrs.values()),
+              f"{what}: the planted fault '{fname}' passes the scaled check")
+    return out
 
 
 def _ssd_bwd_bound_ms(b, T, nh, P, G, N, es, chunk=256, init=False):
@@ -2317,18 +2431,19 @@ def _ssd_bwd_bound_ms(b, T, nh, P, G, N, es, chunk=256, init=False):
     in training), its deciding unit and its byte time.  Bytes: x, dy, B,
     C, dt read once and dx, ddt, dB, dC (f32) written once, over the
     memory rate.  Operations (2 per multiply-add) that these inputs need,
-    each product over the rate of its operands' type: per causal pair of
-    a chunk, C.B once per group (every head of a group shares it) and
-    dy.x per head, both of bf16 operands (bf16 tensor cores); dx's term
-    (P) per head, and dB's and dC's (N each) once per group, the heads'
-    f32 weights summed first; per head, token and state element (P N, f32
-    CUDA cores) only where the chunk's boundary state or its gradient is
-    nonzero: the chunk states (every chunk but the last: the last one's
-    output is not used), r = dS.B (dx's and ddt's boundary term) and dB's
-    boundary term (every chunk but the last: its dS is 0), the reverse
-    pass and dC's boundary term (every chunk but the first, whose input
-    state is 0, unless ``init``).  The unit bound is the larger of the
-    two types' times."""
+    each product counted on the cheapest unit that meets its check: the
+    bf16 tensor cores, an f32 operand as its hi/lo bf16 pair (two
+    products), as the tensor-core route runs it.  Per causal pair of a
+    chunk: C.B once per group (every head of a group shares it) and dy.x
+    per head, of exact bf16 operands (1x); dx's term W.dy per head (P)
+    and dB's and dC's terms (N each) once per group, the heads' f32
+    weights summed first (2x); per head, token and state element (P N,
+    an f32 state or weighted row: 2x) only where the chunk's boundary
+    state or its gradient is nonzero: the chunk states (every chunk but
+    the last: the last one's output is not used), r = dS.B (dx's boundary
+    term) and dB's boundary term (every chunk but the last: its dS is 0),
+    the reverse pass and dC's boundary term (every chunk but the first,
+    whose input state is 0, unless ``init``)."""
     nbytes = b * T * (2 * nh * P * es + 2 * G * N * es + nh * 4) \
         + b * T * (nh * P * es + nh * 4 + 2 * G * N * 4) + nh * 8
     Q = min(chunk, T)
@@ -2336,12 +2451,10 @@ def _ssd_bwd_bound_ms(b, T, nh, P, G, N, es, chunk=256, init=False):
     pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
     t_head = T - (rest or Q)          # tokens of every chunk but the last
     t_tail = T if init else T - Q     # ... but the first
-    ops_bf16 = 2 * b * pairs * (G * N + nh * P)
-    ops_f32 = 2 * b * (pairs * (2 * G * N + nh * P)
-                       + nh * P * N * (3 * t_head + 2 * t_tail))
+    ops_bf16 = 2 * b * (pairs * (G * N + nh * P + 2 * (nh * P + 2 * G * N))
+                        + 2 * nh * P * N * (3 * t_head + 2 * t_tail))
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(ops_bf16 / PEAK_OPS["bfloat16"],
-                ops_f32 / PEAK_OPS["float32"])
+    t_ops = ops_bf16 / PEAK_OPS["bfloat16"]
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations", 1e3 * t_bytes
 
@@ -2349,10 +2462,12 @@ def _ssd_bwd_bound_ms(b, T, nh, P, G, N, es, chunk=256, init=False):
 def ssd_bwd_time(torch, np, *, name, b, nh, P, G, N, T, iters=20) -> dict:
     """K4's backward timed at a training call's shape (bf16 x, B, C, dy,
     f32 dt, no initial state, L2 flushed before each call; a training
-    batch of b rows of T tokens), beside its plain version and its bound;
-    no single PyTorch call computes it (library: none).  The timed call's
-    gradients are first held to the f32 plain version by ``scaled_check``'s
-    measure."""
+    batch of b rows of T tokens) on the table's route and on the other
+    route (``ops.launch_bwd_on_route``), each with its kernels' own
+    durations from torch.profiler (``_kernels_us``), beside its plain
+    version, its bound and its workspace; no single PyTorch call computes
+    it (library: none).  Each route's gradients are first held to the f32
+    plain version by ``scaled_check``'s measure."""
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
     x, dt, A, Bm, Cm, _, dy = _ssd_bwd_inputs(
@@ -2360,28 +2475,66 @@ def ssd_bwd_time(torch, np, *, name, b, nh, P, G, N, T, iters=20) -> dict:
         seed=11, init=False)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda").zero_
     n0 = dict(ops.launches)
-    got = ops.ssd_scan_bwd(x, dt, A, Bm, Cm, None, 256, dy)
     want = ssd_bwd_ref(*[t.float() for t in (x, dt, A, Bm, Cm)], None, 256,
                        dy.float())
-    err = max(float((a.float() - w).abs().max())
-              for a, w in zip(got, want) if a is not None)
-    for g, a, w in zip(SSD_BWD_GRADS, got, want):
-        if a is not None:
-            e = _scaled_err(a, w)
-            check(_scaled_ok(e), f"ssd_scan_bwd timing ({name} heads) b={b} "
-                  f"T={T}: {g} off its f32 plain version: {e[0]:.2e}/"
-                  f"{e[1]:.2e} (limits {REL_RMS_TOL}/{REL_MAX_TOL:.2e})")
-    t = _time_rounds(torch, lambda: ops.ssd_scan_bwd(
-        x, dt, A, Bm, Cm, None, 256, dy), iters, flush)
+    routes, err = {}, 0.0
+    for route in ops.bwd_routes_of(x.dtype, P, N, min(256, T)):
+        got = ops.launch_bwd_on_route(route, x, dt, A, Bm, Cm, None, 256, dy)
+        for g, a, w in zip(SSD_BWD_GRADS, got, want):
+            if a is not None:
+                e = _scaled_err(a, w)
+                check(_scaled_ok(e), f"ssd_scan_bwd timing ({name} heads) "
+                      f"b={b} T={T} on {route}: {g} off its f32 plain "
+                      f"version: {e[0]:.2e}/{e[1]:.2e} (limits "
+                      f"{REL_RMS_TOL}/{REL_MAX_TOL:.2e})")
+        if not routes:
+            err = max(float((a.float() - w).abs().max())
+                      for a, w in zip(got, want) if a is not None)
+
+        def call(route=route):
+            return ops.launch_bwd_on_route(route, x, dt, A, Bm, Cm, None,
+                                           256, dy)
+        t = _time_rounds(torch, call, iters, flush)
+        routes[route] = {"ms": t["median"], "ms_spread": t,
+                         "kernels_us": _kernels_us(torch, call, flush,
+                                                   "ssd_bwd_")}
     plain_ms = _time_ms(torch, lambda: ssd_bwd_ref(
         x, dt, A, Bm, Cm, None, 256, dy), max(iters // 5, 3), flush)
     ops.launches.update(n0)
     bound_ms, bound_by, bytes_ms = _ssd_bwd_bound_ms(b, T, nh, P, G, N, 2)
+    first = next(iter(routes))
+    tm = routes[first]
     return {"model": name, "b": b, "T": T, "nh": nh, "P": P, "N": N,
-            "dtype": "bfloat16", "ms": t["median"], "ms_spread": t,
+            "dtype": "bfloat16", "route": first, "ms": tm["ms"],
+            "ms_spread": tm["ms_spread"], "routes": routes,
+            "scratch_bytes": 4 * ops.bwd_scratch_floats(b, T, nh, P, G, N,
+                                                        256),
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
-            "bound_share": bound_ms / t["median"], "max_abs_err": err}
+            "bound_share": bound_ms / tm["ms"], "max_abs_err": err}
+
+
+def ssd_bwd_time_table(torch, np) -> list:
+    """``ssd_bwd_time`` at both SSM models' heads at the trainers' shape
+    (``ssd_bwd_train_shape``), logged."""
+    bwd_b, bwd_T = ssd_bwd_train_shape()
+    out = []
+    for name, _, nh, P, G, N in SSD_MODEL_SHAPES:
+        tm = ssd_bwd_time(torch, np, name=name, b=bwd_b, nh=nh, P=P, G=G,
+                          N=N, T=bwd_T)
+        out.append(tm)
+        log(f"  ssd_scan_bwd timing ({tm['model']} heads) b={tm['b']} "
+            f"T={tm['T']} nh={tm['nh']} P={tm['P']} N={tm['N']} bf16, "
+            f"route {tm['route']}: {_spread(tm['ms_spread'])} ms; plain "
+            f"{tm['plain_ms']:.4f} ms; bound {tm['bound_ms']:.4f} ms "
+            f"({tm['bound_by']}, {tm['bound_share']:.3f} of it; bytes alone "
+            f"{tm['bytes_bound_ms']:.4f} ms); library: none; workspace "
+            f"{tm['scratch_bytes'] / 1e6:.1f} MB")
+        for route, r in tm["routes"].items():
+            log(f"    {route}: {_spread(r['ms_spread'])} ms; kernels (us, "
+                "profiler): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                          r["kernels_us"].items()))
+    return out
 
 
 # K4's fixed widths: decode, the warm passes' verify widths (T = 3, 5, 9),
@@ -3210,6 +3363,83 @@ def modality_training_phase(torch, np, arch, layers=0) -> dict:
             "repeat_bitwise": repeat_equal, "grad_norm_total": total}
 
 
+# the SSM and hybrid trainers, whose train step runs K4's backward once per
+# Mamba2 block
+TRAIN_STEP_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+
+
+def train_step_time(torch, np, arch, steps=5) -> dict:
+    """Warm GRPO train steps of ``arch`` at full width and depth through
+    ``make_train_step`` alone, for before/after measurements of the train
+    step outside the smoke run (a signature every version of the port
+    keeps, so the same code times a parent tree's port: import this
+    module, put the tree's ``src`` first on ``sys.path`` and call this;
+    PERF.md names the command): f32
+    masters from seed 0 and a seeded batch of ARCH_TRAIN_GROUPS x
+    GROUP_SIZE rows of ARCH_TRAIN_PROMPT + ARCH_TRAIN_NEW tokens (the
+    trainers' shape); one warm-up step, then ``steps`` steps each timed by
+    the host clock between synchronizations, with K4's backward's
+    launches per step; one more step under torch.profiler: its device
+    time and K4's backward's kernels' share of it (named ``ssd_bwd_*``;
+    a tree whose kernels are named otherwise reads 0)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import init_params
+    from repro_torch.training.grpo import GRPOConfig
+    from repro_torch.training.loop import make_train_step, master_params
+    from repro_torch.training.optim import OptConfig, init_opt_state
+    cfg = _arch_cfg(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = master_params(init_params(cfg, gen, device="cuda",
+                                       dtype="float32"), "cuda")
+    opt_state = init_opt_state(params)
+    B, S = ARCH_TRAIN_GROUPS * GROUP_SIZE, ARCH_TRAIN_PROMPT + ARCH_TRAIN_NEW
+    rng = np.random.default_rng(5)
+    mask = np.zeros((B, S), np.float32)
+    mask[:, ARCH_TRAIN_PROMPT:] = 1.0
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).astype(
+                 np.int32),
+             "loss_mask": mask,
+             "old_logprobs": (-np.log(cfg.vocab_size) + rng.normal(
+                 0, 0.3, size=(B, S))).astype(np.float32),
+             "advantages": rng.normal(size=(B,)).astype(np.float32),
+             "rewards": rng.random(B).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    step = make_train_step(cfg, GRPOConfig(), OptConfig())
+    params, opt_state, loss, _ = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    walls, launches = [], []
+    for _ in range(steps):
+        n0 = ssd_ops.launches["ssd_scan_bwd"]
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(ssd_ops.launches["ssd_scan_bwd"] - n0)
+    check(bool(torch.isfinite(loss)), f"{arch} train step: loss {loss}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    dev = bwd = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t and e.device_type.name == "CUDA":
+            dev += t / 1e3
+            if "ssd_bwd_" in e.key:
+                bwd += t / 1e3
+    ws = sorted(walls)
+    return {"arch": arch, "layers": cfg.num_layers, "B": B, "S": S,
+            "step_s": ws[len(ws) // 2], "steps_s": walls,
+            "k4_bwd_launches": launches, "device_ms": dev,
+            "k4_bwd_ms": bwd, "k4_bwd_share": bwd / max(dev, 1e-9),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def log_arch_training(r) -> None:
     st = r["train_steps"][0]
     launches = ", ".join(f"{k} {st[k]}" for k in (
@@ -3448,13 +3678,16 @@ def profile_steps(torch, cfg, params, n_steps: int,
 
 # each kernel library's CUDA kernels, by the names the profiler records:
 # K1 / K2 on either route and the split merge, K3 on either route
-# (flash_{fwd,dq,dkdv}_{wgmma,kernel}), K4 on each of its routes
+# (flash_{fwd,dq,dkdv}_{wgmma,kernel}), K4 on each of its routes, K4's
+# backward's seven kernels (ssd_bwd_{prep,states,tiles,rows,cols,finish,
+# reduce})
 KERNEL_NAMES = {"spec_verify": ("verify_cores", "verify_wgmma",
                                 "merge_splits"),
                 "flash_attention": ("flash_fwd_", "flash_dq_",
                                     "flash_dkdv_"),
                 "ssd_scan": ("ssd_recurrent", "ssd_tensor_cores",
-                             "ssd_cores")}
+                             "ssd_cores"),
+                "ssd_scan_bwd": ("ssd_bwd_",)}
 
 
 def _profile_summary(prof, wall: float) -> dict:
@@ -5003,6 +5236,8 @@ def main() -> int:
         report["verify_time"] = verify_time_table(torch, np, B=B, S=S)
         log("K4 timing at the fixed widths")
         report["ssd_time"] = ssd_time_table(torch, np)
+        log("K4's backward timing at the trainers' shape")
+        report["ssd_bwd_time"] = ssd_bwd_time_table(torch, np)
         return finish_kernels_only()
 
     log("kernels: flash_attention (K3) forward, dQ and dK/dV against "
@@ -5496,18 +5731,7 @@ def main() -> int:
     # K4's backward at the SSM and hybrid trainers' train step shape: 16
     # rows of 448 tokens (a chunk of 256 and a ragged one), bf16, no
     # initial state
-    bwd_b, bwd_T = ssd_bwd_train_shape()
-    bwd_t = report["ssd_bwd_time"] = [
-        ssd_bwd_time(torch, np, name=name, b=bwd_b, nh=nh, P=P, G=G, N=N,
-                     T=bwd_T)
-        for name, _, nh, P, G, N in SSD_MODEL_SHAPES]
-    for tm in bwd_t:
-        log(f"  ssd_scan_bwd timing ({tm['model']} heads) b={tm['b']} "
-            f"T={tm['T']} nh={tm['nh']} P={tm['P']} N={tm['N']} bf16: "
-            f"{_spread(tm['ms_spread'])} ms; plain {tm['plain_ms']:.4f} ms; "
-            f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}, "
-            f"{tm['bound_share']:.3f} of it; bytes alone "
-            f"{tm['bytes_bound_ms']:.4f} ms); library: none")
+    bwd_t = report["ssd_bwd_time"] = ssd_bwd_time_table(torch, np)
 
     # K3 at granite-3-8b's heads (the training phase's shape) and at
     # zamba2-1.2b's (Hq = Hk = 32, D 64)

@@ -27,6 +27,11 @@ port adds: the JAX package differentiates its plain ``ssd`` by
 autodiff), or on a CPU tensor their plain versions (``ref.ssd_ref`` and
 ``ref.ssd_bwd_ref``).  The Function keeps nothing outside its ``ctx``,
 so ``torch.utils.checkpoint``'s recompute may run its forward again.
+The backward's route is a table of (dtype, P, N, Q) (:func:`plan_bwd`):
+bf16 takes the tensor cores, f32 the CUDA cores (which also take bf16
+when forced, :func:`launch_bwd_on_route`); P must be a multiple of 32
+and N of 16, both up to 128.  Its only workspace is per chunk and per
+row, never a Q x Q matrix (:func:`bwd_scratch_floats`).
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface (one for the forward, one for
@@ -43,8 +48,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import KernelLibrary
-from repro_torch.kernels.ssd_scan.ref import (ssd_bwd_ref, ssd_ref,
-                                              ssd_split_ref)
+from repro_torch.kernels.ssd_scan.ref import (BLOCK, BWD_ROUTES,
+                                              ssd_bwd_ref, ssd_bwd_split_ref,
+                                              ssd_ref, ssd_split_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_bwd.cu"
@@ -86,9 +92,11 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_bwd_launch.argtypes = [i32] + [vp] * 21 + [i32] * 7 \
-        + [i64] * 14 + [vp]
+    lib.ssd_scan_bwd_launch.argtypes = [i32] + [vp] * 15 + [i32] * 7 \
+        + [i64] * 14 + [i32, i32, vp]
     lib.ssd_scan_bwd_launch.restype = i32
+    lib.ssd_scan_bwd_route.argtypes = [i32] * 5
+    lib.ssd_scan_bwd_route.restype = i32
     lib.ssd_scan_bwd_error_string.argtypes = [i32]
     lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
 
@@ -238,10 +246,82 @@ def _check_grad_state(name: str, t, shape) -> None:
                          f"{shape} on a 16-byte boundary")
 
 
-def _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate):
-    """K4's backward on x's current stream -> (dx, ddt, dA, dBm, dCm,
-    dinit or None); raise on what it does not take and on a refused
-    launch."""
+# the backward's route codes (K4's forward's names)
+_BWD_CODES = {None: 0, "tensor_cores": 2, "cuda_cores": 3}
+_BWD_PLANS = {}
+
+
+def plan_bwd(dtype: torch.dtype, P: int, N: int, Q: int,
+             route: str = None) -> str:
+    """The backward's route at this shape: the library's table, or
+    ``route`` ("tensor_cores" / "cuda_cores") where the shape can take it;
+    raise where it cannot.  Kept per shape."""
+    key = (dtype, P, N, Q, route)
+    got = _BWD_PLANS.get(key)
+    if got is None:
+        if route not in _BWD_CODES:
+            raise ValueError(f"ssd_scan_bwd: no route {route!r}; want one "
+                             f"of {BWD_ROUTES}")
+        code = BWD_LIBRARY.load().ssd_scan_bwd_route(
+            _DTYPES[dtype], P, N, Q, _BWD_CODES[route])
+        if not code:
+            raise ValueError(f"ssd_scan_bwd: no route for {dtype}, P={P}, "
+                             f"N={N}, Q={Q}" + (f" on {route}" if route
+                                                else ""))
+        got = _BWD_PLANS[key] = ROUTES[code]
+    return got
+
+
+def bwd_routes_of(dtype: torch.dtype, P: int, N: int, Q: int) -> tuple:
+    """Every route the backward can take at this shape, the table's
+    first."""
+    first = plan_bwd(dtype, P, N, Q)
+    lib = BWD_LIBRARY.load()
+    return (first,) + tuple(
+        r for r in BWD_ROUTES if r != first and lib.ssd_scan_bwd_route(
+            _DTYPES[dtype], P, N, Q, _BWD_CODES[r]))
+
+
+# the backward's rows and cols grids: at least two CTAs per SM of 132
+TARGET_CTAS = 264
+
+
+def heads_per_cta(b: int, T: int, nh: int, G: int, chunk: int) -> int:
+    """Heads one rows or cols CTA of the backward takes: the group's,
+    halved while the (batch row, chunk, group, block) grid would not fill
+    the card twice over."""
+    Q = min(chunk, T)
+    base = b * -(-T // Q) * G * -(-Q // BLOCK)
+    hs = nh // G
+    while base * (nh // G // hs) < TARGET_CTAS and hs % 2 == 0:
+        hs //= 2
+    return hs
+
+
+def bwd_scratch_floats(b: int, T: int, nh: int, P: int, G: int, N: int,
+                       chunk: int) -> int:
+    """f32 elements of the backward's workspace, in the library's order:
+    the chunk states S_c and their gradients dS_c (b, nc, nh, P, N) each;
+    cs and dt (b, nc, nh, Qs) each, Qs = the chunk in whole blocks of 64;
+    G's row and column sums per tile (b, nc, nh, tiles, 64) each; Mg^T C
+    and Mg B per tile (b, nc, G, tiles, 64, N) each; the boundary terms
+    per slice of heads (b, nc, G, blocks, 2, slices, 64, N); v and u (b,
+    nc, nh, 2, Qs); dA's parts (b, nc, nh).  Nothing of it is Q x Q."""
+    Q = min(chunk, T)
+    nc, nbq = -(-T // Q), -(-Q // BLOCK)
+    ntq, Qs = nbq * (nbq + 1) // 2, nbq * BLOCK
+    bch, bcg = b * nc * nh, b * nc * G
+    slices = nh // G // heads_per_cta(b, T, nh, G, chunk)
+    return (2 * bch * P * N + 2 * bch * Qs + 2 * bch * ntq * BLOCK
+            + 2 * bcg * ntq * BLOCK * N + bcg * nbq * 2 * slices * BLOCK * N
+            + 2 * bch * Qs + bch)
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate,
+                route=None):
+    """K4's backward on x's current stream, on the table's route or the
+    given one -> (dx, ddt, dA, dBm, dCm, dinit or None); raise on what it
+    does not take and on a refused launch."""
     check_inputs(x, dt, A, Bm, Cm, init_state, None, chunk)
     b, T, nh, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -252,7 +332,7 @@ def _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate):
     dy = dy if dy.stride(3) == 1 else dy.contiguous()
     _check_grad_state("dstate", dstate, (b, nh, P, N))
     Q = min(chunk, T)
-    nc = -(-T // Q)
+    how = plan_bwd(x.dtype, P, N, Q, route)
     lib = BWD_LIBRARY.load()
     dev, f32 = x.device, torch.float32
 
@@ -262,10 +342,7 @@ def _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate):
     ddt, dA = empty(b, T, nh), empty(nh)
     dB, dC = empty(b, T, G, N), empty(b, T, G, N)
     dinit = None if init_state is None else empty(b, nh, P, N)
-    S, dS = empty(b, nc, nh, P, N), empty(b, nc, nh, P, N)
-    qq, qp = empty(b, nc, nh, 3, Q, Q), empty(b, nc, nh, 2, Q, P)
-    dBh, dCh = empty(b, T, nh, N), empty(b, T, nh, N)
-    dA_part = empty(b, nc, nh)
+    scratch = empty(bwd_scratch_floats(b, T, nh, P, G, N, chunk))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -274,13 +351,14 @@ def _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate):
         err = lib.ssd_scan_bwd_launch(
             _DTYPES[x.dtype], *map(ptr, (
                 x, dt, A, Bm, Cm, init_state, dy, dstate, dx, ddt, dA, dB,
-                dC, dinit, S, dS, qq, qp, dBh, dCh, dA_part)),
+                dC, dinit, scratch)),
             b, T, nh, P, G, N, Q, x.stride(0), x.stride(1), x.stride(2),
             dy.stride(0), dy.stride(1), dy.stride(2), dt.stride(0),
             dt.stride(1), Bm.stride(0), Bm.stride(1), Bm.stride(2),
-            Cm.stride(0), Cm.stride(1), Cm.stride(2), stream)
+            Cm.stride(0), Cm.stride(1), Cm.stride(2),
+            heads_per_cta(b, T, nh, G, chunk), _BWD_CODES[how], stream)
     if err:
-        raise RuntimeError("ssd_scan_bwd launch failed: "
+        raise RuntimeError(f"ssd_scan_bwd launch failed ({how}): "
                            + lib.ssd_scan_bwd_error_string(err).decode())
     launches["ssd_scan_bwd"] += 1
     return dx, ddt, dA, dB, dC, dinit
@@ -369,3 +447,21 @@ def launch_on_route(route: str, x, dt, A, Bm, Cm, init_state, chunk, *,
         return y, state
     return _launch(x, dt, A, Bm, Cm, init_state, chunk, out_state, route,
                    n_split)
+
+
+def launch_bwd_on_route(route: str, x, dt, A, Bm, Cm, init_state, chunk,
+                        dy, dstate=None):
+    """K4's backward on CUDA tensors on ``route`` ("tensor_cores" /
+    "cuda_cores") whatever the table says: for checking every route of a
+    shape on the card and timing one against another.  On CPU tensors,
+    the plain version of that route's decomposition
+    (``ref.ssd_bwd_split_ref``); a name that is no route raises.  The port
+    never calls it."""
+    if x.device.type == "cpu":
+        return ssd_bwd_split_ref(x, dt, A, Bm, Cm, init_state, chunk, dy,
+                                 dstate, route=route)
+    if route not in BWD_ROUTES:
+        raise ValueError(f"ssd_scan_bwd: no route {route!r}; want one of "
+                         f"{BWD_ROUTES}")
+    return _launch_bwd(x, dt, A, Bm, Cm, init_state, chunk, dy, dstate,
+                       route)

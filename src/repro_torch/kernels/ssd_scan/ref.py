@@ -28,6 +28,11 @@ to autograd.  ``calls["ssd_bwd"]`` counts its calls.
 on one of its routes (what ``ops.launch_on_route`` runs for CPU tensors):
 the state's rows cut into ``n_split`` slices, each computed alone, in one
 pass per token on the recurrent route and in chunks on the others.
+``ssd_bwd_split_ref`` is the same for K4's backward (what
+``ops.launch_bwd_on_route`` runs for CPU tensors): group-level C B^T, M
+summed over the group's heads in head order, causal in-range tiles of 64
+steps only, and on the tensor-core route the hi/lo bf16 rounding of the
+f32 operands.
 """
 from __future__ import annotations
 
@@ -37,6 +42,11 @@ import torch
 import torch.nn.functional as F
 
 calls = {"ssd": 0, "ssd_bwd": 0}
+
+# the backward's routes
+BWD_ROUTES = ("tensor_cores", "cuda_cores")
+# the backward's block of a chunk's steps, a tile's side
+BLOCK = 64
 
 # the form each of the kernel's routes computes: T steps of the one-pass
 # recurrence, or chunks of Q = min(chunk, T) as ``ssd_ref``
@@ -106,6 +116,32 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), S
 
 
+def _chunk_states(xc, dyc, dtc, Bh, Ch, cs, init_state, dstate):
+    """Each chunk's input state S_c and the gradient dS_c of its output
+    state, and dinit (None without an initial state), from per-chunk f32
+    x, dy (b,nc,Q,nh,P), dt, cs (b,nc,Q,nh) and per-head B, C
+    (b,nc,Q,nh,N)."""
+    b, nc, _, nh, Pd = xc.shape
+    N = Bh.shape[-1]
+    f32, last = torch.float32, cs[:, :, -1]
+    S = (torch.zeros((b, nh, Pd, N), dtype=f32, device=xc.device)
+         if init_state is None else init_state.to(f32))
+    states = []
+    for c in range(nc):
+        states.append(S)
+        w = dtc[:, c] * torch.exp(last[:, c, None] - cs[:, c])
+        S = torch.exp(last[:, c])[..., None, None] * S + torch.einsum(
+            "bjhn,bjhp,bjh->bhpn", Bh[:, c], xc[:, c], w)
+    dS = (torch.zeros((b, nh, Pd, N), dtype=f32, device=xc.device)
+          if dstate is None else dstate.to(f32))
+    dstates = [None] * nc
+    for c in reversed(range(nc)):
+        dstates[c] = dS
+        dS = torch.exp(last[:, c])[..., None, None] * dS + torch.einsum(
+            "bihp,bihn,bih->bhpn", dyc[:, c], Ch[:, c], torch.exp(cs[:, c]))
+    return states, dstates, (dS if init_state is not None else None)
+
+
 def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor,
                 init_state: Optional[torch.Tensor], chunk: int,
@@ -157,22 +193,8 @@ def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cs = torch.cumsum(dtc * A, dim=2)                          # (b,nc,Q,nh)
     last = cs[:, :, -1]                                        # (b,nc,nh)
 
-    S = (torch.zeros((b, nh, Pd, N), dtype=f32, device=x.device)
-         if init_state is None else init_state.to(f32))
-    states = []
-    for c in range(nc):
-        states.append(S)
-        w = dtc[:, c] * torch.exp(last[:, c, None] - cs[:, c])
-        S = torch.exp(last[:, c])[..., None, None] * S + torch.einsum(
-            "bjhn,bjhp,bjh->bhpn", Bh[:, c], xc[:, c], w)
-    dS = (torch.zeros((b, nh, Pd, N), dtype=f32, device=x.device)
-          if dstate is None else dstate.to(f32))
-    dstates = [None] * nc
-    for c in reversed(range(nc)):
-        dstates[c] = dS
-        dS = torch.exp(last[:, c])[..., None, None] * dS + torch.einsum(
-            "bihp,bihn,bih->bhpn", dyc[:, c], Ch[:, c], torch.exp(cs[:, c]))
-    dinit = dS if init_state is not None else None
+    states, dstates, dinit = _chunk_states(xc, dyc, dtc, Bh, Ch, cs,
+                                           init_state, dstate)
 
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     dx, ddt, dBh, dCh = [], [], [], []
@@ -320,3 +342,142 @@ def ssd_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y[:, :T])
         Ss.append(S)
     return torch.cat(ys, dim=-1).to(x.dtype), torch.cat(Ss, dim=2)
+
+
+def _hilo(t: torch.Tensor) -> torch.Tensor:
+    """t as the tensor-core route feeds an f32 operand: hi + lo, each
+    rounded to bf16 (about 16 bits of mantissa)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def ssd_bwd_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bm: torch.Tensor, Cm: torch.Tensor,
+                      init_state: Optional[torch.Tensor], chunk: int,
+                      dy: torch.Tensor,
+                      dstate: Optional[torch.Tensor] = None,
+                      route: str = "cuda_cores"):
+    """``ssd_bwd_ref``'s gradients computed as the kernel decomposes them
+    on ``route`` (a name of ``BWD_ROUTES``): each chunk's steps in blocks
+    of 64 and only its causal, in-range tiles (I, J), J <= I; per tile,
+    C B^T once per group, and M = (dy x^T) o E dt_j summed over the
+    group's heads in head order into Mg, whose products Mg B_J (dC) and
+    Mg^T C_I (dB) are taken once per group; E_ij = exp(cs_i - cs_j) as
+    f_i g_j against the first step r of row i's strip of 16 where j < r
+    (both factors <= 1), directly from r to i; G's row and column sums per
+    tile; dx_J = sum_I W^T(J, I) dy_I + e2 dt (dS B_J) per head; the
+    boundary terms exp(cs_i) dy_i^T S (dC, with v = C . that) and
+    e2_j dt_j x_j^T dS (dB, with u = B . that) summed over the group's
+    heads in order.  On the tensor-core route every f32 operand of a
+    product (W^T, Mg, S, dS) is rounded as the kernel feeds it, hi + lo in
+    bf16.  f32 throughout; dx in x's dtype."""
+    if route not in BWD_ROUTES:
+        raise ValueError(f"ssd_bwd_split_ref: no route {route!r}; want one "
+                         f"of {BWD_ROUTES}")
+    rnd = _hilo if route == "tensor_cores" else (lambda t: t)
+    b, T, nh, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Hg = nh // G
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    nc = (T + pad) // Q
+    f32 = torch.float32
+
+    def chunks(t, last):
+        t = F.pad(t.to(f32), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((b, nc, Q) + tuple(last))
+
+    xc, dyc, dtc = chunks(x, (nh, Pd)), chunks(dy, (nh, Pd)), chunks(
+        dt, (nh,))
+    Bc, Cc = chunks(Bm, (G, N)), chunks(Cm, (G, N))     # per group
+    A = A.to(f32)
+    cs = torch.cumsum(dtc * A, dim=2)                   # (b,nc,Q,nh)
+    states, dstates, dinit = _chunk_states(
+        xc, dyc, dtc, Bc.repeat_interleave(Hg, dim=3),
+        Cc.repeat_interleave(Hg, dim=3), cs, init_state, dstate)
+    dev = x.device
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=f32, device=dev)
+    dx, ddt = zeros((b, nc, Q, nh, Pd)), zeros((b, nc, Q, nh))
+    dB, dC = zeros((b, nc, Q, G, N)), zeros((b, nc, Q, G, N))
+    dA = zeros((nh,))
+    grp = torch.arange(nh, device=dev) // Hg            # head -> group
+
+    def head_sum(t):
+        """(b, nh, ...) -> (b, G, ...), each group's heads in order."""
+        t = t.reshape((b, G, Hg) + t.shape[2:])
+        acc = t[:, :, 0]
+        for k in range(1, Hg):
+            acc = acc + t[:, :, k]
+        return acc
+
+    for c in range(nc):
+        nr = min(Q, T - c * Q)
+        nb = -(-nr // BLOCK)
+        S0, dS1 = states[c], dstates[c]
+        xq, dyq, dtq, csq = xc[:, c], dyc[:, c], dtc[:, c], cs[:, c]
+        Bq, Cq = Bc[:, c], Cc[:, c]
+        last = csq[:, -1]                               # (b,nh)
+        e2 = torch.exp(last[:, None] - csq)             # (b,Q,nh)
+        rows = [slice(k * BLOCK, min((k + 1) * BLOCK, nr)) for k in
+                range(nb)]
+        rs, cl = zeros((b, Q, nh)), zeros((b, Q, nh))
+        for I in range(nb):
+            si = rows[I]
+            for J in range(I + 1):
+                sj = rows[J]
+                cb = torch.einsum("bign,bjgn->bgij", Cq[:, si], Bq[:, sj])
+                cbh = cb[:, grp]                        # (b,nh,i,j)
+                d = torch.einsum("bihp,bjhp->bhij", dyq[:, si], xq[:, sj])
+                ii = torch.arange(si.start, si.stop, device=dev)[:, None]
+                jj = torch.arange(sj.start, sj.stop, device=dev)[None, :]
+                ci = csq[:, si].transpose(1, 2)[..., :, None]   # (b,nh,i,1)
+                cj = csq[:, sj].transpose(1, 2)[..., None, :]   # (b,nh,1,j)
+                # f_i g_j against the first step r of row i's 16-row
+                # strip where j < r; directly from r to i; 0 past i
+                cr = csq[:, ii[:, 0] // 16 * 16].transpose(1, 2)[..., None]
+                E = torch.where(
+                    jj < ii // 16 * 16,
+                    torch.exp(ci - cr) * torch.exp(cr - cj),
+                    torch.where(jj <= ii, torch.exp(ci - cj), 0.0))
+                dtj = dtq[:, sj].transpose(1, 2)[:, :, None, :]
+                Mg = head_sum(d * E * dtj)                  # (b,G,i,j)
+                g = cbh * d * E
+                rs[:, si] += (dtj * g).sum(-1).transpose(1, 2)
+                cl[:, sj] += g.sum(-2).transpose(1, 2)
+                dC[:, c, si] += torch.einsum("bgij,bjgn->bign", rnd(Mg),
+                                             Bq[:, sj])
+                dB[:, c, sj] += torch.einsum("bgij,bign->bjgn", rnd(Mg),
+                                             Cq[:, si])
+                W = rnd(cbh * E * dtj)
+                dx[:, c, sj] += torch.einsum("bhij,bihp->bjhp", W,
+                                             dyq[:, si])
+        v, u = zeros((b, Q, nh)), zeros((b, Q, nh))
+        for K in range(nb):
+            sk = rows[K]
+            Ck = Cq[:, sk].repeat_interleave(Hg, dim=2)     # (b,k,nh,N)
+            Bk = Bq[:, sk].repeat_interleave(Hg, dim=2)
+            zc = torch.einsum("bkhp,bhpn->bhkn", dyq[:, sk], rnd(S0))
+            v[:, sk] = (Ck * zc.transpose(1, 2)).sum(-1)
+            dC[:, c, sk] += head_sum(
+                torch.exp(csq[:, sk]).transpose(1, 2)[..., None]
+                * zc).transpose(1, 2)
+            zb = torch.einsum("bkhp,bhpn->bhkn", xq[:, sk], rnd(dS1))
+            u[:, sk] = (Bk * zb.transpose(1, 2)).sum(-1)
+            dB[:, c, sk] += head_sum(
+                (e2[:, sk] * dtq[:, sk]).transpose(1, 2)[..., None]
+                * zb).transpose(1, 2)
+            r = torch.einsum("bkhn,bhpn->bkhp", Bk, rnd(dS1))
+            dx[:, c, sk] += (e2[:, sk] * dtq[:, sk])[..., None] * r
+        dcs = rs - dtq * cl + torch.exp(csq) * v - e2 * dtq * u
+        dcs[:, nr - 1] += torch.exp(last) * (dS1 * S0).sum((-2, -1)) \
+            + (e2 * dtq * u).sum(1)
+        da = torch.flip(torch.cumsum(torch.flip(dcs, [1]), 1), [1])
+        ddt[:, c] = cl + e2 * u + da * A
+        dA = dA + (da * dtq).sum((0, 1))
+
+    def whole(t):
+        return t.reshape((b, nc * Q) + t.shape[3:])[:, :T]
+    return (whole(dx).to(x.dtype), whole(ddt), dA, whole(dB), whole(dC),
+            dinit)
