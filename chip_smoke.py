@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile N] [--out DIR] [--kernels-only]
+                          [--tp-only]
 
 Phases, in this order:
 
@@ -65,8 +66,31 @@ Phases, in this order:
    with planted faults fed through each route (``ssd_bwd_check``); K3's
    backward at the cross blocks' training shapes under
    ``scaled_check`` (``cross_bwd_check``);
-4. linear slice: a full-width, full-depth granite-3-8b Seer rollout
-   (40 layers, random weights from a seed, bf16) on two instances
+3b. production layout (``production_phase``), after the kernel checks:
+   (a) the four cached step builders of ``launch/steps.py`` on a
+   one-rank production context, granite-3-8b at full width and 4 of 40
+   layers, bf16, 8 x 2048 slots: a 512-token contiguous prefill (K/V
+   bitwise and ``slot_pos`` equal to the engine's scatter forward on
+   the same inputs), 16 greedy decodes, a verify of 9 and a three-path
+   tree verify (every greedy token equal to the engine forward's argmax
+   on the same caches), each kernel's launches counted over the builder
+   calls alone; (b) K1 at the production prefill's widths, T = 512 (S
+   2048) and 2048 (S 2560), through the wrapper and both routes against
+   its plain version, and at the reference's scale against the f32 plain
+   version, where three planted faults (key 0 dropped, causality off by
+   one, the empty slots let in) must fail; each width timed beside its
+   plain version, SDPA and its bound; (c) ``prod_rank`` in two gloo
+   ranks on the card: the production ``build_train_step`` of
+   granite-3-8b and moonshot-v1-16b-a3b (4 layers each, full width, f32)
+   at tp = 2 against the same at tp = 1 on each rank: loss, grad norm,
+   every gradient leaf and the update (in units of lr) within
+   ``PROD_TOL``, the MoE layers' capacity drops equal, every dispatch's
+   drops and slots those of a plain numpy slot rule (``_slot_rule``),
+   each rank's launches those of a train step (``_train_step_want``);
+   K3 timed at a rank's heads in f32;
+4. linear slice: a full-width granite-3-8b Seer rollout at
+   ``LINEAR_LAYERS`` (20) of its 40 layers (random weights from a seed,
+   bf16) on two instances
    through the port's entry points, with its checks: every group finishes, every
    cached attention launched K1, at most one host sync per engine step,
    dispatch free of host syncs under
@@ -86,8 +110,8 @@ Phases, in this order:
    verified), set beside the linear slice's warm pass;
 7. serving, faults and tracing: the reference's own real-engine
    workloads (``bench_engine_faults``, ``bench_observability`` and
-   ``bench_serving`` of ``benchmarks/common.py``) on the full granite-3-8b
-   of phase 4, every dispatch under sync debug 'error'
+   ``bench_serving`` of ``benchmarks/common.py``) on the full-depth
+   granite-3-8b (40 layers), every dispatch under sync debug 'error'
    (``serving_phase``).  Faults: a warm no-fault oracle, then the bench's
    schedule (a crash, a short stall, a long stall the watchdog escalates,
    a fetch failing past its retries, a corrupt blob), and its traced
@@ -140,8 +164,8 @@ Phases, in this order:
    (``rec_engine_check``);
 10. SSM slice: the same for a full-width mamba2-370m at 16 of its 48
    blocks (no attention), 4 groups x 4, 64 new tokens;
-11. MoE slice: a full-width moonshot-v1-16b-a3b Seer rollout at 16 of
-   its 48 layers (one dense, 15 MoE of 64 experts top-6 and 2 shared, each
+11. MoE slice: a full-width moonshot-v1-16b-a3b Seer rollout at 8 of
+   its 48 layers (one dense, 7 MoE of 64 experts top-6 and 2 shared, each
    expert run on every token as the reference serves; 16/16 heads of 128;
    random bf16 weights from seed 0, the router in f32) with the linear
    slice's settings on caches of 1024 positions: a cold pass, its
@@ -290,6 +314,10 @@ GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
 # masters, gradients and AdamW moments of all 40 layers would need 131 GB),
 # prompts of BOS + 383 copy-task tokens
 TRAIN_LAYERS, TRAIN_PROMPT = 12, 384
+# the linear and tree slices' depth (the tree engine's too): 20 of
+# granite-3-8b's 40 layers (~80 s less than 40: the script's time limit
+# on a slow host); the serving, faults and tracing phase keeps all 40
+LINEAR_LAYERS = 20
 # the SSM slice's rollout (mamba2-370m): 4 groups of 4, 64 new tokens
 SSM_GROUPS, SSM_NEW_TOKENS = 4, 64
 # K1's head shapes on each path that runs it: Hq, Hk, D, window; and of
@@ -309,9 +337,11 @@ MOE_ARCH, MOE_CACHE_LEN, MOE_NEW_TOKENS = "moonshot-v1-16b-a3b", 1024, 64
 # limit (the host's eager dispatch makes a pass's time grow with depth;
 # the serving phase shares the granite slices' full depth, so these are
 # cut instead): zamba2-1.2b keeps two cells of 6 blocks and the 2-block
-# tail of its 38, mamba2-370m 16 of 48 blocks, moonshot-v1-16b-a3b 16 of
-# 48 layers (one dense, 15 MoE)
-CUT_LAYERS = {"zamba2-1.2b": 14, "mamba2-370m": 16, MOE_ARCH: 16}
+# tail of its 38 (the shared attention's second application and the
+# state offsets past the first cell), mamba2-370m 16 of 48 blocks,
+# moonshot-v1-16b-a3b 8 of 48 layers (one dense, 7 MoE: ~20 s less than
+# 16)
+CUT_LAYERS = {"zamba2-1.2b": 14, "mamba2-370m": 16, MOE_ARCH: 8}
 # the configs whose heads K1 / K2 are checked at beside granite's
 NEW_HEADS = ("moonshot-v1-16b-a3b", "yi-6b", "phi4-mini-3.8b",
              "whisper-tiny")
@@ -777,12 +807,14 @@ def cross_kernels_check(torch, np, *, B) -> list:
 
 def _time_routes(torch, ops, q, k, v, qp, kp, tm, window, dtype, iters,
                  flush) -> dict:
-    """At the fixed widths, each route the shape can take timed through
+    """At the fixed widths (and the production prefill's), each route the
+    shape can take timed through
     ``ops.launch_on_route`` (K2 with ``tm``): {route: spread}; the
     measurement that fixes the route table."""
     T, D = q.shape[1], q.shape[3]
     routes = _routes(dtype, D)
-    if T not in VERIFY_WIDTHS or len(routes) < 2:
+    widths = VERIFY_WIDTHS + tuple(t for t, _ in PROD_K1_WIDTHS)
+    if T not in widths or len(routes) < 2:
         return {}
     return {r: _time_rounds(torch, lambda: ops.launch_on_route(
         r, q, k, v, qp, kp, tm, window=window), iters, flush)
@@ -5093,6 +5125,566 @@ def tp_phase(torch, np) -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# the production layout: one-rank cached steps, K1 at prefill widths, the
+# train step on two ranks
+# ---------------------------------------------------------------------------
+
+# (a) granite-3-8b at full width, cut in depth as the tensor-parallel phase
+# cuts it, on an 8 x 2048 cache: a 512-token contiguous prefill, 16
+# greedy decodes, a verify of gamma + 1 tokens, a three-path tree verify
+PROD_LAYERS = TP_GRANITE_LAYERS
+PROD_B, PROD_S, PROD_PREFILL, PROD_DECODES, PROD_GAMMA = 8, 2048, 512, 16, 8
+# (b) K1 at the production prefill's widths: (T, S) with S past T, so
+# that empty slots exist for a planted fault to let in
+PROD_K1_WIDTHS = ((512, 2048), (2048, 2560))
+# (c) the train step at tp = 2 against tp = 1, f32: (arch, layers) at full
+# width, and its batch (rows x tokens) drawn from this many distinct token
+# ids (repeated tokens crowd the MoE layers' experts, so that capacity
+# drops happen on random weights)
+PROD_TRAIN = (("granite-3-8b", 4), (MOE_ARCH, 4))
+PROD_TRAIN_B, PROD_TRAIN_S, PROD_TRAIN_VOCAB = 4, 256, 16
+# tp = 2 against tp = 1 in f32 (row-parallel and sequence-sharded sums in
+# other orders): loss 1e-5 of max(|loss|, 1) (the on-policy GRPO loss
+# cancels to ~0); the grad norm 1e-4 of itself; each gradient leaf (as
+# AdamW's first moment holds it after the step) 1e-4 of its largest
+# value.  The update (parameters after the step less before) in units of
+# the step's lr: AdamW's first step moves an element by lr (g / (|g| +
+# eps) + wd p), about +-lr, so on the elements whose first moment is
+# above "held" of its leaf's largest (there the gradient check fixes the
+# sign) and above "floor" (|g| = floor / (1 - beta1) = 1e-6, a hundred
+# times AdamW's eps: a step above 0.99 lr) tp = 2's update is within
+# "update" x lr of tp = 1's (a step not taken is lr off, a flipped sign
+# 2 lr; f32 rounding of a parameter near 1 is ~0.02 lr), and tp = 1's is
+# at least "moved" x lr
+PROD_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grads": 1e-4,
+            "held": 1e-3, "floor": 1e-7, "update": 0.125, "moved": 0.5}
+
+
+def three_path_tree(torch, first, pos0, vocab):
+    """A tree of 7 nodes a row, on the card: the root (``first`` (B,), at
+    ``pos0``) with three children, each with one child (three paths), as
+    the tree-verify step takes it: tokens, positions, slot_index (slot
+    ``pos0 + node``), mask (row 1's last node masked) and the
+    ancestor-or-self ``within`` (B, 7, 7)."""
+    parent = [-1, 0, 0, 0, 1, 2, 3]
+    depth = [0, 1, 1, 1, 2, 2, 2]
+    n = len(parent)
+    B = first.shape[0]
+    within = torch.zeros((n, n), dtype=torch.bool)
+    for i in range(n):
+        j = i
+        while j >= 0:
+            within[i, j] = True
+            j = parent[j]
+    dev = first.device
+    node = torch.arange(n, device=dev, dtype=torch.int32)
+    toks = (first[:, None] + 7 * node[None]
+            + torch.arange(B, device=dev, dtype=torch.int32)[:, None]
+            * (node[None] > 0)) % vocab
+    pos = (pos0 + torch.tensor(depth, dtype=torch.int32, device=dev)
+           ).expand(B, n).contiguous()
+    slots = (pos0 + node).expand(B, n).contiguous()
+    mask = torch.ones((B, n), dtype=torch.bool, device=dev)
+    mask[1, -1] = False
+    return (toks.to(torch.int32), pos, slots, mask,
+            within.to(dev).expand(B, n, n).contiguous())
+
+
+def production_steps(torch, np, device) -> dict:
+    """(a) The four cached builders of ``launch/steps.py`` on a one-rank
+    production context (``make_shard_ctx(small_mesh(1))``), granite-3-8b
+    at full width and ``PROD_LAYERS`` layers, bf16, ``PROD_B`` x
+    ``PROD_S`` slots: ``build_prefill_step`` on a ``PROD_PREFILL``-token
+    contiguous prefill, ``PROD_DECODES`` ``build_serve_step`` decodes, a
+    ``build_verify_step`` of ``PROD_GAMMA`` + 1 tokens and a
+    ``build_tree_verify_step`` on a three-path tree, with the launches of
+    each kernel counted from zero over these calls alone.  Then the same
+    inputs through the engine's forward (the slot scatter) on a copy of
+    the empty cache: the prefill's ``slot_pos`` exactly and its K/V
+    bitwise (the same projections, written another way), every greedy
+    token of the other steps exactly (the engine forward's argmax on the
+    same caches), and the caches equal at the end."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_shard_ctx, small_mesh
+    from repro_torch.models.transformer import (clone_cache, forward,
+                                                init_cache)
+    cfg, params = build_model(torch, "granite-3-8b", PROD_LAYERS)
+    L = cfg.num_layers
+    sctx = make_shard_ctx(small_mesh(1), train=False)
+    B, S, T = PROD_B, PROD_S, PROD_PREFILL
+    rng = np.random.default_rng(5)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)).astype(
+        np.int32)).to(device)
+    pos = torch.arange(T, dtype=torch.int32, device=device).expand(
+        B, T).contiguous()
+    cache = init_cache(cfg, B, S, device=device)
+    oracle = clone_cache(cache)
+
+    def col(p, n=1):
+        return p + torch.arange(n, dtype=torch.int32,
+                                device=device).expand(B, n)
+
+    calls = []                                # (kind, inputs, tokens)
+    _reset_launches()
+    plain0 = _plain_calls()
+    t0 = time.perf_counter()
+    cache = steps.build_prefill_step(cfg, sctx)(params, tok, pos, cache)
+    after_prefill = clone_cache(cache)
+    serve = steps.build_serve_step(cfg, sctx)
+    nxt, p = tok[:, -1], T
+    for _ in range(PROD_DECODES):
+        inp = (nxt[:, None].contiguous(), col(p))
+        nxt, cache = serve(params, *inp, cache)
+        calls.append(("serve", inp, nxt))
+        p += 1
+    n = PROD_GAMMA + 1
+    cand = torch.stack([nxt] + [(nxt + 1 + (i % 2)) % cfg.vocab_size
+                                for i in range(n - 1)], 1).to(torch.int32)
+    inp = (cand, col(p, n))
+    got, cache = steps.build_verify_step(cfg, sctx)(params, *inp, cache)
+    calls.append(("verify", inp, got))
+    tree = three_path_tree(torch, nxt, p + n, cfg.vocab_size)
+    got, cache = steps.build_tree_verify_step(cfg, sctx)(params, *tree,
+                                                        cache)
+    calls.append(("tree", tree, got))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    plain = _plain_calls() - plain0
+    want = {"spec_verify": L * (1 + PROD_DECODES + 1), "tree_verify": L}
+    for k_, v_ in want.items():
+        check(launches[k_] == v_, f"production steps: {k_} launches "
+              f"{launches[k_]} != {v_}")
+    check(plain == 0, f"production steps: {plain} plain attention calls")
+
+    with torch.no_grad():
+        _, oracle, _ = forward(cfg, params, tok, pos, oracle, logits=False)
+        check(torch.equal(oracle["slot_pos"], after_prefill["slot_pos"]),
+              "production prefill: slot_pos differs from the scatter path's")
+        for key in ("k", "v"):
+            check(torch.equal(oracle[key], after_prefill[key]),
+                  f"production prefill: {key} not bitwise the scatter "
+                  "path's")
+        equal = 0
+        for kind, inp, got in calls:
+            if kind == "tree":
+                toks, tpos, slots, mask, within = inp
+                logits, oracle, _ = forward(cfg, params, toks, tpos, oracle,
+                                            token_mask=mask,
+                                            slot_index=slots,
+                                            within_mask=within)
+            else:
+                logits, oracle, _ = forward(cfg, params, *inp, oracle)
+            want_t = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            if kind == "serve":
+                want_t = want_t[:, -1]
+            check(torch.equal(got, want_t), f"production {kind} step: "
+                  "greedy tokens differ from the engine forward's")
+            equal += got.numel()
+        for key in ("k", "v", "slot_pos"):
+            check(torch.equal(oracle[key], cache[key]),
+                  f"production steps: the caches' {key} differ at the end")
+    rep = {"layers": L, "B": B, "S": S, "prefill_T": T,
+           "decodes": PROD_DECODES, "verify_T": n, "tree_nodes": 7,
+           "launches": {k_: launches[k_] for k_ in want},
+           "tokens_equal": equal, "wall_s": wall,
+           "tree_live": p + n}
+    log(f"  granite-3-8b ({L} layers, full width, bf16) on a one-rank "
+        f"production context: prefill of {T} tokens (K/V bitwise and "
+        f"slot_pos equal to the scatter path's), {PROD_DECODES} decodes, a "
+        f"verify of {n}, a tree of 7 nodes: {equal} greedy tokens equal to "
+        f"the engine forward's; K1 {launches['spec_verify']}, K2 "
+        f"{launches['tree_verify']} launches, no plain call; {wall:.2f} s")
+    del params, cache, oracle, after_prefill
+    _free(torch)
+    return rep
+
+
+def _prefill_faults(torch, k, v, kp) -> dict:
+    """Inputs of three wrong K1s on a prefill's slot cache (f32 k, v
+    (B,S,Hk,D), k_pos (B,S)): the key at position 0 dropped (every query
+    loses one, the first all it had), causality off by one (each query
+    also sees the next position) and the empty slots let in at position
+    0.  {name: (k, v, k_pos)}."""
+    first = kp.clone()
+    first[kp == 0] = -1
+    shifted = torch.where(kp > 0, kp - 1, kp)
+    return {"key 0 dropped": (k, v, first),
+            "one key past causal": (k, v, shifted),
+            "empty slots let in": (k, v, kp.clamp(min=0))}
+
+
+def prefill_kernels_check(torch, np) -> list:
+    """(b) K1 at the production prefill's widths (``PROD_K1_WIDTHS``,
+    granite-3-8b's heads, bf16, B = ``PROD_B``): queries at positions
+    0..T-1 over slots 0..T-1 of a longer cache, as the prefill step
+    writes them, through the wrapper and on both routes against the plain
+    version (``_k1_case``, repeats bitwise), then held to the f32 plain
+    version at the reference's scale with three planted faults that must
+    fail (``_prefill_faults``); at T = 512 also on permuted slots with an
+    empty row and a blind query."""
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_ref
+    hq, hk, d, window = K1_SHAPES["granite-3-8b"]
+    rows = []
+    for T, S in PROD_K1_WIDTHS:
+        for live in ([T] * PROD_B, None):
+            if live is None and T != PROD_K1_WIDTHS[0][0]:
+                continue
+            q, k, v, qp, kp = _sv_inputs(torch, np, B=PROD_B, T=T, S=S,
+                                         Hq=hq, Hk=hk, D=d,
+                                         dtype="bfloat16", seed=T + 1,
+                                         live=live)
+            note = "prefill layout" if live else "permuted slots"
+            row = _k1_case(torch, "granite-3-8b/prefill", q, k, v, qp, kp,
+                           window, empty_rows=live is None, note=note)
+            if live:
+                outs = {r: ops.launch_on_route(r, q, k, v, qp, kp,
+                                               window=window)
+                        for r in _routes("bfloat16", d)}
+                q32 = q.float()
+
+                def plain(k_, v_, kp_=kp):
+                    return spec_verify_ref(q32, k_, v_, qp, kp_,
+                                           window=window)
+                wrong = {n_: plain(*a).to(q.dtype) for n_, a in
+                         _prefill_faults(torch, k.float(), v.float(),
+                                         kp).items()}
+                row["scaled_errs"] = scaled_check(
+                    torch, outs, plain, k, v,
+                    f"spec_verify prefill B={PROD_B} T={T} S={S}",
+                    faults=wrong)
+                del outs, wrong
+            rows.append(row)
+            del q, k, v, qp, kp
+            _free(torch)
+    return rows
+
+
+def prefill_kernels_time(torch, np) -> list:
+    """K1 at each production prefill width: the wrapper's time, each
+    route's, the plain version's, SDPA's on the same mask and the bound
+    (``kernels_time``)."""
+    out = []
+    for T, S in PROD_K1_WIDTHS:
+        tm = kernels_time(torch, np, B=PROD_B, S=S, T=T,
+                          live=np.full(PROD_B, T), iters=20)
+        tm["S"] = S
+        log_verify_time(f"spec_verify prefill S={S}", tm)
+        out.append(tm)
+        _free(torch)
+    return out
+
+
+def _prod_batch(torch, np, cfg, device):
+    """A GRPO batch of ``PROD_TRAIN_B`` x ``PROD_TRAIN_S`` tokens drawn
+    from ``PROD_TRAIN_VOCAB`` ids, responses from a quarter of the way
+    in, old logprobs near a uniform policy's, seeded."""
+    rng = np.random.default_rng(11)
+    B, S = PROD_TRAIN_B, PROD_TRAIN_S
+    ids = rng.choice(cfg.vocab_size, PROD_TRAIN_VOCAB, replace=False)
+    mask = np.zeros((B, S), np.float32)
+    mask[:, S // 4:] = 1.0
+    mask[1, 3 * S // 4:] = 0.0
+    b = {"tokens": ids[rng.integers(0, PROD_TRAIN_VOCAB, (B, S))].astype(
+             np.int32),
+         "loss_mask": mask,
+         "old_logprobs": (-np.log(cfg.vocab_size)
+                          + rng.normal(0, 0.3, (B, S))).astype(np.float32),
+         "advantages": rng.normal(size=(B,)).astype(np.float32),
+         "rewards": rng.random(B).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _prod_train(torch, np, cfg, sctx, device, keep) -> dict:
+    """One ``build_train_step`` step of one arch under ``sctx`` (this
+    rank's pieces of the seed-0 f32 weights): its loss and metrics, the
+    MoE layers' capacity drops summed over the ranks, the kernel launches
+    of the step, the dispatch records' disagreements with the plain slot
+    rule (``_slot_rule_misses``), and ``keep`` of two trees of this
+    rank's pieces: the gradient, as AdamW's first moment after one step
+    holds it ((1 - beta1) x the clipped gradient), and the update
+    (parameters after the step less before)."""
+    from repro_torch import sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params, moe
+    from repro_torch.training.optim import (init_opt_state, tree_items,
+                                            tree_map)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    whole = init_params(cfg, gen, device=device, dtype="float32")
+    params = steps.param_shards(cfg, whole, sctx)
+    del whole
+    params = tree_map(lambda t: t.requires_grad_(), params)
+    batch = _prod_batch(torch, np, cfg, device)
+    step = steps.build_train_step(cfg, sctx)
+    state = init_opt_state(params)
+    before = tree_map(lambda t: t.detach().clone(), params)
+    _reset_launches()
+    plain0 = _plain_calls()
+    moe.DISPATCH_LOG = []
+    t0 = time.perf_counter()
+    params, state, loss, met = step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    launches["plain_calls"] = _plain_calls() - plain0
+    drops = torch.zeros((), dtype=torch.int64, device=device)
+    routed = 0
+    for r in moe.DISPATCH_LOG:
+        drops += (r["local"] & ~r["valid"]).sum()
+        routed += r["ids"].numel()
+    misses = _slot_rule_misses(np, moe.DISPATCH_LOG, cfg.num_experts)
+    moe.DISPATCH_LOG = None
+    drops = int(sharding.all_reduce(drops, sctx))
+    for (_, b), (_, a) in zip(tree_items(before), tree_items(params)):
+        torch.sub(a.detach(), b, out=b)          # the update, in place
+    update = before
+    out = {"loss": float(loss), "grad_norm": float(met["grad_norm"]),
+           "aux_loss": float(met["aux_loss"]), "lr": float(met["lr"]),
+           "drops": drops, "routed": routed, "slot_rule_misses": misses,
+           "launches": launches, "step_wall_s": wall,
+           "grads": keep(state.mu), "update": keep(update)}
+    del params, state, update
+    _free(torch)
+    return out
+
+
+def _slot_rule(np, ids, E, C):
+    """The capacity dispatch's slot rule in plain numpy, every expert on
+    one rank: ids (T, k) -> (slot, valid), each (T * k,) in flattened
+    (token, k) order: a pair's rank in its expert by an exclusive
+    cumsum, kept below C at slot expert * C + rank, else dropped."""
+    e = ids.reshape(-1).astype(np.int64)
+    onehot = (e[:, None] == np.arange(E)[None]).astype(np.int64)
+    pos = np.take_along_axis(np.cumsum(onehot, 0) - onehot, e[:, None],
+                             1)[:, 0]
+    valid = pos < C
+    return np.where(valid, e * C + pos, E * C), valid
+
+
+def _slot_rule_misses(np, records, E) -> int:
+    """(token, k) pairs of the dispatch records (``moe.DISPATCH_LOG``)
+    whose drop or slot differs from ``_slot_rule`` on the same ids: of
+    the pairs routed to a record's experts [e0, e0 + E_loc), the kept
+    ones at slot - e0 x C, the rest dropped."""
+    misses = 0
+    for r in records:
+        e0, C = r["e0"], r["C"]
+        slot, valid = _slot_rule(np, r["ids"].cpu().numpy(), E, C)
+        local = r["local"].cpu().numpy()
+        misses += int((local & (valid != r["valid"].cpu().numpy())).sum())
+        kept = local & valid
+        misses += int((slot[kept] - e0 * C
+                       != r["slot"].cpu().numpy()[kept]).sum())
+    return misses
+
+
+def _prod_gaps(one, two, device) -> dict:
+    """The gaps of this rank's tp = 2 pieces (``two``, on the host) to the
+    same pieces of tp = 1 (``one``, on ``device``), taken on ``device``
+    leaf by leaf: per leaf (max|gap|, max|tp=1 value|) of the gradient
+    (AdamW's first moment); and of the update, in units of tp = 1's lr
+    over the elements whose tp = 1 gradient is above
+    ``PROD_TOL["held"]`` of its leaf's largest and above
+    ``PROD_TOL["floor"]``: the largest gap, tp = 1's smallest |update|
+    and the count of those elements."""
+    import torch
+    from repro_torch.training.optim import tree_items
+    g2, u2 = dict(tree_items(two["grads"])), dict(tree_items(two["update"]))
+    u1 = dict(tree_items(one["update"]))
+    lr = one["lr"]
+    grads = {}
+    gap, moved, held = 0.0, math.inf, 0
+    for path, g in tree_items(one["grads"]):
+        top = g.abs().max()
+        grads[path] = (float((g - g2[path].to(device)).abs().max()),
+                       float(top))
+        mask = g.abs() > torch.clamp(PROD_TOL["held"] * top,
+                                     min=PROD_TOL["floor"])
+        if not bool(mask.any()):
+            continue
+        a = u1[path][mask]
+        gap = max(gap, float((a - u2[path].to(device)[mask]).abs().max())
+                  / lr)
+        moved = min(moved, float(a.abs().min()) / lr)
+        held += int(mask.sum())
+    keys = ("loss", "grad_norm", "aux_loss", "lr", "drops", "routed")
+    return {"one": {k_: one[k_] for k_ in keys},
+            "two": {k_: two[k_] for k_ in keys},
+            "slot_rule_misses": (one["slot_rule_misses"],
+                                 two["slot_rule_misses"]),
+            "launches": two["launches"], "launches_tp1": one["launches"],
+            "step_wall_s": (one["step_wall_s"], two["step_wall_s"]),
+            "grads": grads, "update_gap_lr": gap, "update_moved_lr": moved,
+            "update_held": held, "update_total": sum(
+                t.numel() for _, t in tree_items(one["update"]))}
+
+
+def prod_rank(rank: int, world: int, device, out_dir: str) -> None:
+    """A rank of the production train-step check (two gloo ranks on the
+    card): each arch of ``PROD_TRAIN`` stepped at tp = 2 (``_prod_train``,
+    this rank's pieces kept on the host), then the same at tp = 1 on each
+    rank in turn, the other idle with its memory freed, cut to this
+    rank's pieces on the card and held to them there (``_prod_gaps``);
+    writes ``out_dir/prod{rank}.pkl``, with the wall clock at the start
+    and at the end of each stage (``stamps``)."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_shard_ctx, small_mesh
+    from repro_torch.training.optim import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    two_ctx = make_shard_ctx(small_mesh(world), train=True)
+    one_ctx = dataclasses.replace(two_ctx, group=None, tp_size=1, rank=0,
+                                  host_group=None)
+    out = {"stamps": [("start", time.time())]}
+    for arch, layers in PROD_TRAIN:
+        cfg = dataclasses.replace(_arch_cfg(arch, layers), dtype="float32")
+        two = _prod_train(torch, np, cfg, two_ctx, device, keep=lambda t: (
+            tree_map(lambda x: x.detach().cpu(), t)))
+        for r in range(world):
+            dist.barrier()
+            if rank == r:
+                one = _prod_train(torch, np, cfg, one_ctx, device,
+                                  keep=lambda t: steps.param_shards(
+                                      cfg, t, two_ctx))
+                out[arch] = _prod_gaps(one, two, device)
+                out[arch].update(layers=cfg.num_layers,
+                                 want=_train_step_want(cfg))
+                del one
+            _free(torch)
+            if r == 0:
+                out["stamps"].append((f"{arch} tp={world}", time.time()))
+        del two
+        _free(torch)
+        dist.barrier()
+        out["stamps"].append((f"{arch} tp=1 on each rank", time.time()))
+    with open(os.path.join(out_dir, f"prod{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _prod_checks(arch, ranks) -> dict:
+    """tp = 2 against tp = 1 at ``PROD_TOL`` over both ranks' pieces:
+    losses, grad norm, aux loss, every gradient leaf (its largest gap
+    against its largest value, over the ranks), the update of the
+    elements the gradient check holds (``_prod_gaps``), equal capacity
+    drops, every rank's dispatch at tp = 1 and tp = 2 equal to the plain
+    slot rule, and each rank's launches those of a train step."""
+    r0 = ranks[0][arch]
+    one, two = r0["one"], r0["two"]
+    for r in ranks:
+        check(r[arch]["two"] == two, f"{arch}: the ranks' tp=2 losses, "
+              "norms or drops differ")
+        for k_, v_ in r[arch]["want"].items():
+            got = r[arch]["launches"].get(k_, 0)
+            check(got == v_, f"{arch} production train step at tp={TP}: "
+                  f"{k_} {got} != {v_}")
+    for k_ in ("loss", "aux_loss"):
+        check(abs(two[k_] - one[k_]) <= PROD_TOL["loss"] * max(
+            abs(one[k_]), 1.0), f"{arch}: {k_} tp=2 {two[k_]} vs tp=1 "
+            f"{one[k_]}")
+    check(abs(two["grad_norm"] - one["grad_norm"]) <= PROD_TOL["grad_norm"]
+          * one["grad_norm"], f"{arch}: grad norm tp=2 {two['grad_norm']} "
+          f"vs tp=1 {one['grad_norm']}")
+    check(two["drops"] == one["drops"], f"{arch}: capacity drops tp=2 "
+          f"{two['drops']} vs tp=1 {one['drops']}")
+    worst = 0.0
+    for path in r0["grads"]:
+        err = max(r[arch]["grads"][path][0] for r in ranks)
+        scale = max(r[arch]["grads"][path][1] for r in ranks)
+        check(scale > 0, f"{arch}: gradient {path} is zero")
+        check(err <= PROD_TOL["grads"] * scale, f"{arch}: gradient {path} "
+              f"off by {err:.3e} of scale {scale:.3e}")
+        worst = max(worst, err / scale)
+    misses = [r[arch]["slot_rule_misses"] for r in ranks]
+    check(all(m == (0, 0) for m in misses), f"{arch}: (token, k) pairs "
+          f"whose drop or slot differs from the plain slot rule, "
+          f"(tp=1, tp=2) a rank: {misses}")
+    gap = max(r[arch]["update_gap_lr"] for r in ranks)
+    moved = min(r[arch]["update_moved_lr"] for r in ranks)
+    held = sum(r[arch]["update_held"] for r in ranks)
+    total = sum(r[arch]["update_total"] for r in ranks)
+    check(held > 0, f"{arch}: no update element held")
+    check(gap <= PROD_TOL["update"], f"{arch}: tp=2's update off tp=1's "
+          f"by {gap:.3e} lr")
+    check(moved >= PROD_TOL["moved"], f"{arch}: tp=1's update moved an "
+          f"element held by only {moved:.3e} lr")
+    return {"layers": r0["layers"], "one": one, "two": two,
+            "grad_rel_err": worst, "update_gap_lr": gap,
+            "update_moved_lr": moved, "update_held": held,
+            "update_total": total,
+            "launches": r0["launches"], "launches_tp1": r0["launches_tp1"],
+            "step_wall_s": [r[arch]["step_wall_s"] for r in ranks]}
+
+
+def production_phase(torch, np) -> dict:
+    """The phase "production layout": (a) ``production_steps``, (b)
+    ``prefill_kernels_check`` and ``prefill_kernels_time``, (c)
+    ``prod_rank`` in two gloo ranks on the card (the train step at tp = 2
+    against tp = 1: ``_prod_checks``), with rank 0's stages timed."""
+    import pickle
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+    rep = {"steps": production_steps(torch, np, TP_DEVICE)}
+    log("  K1 at the production prefill's widths")
+    rep["k1_checks"] = prefill_kernels_check(torch, np)
+    rep["k1_time"] = prefill_kernels_time(torch, np)
+    rep["tree_time"] = tree_kernels_time(
+        torch, np, B=PROD_B, S=PROD_S, T=7,
+        live=np.full(PROD_B, rep["steps"]["tree_live"]))
+    log_verify_time("tree_verify (production tree step)", rep["tree_time"])
+    t0, clock0 = time.perf_counter(), time.time()
+    ranks = []
+    with tempfile.TemporaryDirectory(prefix="prod_") as tmp:
+        spawn(prod_rank, TP, backend="gloo", device=TP_DEVICE, args=(tmp,))
+        clock1 = time.time()
+        for r in range(TP):
+            with open(os.path.join(tmp, f"prod{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    rep["train_wall_s"] = time.perf_counter() - t0
+    # rank 0's stages on the wall clock: its start after the spawn, each
+    # arch's tp = 2 step (weights made, stepped, pieces to the host), its
+    # tp = 1 steps (one on each rank in turn, gaps on the card), the exit
+    stamps = [("spawn", clock0)] + ranks[0]["stamps"] + [("exit", clock1)]
+    rep["train_stages_s"] = {name: b - a for (_, a), (name, b) in zip(
+        stamps, stamps[1:])}
+    rep["train"] = {}
+    for arch, _ in PROD_TRAIN:
+        r = rep["train"][arch] = _prod_checks(arch, ranks)
+        one, two = r["one"], r["two"]
+        log(f"  {arch} ({r['layers']} layers, full width, f32) train step "
+            f"at tp={TP} against tp=1: loss {two['loss']:.6e} / "
+            f"{one['loss']:.6e}, grad norm {two['grad_norm']:.6e} / "
+            f"{one['grad_norm']:.6e}, gradients within "
+            f"{r['grad_rel_err']:.2e} of each leaf's scale, the update "
+            f"within {r['update_gap_lr']:.2e} lr of tp=1's on the "
+            f"{r['update_held']} of {r['update_total']} elements held "
+            f"(tp=1's at least {r['update_moved_lr']:.3f} lr there); "
+            f"capacity drops {two['drops']} / {one['drops']} of "
+            f"{one['routed']} routed pairs, every pair's drop and slot "
+            f"the plain rule's; a rank's launches " + ", ".join(
+                f"{k_} {v_}" for k_, v_ in sorted(r["launches"].items())
+                if v_) + f"; step walls (tp=1, tp={TP}) "
+            f"{r['step_wall_s'][0]}")
+    # K3 at a rank's granite heads and the train step's shape, f32
+    hq, hk, d, _ = K1_SHAPES["granite-3-8b"]
+    rep["flash_time"] = flash_kernels_time(
+        torch, np, B=PROD_TRAIN_B, T=PROD_TRAIN_S, Hq=hq // TP, Hk=hk // TP,
+        D=d, dtype="float32", iters=20)
+    log(f"  ranks {rep['train_wall_s']:.1f} s (" + ", ".join(
+        f"{k_} {v_:.1f}" for k_, v_ in rep["train_stages_s"].items())
+        + f" s) — {NOT_A_SPEED}")
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0,
@@ -5250,8 +5842,17 @@ def main() -> int:
     ssd_kernels()
     phase_done("kernel checks")
 
+    log(f"production layout: granite-3-8b ({PROD_LAYERS} layers) "
+        f"cached steps on one rank, K1 at the prefill widths "
+        f"{[t for t, _ in PROD_K1_WIDTHS]}, the train step of "
+        + ", ".join(f"{a} ({n} layers)" for a, n in PROD_TRAIN)
+        + f" at tp={TP} (two gloo ranks on {TP_DEVICE}) against tp=1, f32")
+    _free(torch)
+    prod = report["production"] = production_phase(torch, np)
+    phase_done("production layout")
+
     log("linear slice: granite-3-8b Seer rollout on the card")
-    cfg, params = build_model(torch)
+    cfg, params = build_model(torch, layers=LINEAR_LAYERS)
     L = cfg.num_layers
     prompts = make_prompts(np, cfg, GROUPS, seed=1)
     report["sync_debug"] = sync_debug_steps(torch, np, cfg, params)
@@ -5425,6 +6026,9 @@ def main() -> int:
 
     log("serving, faults and tracing: the reference's faults, tracing and "
         "open-loop workloads on granite-3-8b")
+    del params
+    _free(torch)
+    cfg, params = build_model(torch)
     srv = serving_phase(torch, np, cfg, params)
     report["serving_phase"] = srv
     del params
@@ -5915,6 +6519,42 @@ def main() -> int:
                 checks_of(report["ssd_bwd_checks"], name) + [tm], tm,
                 source=SSD_BWD_SRC)
               for name, tm in zip(("zamba2-1.2b", "mamba2-370m"), bwd_t)]]
+
+    # the production layout: K1 through the one-rank cached steps (timed
+    # at the prefill's width), K2 through its tree step, K3 through rank
+    # 0's gradient of granite at tp=2 (timed at a rank's heads, f32)
+    pl_, fl_ = prod["steps"]["launches"], prod["flash_time"]
+    g_launch = prod["train"]["granite-3-8b"]["launches"]
+
+    def prod_flash_row(name, which, plain, library):
+        errs = [{"max_abs_err": max(fl_["check"]["errs"][o]
+                                    for o in outputs[which])}]
+        return kernel_row(
+            f"{name}/production", FLASH_TPU,
+            f"granite-3-8b production train step tp={TP}, rank 0, one "
+            "step", g_launch[name], errs,
+            {"ms": fl_[f"{which}_ms"], "plain_ms": fl_[plain],
+             "bound_ms": fl_[f"{which}_bound_ms"],
+             "bound_by": fl_[f"{which}_bound_by"],
+             "library_ms": fl_[library]}, source=FLASH_SRC)
+    rows += [
+        kernel_row("spec_verify/production", SPEC_VERIFY_TPU,
+                   f"granite-3-8b production layout, one rank: a "
+                   f"{PROD_PREFILL}-token contiguous prefill, "
+                   f"{PROD_DECODES} decodes, a verify of {PROD_GAMMA + 1}",
+                   pl_["spec_verify"], prod["k1_checks"] + prod["k1_time"],
+                   prod["k1_time"][0]),
+        kernel_row("tree_verify/production", TREE_VERIFY_TPU,
+                   "granite-3-8b production layout, one rank: the tree "
+                   "verify step", pl_["tree_verify"],
+                   checks_of(report["tree_kernel_checks"], "granite-3-8b")
+                   + [prod["tree_time"]], prod["tree_time"]),
+        prod_flash_row("flash_attention", "forward", "plain_forward_ms",
+                       "library_forward_ms"),
+        prod_flash_row("flash_attention_dq", "dq", "plain_backward_ms",
+                       "library_backward_ms"),
+        prod_flash_row("flash_attention_dkdv", "dkdv", "plain_backward_ms",
+                       "library_backward_ms")]
 
     phase_done("timing")
 

@@ -14,15 +14,24 @@ chosen by what the machine has: NCCL for one rank per card, gloo on the
 CPU and for ranks that share one card (NCCL refuses two ranks on one
 device).
 
-``make_production_mesh``, ``make_shard_ctx`` and ``small_mesh`` (the
-production Megatron layout) have no counterpart yet.
+The production (Megatron) layout's half: :func:`make_production_mesh`,
+:func:`small_mesh` and :func:`make_shard_ctx`.  A :class:`Mesh` here is
+the shape of the reference's JAX mesh (its axis names and sizes) plus
+the process group that carries its ``model`` axis.  Only that axis runs
+over ranks in this port: a ``Mesh`` built by hand with larger ``data``
+or ``pod`` axes is a shape for the pure placement functions
+(``sharding``, ``launch.steps``), and the mesh functions refuse a
+process group that would run such an axis over ranks (data parallelism
+with the embedding rows split over ``data`` is the next slice's).
+:func:`make_production_mesh` raises, as the reference's
+``_check_devices`` does, when the process group has too few ranks.
 """
 from __future__ import annotations
 
 import os
 import tempfile
 from functools import lru_cache
-from typing import Callable
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,6 +91,81 @@ def make_engine_shard_ctx(group, tp_size: int, rank: int, *,
     return ShardCtx(group=group, tp_size=tp_size, rank=rank,
                     host_group=host_group, backend=backend, dp=(),
                     fsdp=None, seq_shard=False, exact=True)
+
+
+class Mesh(NamedTuple):
+    """A production mesh: ``shape`` the size of each axis of
+    ``axis_names`` (the reference's ``jax.make_mesh`` arguments), and the
+    process group of the ``model`` axis as this rank sees it."""
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    group: object = None
+    rank: int = 0
+    backend: str = "gloo"
+
+    def size(self, axis: str) -> int:
+        return dict(zip(self.axis_names, self.shape)).get(axis, 1)
+
+
+def _mesh(shape, axes, what: str) -> Mesh:
+    """A mesh of ``shape`` over this process group, whose ``model`` axis
+    is the whole group; a group that would also run another axis over
+    ranks is refused."""
+    needed = 1
+    for n in shape:
+        needed *= n
+    _check_ranks(needed, what)
+    model = dict(zip(axes, shape))["model"]
+    if needed == 1:
+        return Mesh(tuple(shape), tuple(axes))
+    if needed != model:
+        raise NotImplementedError(
+            f"{what}: a data axis over ranks (data parallelism, FSDP of the "
+            "embedding rows) is slice 15's; the port runs the model axis "
+            "over ranks")
+    import torch.distributed as dist
+    if dist.get_world_size() != model:
+        raise ValueError(f"{what}: the model axis ({model}) runs on a "
+                         f"process group of exactly {model} ranks, not "
+                         f"{dist.get_world_size()}")
+    return Mesh(tuple(shape), tuple(axes), dist.group.WORLD,
+                dist.get_rank(), dist.get_backend())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's pod mesh, (data=16, model=16), or with ``multi_pod``
+    (pod=2, data=16, model=16): 256 or 512 ranks, which this process
+    group must have (and then its data axes are refused: ``_mesh``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, f"production mesh {shape}")
+
+
+def small_mesh(n_model: Optional[int] = None) -> Mesh:
+    """A debug mesh over the ranks there are: (world // m, m) on
+    ("data", "model") with m = ``n_model`` (default 1)."""
+    n = _world()
+    m = n_model or 1
+    what = f"small mesh (model={m})"
+    _check_ranks(m, what)
+    return _mesh((n // m, m), ("data", "model"), what)
+
+
+def make_shard_ctx(mesh: Mesh, *, train: bool,
+                   seq_shard_prefill: bool = False) -> ShardCtx:
+    """The production context on ``mesh``: batch over its ``pod`` /
+    ``data`` axes, tensor parallelism on ``model``, the embedding rows
+    on ``data`` in training (FSDP), and the residual stream split along
+    the sequence in training (or in prefill with
+    ``seq_shard_prefill``)."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return ShardCtx(group=mesh.group, tp_size=mesh.size("model"),
+                    rank=mesh.rank,
+                    host_group=mesh.group if mesh.backend == "gloo" else None,
+                    backend=mesh.backend, dp=dp, tp="model",
+                    fsdp="data" if train else None,
+                    seq_shard=train or seq_shard_prefill, exact=False,
+                    axis_sizes=tuple((a, mesh.size(a)) for a in dp))
 
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,

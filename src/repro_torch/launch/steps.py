@@ -1,42 +1,77 @@
-"""The engine's shard layouts: which piece of each parameter and cache
-leaf a rank of a tensor-parallel group holds.
+"""Shard layouts and the step builders: which piece of each parameter and
+cache leaf a rank of a tensor-parallel group holds, and the production
+layout's train, prefill, serve and verify steps over those pieces.
 
-Counterpart of ``repro.launch.steps``' ``engine_param_shardings`` and
-``engine_cache_shardings``.  The reference returns a ``NamedSharding``
-per leaf and lets GSPMD place it; here each function takes a leaf and
-returns rank r's shard (a contiguous copy, or the leaf itself where it
-is replicated).  The step builders, the production ``param_shardings``
-/ ``cache_shardings`` and ``lower_pair`` belong to the production
-layout and have no counterpart yet.
+Counterpart of ``repro.launch.steps``.  The reference returns a
+``NamedSharding`` per leaf and lets GSPMD place it; here a placement
+function returns the reference's spec (a tuple of mesh axes per dim,
+``sharding.logical_to_spec``'s form) and a shard function takes a leaf
+and returns rank r's piece (a contiguous copy, or the leaf itself where
+it is replicated).
 
-Parameters follow ``sharding.exact_col_spec``: only column (matmul
-output) dims are split, so no reduction is ever sharded — ``wq``,
-``wk``, ``wv`` by heads, ``wg`` / ``wu`` (and a MoE block's shared
-``sg`` / ``su``) by ``ff``, a MoE block's expert ``wg`` / ``wu`` by each
-expert's hidden dim ``eff``, the untied ``unembed`` by vocab; ``wo``,
-``wd``, the router, the embedding, the norms and every Mamba2 leaf stay
-whole.  Attention leaves keep whole heads on a rank
-(``sharding.head_shard``), where the reference may split a ``wk`` whose
-columns divide mid-head and let GSPMD gather.
+**The engine's layouts** (``engine_param_shardings``,
+``engine_cache_shardings``).  Parameters follow
+``sharding.exact_col_spec``: only column (matmul output) dims are split,
+so no reduction is ever sharded — ``wq``, ``wk``, ``wv`` by heads,
+``wg`` / ``wu`` (and a MoE block's shared ``sg`` / ``su``) by ``ff``, a
+MoE block's expert ``wg`` / ``wu`` by each expert's hidden dim ``eff``,
+the untied ``unembed`` by vocab; ``wo``, ``wd``, the router, the
+embedding, the norms and every Mamba2 leaf stay whole.  Attention leaves
+keep whole heads on a rank (``sharding.head_shard``), where the
+reference may split a ``wk`` whose columns divide mid-head and let GSPMD
+gather.  The cache: ``k`` / ``v`` split by KV head as the attention
+weights are; ``slot_pos``, ``conv`` and ``ssm`` whole.  The
+cross-attention memory ``cross_k`` / ``cross_v`` is split by KV head
+too, where the reference replicates it: a rank's cross block reads only
+its heads, which the kernel (K1) takes as contiguous rows, and the
+rank's own ``wk`` / ``wv`` columns make exactly those heads.  Exported
+blobs are gathered back to the unsharded layout (:func:`gather_heads`),
+so their bytes, headers and CRCs do not depend on tp.
 
-The cache: ``k`` / ``v`` split by KV head as the attention weights are;
-``slot_pos``, ``conv`` and ``ssm`` whole.  The cross-attention memory
-``cross_k`` / ``cross_v`` is split by KV head too, where the reference
-replicates it: a rank's cross block reads only its heads, which the
-kernel (K1) takes as contiguous rows, and the rank's own ``wk`` / ``wv``
-columns make exactly those heads.  Exported blobs are gathered back to
-the unsharded layout (:func:`gather_heads`), so their bytes, headers
-and CRCs do not depend on tp.
+**The production (Megatron) layout**: :func:`param_shardings` (the
+reference's specs under ``param_rules(train=)``, leaf by leaf in the
+reference's tree), :func:`opt_state_specs`, :func:`cache_shardings` and
+:func:`batch_shardings` are pure placement functions held to the
+reference's.  :func:`param_shards` cuts rank r's piece of a parameter
+tree by those rules: ``wq`` / ``wk`` / ``wv`` by head columns and ``wo``
+by the matching rows (row-parallel); ``wg`` / ``wu`` by ``ff`` columns
+and ``wd`` by rows; the embedding by vocab rows and an untied
+``unembed`` by vocab columns; a MoE block's experts on the ``expert``
+axis when E divides the group, else each expert's ``eff`` (the
+used-axis fallback of ``logical_to_spec``), its shared expert's ``sg``
+/ ``su`` by columns and ``sd`` by rows; the router, the norms and every
+Mamba2 leaf whole.  Whole heads stay on a rank: an attention block
+whose query or KV heads do not divide the group is replicated whole
+(every rank runs it whole), where the reference's guard would split
+``wk`` mid-head or replicate only the KV leaves; so is an MLP whose
+``ff`` does not divide, and the embedding when the vocabulary does not.
+The ``embed`` rows' FSDP over ``data`` (``param_rules(train=True)``)
+is a placement only: a data axis runs on no ranks in this slice.
+:func:`gather_params` is the inverse (a collective).
+
+The step builders are plain functions over a rank's shards:
+:func:`build_train_step` (GRPO loss, its gradient, AdamW with the
+global norm taken over the whole model), :func:`build_prefill_step`
+(the contiguous prefill), :func:`build_serve_step` (one greedy token),
+:func:`build_verify_step` (γ+1 greedy targets) and
+:func:`build_tree_verify_step` (through K2).  The train step runs on k
+ranks; the cached steps hold no KV cache across ranks, so they run on a
+one-rank production context (or none) and refuse a larger one: the
+cache split along its sequence is the next slice's.  ``lower_pair``
+(and ``launch/dryrun.py``) lower the steps to HLO for TPU pod meshes and
+have no counterpart: a PyTorch program has no HLO to lower.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import (HeadShard, ShardCtx, all_gather_parts,
-                                  exact_col_spec, head_shard, split_range)
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.sharding import (HeadShard, ShardCtx, all_gather,
+                                  all_gather_parts, all_reduce,
+                                  exact_col_spec, head_shard,
+                                  logical_to_spec, param_rules, split_range)
 
 # cache and blob leaves split by KV head (head axis -2 of every one)
 HEAD_LEAVES = ("k", "v", "cross_k", "cross_v")
@@ -183,3 +218,462 @@ def gather_heads(cfg: ModelConfig, name: str, t: torch.Tensor,
             pieces.append(part.narrow(-2, h - s.kv_lo, s.kv_hi - h))
             h = s.kv_hi
     return torch.cat(pieces, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# the production layout: placements
+# ---------------------------------------------------------------------------
+
+
+def _attn_axes(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    return {"ln": (("norm",), (d,)),
+            "wq": (("embed", "heads"), (d, cfg.num_heads * hd)),
+            "wk": (("embed", "kv"), (d, cfg.num_kv_heads * hd)),
+            "wv": (("embed", "kv"), (d, cfg.num_kv_heads * hd)),
+            "wo": (("heads", "embed"), (cfg.num_heads * hd, d))}
+
+
+def _mlp_axes(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"ln": (("norm",), (d,)), "wg": (("embed", "ff"), (d, f)),
+            "wu": (("embed", "ff"), (d, f)), "wd": (("ff", "embed"), (f, d))}
+
+
+def _moe_axes(cfg: ModelConfig) -> dict:
+    d, E = cfg.d_model, cfg.num_experts
+    eff = cfg.moe_d_ff or cfg.d_ff
+    out = {"router": (("embed", "expert"), (d, E)),
+           "wg": (("expert", "embed", "eff"), (E, d, eff)),
+           "wu": (("expert", "embed", "eff"), (E, d, eff)),
+           "wd": (("expert", "eff", "embed"), (E, eff, d))}
+    if cfg.num_shared_experts:
+        sf = cfg.num_shared_experts * eff
+        out.update(sg=(("embed", "ff"), (d, sf)),
+                   su=(("embed", "ff"), (d, sf)),
+                   sd=(("ff", "embed"), (sf, d)))
+    return out
+
+
+def _mamba_axes(cfg: ModelConfig) -> dict:
+    d, di = cfg.d_model, cfg.d_inner
+    G, N, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
+    ch = di + 2 * G * N
+    return {"ln": (("norm",), (d,)),
+            "in_proj": (("embed", "ssm_in"), (d, 2 * di + 2 * G * N + nh)),
+            "conv_w": (("conv", "ssm_in"), (cfg.ssm_conv, ch)),
+            "conv_b": (("ssm_in",), (ch,)), "A_log": (("norm",), (nh,)),
+            "dt_bias": (("norm",), (nh,)), "D": (("norm",), (nh,)),
+            "gn": (("ssm_in",), (di,)),
+            "out_proj": (("ssm_in", "embed"), (di, d))}
+
+
+def _stack(n: int, tree: dict) -> dict:
+    """``tree`` stacked n times: a leading "layers" axis on every leaf."""
+    return {k: _stack(n, v) if isinstance(v, dict)
+            else (("layers",) + v[0], (n,) + v[1]) for k, v in tree.items()}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The reference's parameter tree (``init_params``: stacked layers,
+    experts as (E, d, eff)) with each leaf's (logical axes, shape)."""
+    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    out = {"embed": (("vocab", "embed"), (V, d))}
+    if not cfg.tie_embeddings:
+        out["unembed"] = (("embed", "vocab"), (d, V))
+    out["final_ln"] = (("norm",), (d,))
+    dense = {"attn": _attn_axes(cfg), "mlp": _mlp_axes(cfg)}
+    at = cfg.arch_type
+    if at == "dense":
+        out["layers"] = _stack(L, dense)
+    elif at == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            out["dense_layers"] = _stack(nd, dense)
+        out["layers"] = _stack(L - nd, {"attn": _attn_axes(cfg),
+                                        "ln2": (("norm",), (d,)),
+                                        "moe": _moe_axes(cfg)})
+    elif at == "ssm":
+        out["layers"] = _stack(L, _mamba_axes(cfg))
+    elif at == "hybrid":
+        every = cfg.hybrid_attn_every
+        n_cells = L // every
+        out["cells"] = _stack(n_cells, {"ssm": _stack(every,
+                                                      _mamba_axes(cfg))})
+        if L - n_cells * every:
+            out["tail"] = _stack(L - n_cells * every, _mamba_axes(cfg))
+        out["shared_attn"] = _attn_axes(cfg)
+        out["shared_mlp"] = _mlp_axes(cfg)
+    elif at == "vlm":
+        every = cfg.cross_attn_every
+        out["cells"] = _stack(L // every, {"self": _stack(every, dense),
+                                           "cross": _attn_axes(cfg)})
+    elif at == "audio":
+        out["enc_layers"] = _stack(cfg.encoder_layers, dense)
+        out["dec_layers"] = _stack(L, {"attn": _attn_axes(cfg),
+                                       "cross": _attn_axes(cfg),
+                                       "mlp": _mlp_axes(cfg)})
+    else:
+        raise ValueError(at)
+    return out
+
+
+def _map_axes(fn, tree):
+    return {k: _map_axes(fn, v) if isinstance(v, dict) else fn(*v)
+            for k, v in tree.items()}
+
+
+def param_shardings(cfg: ModelConfig, sctx: ShardCtx, *, train: bool) -> dict:
+    """The reference's ``param_shardings``: each leaf's spec under
+    ``param_rules(sctx, train)``, in the reference's tree (every layer
+    list stacked).  :func:`param_shards` cuts the pieces."""
+    rules = param_rules(sctx, train)
+    return _map_axes(lambda axes, shape: logical_to_spec(axes, rules, sctx,
+                                                         shape),
+                     param_axes(cfg))
+
+
+def opt_state_specs(param_specs: dict):
+    """AdamW's state on its parameters' shards (the reference's
+    ``opt_state_specs``): an ``OptState`` of specs, both moments sharing
+    each leaf's, the step count replicated."""
+    from repro_torch.training.optim import OptState
+    return OptState(step=(), mu=param_specs, nu=param_specs)
+
+
+def _guard(size: int, axes, sctx: ShardCtx):
+    """``axes`` when they divide ``size`` and span more than one rank."""
+    if axes is None:
+        return None
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= sctx.axis_size(a)
+    if size % n == 0 and n > 1:
+        return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def cache_shardings(cfg: ModelConfig, sctx: ShardCtx, cache_tree: dict
+                    ) -> dict:
+    """The production prefill / serve cache's spec per leaf name (the
+    reference's ``cache_shardings``): batch over the data axes and the
+    cache's sequence on ``model``.  A placement only: the cached steps
+    hold no cache across ranks in this slice."""
+    dp = tuple(sctx.dp)
+
+    def spec_for(key, shape):
+        def b_ax(i):
+            return _guard(shape[i], dp, sctx)
+
+        def t_ax(i):
+            return _guard(shape[i], sctx.tp, sctx)
+        if key in ("k", "v"):
+            return (None, b_ax(1), t_ax(2), None, None)
+        if key == "slot_pos":
+            return (b_ax(0), t_ax(1))
+        if key in ("cross_k", "cross_v"):
+            return (None, b_ax(1), None, None, None)
+        if key == "conv":
+            return (None, b_ax(1), None, t_ax(3))
+        if key == "ssm":
+            return (None, b_ax(1), t_ax(2), None, None)
+        return ()
+    return {k: spec_for(k, tuple(v.shape)) for k, v in cache_tree.items()}
+
+
+def batch_shardings(cfg: ModelConfig, sctx: ShardCtx, shape: InputShape,
+                    specs: dict) -> dict:
+    """The spec of each input of one (arch, shape) step (the reference's
+    ``batch_shardings``): ``specs`` maps names to anything with a
+    ``shape`` (``cache`` to the cache's leaves)."""
+    out = {}
+    for key, spec in specs.items():
+        if key == "cache":
+            out[key] = cache_shardings(cfg, sctx, spec)
+            continue
+        b = _guard(spec.shape[0], tuple(sctx.dp), sctx)
+        if key in ("tokens", "loss_mask", "old_logprobs", "positions"):
+            out[key] = (b, None)
+        elif key == "advantages":
+            out[key] = (b,)
+        elif key in ("image_embeds", "audio_frames"):
+            out[key] = (b, None, None)
+        else:
+            out[key] = ()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the production layout: a rank's pieces
+# ---------------------------------------------------------------------------
+
+
+class Piece(NamedTuple):
+    """Where a rank's piece of a leaf (in the port's layout) lies: the
+    range ``[lo, hi)`` of dim ``dim``; ``groups`` > 0 when that dim is
+    ``groups`` experts side by side and the range is taken in each."""
+    dim: int
+    lo: int
+    hi: int
+    groups: int = 0
+
+
+def attn_whole(cfg: ModelConfig, sctx: Optional[ShardCtx]) -> bool:
+    """Whether the production layout runs an attention block whole on
+    every rank: its query or KV heads do not divide the group (whole
+    heads stay on a rank)."""
+    tp = 1 if sctx is None else sctx.tp_size
+    return tp == 1 or cfg.num_heads % tp != 0 or cfg.num_kv_heads % tp != 0
+
+
+def mlp_whole(cfg: ModelConfig, sctx: Optional[ShardCtx]) -> bool:
+    tp = 1 if sctx is None else sctx.tp_size
+    return tp == 1 or cfg.d_ff % tp != 0
+
+
+def vocab_whole(cfg: ModelConfig, sctx: Optional[ShardCtx]) -> bool:
+    tp = 1 if sctx is None else sctx.tp_size
+    return tp == 1 or cfg.vocab_size % tp != 0
+
+
+def experts_split(cfg: ModelConfig, sctx: ShardCtx) -> str:
+    """How the production layout splits a MoE block's experts: "expert"
+    (E / tp whole experts a rank, when they divide) or "eff" (every
+    expert's hidden dim)."""
+    return "expert" if cfg.num_experts % sctx.tp_size == 0 else "eff"
+
+
+def piece_of(cfg: ModelConfig, kind: str, name: str,
+             sctx: Optional[ShardCtx]) -> Optional[Piece]:
+    """Rank ``sctx.rank``'s piece of leaf ``name`` of a block of ``kind``
+    ("attn", "mlp", "moe", "top"; "other" is whole) under the production
+    rules, or None where it is whole."""
+    if sctx is None or sctx.tp_size == 1:
+        return None
+    tp, r = sctx.tp_size, sctx.rank
+    if kind == "attn" and name in ("wq", "wk", "wv", "wo"):
+        if attn_whole(cfg, sctx):
+            return None
+        hs = heads_of(cfg, sctx)
+        hd = cfg.head_dim
+        lo, hi = (hs.q_lo, hs.q_hi) if name in ("wq", "wo") \
+            else (hs.kv_lo, hs.kv_hi)
+        return Piece(0 if name == "wo" else 1, lo * hd, hi * hd)
+    if kind == "mlp" and name in ("wg", "wu", "wd"):
+        if mlp_whole(cfg, sctx):
+            return None
+        lo, hi = split_range(cfg.d_ff, tp, r)
+        return Piece(0 if name == "wd" else 1, lo, hi)
+    if kind == "moe" and name in ("wg", "wu", "wd", "sg", "su", "sd"):
+        E = cfg.num_experts
+        eff = cfg.moe_d_ff or cfg.d_ff
+        if name in ("sg", "su", "sd"):
+            lo, hi = split_range(cfg.num_shared_experts * eff, tp, r)
+            return Piece(0 if name == "sd" else 1, lo, hi)
+        if experts_split(cfg, sctx) == "expert":
+            lo, hi = split_range(E, tp, r)
+            if name == "wd":
+                return Piece(0, lo, hi)
+            return Piece(1, lo * eff, hi * eff)
+        lo, hi = split_range(eff, tp, r)
+        if name == "wd":
+            return Piece(1, lo, hi)
+        return Piece(1, lo, hi, groups=E)
+    if kind == "top" and name in ("embed", "unembed"):
+        if vocab_whole(cfg, sctx):
+            return None
+        lo, hi = split_range(cfg.vocab_size, tp, r)
+        return Piece(0 if name == "embed" else 1, lo, hi)
+    return None
+
+
+def _cut(t: torch.Tensor, pc: Piece) -> torch.Tensor:
+    if pc.groups:
+        d = t.shape[0]
+        return t.reshape(d, pc.groups, -1)[:, :, pc.lo:pc.hi].reshape(
+            d, -1).contiguous()
+    return t.narrow(pc.dim, pc.lo, pc.hi - pc.lo).contiguous()
+
+
+def _walk_pieces(cfg, tree, sctx, fn, top=True):
+    """``tree`` with ``fn(leaf, piece)`` applied to every leaf."""
+    if isinstance(tree, list):
+        return [_walk_pieces(cfg, x, sctx, fn, False) for x in tree]
+    kind = _block_kind(tree)
+    if kind == "other" and top:
+        kind = "top"
+    return {n: _walk_pieces(cfg, v, sctx, fn, False)
+            if isinstance(v, (dict, list))
+            else fn(v, piece_of(cfg, kind, n, sctx))
+            for n, v in tree.items()}
+
+
+def param_shards(cfg: ModelConfig, params: dict, sctx: Optional[ShardCtx]
+                 ) -> dict:
+    """This rank's pieces of a whole parameter tree under the production
+    rules (:func:`piece_of`); whole leaves are the same tensors."""
+    return _walk_pieces(cfg, params, sctx,
+                        lambda t, pc: t if pc is None else _cut(t, pc))
+
+
+def gather_params(cfg: ModelConfig, shards: dict, sctx: Optional[ShardCtx]
+                  ) -> dict:
+    """The whole tree from every rank's :func:`param_shards` (a
+    collective; whole leaves are returned as they are)."""
+    def one(t, pc):
+        if pc is None:
+            return t
+        t = t.detach()
+        if not pc.groups:
+            return all_gather(t, pc.dim, sctx)
+        d = t.shape[0]
+        parts = all_gather(t.reshape(d, pc.groups, 1, -1), 2, sctx)
+        return parts.reshape(d, -1)
+    return _walk_pieces(cfg, shards, sctx, one)
+
+
+def split_leaves(cfg: ModelConfig, params: dict, sctx: Optional[ShardCtx]
+                 ) -> dict:
+    """The tree with True at every leaf a rank holds only a piece of."""
+    return _walk_pieces(cfg, params, sctx, lambda t, pc: pc is not None)
+
+
+def production_global_norm(cfg: ModelConfig, grads: dict,
+                           sctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The global norm of the whole model's gradient from this rank's
+    pieces: every split leaf's sum of squares is summed over the ranks
+    (one all-reduce), whole leaves count once; summed in the JAX leaf
+    order as ``optim.global_norm`` sums."""
+    from repro_torch.training.optim import _jax_order, jax_leaf, tree_items
+    split = dict(tree_items(split_leaves(cfg, grads, sctx)))
+    items = _jax_order(grads)
+    sq = [torch.sum(torch.square(x.float())) for _, x in items]
+    cut = [i for i, (path, _) in enumerate(items) if split[path]]
+    if cut:
+        summed = all_reduce(torch.stack([sq[i] for i in cut]), sctx)
+        for j, i in enumerate(cut):
+            sq[i] = summed[j]
+    groups: dict = {}
+    for (path, _), s in zip(items, sq):
+        groups.setdefault(jax_leaf(path), []).append(s)
+    leaves = [torch.stack(g).sum() if len(g) > 1 else g[0]
+              for g in groups.values()]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+# ---------------------------------------------------------------------------
+# the production layout: step builders
+# ---------------------------------------------------------------------------
+
+NEXT_SLICE = ("the cached steps at tp > 1 under the production layout "
+              "(the KV cache split along its sequence, K1 / K2 softmax "
+              "partials merged across ranks) are slice 15's")
+
+
+def check_cached(sctx: Optional[ShardCtx]) -> None:
+    """Refuse a cached step on a production context of more than one
+    rank."""
+    if sctx is not None and not sctx.exact and sctx.tp_size > 1:
+        raise NotImplementedError(NEXT_SLICE)
+
+
+def build_train_step(cfg: ModelConfig, sctx: Optional[ShardCtx], gcfg=None,
+                     ocfg=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state, loss,
+    metrics)`` over this rank's pieces (:func:`param_shards` of f32
+    masters that require gradients, ``optim.init_opt_state`` of them):
+    ``grpo_loss`` under ``sctx``, its gradient (each piece's own, the
+    whole leaves' complete on every rank: the forward's collectives
+    carry their adjoints), then AdamW in place, clipped by the whole
+    model's gradient norm.  The reference's step returns (params,
+    opt_state, loss); ``metrics`` adds grad_norm and lr."""
+    from repro_torch.training.grpo import GRPOConfig, grpo_loss
+    from repro_torch.training.optim import (OptConfig, adamw_update,
+                                            tree_items, tree_rebuild)
+    gcfg = gcfg or GRPOConfig()
+    ocfg = ocfg or OptConfig()
+
+    def train_step(params, opt_state, batch: dict):
+        loss, metrics = grpo_loss(cfg, params, batch, gcfg=gcfg, sctx=sctx)
+        leaves = [t for _, t in tree_items(params)]
+        grads = tree_rebuild(params, torch.autograd.grad(loss, leaves))
+        gnorm = production_global_norm(cfg, grads, sctx)
+        params, opt_state, om = adamw_update(ocfg, params, grads, opt_state,
+                                             grad_norm=gnorm)
+        metrics.update(om)
+        return params, opt_state, loss.detach(), metrics
+
+    return train_step
+
+
+def build_prefill_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
+    """``prefill_step(params, tokens, positions, cache, **aux) -> cache``:
+    the production prefill, every row writing slots [start, start+T) of
+    the cache (``forward(contiguous_update=True)``), in place."""
+    from repro_torch.models.transformer import forward
+    check_cached(sctx)
+
+    @torch.no_grad()
+    def prefill_step(params, tokens, positions, cache, **aux):
+        _, cache, _ = forward(cfg, params, tokens, positions, cache,
+                              aux_inputs=aux or None, sctx=sctx,
+                              contiguous_update=True, logits=False)
+        return cache
+
+    return prefill_step
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+
+def build_serve_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
+    """``serve_step(params, tokens, positions, cache) -> (next token (B,)
+    int32, cache)``: one token appended, the greedy next one."""
+    from repro_torch.models.transformer import forward
+    check_cached(sctx)
+
+    @torch.no_grad()
+    def serve_step(params, tokens, positions, cache):
+        logits, cache, _ = forward(cfg, params, tokens, positions, cache,
+                                   sctx=sctx)
+        return _greedy(logits[:, -1]), cache
+
+    return serve_step
+
+
+def build_verify_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
+    """``verify_step(params, tokens, positions, cache) -> (targets (B, T)
+    int32, cache)``: γ+1 candidates scored in one forward, the greedy
+    target at each."""
+    from repro_torch.models.transformer import forward
+    check_cached(sctx)
+
+    @torch.no_grad()
+    def verify_step(params, tokens, positions, cache):
+        logits, cache, _ = forward(cfg, params, tokens, positions, cache,
+                                   sctx=sctx)
+        return _greedy(logits), cache
+
+    return verify_step
+
+
+def build_tree_verify_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
+    """``tree_verify_step(params, tokens, positions, slot_index, mask,
+    within, cache) -> (targets (B, T) int32, cache)``: T tree nodes a row
+    in one forward (``slot_index`` their slots, ``within`` (B, T, T)
+    each node's ancestors, ``mask`` the live nodes), through K2."""
+    from repro_torch.models.transformer import forward
+    check_cached(sctx)
+
+    @torch.no_grad()
+    def tree_verify_step(params, tokens, positions, slot_index, mask, within,
+                         cache):
+        logits, cache, _ = forward(cfg, params, tokens, positions, cache,
+                                   token_mask=mask, slot_index=slot_index,
+                                   within_mask=within, sctx=sctx)
+        return _greedy(logits), cache
+
+    return tree_verify_step

@@ -2,15 +2,30 @@
 
 Counterpart of ``repro.models.moe``: ``init_moe``, ``_route``,
 ``_aux_loss``, ``moe_dense_all`` and ``_shared`` (with the engine's
-exact tensor parallelism, ``sctx``), and the ``sctx is None`` and
-``sctx.exact`` branches of ``moe_forward``.  As the reference serves,
-every expert runs on every token and the router's top-k weights pick
-what is kept, so no token is dropped and the tokens match the
-reference's.  The expert products are plain matrix products (the
-reference has no kernel on this layer).  The production layout's
-capacity-bounded expert/tensor-parallel dispatch (``_capacity``,
-``_moe_body`` and the ``shard_map`` branches of ``moe_forward``) is not
-ported yet.
+exact tensor parallelism, ``sctx``), ``_capacity``, ``_moe_body`` and
+every branch of ``moe_forward``.
+
+Two paths.  With no context, and under the engine's exact one
+(``sctx.exact``), every expert runs on every token and the router's
+top-k weights pick what is kept (:func:`moe_dense_all`), so no token is
+dropped and the tokens match the reference's.  Under the production
+layout's context (``exact`` False, any number of ranks, one included)
+the capacity-bounded dispatch runs (:func:`moe_capacity`): each rank
+holds E / tp whole experts when they divide the group (expert
+parallelism, the rank's first expert ``rank * E / tp``), else every
+expert with its hidden dim ``eff`` split; routing is in f32 over every
+token on every rank, each (token, k) pair takes the next slot of its
+expert in flattened (token, k) order (an exclusive cumsum) and is
+dropped past the capacity C, which is computed from the global E as the
+reference does; the kept tokens are gathered into an (E_loc, C, d)
+buffer, the experts run as batched products (``torch.bmm``: the
+reference has no kernel on this layer), the k-loop combine sums in f32,
+and the shared expert (its ``ff`` split over the ranks) is added before
+the ranks' partial outputs are summed — all-reduced, or reduce-scattered
+along the sequence when the context shards it.  The router's aux loss
+is averaged over the ranks.  A data axis of the context (the reference's
+``dp``) splits the batch into its shards, each with its own capacity, run
+one after another on the model group.
 
 Layout: ``wg`` and ``wu`` are stored as ``(d, E * eff)``, expert ``e``
 in columns ``e * eff .. (e + 1) * eff - 1`` (the reference's
@@ -23,6 +38,7 @@ pick other experts.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -118,16 +134,122 @@ def moe_dense_all(x: torch.Tensor, p: dict, cfg, sctx=None):
     return y.reshape(B, S, d), aux
 
 
+def _capacity(T: int, k: int, E_loc: int, factor: float) -> int:
+    """Slots per expert: T * k * factor over E_loc, plus one, rounded up
+    to a multiple of 8 and at least 8 (the reference's ``_capacity``)."""
+    c = int(T * k * factor) // max(E_loc, 1) + 1
+    return max(8, -(-c // 8) * 8)
+
+
+# when a list, every capacity dispatch appends a record of its slots and
+# drops (``ids``, ``slot``, ``valid``, ``local``, ``e0``, ``E_loc``,
+# ``C``, detached): the tests hold them to the reference's, the card's
+# smoke run counts the drops
+DISPATCH_LOG: Optional[list] = None
+
+
+def dispatch_slots(ids: torch.Tensor, e0: int, E_loc: int, C: int):
+    """ids (T, k) -> (slot, valid, local), each (T * k,) in flattened
+    (token, k) order: ``local`` the pairs routed to this rank's experts
+    ``[e0, e0 + E_loc)``, their rank in their expert by an exclusive
+    cumsum, ``valid`` those ranked below C, ``slot`` = expert * C + rank
+    for them and ``E_loc * C`` (the trash row) for the rest."""
+    eflat = ids.reshape(-1)
+    local = (eflat >= e0) & (eflat < e0 + E_loc)
+    le = torch.where(local, eflat - e0, E_loc)
+    onehot = (le[:, None] == torch.arange(E_loc, device=ids.device)
+              ).to(torch.int64)
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(
+        1, le.clamp(max=E_loc - 1)[:, None])[:, 0]
+    valid = local & (pos < C)
+    slot = torch.where(valid, le * C + pos, E_loc * C)
+    return slot, valid, local
+
+
+def _moe_body(xf: torch.Tensor, router: torch.Tensor, p: dict, cfg,
+              e0: int, E_loc: int, C: int):
+    """The reference's ``_moe_body`` on this rank's experts: xf (T, d)
+    -> (this rank's partial output (T, d) in xf's dtype, aux f32)."""
+    T, d = xf.shape
+    k = cfg.moe_top_k
+    w, ids, probs = _route(xf.float(), router, k)
+    aux = _aux_loss(probs, _one_hot(ids, cfg.num_experts))
+    slot, valid, local = dispatch_slots(ids, e0, E_loc, C)
+    if DISPATCH_LOG is not None:
+        DISPATCH_LOG.append(dict(ids=ids.detach(), slot=slot, valid=valid,
+                                 local=local, e0=e0, E_loc=E_loc, C=C))
+    # the token of each slot (T: the zero row); a kept pair's slot is its
+    # own, every drop goes to the trash row, so amin is exact
+    tok_idx = torch.arange(T, device=xf.device).repeat_interleave(k)
+    tok = torch.full((E_loc * C + 1,), T, dtype=torch.int64,
+                     device=xf.device).scatter_reduce_(
+        0, slot, tok_idx, reduce="amin")
+    xf_pad = torch.cat([xf, xf.new_zeros((1, d))])
+    buf = xf_pad[tok[:E_loc * C]].view(E_loc, C, d)
+    dt = xf.dtype
+    wg = p["wg"].view(d, E_loc, -1).transpose(0, 1).to(dt)
+    wu = p["wu"].view(d, E_loc, -1).transpose(0, 1).to(dt)
+    g = _silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out = torch.bmm(g, p["wd"].to(dt)).reshape(E_loc * C, d)
+    out = torch.cat([out, out.new_zeros((1, d))])
+    slot_tk = slot.view(T, k)
+    w_tk = torch.where(valid.view(T, k), w, torch.zeros_like(w))
+    y = torch.zeros((T, d), dtype=torch.float32, device=xf.device)
+    for j in range(k):
+        y = y + out[slot_tk[:, j]].float() * w_tk[:, j:j + 1]
+    y = y.to(dt)
+    if "sg" in p:
+        y = y + lin(_silu(lin(xf, p["sg"])) * lin(xf, p["su"]), p["sd"])
+    return y, aux
+
+
+def moe_capacity(x: torch.Tensor, p: dict, cfg, sctx):
+    """The production layout's capacity-bounded dispatch (the reference's
+    ``shard_map`` branches of ``moe_forward``): x (B, S, d) whole on every
+    rank, ``p`` this rank's pieces (``launch.steps.param_shards``) ->
+    (y, aux).  y is the summed output (B, S, d), or this rank's piece
+    (B, S / tp, d) when the context shards the sequence and S divides.
+    x's gradient comes back whole on every rank (the ranks' partials
+    summed).  A data axis in the context (``dp_size`` > 1, only a
+    hand-built ``ShardCtx``: ``launch.mesh`` runs no data axis over
+    ranks until slice 15) takes each data shard's batch rows one after
+    another, each with its own C, as the reference does on its (2, 2)
+    meshes, against which the tests hold this loop."""
+    B, S, d = x.shape
+    E, tp = cfg.num_experts, sctx.tp_size
+    ep = E % tp == 0
+    eff = cfg.moe_d_ff or cfg.d_ff
+    if not ep and (eff % tp or (cfg.num_shared_experts
+                                and cfg.num_shared_experts * eff % tp)):
+        raise ValueError(f"{E} experts of hidden dim {eff} split over "
+                         f"{tp} ranks neither by expert nor by eff")
+    dp = sctx.dp_size()
+    if B % dp:
+        dp = 1
+    E_loc = E // tp if ep else E
+    C = _capacity((B // dp) * S, cfg.moe_top_k, E, cfg.capacity_factor)
+    e0 = sctx.rank * E_loc if ep else 0
+    x = sharding.copy_to_ranks(x, sctx)
+    router = sharding.copy_to_ranks(p["router"], sctx)
+    ys, auxes = [], []
+    for xb in x.chunk(dp, dim=0):
+        y, aux = _moe_body(xb.reshape(-1, d), router, p, cfg, e0, E_loc, C)
+        ys.append(y.view(xb.shape))
+        auxes.append(aux)
+    y = torch.cat(ys) if dp > 1 else ys[0]
+    aux = torch.stack(auxes).mean() if dp > 1 else auxes[0]
+    if sctx.seq_shard and S % tp == 0:
+        y = sharding.scatter_seq(y, sctx, dim=1)
+    else:
+        y = sharding.reduce_from_ranks(y, sctx)
+    return y, sharding.reduce_from_ranks(aux, sctx) / tp
+
+
 def moe_forward(x: torch.Tensor, p: dict, cfg, sctx=None):
-    """x (B, S, d) -> (y, aux f32).  No context: every expert on one
-    device.  The engine's exact context (``sctx.exact``): the same dense
-    combine with each expert's hidden dim split across the ranks.  The
-    production layout's capacity-bounded expert/tensor-parallel dispatch
-    (``sctx.exact`` False) is not ported yet and raises."""
-    if sctx is not None and not sctx.exact:
-        raise NotImplementedError(
-            "the MoE layer's capacity-bounded expert/tensor-parallel "
-            "dispatch (the production layout: _capacity, _moe_body, the "
-            "shard_map branches) is not ported yet; the engine's exact "
-            "context runs")
-    return moe_dense_all(x, p, cfg, sctx)
+    """x (B, S, d) -> (y, aux f32).  No context, or the engine's exact
+    one: :func:`moe_dense_all` (every expert on every token; the exact
+    context splits each expert's hidden dim).  The production layout's
+    context (``exact`` False), at any tp: :func:`moe_capacity`."""
+    if sctx is None or sctx.exact:
+        return moe_dense_all(x, p, cfg, sctx)
+    return moe_capacity(x, p, cfg, sctx)

@@ -23,12 +23,17 @@ the third output.  With ``train=True`` each layer (each cell of a
 hybrid or VLM model) is recomputed in the backward
 (``torch.utils.checkpoint``, the JAX package's ``_remat``).
 
-Tensor parallelism (``forward(sctx=)``, the exact branches of the JAX
-package's ``_self_attn``, ``_cross_attn``, ``_mlp`` and the MoE layer):
-each rank holds its shard of the weights and of the K/V cache
-(``launch.steps``), and the activations are gathered before every
-matmul whose reduction would otherwise be sharded, so the logits, and
-the sampled tokens, are bitwise the one-device ones.
+Tensor parallelism (``forward(sctx=)``).  The engine's exact context
+(the exact branches of the JAX package's ``_self_attn``,
+``_cross_attn``, ``_mlp`` and the MoE layer): each rank holds its shard
+of the weights and of the K/V cache (``launch.steps``), and the
+activations are gathered before every matmul whose reduction would
+otherwise be sharded, so the logits, and the sampled tokens, are
+bitwise the one-device ones.  The production (Megatron) layout's
+context: the cache-free forward on the rank's ``param_shards``, with
+row-parallel ``wo`` / ``wd`` and the residual stream split along the
+sequence (``_Layout``), and the contiguous prefill of the production
+steps (one rank).
 
 The cache is updated in place, which replaces JAX's buffer donation:
 ``forward`` writes this step's K/V rows and slot positions into the
@@ -56,7 +61,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.launch.steps import engine_param_shards, kv_heads
+from repro_torch.launch.steps import (NEXT_SLICE, attn_whole,
+                                      engine_param_shards, kv_heads,
+                                      mlp_whole, vocab_whole)
 from repro_torch.models.attention import attention
 from repro_torch.models.common import apply_rope, lin, rms_norm
 from repro_torch.models.mamba2 import init_mamba_block, mamba_block
@@ -320,12 +327,42 @@ def _self_attn(p, x, cfg, positions, bidx, slots, ck, cv, slot_pos,
     no traffic, and o is gathered before ``wo``."""
     xn = rms_norm(x, p["ln"], cfg.rms_eps)
     q, k, v = _project_qkv(p, xn, cfg, positions)
+    if bidx is None:
+        o = _contiguous_attn(cfg, q, k, v, positions, slots, ck, cv,
+                             slot_pos)
+        return x + _out_proj(p, o, cfg, sctx)
     with_scratch(ck, 1)[bidx, slots] = k.to(ck.dtype)
     with_scratch(cv, 1)[bidx, slots] = v.to(cv.dtype)
     o = attention(q, ck, cv, positions, slot_pos, window=cfg.sliding_window,
                   softcap=cfg.attn_logit_softcap, allowed_mask=allowed,
                   split_like=_split_like(cfg, sctx))
     return x + _out_proj(p, o, cfg, sctx)
+
+
+def _contiguous_attn(cfg, q, k, v, positions, idx, ck, cv, slot_pos):
+    """The contiguous prefill's branch (the JAX package's ``slots is
+    None``): every row writes the same slots.  ``idx`` (T,) the slots
+    [start, start + T): K/V written there (an index copy along the
+    slots, so the scratch slot is never touched), then attention over
+    the whole cache through K1, whose mask (``k_pos >= 0`` and
+    causality) is the JAX package's ``kv_valid`` mask.  ``idx`` None:
+    the ring roll of a whole-window prefill (T >= S): the cache becomes
+    the last S tokens, rolled so that position p sits at slot p % S, and
+    the step attends its own pre-ring K/V through K3 (causal, the
+    window; positions contiguous from the rows' shared start)."""
+    if idx is None:
+        S, T = ck.shape[1], k.shape[1]
+        shift = (T - S) % S
+        ck.copy_(torch.roll(k[:, T - S:].to(ck.dtype), shift, 1))
+        cv.copy_(torch.roll(v[:, T - S:].to(cv.dtype), shift, 1))
+        return attention(q, k, v, positions, positions,
+                         window=cfg.sliding_window,
+                         softcap=cfg.attn_logit_softcap, contiguous=True)
+    ck.index_copy_(1, idx, k.to(ck.dtype))
+    cv.index_copy_(1, idx, v.to(cv.dtype))
+    return attention(q, ck, cv, positions, slot_pos,
+                     window=cfg.sliding_window,
+                     softcap=cfg.attn_logit_softcap)
 
 
 def _self_attn_nocache(p, x, cfg, positions, causal=True, sctx=None):
@@ -377,12 +414,16 @@ def _cross_attn(p, x, cfg, k, v, sctx=None):
     return x + _out_proj(p, o, cfg, sctx)
 
 
+def _swiglu(p, xn):
+    """SwiGLU's hidden h = silu(xn wg) * (xn wu), before ``wd``."""
+    g = lin(xn, p["wg"])
+    return g * torch.sigmoid(g) * lin(xn, p["wu"])
+
+
 def _mlp(p, x, cfg, sctx=None):
     """SwiGLU; under ``sctx`` the hidden h is this rank's ``ff`` columns,
     gathered before ``wd``."""
-    xn = rms_norm(x, p["ln"], cfg.rms_eps)
-    g = lin(xn, p["wg"])
-    h = g * torch.sigmoid(g) * lin(xn, p["wu"])
+    h = _swiglu(p, rms_norm(x, p["ln"], cfg.rms_eps))
     return x + lin(sharding.whole_columns(h, cfg.d_ff, sctx), p["wd"])
 
 
@@ -422,11 +463,6 @@ def _decoder_stack(cfg, params, x, cache, attn_args, sctx=None):
     return x, aux
 
 
-def _dense_layer_nocache(p, x, cfg, positions):
-    x = _self_attn_nocache(p["attn"], x, cfg, positions)
-    return _mlp(p["mlp"], x, cfg)
-
-
 @torch.no_grad()
 def encode_audio(cfg: ModelConfig, params: dict, frames: torch.Tensor,
                  sctx: Optional[ShardCtx] = None) -> torch.Tensor:
@@ -462,27 +498,6 @@ def build_cross_cache(cfg: ModelConfig, params: dict,
             torch.stack([v for _, v in kv]).to(dt))
 
 
-def _moe_layer_nocache(p, x, cfg, positions):
-    x = _self_attn_nocache(p["attn"], x, cfg, positions)
-    y, aux = moe_forward(rms_norm(x, p["ln2"], cfg.rms_eps), p["moe"], cfg)
-    return x + y, aux
-
-
-def _cross_attn_nocache(p, x, cfg, mem):
-    """A cross block over the memory (B, Tm, d) itself: its K/V from
-    ``mem``, attended by every query through K3 non-causal (the JAX
-    package's ``causal=False`` at zero positions: every key visible, no
-    RoPE, no window)."""
-    xn = rms_norm(x, p["ln"], cfg.rms_eps)
-    B, T, _ = xn.shape
-    q = lin(xn, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k, v = _cross_kv(p, mem, cfg)
-    o = attention(q, k, v, _zero_positions(B, T, q.device),
-                  _zero_positions(B, k.shape[1], q.device), causal=False,
-                  contiguous=True)
-    return x + lin(o.reshape(B, T, -1), p["wo"])
-
-
 def _mamba_nocache(p, x, cfg):
     """A Mamba2 block over the whole sequence: zero conv history, zero
     initial state (K4 and, under autograd, its backward)."""
@@ -493,37 +508,176 @@ def _mamba_nocache(p, x, cfg):
     return mamba_block(p, x, cfg, conv, None)[0]
 
 
-def _hybrid_cell_nocache(cell, shared_attn, shared_mlp, x, cfg, positions):
-    for p in cell["ssm"]:
-        x = _mamba_nocache(p, x, cfg)
-    x = _self_attn_nocache(shared_attn, x, cfg, positions)
-    return _mlp(shared_mlp, x, cfg)
-
-
-def _vlm_cell_nocache(cell, x, cfg, positions, embeds):
-    for p in cell["self"]:
-        x = _dense_layer_nocache(p, x, cfg, positions)
-    return _cross_attn_nocache(cell["cross"], x, cfg, embeds)
-
-
 def _enc_layer_nocache(p, x, cfg, positions, sctx=None):
     x = _self_attn_nocache(p["attn"], x, cfg, positions, causal=False,
                            sctx=sctx)
     return _mlp(p["mlp"], x, cfg, sctx)
 
 
-def _audio_layer_nocache(p, x, cfg, positions, enc_out):
-    x = _self_attn_nocache(p["attn"], x, cfg, positions)
-    x = _cross_attn_nocache(p["cross"], x, cfg, enc_out)
-    return _mlp(p["mlp"], x, cfg)
+class _Layout:
+    """How the sub-layers of one cache-free forward meet the ranks of
+    the production (Megatron) layout's context ``sctx``; with no context
+    (or one rank) every method is the identity and each sub-layer runs
+    as on one device.
+
+    ``sp``: the residual stream is split along the sequence (the
+    reference's ``seq_axis``: training, or T > 1, with ``seq_shard`` and
+    T dividing), each rank holding its T / tp rows; else it is whole on
+    every rank.  A split sub-layer (heads, ``ff`` or vocab divide the
+    group) takes its normed input whole (:meth:`enter`: gathered along T,
+    or Megatron's *f*), runs its column-parallel products on the rank's
+    pieces and its row-parallel ``wo`` / ``wd`` into a partial, and
+    :meth:`leave` sums the ranks' partials (reduce-scattered back to the
+    rank's rows, or all-reduced); on one rank that is the sub-layer
+    itself.  Under ``sp`` the norm before it sees only the rank's rows,
+    so its weight's gradient is summed over the ranks (:meth:`norm`).  A
+    whole sub-layer (Mamba2 blocks; attention, MLP or vocabulary that
+    does not divide) runs on every rank on the whole sequence, as on one
+    rank (``_ONE``), between :meth:`whole_in` and :meth:`whole_out`."""
+
+    def __init__(self, cfg, sctx, T, train, seq=True):
+        multi = sctx is not None and sctx.tp_size > 1
+        self.sctx = sctx if multi else None
+        self.moe_sctx = sctx
+        self.sp = (multi and seq and (train or T > 1)
+                   and sharding.seq_axis(sctx, T) is not None)
+        self.attn_whole = multi and attn_whole(cfg, sctx)
+        self.mlp_whole = multi and mlp_whole(cfg, sctx)
+        self.vocab_whole = not multi or vocab_whole(cfg, sctx)
+
+    def norm(self, w):
+        return sharding.copy_to_ranks(w, self.sctx) if self.sp else w
+
+    def enter(self, xn):
+        if self.sp:
+            return sharding.gather_seq(xn, self.sctx)
+        return sharding.copy_to_ranks(xn, self.sctx)
+
+    def leave(self, part):
+        if self.sp:
+            return sharding.scatter_seq(part, self.sctx)
+        return sharding.reduce_from_ranks(part, self.sctx)
+
+    def whole_in(self, x):
+        return sharding.gather_whole(x, self.sctx) if self.sp else x
+
+    def whole_out(self, x):
+        return sharding.split_seq(x, self.sctx) if self.sp else x
+
+    def memory(self, mem):
+        """Cross-attention memory, whole on every rank, entering the
+        rank's ``wk`` / ``wv`` columns (its gradient summed)."""
+        return sharding.copy_to_ranks(mem, self.sctx)
 
 
-def _encode_audio(cfg, params, frames, train=False, sctx=None):
+# the layout of one rank: every collective the identity
+_ONE = _Layout(None, None, 0, False)
+
+
+def _attn_block(p, x, cfg, positions, lay, causal=True):
+    """A self-attention sub-layer of the cache-free forward (positions
+    0..T-1 whole), through K3; under a split layout on the rank's heads
+    with the row-parallel ``wo``."""
+    if lay.attn_whole:
+        return lay.whole_out(_attn_block(p, lay.whole_in(x), cfg, positions,
+                                         _ONE, causal))
+    xn = rms_norm(x, lay.norm(p["ln"]), cfg.rms_eps)
+    q, k, v = _project_qkv(p, lay.enter(xn), cfg, positions)
+    o = attention(q, k, v, positions, positions, causal=causal,
+                  window=cfg.sliding_window,
+                  softcap=cfg.attn_logit_softcap, contiguous=True)
+    B, T = o.shape[:2]
+    return x + lay.leave(lin(o.reshape(B, T, -1), p["wo"]))
+
+
+def _mlp_block(p, x, cfg, lay):
+    """SwiGLU; under a split layout on the rank's ``ff`` columns with the
+    row-parallel ``wd``."""
+    if lay.mlp_whole:
+        return lay.whole_out(_mlp_block(p, lay.whole_in(x), cfg, _ONE))
+    xg = lay.enter(rms_norm(x, lay.norm(p["ln"]), cfg.rms_eps))
+    return x + lay.leave(lin(_swiglu(p, xg), p["wd"]))
+
+
+def _dense_block(p, x, cfg, positions, lay):
+    x = _attn_block(p["attn"], x, cfg, positions, lay)
+    return _mlp_block(p["mlp"], x, cfg, lay)
+
+
+def _moe_block(p, x, cfg, positions, lay):
+    """Attention, then the MoE layer on the normed stream, whole on every
+    rank (``moe_forward``: dense with no context, the capacity dispatch
+    under the production one, which hands back the rank's rows under
+    ``sp``)."""
+    x = _attn_block(p["attn"], x, cfg, positions, lay)
+    xn = rms_norm(x, lay.norm(p["ln2"]), cfg.rms_eps)
+    y, aux = moe_forward(lay.whole_in(xn), p["moe"], cfg, lay.moe_sctx)
+    return x + y, aux
+
+
+def _cross_block(p, x, cfg, mem, lay):
+    """A cross block over the memory (B, Tm, d), whole on every rank;
+    under a split layout on the rank's heads."""
+    if lay.attn_whole:
+        return lay.whole_out(_cross_block(p, lay.whole_in(x), cfg, mem,
+                                          _ONE))
+    xg = lay.enter(rms_norm(x, lay.norm(p["ln"]), cfg.rms_eps))
+    B, T, _ = xg.shape
+    q = lin(xg, p["wq"]).reshape(B, T, -1, cfg.head_dim)
+    k, v = _cross_kv(p, lay.memory(mem), cfg)
+    o = attention(q, k, v, _zero_positions(B, T, q.device),
+                  _zero_positions(B, k.shape[1], q.device), causal=False,
+                  contiguous=True)
+    return x + lay.leave(lin(o.reshape(B, T, -1), p["wo"]))
+
+
+def _mamba_run(blocks, x, cfg, lay):
+    """Mamba2 blocks, whole on the whole sequence on every rank."""
+    x = lay.whole_in(x)
+    for p in blocks:
+        x = _mamba_nocache(p, x, cfg)
+    return lay.whole_out(x)
+
+
+def _hybrid_cell_nocache(cell, shared_attn, shared_mlp, x, cfg, positions,
+                         lay):
+    x = _mamba_run(cell["ssm"], x, cfg, lay)
+    x = _attn_block(shared_attn, x, cfg, positions, lay)
+    return _mlp_block(shared_mlp, x, cfg, lay)
+
+
+def _vlm_cell_nocache(cell, x, cfg, positions, embeds, lay):
+    for p in cell["self"]:
+        x = _dense_block(p, x, cfg, positions, lay)
+    return _cross_block(cell["cross"], x, cfg, embeds, lay)
+
+
+def _enc_block(p, x, cfg, positions, lay):
+    x = _attn_block(p["attn"], x, cfg, positions, lay, causal=False)
+    return _mlp_block(p["mlp"], x, cfg, lay)
+
+
+def _audio_layer_nocache(p, x, cfg, positions, enc_out, lay):
+    x = _attn_block(p["attn"], x, cfg, positions, lay)
+    x = _cross_block(p["cross"], x, cfg, enc_out, lay)
+    return _mlp_block(p["mlp"], x, cfg, lay)
+
+
+def _encode_audio(cfg, params, frames, train=False, sctx=None, lay=None):
+    """The encoder: under the engine's exact ``sctx`` (serving), or a
+    cache-free forward's layout ``lay`` (its frames whole on every
+    rank).  The exact context is no ``_Layout``: it gathers o and h
+    whole and runs ``wo`` / ``wd`` whole on every rank, so that each
+    rank's output is bitwise one device's, where a layout sums the
+    ranks' row-parallel partials, which rounds otherwise."""
     x = frames.to(torch_dtype(cfg.dtype))
     B, Tf, _ = x.shape
     pos = torch.arange(Tf, dtype=torch.int32, device=x.device).expand(B, Tf)
     for p in params["enc_layers"]:
-        x = _remat(_enc_layer_nocache, train, p, x, cfg, pos, sctx)
+        if lay is None:
+            x = _remat(_enc_layer_nocache, train, p, x, cfg, pos, sctx)
+        else:
+            x = _remat(_enc_block, train, p, x, cfg, pos, lay)
     return x
 
 
@@ -541,18 +695,45 @@ def _modality(aux_inputs, name):
     return aux_inputs[name]
 
 
-def _forward_nocache(cfg, params, tokens, positions, train, aux_inputs):
+def _embed_nocache(cfg, params, tokens, lay):
+    """The token embeddings: the rank's rows of the stream.  Split by
+    vocabulary, each rank looks up the tokens in its rows, writes zeros
+    for the rest, and the ranks' pieces are summed (an exact sum)."""
+    dtype = torch_dtype(cfg.dtype)
+    if lay.vocab_whole:
+        return lay.whole_out(params["embed"][tokens.long()].to(dtype))
+    n = params["embed"].shape[0]
+    t = tokens.long() - lay.sctx.rank * n
+    inside = ((t >= 0) & (t < n))[..., None].to(dtype)
+    return lay.leave(params["embed"][t.clamp(0, n - 1)].to(dtype) * inside)
+
+
+def _unembed_nocache(cfg, params, x, lay):
+    """Logits (B, T, V), whole on every rank: a split vocabulary's pieces
+    (the tied embedding's rows, or the untied ``unembed``'s columns)
+    gathered along V."""
+    if lay.vocab_whole:
+        return _unembed(cfg, params, lay.whole_in(x))
+    xn = rms_norm(x, lay.norm(params["final_ln"]), cfg.rms_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    part = lay.enter(xn) @ w.to(torch_dtype(cfg.dtype))
+    return sharding.gather_whole(part, lay.sctx, dim=-1)
+
+
+def _forward_nocache(cfg, params, tokens, positions, train, aux_inputs,
+                     sctx=None):
     """-> (logits, aux): the layers of ``cfg.arch_type`` over positions
     0..T-1, each (or each cell) under ``_remat``; aux the MoE layers'
-    summed router loss (0.0 on the other archs)."""
+    summed router loss (0.0 on the other archs).  ``sctx``: the
+    production layout's context (``_Layout``)."""
     B, T = tokens.shape
     want = torch.arange(T, dtype=positions.dtype, device=positions.device)
     if not torch.equal(positions, want.expand(B, T)):
         raise NotImplementedError(
             "the cache-free forward takes positions 0..T-1 in every row "
             "(the contiguous layout of the flash-attention kernel)")
-    dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dtype)
+    lay = _Layout(cfg, sctx, T, train)
+    x = _embed_nocache(cfg, params, tokens, lay)
     aux = 0.0
     at = cfg.arch_type
     if at in ("dense", "moe"):
@@ -560,35 +741,43 @@ def _forward_nocache(cfg, params, tokens, positions, train, aux_inputs):
         if at == "moe":
             dense, moe = params.get("dense_layers", []), params["layers"]
         for p in dense:
-            x = _remat(_dense_layer_nocache, train, p, x, cfg, positions)
+            x = _remat(_dense_block, train, p, x, cfg, positions, lay)
         auxes = []
         for p in moe:
-            x, a = _remat(_moe_layer_nocache, train, p, x, cfg, positions)
+            x, a = _remat(_moe_block, train, p, x, cfg, positions, lay)
             auxes.append(a)
         if auxes:
             aux = torch.stack(auxes).sum()
     elif at == "ssm":
+        x = lay.whole_in(x)
         for p in params["layers"]:
             x = _remat(_mamba_nocache, train, p, x, cfg)
+        x = lay.whole_out(x)
     elif at == "hybrid":
         for cell in params["cells"]:
             x = _remat(_hybrid_cell_nocache, train, cell,
                        params["shared_attn"], params["shared_mlp"], x, cfg,
-                       positions)
-        for p in params.get("tail", []):
-            x = _remat(_mamba_nocache, train, p, x, cfg)
+                       positions, lay)
+        tail = params.get("tail", [])
+        if tail:
+            x = lay.whole_in(x)
+            for p in tail:
+                x = _remat(_mamba_nocache, train, p, x, cfg)
+            x = lay.whole_out(x)
     elif at == "vlm":
-        embeds = _modality(aux_inputs, "image_embeds").to(dtype)
+        embeds = _modality(aux_inputs, "image_embeds").to(
+            torch_dtype(cfg.dtype))
         for cell in params["cells"]:
             x = _remat(_vlm_cell_nocache, train, cell, x, cfg, positions,
-                       embeds)
+                       embeds, lay)
     else:
-        enc_out = _encode_audio(cfg, params,
-                                _modality(aux_inputs, "audio_frames"), train)
+        frames = _modality(aux_inputs, "audio_frames")
+        enc_out = _encode_audio(cfg, params, frames, train, lay=_Layout(
+            cfg, sctx, frames.shape[1], train, seq=False))
         for p in params["dec_layers"]:
             x = _remat(_audio_layer_nocache, train, p, x, cfg, positions,
-                       enc_out)
-    return _unembed(cfg, params, x), aux
+                       enc_out, lay)
+    return _unembed_nocache(cfg, params, x, lay), aux
 
 
 def _unembed(cfg, params, x, sctx=None):
@@ -632,6 +821,27 @@ def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
                       device=positions.device)[:, :, :S]
     torch.where((col >= 0)[:, None, :], ext, base, out=out)
     return out
+
+
+def _contiguous_slots(positions, slot_pos, ring):
+    """The contiguous prefill's slots: writes ``slot_pos`` and returns
+    the (T,) slot index every row writes, [start, start + T) with start
+    = ``positions[0, 0]`` clamped to [0, S - T] (the JAX package's
+    dynamic update slice), built on the device; or, for a ring cache's
+    whole-window prefill (T >= S), rolls the last S positions into
+    ``slot_pos`` and returns None."""
+    S = slot_pos.shape[1]
+    T = positions.shape[1]
+    if ring:
+        slot_pos.copy_(torch.roll(positions[:, T - S:], (T - S) % S, 1))
+        return None
+    if T > S:
+        raise ValueError(f"a contiguous prefill of {T} tokens does not fit "
+                         f"a cache of {S} slots")
+    start = positions[0, 0].long().clamp(0, S - T)
+    idx = start + torch.arange(T, device=positions.device)
+    slot_pos.index_copy_(1, idx, positions.to(slot_pos.dtype))
+    return idx
 
 
 def _ssm_stack(cfg, blocks, x, token_mask, cache, rec, first):
@@ -734,37 +944,53 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     (:func:`build_cross_cache`).  ``logits=False`` skips the unembed and
     returns None in their place (the engine's replay).
 
-    ``sctx`` (the engine's exact tensor parallelism, ``sctx.exact``):
-    ``params`` and ``cache`` are this rank's shards
-    (``launch.steps``); attention runs on the rank's heads, the MLP and
-    MoE experts on its hidden columns, Mamba2 blocks whole, and every
-    activation a row-parallel matmul would reduce over is gathered first
-    (o before ``wo``, h before ``wd``, vocab-split logits before they are
-    returned), so the logits are bitwise the one-device ones.  The
-    production layout's contexts (``exact=False``: row-parallel ``wo`` /
-    ``wd`` with a reduction, sequence sharding, FSDP) and the cache-free
-    forward under a context are the production-layout slice's, and
-    raise."""
+    ``contiguous_update=True`` (the production prefill): every row
+    writes slots [start, start + T) with start = ``positions[0, 0]``
+    (clamped to [0, S - T] as the JAX package's dynamic update slice
+    does; taken on the device, no host sync), K/V and ``slot_pos`` alike,
+    and attends the whole cache through K1; on a sliding-window (ring)
+    cache with T >= S the cache becomes the last S tokens rolled to
+    their slots and the step attends its own K/V through K3.  Without a
+    ``token_mask`` only; a ring cache with T < S takes the slot scatter,
+    as in the JAX package.
+
+    ``sctx`` with ``exact`` (the engine's exact tensor parallelism):
+    ``params`` and ``cache`` are this rank's shards (``launch.steps``);
+    attention runs on the rank's heads, the MLP and MoE experts on its
+    hidden columns, Mamba2 blocks whole, and every activation a
+    row-parallel matmul would reduce over is gathered first (o before
+    ``wo``, h before ``wd``, vocab-split logits before they are
+    returned), so the logits are bitwise the one-device ones.
+
+    ``sctx`` without ``exact`` (the production Megatron layout,
+    ``launch.mesh.make_shard_ctx``): ``params`` are this rank's
+    ``launch.steps.param_shards``.  The cache-free forward runs on any
+    number of ranks (``_Layout``: the vocabulary-parallel embedding,
+    the residual stream split along the sequence in training, column-
+    then row-parallel sub-layers with their sums, Mamba2 blocks whole on
+    the gathered sequence, logits gathered whole), its MoE layers
+    through the capacity dispatch.  With a cache it runs on one rank
+    (MoE layers on the capacity dispatch); on more it raises: the KV
+    cache split along its sequence is the next slice's."""
     check_arch(cfg)
-    if sctx is not None and (not sctx.exact or cache is None):
-        raise NotImplementedError(
-            "forward under a tensor-parallel context runs the engine's "
-            "exact layout with a cache; the production layout (row-"
-            "parallel wo/wd, sequence sharding, FSDP, the cache-free "
-            "forward) is not ported yet")
+    if sctx is not None and sctx.tp_size > 1:
+        if sctx.exact and cache is None:
+            raise NotImplementedError(
+                "the cache-free forward runs the production layout "
+                "(exact=False); the engine's exact context is a cached "
+                "path")
+        if not sctx.exact and cache is not None:
+            raise NotImplementedError(NEXT_SLICE)
     if cache is None:
         if token_mask is not None or slot_index is not None \
                 or within_mask is not None or contiguous_update:
             raise NotImplementedError(
                 "the cache-free forward takes no token_mask, tree inputs "
                 "or contiguous_update")
+        prod = sctx if sctx is not None and not sctx.exact else None
         logits_, aux = _forward_nocache(cfg, params, tokens, positions,
-                                        train, aux_inputs)
+                                        train, aux_inputs, prod)
         return logits_, None, aux
-    if contiguous_update:
-        raise NotImplementedError(
-            "contiguous_update (the production layout's contiguous prefill "
-            "of launch/steps.py, with K3 at q_offset) is not ported yet")
     if (slot_index is None) != (within_mask is None):
         raise ValueError("slot_index and within_mask come together")
     B, T = tokens.shape
@@ -775,23 +1001,31 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     if "slot_pos" in cache:
         slot_pos = cache["slot_pos"]
         S = slot_pos.shape[1]
-        if slot_index is not None:
-            slots = slot_index.long()
+        ring = cfg.sliding_window > 0
+        contiguous = contiguous_update and token_mask is None and \
+            (not ring or T >= S)
+        if contiguous:
+            attn_args = (positions, None,
+                         _contiguous_slots(positions, slot_pos, ring),
+                         slot_pos, None)
         else:
-            slots = positions.long()
-            if cfg.sliding_window:
-                slots = slots % S
-        keep = slots < S
-        if token_mask is not None:
-            keep = keep & token_mask
-        slots = torch.where(keep, slots, S)
-        bidx = torch.arange(B, device=tokens.device)[:, None]
-        with_scratch(slot_pos, 1)[bidx, slots] = positions
-        allowed = None
-        if within_mask is not None:
-            allowed = _allowed_mask(cfg, positions, slots, slot_pos,
-                                    within_mask)
-        attn_args = (positions, bidx, slots, slot_pos, allowed)
+            if slot_index is not None:
+                slots = slot_index.long()
+            else:
+                slots = positions.long()
+                if ring:
+                    slots = slots % S
+            keep = slots < S
+            if token_mask is not None:
+                keep = keep & token_mask
+            slots = torch.where(keep, slots, S)
+            bidx = torch.arange(B, device=tokens.device)[:, None]
+            with_scratch(slot_pos, 1)[bidx, slots] = positions
+            allowed = None
+            if within_mask is not None:
+                allowed = _allowed_mask(cfg, positions, slots, slot_pos,
+                                        within_mask)
+            attn_args = (positions, bidx, slots, slot_pos, allowed)
 
     rec = cache if rec_out is None else rec_out
     aux = 0.0

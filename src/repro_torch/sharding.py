@@ -14,10 +14,10 @@ used-axis bookkeeping), :func:`param_rules`, :func:`exact_col_spec`,
 :func:`head_axis`, :func:`batch_axes` and :func:`seq_axis`.  They return
 tuples of axis names (``None`` for a replicated dim) where the reference
 returns a ``PartitionSpec``.  The production rules (``param_rules`` with
-row-parallel ``wo`` / ``wd``, ``seq_axis``, FSDP) are kept as pure
-functions for the production layout; the engine's token-exact path uses
-only :func:`exact_col_spec`, :func:`head_axis` and
-:func:`head_shard`.
+row-parallel ``wo`` / ``wd``, ``seq_axis``, FSDP) place the production
+layout (``launch.steps.param_shards``, the cache-free forward); the
+engine's token-exact path uses only :func:`exact_col_spec`,
+:func:`head_axis` and :func:`head_shard`.
 
 The reference's ``resolve_shard_map`` / ``shard_map_available`` shim
 across JAX versions and have no counterpart; ``constrain`` (a GSPMD
@@ -29,6 +29,20 @@ before the matmul whose reduction would otherwise be sharded), and
 :func:`check_lockstep` compares a digest of a host batch across the
 ranks, so ranks whose host decisions diverged fail at once instead of
 deadlocking in the next collective.
+
+The production (Megatron) layout's collectives are autograd functions,
+each with its adjoint, so a train step differentiates through them:
+:func:`reduce_from_ranks` (Megatron's *g*: a sum, whose backward is the
+identity; the reference's ``psum``), :func:`copy_to_ranks` (*f*: the
+identity, whose backward sums; where a replicated activation enters a
+column-parallel product, or a whole parameter meets a partial
+gradient), :func:`gather_seq` (all-gather along the sequence, whose
+backward reduce-scatters), :func:`scatter_seq` (reduce-scatter along the
+sequence, the reference's ``psum_scatter``, whose backward all-gathers),
+and, for a region every rank computes whole, :func:`gather_whole`
+(all-gather, whose backward keeps the rank's piece) and
+:func:`split_seq` (the rank's piece, whose backward all-gathers).  Each
+call adds its bytes to :data:`traffic`.
 """
 from __future__ import annotations
 
@@ -83,6 +97,12 @@ class ShardCtx:
         if axis == self.tp:
             return self.tp_size
         return dict(self.axis_sizes).get(axis, 1)
+
+    def dp_size(self) -> int:
+        s = 1
+        for a in self.dp:
+            s *= self.axis_size(a)
+        return s
 
 
 def _mesh_axis_size(sctx: ShardCtx, axes) -> int:
@@ -241,9 +261,11 @@ def split_range(n: int, tp_size: int, rank: int) -> Tuple[int, int]:
 # collectives
 # ---------------------------------------------------------------------------
 
-# bytes moved by all_gather since the last reset (each rank's input, as
-# sent), and the number of collectives
-traffic = {"all_gather": 0, "all_gather_bytes": 0, "lockstep": 0}
+# collectives since the last reset, and the bytes each rank sent into
+# them (its input as sent)
+traffic = {"all_gather": 0, "all_gather_bytes": 0, "lockstep": 0,
+           "all_reduce": 0, "all_reduce_bytes": 0, "reduce_scatter": 0,
+           "reduce_scatter_bytes": 0}
 
 
 def reset_traffic() -> None:
@@ -303,6 +325,131 @@ def all_gather_parts(t: torch.Tensor, sctx: ShardCtx) -> list:
         return [t]
     whole = all_gather(t.unsqueeze(0), 0, sctx)
     return list(whole.unbind(0))
+
+
+def _host_or_card(t: torch.Tensor, sctx: ShardCtx):
+    """(the tensor a collective sends, whether it was staged): gloo sums
+    host tensors, so a card tensor goes through host memory there."""
+    t = t.contiguous()
+    staged = t.device.type == "cuda" and sctx.backend == "gloo"
+    return (t.cpu() if staged else t), staged
+
+
+def all_reduce(t: torch.Tensor, sctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The sum of every rank's ``t`` (a new tensor; ``t`` itself on a
+    one-rank context)."""
+    if sctx is None or sctx.tp_size == 1:
+        return t
+    import torch.distributed as dist
+    src, staged = _host_or_card(t, sctx)
+    out = src.clone() if src is t else src
+    dist.all_reduce(out, group=sctx.group)
+    traffic["all_reduce"] += 1
+    traffic["all_reduce_bytes"] += out.numel() * out.element_size()
+    return out.to(t.device) if staged else out
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, sctx: Optional[ShardCtx]
+                   ) -> torch.Tensor:
+    """This rank's piece, along ``dim``, of the sum of every rank's ``t``
+    (``dim`` divides evenly; rank r takes the r-th piece)."""
+    if sctx is None or sctx.tp_size == 1:
+        return t
+    import torch.distributed as dist
+    src, staged = _host_or_card(t.movedim(dim, 0), sctx)
+    out = src.new_empty((src.shape[0] // sctx.tp_size,) + src.shape[1:])
+    dist.reduce_scatter_tensor(out, src, group=sctx.group)
+    traffic["reduce_scatter"] += 1
+    traffic["reduce_scatter_bytes"] += src.numel() * src.element_size()
+    out = out.movedim(0, dim)
+    return out.to(t.device) if staged else out
+
+
+def piece(t: torch.Tensor, dim: int, sctx: Optional[ShardCtx]
+          ) -> torch.Tensor:
+    """This rank's contiguous piece of ``t`` along ``dim``."""
+    if sctx is None or sctx.tp_size == 1:
+        return t
+    lo, hi = split_range(t.shape[dim], sctx.tp_size, sctx.rank)
+    return t.narrow(dim, lo, hi - lo)
+
+
+def _run(op: str, t: torch.Tensor, dim: int, sctx: ShardCtx):
+    if op == "id":
+        return t.view_as(t)
+    if op == "sum":
+        return all_reduce(t, sctx)
+    if op == "gather":
+        return all_gather(t, dim, sctx)
+    if op == "scatter":
+        return reduce_scatter(t, dim, sctx)
+    return piece(t, dim, sctx).contiguous()
+
+
+class _Collective(torch.autograd.Function):
+    """A collective ``fwd`` whose backward is the collective ``bwd`` (its
+    adjoint): "id", "sum" (all-reduce), "gather" (all-gather along
+    ``dim``), "scatter" (reduce-scatter along ``dim``) or "piece" (the
+    rank's slice along ``dim``)."""
+
+    @staticmethod
+    def forward(ctx, t, fwd, bwd, dim, sctx):
+        ctx.back = (bwd, dim, sctx)
+        return _run(fwd, t, dim, sctx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        bwd, dim, sctx = ctx.back
+        return _run(bwd, grad, dim, sctx), None, None, None, None
+
+
+def _collective(t, fwd, bwd, dim, sctx):
+    if sctx is None or sctx.tp_size == 1:
+        return t
+    return _Collective.apply(t, fwd, bwd, dim, sctx)
+
+
+def copy_to_ranks(t: torch.Tensor, sctx: Optional[ShardCtx]) -> torch.Tensor:
+    """Megatron's *f*: ``t`` as it is; its gradient summed over the ranks
+    (each rank's is a partial)."""
+    return _collective(t, "id", "sum", 0, sctx)
+
+
+def reduce_from_ranks(t: torch.Tensor, sctx: Optional[ShardCtx]
+                      ) -> torch.Tensor:
+    """Megatron's *g*: the sum of every rank's partial ``t``; the
+    gradient passes to each rank as it is."""
+    return _collective(t, "sum", "id", 0, sctx)
+
+
+def gather_seq(t: torch.Tensor, sctx: Optional[ShardCtx], dim: int = 1
+               ) -> torch.Tensor:
+    """Every rank's sequence piece, gathered along ``dim`` in rank order,
+    into a region whose gradient is a partial on each rank: the backward
+    reduce-scatters it."""
+    return _collective(t, "gather", "scatter", dim, sctx)
+
+
+def scatter_seq(t: torch.Tensor, sctx: Optional[ShardCtx], dim: int = 1
+                ) -> torch.Tensor:
+    """This rank's sequence piece of the sum of every rank's partial
+    ``t`` (reduce-scatter along ``dim``); the backward all-gathers."""
+    return _collective(t, "scatter", "gather", dim, sctx)
+
+
+def gather_whole(t: torch.Tensor, sctx: Optional[ShardCtx], dim: int = 1
+                 ) -> torch.Tensor:
+    """Every rank's piece gathered along ``dim`` into a region every rank
+    computes whole (so each sees the whole gradient): the backward keeps
+    this rank's piece of it."""
+    return _collective(t, "gather", "piece", dim, sctx)
+
+
+def split_seq(t: torch.Tensor, sctx: Optional[ShardCtx], dim: int = 1
+              ) -> torch.Tensor:
+    """This rank's piece, along ``dim``, of a ``t`` every rank holds
+    whole; the backward all-gathers the pieces' gradients."""
+    return _collective(t, "piece", "gather", dim, sctx)
 
 
 def batch_digest(*arrays: np.ndarray) -> int:

@@ -56,7 +56,7 @@ def group_advantages(rewards, group_size: int,
 
 
 def grpo_loss(cfg: ModelConfig, params, batch: dict, *,
-              gcfg: GRPOConfig = GRPOConfig()):
+              gcfg: GRPOConfig = GRPOConfig(), sctx=None):
     """batch: tokens (B,S) int32, loss_mask (B,S) f32 (1 on response
     tokens), advantages (B,) f32, old_logprobs (B,S) f32, optionally
     staleness (B,S) f32 and a VLM's ``image_embeds`` (B,Tm,d) or an
@@ -67,7 +67,10 @@ def grpo_loss(cfg: ModelConfig, params, batch: dict, *,
     positions (shifted alignment done here).  A MoE model's loss adds
     ``gcfg.aux_coef`` times the router's load-balance loss
     (``metrics["aux_loss"]``).  Each layer is recomputed in the
-    backward, as the JAX package's ``train=True`` forward does."""
+    backward, as the JAX package's ``train=True`` forward does.
+    ``sctx``: the production layout's context, passed to the forward
+    (``params`` are then this rank's ``launch.steps.param_shards``; the
+    logits come back whole, so the loss is the same on every rank)."""
     tokens = batch["tokens"]
     mask = batch["loss_mask"][:, 1:]
     adv = batch["advantages"][:, None]
@@ -85,7 +88,8 @@ def grpo_loss(cfg: ModelConfig, params, batch: dict, *,
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     logits, _, aux = forward(cfg, params, tokens, positions,
-                             aux_inputs=aux_inputs or None, train=True)
+                             aux_inputs=aux_inputs or None, sctx=sctx,
+                             train=True)
     lp = token_logprobs(logits[:, :-1], tokens[:, 1:])      # (B,S-1)
 
     ratio = torch.exp(lp - old_lp)

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, NamedTuple, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -131,11 +131,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params, grads, state: OptState):
+def adamw_update(cfg: OptConfig, params, grads, state: OptState,
+                 grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step, parameters and moments updated in place.
     ``grads`` has the tree of ``params``.  Returns (params, state,
-    metrics) like the JAX package (the same objects, updated)."""
-    gnorm = global_norm(grads)
+    metrics) like the JAX package (the same objects, updated).
+    ``grad_norm``, when given, is the norm the step clips by (a rank's
+    pieces of a sharded model: the whole model's, which
+    ``launch.steps.production_global_norm`` takes); else
+    :func:`global_norm` of ``grads``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     state.step.add_(1)
     lr = schedule(cfg, state.step)

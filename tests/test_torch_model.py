@@ -207,9 +207,17 @@ def test_unported_paths_raise():
     tok = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         forward(cfg, params, tok, tok, None)
+    # the contiguous prefill runs (tests/test_torch_production_steps.py);
+    # what stays refused on it is a cached forward under the production
+    # layout's context across ranks (its KV cache split along the
+    # sequence is slice 15's), the contiguous prefill included
+    from repro_torch.sharding import ShardCtx
     cache = init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        forward(cfg, params, tok, tok, cache, contiguous_update=True)
+    for contiguous in (True, False):
+        with pytest.raises(NotImplementedError, match="slice 15"):
+            forward(cfg, params, tok, tok, cache,
+                    contiguous_update=contiguous,
+                    sctx=ShardCtx(tp_size=2, exact=False))
     # VLM and audio models: their cache-free forward needs the image
     # embeddings or audio frames, and RLTrainer refuses them, as the
     # reference's fails on them (its batch carries neither)

@@ -117,20 +117,32 @@ def test_route_ties_pick_the_lower_expert(tie):
 
 
 def test_tensor_parallel_and_training_refused(models):
-    """The production layout's expert/tensor-parallel dispatch (a
-    context that is not the engine's exact one) is still refused; the
-    exact context runs (tests/test_torch_tp.py).  Training no longer is
-    (the MoE training slice): the cache-free forward gives logits and the
-    router's aux loss, and ``RLTrainer`` takes the model
+    """The production layout's capacity dispatch (a context that is not
+    the engine's exact one) runs now, on one rank too, where it keeps
+    every token at the default capacity and equals the dense combine
+    (tests/test_torch_production.py holds it to the reference's on 1, 2
+    and 2 x 2 ranks); what stays refused is a cached MoE forward under
+    that context across ranks (slice 15).  Training is not refused
+    either: the cache-free forward gives logits and the router's aux
+    loss, and ``RLTrainer`` takes the model
     (tests/test_torch_train_archs.py and test_torch_train_loop.py hold
     both to the reference)."""
     from repro_torch.sharding import ShardCtx
     m = models("moonshot-v1-16b-a3b", "float32")
     tcfg, tp = m.tcfg, m.tp
-    x = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tmoe.moe_forward(x, tp["layers"][0]["moe"], tcfg,
-                         sctx=ShardCtx(tp_size=2, exact=False))
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 2, tcfg.d_model)).astype(np.float32))
+    block = tp["layers"][0]["moe"]
+    y, aux = tmoe.moe_forward(x, block, tcfg,
+                              sctx=ShardCtx(tp_size=1, exact=False))
+    dense_y, dense_aux = tmoe.moe_dense_all(x, block, tcfg)
+    np.testing.assert_allclose(to_numpy(y), to_numpy(dense_y), rtol=1e-5,
+                               atol=1e-5)
+    assert float(aux) == float(dense_aux)
+    pos = torch.arange(2, dtype=torch.int32)[None]
+    with pytest.raises(NotImplementedError, match="slice 15"):
+        forward(tcfg, tp, pos, pos, init_cache(tcfg, 1, 8, device="cpu"),
+                sctx=ShardCtx(tp_size=2, exact=False))
     pos = torch.arange(2, dtype=torch.int32)[None]
     logits, cache, aux = forward(tcfg, tp, pos, pos, None)
     assert cache is None and logits.shape == (1, 2, tcfg.vocab_size)
