@@ -87,7 +87,22 @@ Phases, in this order:
    ``PROD_TOL``, the MoE layers' capacity drops equal, every dispatch's
    drops and slots those of a plain numpy slot rule (``_slot_rule``),
    each rank's launches those of a train step (``_train_step_want``);
-   K3 timed at a rank's heads in f32;
+   K3 timed at a rank's heads in f32; K1 (T = 1, 512) and K2 (T = 7) with
+   partials (``lse=True``: o in f32 and each row's log-sum-exp) at a
+   rank's share of (d)'s cache on every route against their plain
+   versions, blind rows (0, -inf) included, two shares merged against
+   the whole cache's call, and timed beside the whole cache's call, SDPA
+   on the share and the merge alone; (d) in the same two ranks, before
+   (c): the four cached builders at tp = 2 on each rank's pieces of (a)'s
+   weights and of its cache (1024 of the 2048 slots a rank, the prefill's
+   window [768, 1280) across both) on (a)'s inputs, against (a)'s run
+   (prefill at ``PROD_START``): every greedy token equal where (a)'s
+   top-2 margin exceeds ``PROD_MARGIN`` of scale, the cache gathered
+   after the prefill and at the end (``slot_pos`` exactly, K/V within
+   ``PROD_CACHE_TOL`` of scale), K1 4 x 18 and K2 4 launches a rank and
+   no plain call; two planted faults must fail the cache check (the last
+   rank's partial left out of the merge, a rank's writes on another
+   rank's slots);
 4. linear slice: a full-width granite-3-8b Seer rollout at
    ``LINEAR_LAYERS`` (20) of its 40 layers (random weights from a seed,
    bf16) on two instances
@@ -110,8 +125,9 @@ Phases, in this order:
    verified), set beside the linear slice's warm pass;
 7. serving, faults and tracing: the reference's own real-engine
    workloads (``bench_engine_faults``, ``bench_observability`` and
-   ``bench_serving`` of ``benchmarks/common.py``) on the full-depth
-   granite-3-8b (40 layers), every dispatch under sync debug 'error'
+   ``bench_serving`` of ``benchmarks/common.py``) on granite-3-8b at
+   ``LINEAR_LAYERS`` (20) of its 40 layers, every dispatch under sync
+   debug 'error'
    (``serving_phase``).  Faults: a warm no-fault oracle, then the bench's
    schedule (a crash, a short stall, a long stall the watchdog escalates,
    a fetch failing past its retries, a corrupt blob), and its traced
@@ -236,7 +252,7 @@ Phases, in this order:
    two ranks on one device), started after every model above is freed
    and every kernel library built.  At full width and a cut depth
    (``TP_MODELS``), bf16, 4 groups x 4, 64 new tokens: granite-3-8b (4
-   of 40 layers), moonshot-v1-16b-a3b (4 of 48: one dense, three MoE) and
+   of 40 layers), moonshot-v1-16b-a3b (3 of 48: one dense, two MoE) and
    zamba2-1.2b (its ``CUT_LAYERS`` depth), each at tp=None and tp=1 on
    rank 0 (the whole weights) and twice at tp=2 on both ranks (each
    rank's shard drawn layer by layer from the same seed); granite also a
@@ -314,9 +330,11 @@ GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
 # masters, gradients and AdamW moments of all 40 layers would need 131 GB),
 # prompts of BOS + 383 copy-task tokens
 TRAIN_LAYERS, TRAIN_PROMPT = 12, 384
-# the linear and tree slices' depth (the tree engine's too): 20 of
-# granite-3-8b's 40 layers (~80 s less than 40: the script's time limit
-# on a slow host); the serving, faults and tracing phase keeps all 40
+# the linear and tree slices' depth (the tree engine's and, since the KV
+# cache across ranks joined the production phase, the serving, faults and
+# tracing phase's too): 20 of granite-3-8b's 40 layers (the script's time
+# limit on a slow host: ~80 s less than 40 for the slices, ~50 s for the
+# serving phase, whose counters the workloads fix, not the depth)
 LINEAR_LAYERS = 20
 # the SSM slice's rollout (mamba2-370m): 4 groups of 4, 64 new tokens
 SSM_GROUPS, SSM_NEW_TOKENS = 4, 64
@@ -334,9 +352,8 @@ K1_SHAPES = {"granite-3-8b": (32, 8, 128, 0),
 # limit)
 MOE_ARCH, MOE_CACHE_LEN, MOE_NEW_TOKENS = "moonshot-v1-16b-a3b", 1024, 64
 # depth of the hybrid, SSM and MoE slices, cut for the script's time
-# limit (the host's eager dispatch makes a pass's time grow with depth;
-# the serving phase shares the granite slices' full depth, so these are
-# cut instead): zamba2-1.2b keeps two cells of 6 blocks and the 2-block
+# limit (the host's eager dispatch makes a pass's time grow with depth):
+# zamba2-1.2b keeps two cells of 6 blocks and the 2-block
 # tail of its 38 (the shared attention's second application and the
 # state offsets past the first cell), mamba2-370m 16 of 48 blocks,
 # moonshot-v1-16b-a3b 8 of 48 layers (one dense, 7 MoE: ~20 s less than
@@ -441,13 +458,14 @@ def _normals(torch, seed: int, dtype: str, *shapes) -> list:
             for s in shapes]
 
 
-def _bound_ms(q, k, q_pos, k_pos, window, dtype, tree=None):
+def _bound_ms(q, k, q_pos, k_pos, window, dtype, tree=None, lse=False):
     """Least time for one K1 call (K2 with ``tree``) on these inputs, and
     what sets it: K/V rows of the slots some query of the row can see, q,
     out and both position arrays, each moved once, plus for K2 the mask
     bytes of every (query, slot) the positional mask leaves open (the
     others need not be read), against 4*Hq*D operations per visible
-    (query, key)."""
+    (query, key).  ``lse``: the partials' call, out in f32 and a 4-byte
+    log-sum-exp a row."""
     from repro_torch.kernels.spec_verify.ref import pos_mask
     B, T, Hq, D = q.shape
     Hk = k.shape[2]
@@ -460,6 +478,8 @@ def _bound_ms(q, k, q_pos, k_pos, window, dtype, tree=None):
               + 2 * n_slots * Hk * D * es)
     if tree is not None:
         nbytes += T * int(pos.any(dim=1).sum())
+    if lse:
+        nbytes += q.numel() * (4 - es) + 4 * B * T * Hq
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 4 * Hq * D * n_vis / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), \
@@ -4180,7 +4200,8 @@ def _k1_inputs(n_layers: int, per_shape: int = K1_KEPT_PER_SHAPE):
     from repro_torch.models import attention
     inner, calls, kept = attention.spec_verify, {}, {}
 
-    def keep(q, k, v, q_pos, k_pos, *, window=0, split_like=None):
+    def keep(q, k, v, q_pos, k_pos, *, window=0, split_like=None,
+             lse=False):
         key = (q.shape[0], q.shape[1], k.shape[1])
         i = calls[key] = calls.get(key, -1) + 1
         step, layer = divmod(i, n_layers)
@@ -4189,7 +4210,7 @@ def _k1_inputs(n_layers: int, per_shape: int = K1_KEPT_PER_SHAPE):
             got.append((step,) + tuple(x.clone() for x in
                                        (q, k, v, q_pos, k_pos)) + (window,))
         return inner(q, k, v, q_pos, k_pos, window=window,
-                     split_like=split_like)
+                     split_like=split_like, lse=lse)
     attention.spec_verify = keep
     try:
         yield kept
@@ -4404,8 +4425,9 @@ def serving_phase(torch, np, cfg, params) -> dict:
 # host memory, and at 40 granite layers (80 gathers a step) one tp=2
 # rollout took 42.5-46.7 s and the phase 271.6 s on an NVIDIA H100 80GB
 # HBM3 at 700 W.  granite-3-8b at TP_GRANITE_LAYERS of its 40 layers,
-# moonshot-v1-16b-a3b at 4 of 48 (one dense, three MoE, as its training
-# phase), zamba2-1.2b at its CUT_LAYERS depth; caches of 2048 positions
+# moonshot-v1-16b-a3b at 3 of 48 (one dense, two MoE: its MoE loop still
+# runs twice; each tp=2 pass of 4 layers took ~36 s on a slow host),
+# zamba2-1.2b at its CUT_LAYERS depth; caches of 2048 positions
 # (moonshot 1024); 4 groups x 4, 64 new tokens, bf16, two tp=2 passes of
 # each (the repeat gate); then granite at 4 layers in f32 (TF32 off), 32
 # new tokens
@@ -4413,7 +4435,7 @@ TP = 2
 TP_GROUPS, TP_NEW_TOKENS = 4, 64
 TP_GRANITE_LAYERS = 4
 TP_MODELS = (("granite-3-8b", TP_GRANITE_LAYERS, 2048),
-             (MOE_ARCH, 4, MOE_CACHE_LEN),
+             (MOE_ARCH, 3, MOE_CACHE_LEN),
              ("zamba2-1.2b", CUT_LAYERS["zamba2-1.2b"], 2048))
 TP_F32_LAYERS, TP_F32_NEW_TOKENS = 4, 32
 # the card both ranks run on
@@ -5135,6 +5157,15 @@ def tp_phase(torch, np) -> dict:
 # greedy decodes, a verify of gamma + 1 tokens, a three-path tree verify
 PROD_LAYERS = TP_GRANITE_LAYERS
 PROD_B, PROD_S, PROD_PREFILL, PROD_DECODES, PROD_GAMMA = 8, 2048, 512, 16, 8
+# the prefill's first position: its window [768, 1280) spans the two
+# ranks' halves of the cache in (d), and every later step lies on rank 1
+PROD_START = 768
+# (d) the same steps at tp = 2 against (a)'s one-rank run, bf16: a greedy
+# token must equal (a)'s where (a)'s top-2 logit margin exceeds this share
+# of the step's largest |logit| (bf16's tolerance: the ranks' merge and
+# row-parallel sums round otherwise); the gathered K/V within this share
+# of (a)'s largest |value|; slot_pos exactly
+PROD_MARGIN, PROD_CACHE_TOL = 3e-2, 3e-2
 # (b) K1 at the production prefill's widths: (T, S) with S past T, so
 # that empty slots exist for a planted fault to let in
 PROD_K1_WIDTHS = ((512, 2048), (2048, 2560))
@@ -5191,7 +5222,7 @@ def three_path_tree(torch, first, pos0, vocab):
             within.to(dev).expand(B, n, n).contiguous())
 
 
-def production_steps(torch, np, device) -> dict:
+def production_steps(torch, np, device, save_to=None) -> dict:
     """(a) The four cached builders of ``launch/steps.py`` on a one-rank
     production context (``make_shard_ctx(small_mesh(1))``), granite-3-8b
     at full width and ``PROD_LAYERS`` layers, bf16, ``PROD_B`` x
@@ -5204,7 +5235,11 @@ def production_steps(torch, np, device) -> dict:
     the empty cache: the prefill's ``slot_pos`` exactly and its K/V
     bitwise (the same projections, written another way), every greedy
     token of the other steps exactly (the engine forward's argmax on the
-    same caches), and the caches equal at the end."""
+    same caches), and the caches equal at the end.  The prefill starts at
+    ``PROD_START``.  With ``save_to`` the run is written there for (d)
+    (``prod_a.pt``, on the host): every step's inputs and greedy tokens,
+    the engine forward's logits of the steps after the prefill, and the
+    cache after the prefill and at the end."""
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_shard_ctx, small_mesh
     from repro_torch.models.transformer import (clone_cache, forward,
@@ -5216,8 +5251,8 @@ def production_steps(torch, np, device) -> dict:
     rng = np.random.default_rng(5)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)).astype(
         np.int32)).to(device)
-    pos = torch.arange(T, dtype=torch.int32, device=device).expand(
-        B, T).contiguous()
+    pos = (PROD_START + torch.arange(T, dtype=torch.int32, device=device)
+           ).expand(B, T).contiguous()
     cache = init_cache(cfg, B, S, device=device)
     oracle = clone_cache(cache)
 
@@ -5232,7 +5267,7 @@ def production_steps(torch, np, device) -> dict:
     cache = steps.build_prefill_step(cfg, sctx)(params, tok, pos, cache)
     after_prefill = clone_cache(cache)
     serve = steps.build_serve_step(cfg, sctx)
-    nxt, p = tok[:, -1], T
+    nxt, p = tok[:, -1], PROD_START + T
     for _ in range(PROD_DECODES):
         inp = (nxt[:, None].contiguous(), col(p))
         nxt, cache = serve(params, *inp, cache)
@@ -5267,6 +5302,7 @@ def production_steps(torch, np, device) -> dict:
                   f"production prefill: {key} not bitwise the scatter "
                   "path's")
         equal = 0
+        logits_of = []
         for kind, inp, got in calls:
             if kind == "tree":
                 toks, tpos, slots, mask, within = inp
@@ -5279,20 +5315,34 @@ def production_steps(torch, np, device) -> dict:
             want_t = torch.argmax(logits.float(), dim=-1).to(torch.int32)
             if kind == "serve":
                 want_t = want_t[:, -1]
+                logits = logits[:, -1]
+            logits_of.append(logits.float().cpu())
             check(torch.equal(got, want_t), f"production {kind} step: "
                   "greedy tokens differ from the engine forward's")
             equal += got.numel()
         for key in ("k", "v", "slot_pos"):
             check(torch.equal(oracle[key], cache[key]),
                   f"production steps: the caches' {key} differ at the end")
+    if save_to:
+        def host(c):
+            return {k_: c[k_].cpu() for k_ in ("k", "v", "slot_pos")}
+        torch.save({"inputs": [("prefill", (tok.cpu(), pos.cpu()))]
+                    + [(kind, tuple(x.cpu() for x in inp))
+                       for kind, inp, _ in calls],
+                    "tokens": [got.cpu() for _, _, got in calls],
+                    "logits": logits_of, "after_prefill":
+                    host(after_prefill), "final": host(cache)},
+                   os.path.join(save_to, "prod_a.pt"))
     rep = {"layers": L, "B": B, "S": S, "prefill_T": T,
+           "prefill_start": PROD_START,
            "decodes": PROD_DECODES, "verify_T": n, "tree_nodes": 7,
            "launches": {k_: launches[k_] for k_ in want},
            "tokens_equal": equal, "wall_s": wall,
-           "tree_live": p + n}
+           "tree_live": T + PROD_DECODES + n}
     log(f"  granite-3-8b ({L} layers, full width, bf16) on a one-rank "
-        f"production context: prefill of {T} tokens (K/V bitwise and "
-        f"slot_pos equal to the scatter path's), {PROD_DECODES} decodes, a "
+        f"production context: prefill of {T} tokens at {PROD_START} (K/V "
+        f"bitwise and slot_pos equal to the scatter path's), "
+        f"{PROD_DECODES} decodes, a "
         f"verify of {n}, a tree of 7 nodes: {equal} greedy tokens equal to "
         f"the engine forward's; K1 {launches['spec_verify']}, K2 "
         f"{launches['tree_verify']} launches, no plain call; {wall:.2f} s")
@@ -5522,9 +5572,387 @@ def _prod_gaps(one, two, device) -> dict:
                 t.numel() for _, t in tree_items(one["update"]))}
 
 
+def _scaled_gap(got, want) -> float:
+    """max|got - want| / max|want| (f32; 0 against an all-zero want)."""
+    top = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / max(top, 1e-30)
+
+
+def _cache_gaps(torch, got, want, device) -> dict:
+    """(d)'s gathered cache against (a)'s (on the host): ``slot_pos``
+    slots that differ, and K/V's ``_scaled_gap``."""
+    out = {"slot_pos_diff": int((got["slot_pos"] != want["slot_pos"].to(
+        device)).sum())}
+    for k_ in ("k", "v"):
+        out[k_] = _scaled_gap(got[k_], want[k_].to(device))
+    return out
+
+
+def _prod_cached(torch, np, rank, world, device, tmp) -> dict:
+    """(d) The four cached builders at tp = ``world`` on this rank's
+    pieces of granite-3-8b (``PROD_LAYERS`` layers, full width, bf16, the
+    seed-0 weights of (a)) and of the ``PROD_B`` x ``PROD_S`` cache
+    (``steps.init_cache``: ``PROD_S`` / ``world`` slots a rank), on (a)'s
+    inputs (``prod_a.pt``): each kernel's launches and the plain calls
+    counted from zero over the builder calls alone, the greedy tokens and
+    the builders' logits, the cache gathered whole (``gather_cache``)
+    after the prefill and at the end; then two planted faults, each a
+    prefill on a fresh piece gathered the same way: the last rank's
+    partial left out of the merge, and this rank's writes landing on
+    another rank's slots (its span swapped).  On rank 0 the gaps to (a)
+    are taken on the card; the checks are ``_prod_cached_checks``'."""
+    import dataclasses
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_shard_ctx, small_mesh
+    from repro_torch.models import init_params, transformer
+    a = torch.load(os.path.join(tmp, "prod_a.pt"))
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=PROD_LAYERS)
+    sctx = make_shard_ctx(small_mesh(world), train=False)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    whole = init_params(cfg, gen, device=device)
+    params = steps.param_shards(cfg, whole, sctx)
+    del whole
+    _free(torch)
+    logits = []
+    real = transformer.forward
+
+    def recorder(*args, **kw):
+        out = real(*args, **kw)
+        if out[0] is not None:
+            logits.append(out[0])
+        return out
+    transformer.forward = recorder
+    try:
+        build = {"prefill": steps.build_prefill_step(cfg, sctx),
+                 "serve": steps.build_serve_step(cfg, sctx),
+                 "verify": steps.build_verify_step(cfg, sctx),
+                 "tree": steps.build_tree_verify_step(cfg, sctx)}
+    finally:
+        transformer.forward = real
+    inputs = [(kind, [x.to(device) for x in inp]) for kind, inp in
+              a["inputs"]]
+
+    def prefill(cache):
+        return build["prefill"](params, *inputs[0][1], cache)
+    cache = steps.init_cache(cfg, PROD_B, PROD_S, sctx, device=device)
+    piece = int(cache["slot_pos"].shape[1])
+    _reset_launches()
+    plain0 = _plain_calls()
+    sharding.reset_traffic()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = prefill(cache)
+    torch.cuda.synchronize()
+    walls = {"prefill": time.perf_counter() - t0}
+    whole_c = steps.gather_cache(cfg, cache, sctx)
+    gaps = {"prefill": _cache_gaps(torch, whole_c, a["after_prefill"],
+                                   device) if rank == 0 else None}
+    del whole_c
+    tokens = []
+    t0 = time.perf_counter()
+    for kind, inp in inputs[1:]:
+        got, cache = build[kind](params, *inp, cache)
+        tokens.append(got)
+    torch.cuda.synchronize()
+    walls["steps"] = time.perf_counter() - t0
+    # the gather and the gaps between the prefill and the steps launch
+    # none of the port's kernels
+    launches = _launches()
+    plain = _plain_calls() - plain0
+    traffic = dict(sharding.traffic)
+    whole_c = steps.gather_cache(cfg, cache, sctx)
+    gaps["final"] = (_cache_gaps(torch, whole_c, a["final"], device)
+                     if rank == 0 else None)
+    del whole_c, cache
+    # tokens against (a)'s where (a)'s top-2 margin is above PROD_MARGIN
+    # of the step's largest |logit|; each step's logits' scaled gap
+    held = equal_held = other = other_equal = 0
+    logit_gaps = []
+    for got, want, wl, gl in zip(tokens, a["tokens"], a["logits"],
+                                 logits):
+        wl = wl.to(device)
+        if gl.dim() == 3 and wl.dim() == 2:
+            gl = gl[:, -1]
+        logit_gaps.append(_scaled_gap(gl, wl))
+        top2 = wl.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > PROD_MARGIN * float(
+            wl.abs().max())
+        same = got == want.to(device)
+        held += int(sure.sum())
+        equal_held += int((same & sure).sum())
+        other += int((~sure).sum())
+        other_equal += int((same & ~sure).sum())
+    del logits, tokens
+    _free(torch)
+    # the planted faults: a prefill each on a fresh piece, gathered
+    faults = {}
+    merge = sharding.merge_ranks
+
+    def left_out(o, lse, ctx, heads=None):
+        if ctx.rank == ctx.tp_size - 1:
+            lse = torch.full_like(lse, -math.inf)
+        return merge(o, lse, ctx, heads)
+    sharding.merge_ranks = left_out
+    try:
+        whole_c = steps.gather_cache(cfg, prefill(steps.init_cache(
+            cfg, PROD_B, PROD_S, sctx, device=device)), sctx)
+    finally:
+        sharding.merge_ranks = merge
+    faults["the last rank's partial left out of the merge"] = (
+        _cache_gaps(torch, whole_c, a["after_prefill"], device)
+        if rank == 0 else None)
+    del whole_c
+    fresh = steps.init_cache(cfg, PROD_B, PROD_S, sctx, device=device)
+    span = fresh[steps.SEQ_SPAN]
+    other_rank = dataclasses.replace(sctx, rank=(rank + 1) % world)
+    lo, hi = steps.seq_piece(PROD_S, other_rank)
+    fresh[steps.SEQ_SPAN] = torch.tensor([lo, hi, PROD_S])
+    fresh = prefill(fresh)
+    fresh[steps.SEQ_SPAN] = span
+    whole_c = steps.gather_cache(cfg, fresh, sctx)
+    faults["writes on another rank's slots"] = (
+        _cache_gaps(torch, whole_c, a["after_prefill"], device)
+        if rank == 0 else None)
+    del whole_c, fresh, params, a
+    _free(torch)
+    return {"layers": cfg.num_layers, "piece": piece, "launches": launches,
+            "plain_calls": plain, "walls": walls, "traffic": traffic,
+            "gaps": gaps, "faults": faults, "logit_gaps": logit_gaps,
+            "held": held, "equal_held": equal_held, "other": other,
+            "other_equal": other_equal,
+            "want": {"spec_verify": cfg.num_layers * (2 + PROD_DECODES),
+                     "tree_verify": cfg.num_layers}}
+
+
+def _prod_cached_checks(ranks) -> dict:
+    """(d)'s gates over the ranks: each rank's launches those derived
+    from the config (K1 a layer for the prefill, each decode and the
+    verify; K2 a layer for the tree) and no plain call; every held token
+    equal to (a)'s; the gathered ``slot_pos`` equal and K/V within
+    ``PROD_CACHE_TOL`` after the prefill and at the end; each planted
+    fault off (a)'s cache past those bounds."""
+    r0 = ranks[0]["cached"]
+    for r, rank in enumerate(ranks):
+        c = rank["cached"]
+        for k_, v_ in c["want"].items():
+            check(c["launches"][k_] == v_, f"production cached steps at "
+                  f"tp={TP}, rank {r}: {k_} launches {c['launches'][k_]} "
+                  f"!= {v_}")
+        check(c["plain_calls"] == 0, f"production cached steps at tp={TP}, "
+              f"rank {r}: {c['plain_calls']} plain attention calls")
+        check(c["traffic"] == r0["traffic"], "production cached steps: the "
+              "ranks ran different collectives")
+        check(c["equal_held"] == c["held"], f"production cached steps at "
+              f"tp={TP}, rank {r}: {c['held'] - c['equal_held']} of "
+              f"{c['held']} greedy tokens above the margin differ from "
+              "the one-rank run's")
+
+    def ok(g):
+        return g["slot_pos_diff"] == 0 and max(g["k"], g["v"]) \
+            <= PROD_CACHE_TOL
+    for when, g in r0["gaps"].items():
+        check(ok(g), f"production cached steps at tp={TP}: the gathered "
+              f"cache after the {when} off the one-rank run's: {g}")
+    for name, g in r0["faults"].items():
+        check(not ok(g), f"production cached steps: the planted fault "
+              f"'{name}' passes the cache check: {g}")
+    return r0
+
+
+def _share_inputs(torch, np, T, seed, tree=False):
+    """A rank's share of (d)'s cache, bf16 at granite's heads: B =
+    ``PROD_B`` rows of ``PROD_S`` / ``TP`` slots, the second half's
+    (positions ``PROD_S`` / 2 .. of a window from ``PROD_START``), its
+    first slots live up to the step's queries; queries at the last T
+    positions, so that a prefill's early rows see no key of the share.
+    K2 (``tree``): an ancestor chain's mask over the step's own slots."""
+    hq, hk, d, _ = K1_SHAPES["granite-3-8b"]
+    S = PROD_S // TP
+    lo = PROD_S // TP
+    end = PROD_START + PROD_PREFILL + (PROD_DECODES if T <= 8 else 0)
+    q, k, v = _normals(torch, seed, "bfloat16", (PROD_B, T, hq, d),
+                       (PROD_B, S, hk, d), (PROD_B, S, hk, d))
+    qp = (end - T + torch.arange(T, dtype=torch.int32, device="cuda")
+          ).expand(PROD_B, T).contiguous()
+    kp = torch.full((PROD_B, S), -1, dtype=torch.int32, device="cuda")
+    n = end - lo
+    kp[:, :n] = lo + torch.arange(n, dtype=torch.int32, device="cuda")
+    tm = None
+    if tree:
+        tm = torch.ones((PROD_B, T, S), dtype=torch.bool, device="cuda")
+        tm[:, :, n - T:n] = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                                  device="cuda"))
+    return q, k, v, qp, kp, tm
+
+
+def _first_half(torch, kp):
+    """Slot positions of rank 0's half of (d)'s cache beside a share
+    ``kp`` of the second half: slot s holds position s from
+    ``PROD_START`` on."""
+    pos = torch.arange(PROD_S // TP, dtype=torch.int32,
+                       device=kp.device).expand_as(kp)
+    return torch.where(pos >= PROD_START, pos, -1).contiguous()
+
+
+def share_kernels_check(torch, np) -> list:
+    """K1 (T = 1 and ``PROD_PREFILL``) and K2 (the tree step's 7) with
+    ``lse=True`` at a rank's share of (d)'s cache (``_share_inputs``), on
+    every route each takes, launched twice: o (f32) and the log-sum-exp
+    against the plain version's (``lse=True``) at bf16's tolerance, -inf
+    exactly where the plain version's is (a row that sees no key of the
+    share, whose o is 0), repeats bitwise; and the two ranks' partials
+    merged (``merge_lse``) against the whole cache's call."""
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.spec_verify.ref import (merge_lse,
+                                                     spec_verify_ref,
+                                                     tree_verify_ref)
+    rows = []
+    for T, tree in ((1, False), (PROD_PREFILL, False), (7, True)):
+        q, k, v, qp, kp, tm = _share_inputs(torch, np, T, 31 + T, tree)
+        plain = (spec_verify_ref(q, k, v, qp, kp, lse=True) if tm is None
+                 else tree_verify_ref(q, k, v, qp, kp, tm, lse=True))
+        blind = torch.isneginf(plain[1])
+        errs = {}
+        name = "tree_verify" if tree else "spec_verify"
+        for r in _routes("bfloat16", q.shape[3]):
+            o, lse = ops.launch_on_route(r, q, k, v, qp, kp, tm, lse=True)
+            o2, lse2 = ops.launch_on_route(r, q, k, v, qp, kp, tm, lse=True)
+            check(o.dtype == torch.float32 and torch.equal(o, o2)
+                  and torch.equal(lse, lse2), f"{name} (lse, rank share "
+                  f"T={T}) on {r}: f32 output, repeats bitwise")
+            check(torch.equal(torch.isneginf(lse), blind)
+                  and bool((o[blind] == 0).all()), f"{name} (lse, rank "
+                  f"share T={T}) on {r}: blind rows not (0, -inf)")
+            e_o = float((o - plain[0]).abs().max())
+            e_l = float((lse[~blind] - plain[1][~blind]).abs().max()) \
+                if bool((~blind).any()) else 0.0
+            errs[r] = max(e_o, e_l)
+            check(e_o <= TOL["bfloat16"] and e_l <= TOL["bfloat16"],
+                  f"{name} (lse, rank share T={T}) on {r}: o off by "
+                  f"{e_o:.3e}, lse by {e_l:.3e}")
+        # rank 0's share (the window's first half, seen whole) merged
+        # with this one against the whole cache's call
+        k0, v0 = _normals(torch, 77 + T, "bfloat16", k.shape, k.shape)
+        kp0 = _first_half(torch, kp)
+        tm0 = None if tm is None else torch.ones_like(tm)
+        p0 = ops.launch_on_route("cuda_cores", q, k0, v0, qp, kp0, tm0,
+                                 lse=True)
+        p1 = ops.launch_on_route("cuda_cores", q, k, v, qp, kp, tm,
+                                 lse=True)
+        kw, vw = torch.cat([k0, k], 1), torch.cat([v0, v], 1)
+        kpw = torch.cat([kp0, kp], 1)
+        whole = (ops.launch_on_route("cuda_cores", q, kw, vw, qp, kpw)
+                 if tm is None else ops.launch_on_route(
+                     "cuda_cores", q, kw, vw, qp, kpw,
+                     torch.cat([tm0, tm], 2).contiguous()))
+        e_m = float((merge_lse([p0, p1]) - whole.float()).abs().max())
+        check(e_m <= TOL["bfloat16"], f"{name} (rank share T={T}): the "
+              f"ranks' merged partials off the whole cache's call by "
+              f"{e_m:.3e}")
+        log(f"  {name} lse=True at a rank's share (B={PROD_B}, T={T}, "
+            f"{PROD_S // TP} slots): max|err| " + ", ".join(
+                f"{r} {e:.3e}" for r, e in errs.items())
+            + f" (o and lse; tol {TOL['bfloat16']}); {int(blind.sum())} "
+            f"blind rows (0, -inf) on every route; repeats bitwise; two "
+            f"shares merged vs the whole cache {e_m:.3e}")
+        rows.append({"shape": f"granite-3-8b/share{'/tree' if tree else ''}",
+                     "B": PROD_B, "T": T, "S": PROD_S // TP,
+                     "errs_by_route": errs, "max_abs_err": max(errs.values()),
+                     "merge_err": e_m, "blind_rows": int(blind.sum()),
+                     "tol": TOL["bfloat16"]})
+        del q, k, v, k0, v0, kw, vw
+        _free(torch)
+    return rows
+
+
+def share_kernels_time(torch, np) -> dict:
+    """K1 with ``lse=True`` at a rank's share (T = 1 and
+    ``PROD_PREFILL`` over ``PROD_S`` / ``TP`` slots, ``_share_inputs``)
+    beside its plain version, SDPA on the same share (boolean mask), the
+    same call without partials on the whole cache of ``PROD_S`` slots
+    (both halves live as in (d)), and the bound (q, o f32, the lse, the
+    positions and the K/V of the slots some row sees, once each); the
+    merge of two ranks' partials (``merge_lse``) alone; K2 likewise at
+    the tree step's 7.  L2 flushed before each call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.spec_verify import ops
+    from repro_torch.kernels.spec_verify.ref import (merge_lse, pos_mask,
+                                                     spec_verify_ref,
+                                                     tree_verify_ref)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+    n0 = dict(ops.launches)
+    out = {}
+    for T, tree in ((1, False), (PROD_PREFILL, False), (7, True)):
+        q, k, v, qp, kp, tm = _share_inputs(torch, np, T, 31 + T, tree)
+        if tm is None:
+            def call():
+                return ops.spec_verify(q, k, v, qp, kp, lse=True)
+
+            def plain():
+                return spec_verify_ref(q, k, v, qp, kp, lse=True)
+        else:
+            def call():
+                return ops.tree_verify(q, k, v, qp, kp, tm, lse=True)
+
+            def plain():
+                return tree_verify_ref(q, k, v, qp, kp, tm, lse=True)
+        t = _time_rounds(torch, call, 20, flush)
+        plain_ms = _time_ms(torch, plain, 5, flush)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = pos_mask(qp, kp)
+        if tm is not None:
+            mask = mask & tm
+        mask = mask[:, None]
+        lt = _time_rounds(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 20, flush)
+        # the whole cache: rank 0's half live too
+        kw, vw = torch.cat([k, k], 1), torch.cat([v, v], 1)
+        kpw = torch.cat([_first_half(torch, kp), kp], 1).contiguous()
+        if tm is None:
+            whole_ms = _time_ms(torch, lambda: ops.spec_verify(
+                q, kw, vw, qp, kpw), 20, flush)
+        else:
+            tmw = torch.cat([torch.ones_like(tm), tm], 2).contiguous()
+            whole_ms = _time_ms(torch, lambda: ops.tree_verify(
+                q, kw, vw, qp, kpw, tmw), 20, flush)
+        parts = [call(), call()]
+        merge_ms = _time_ms(torch, lambda: merge_lse(parts), 20, flush)
+        b_ms, b_by = _bound_ms(q, k, qp, kp, 0, "bfloat16", tree=tm,
+                               lse=True)
+        route, n_split = ops.plan(q.dtype, *q.shape[:3], k.shape[2],
+                                  q.shape[3], k.shape[1])
+        key = f"{'tree' if tree else 'k1'}_T{T}"
+        out[key] = {"T": T, "S": k.shape[1], "route": route,
+                    "n_split": n_split, "ms": t["median"], "ms_spread": t,
+                    "plain_ms": plain_ms, "library_ms": lt["median"],
+                    "library_spread": lt, "whole_ms": whole_ms,
+                    "merge_ms": merge_ms, "bound_ms": b_ms,
+                    "bound_by": b_by}
+        log(f"  {'tree_verify' if tree else 'spec_verify'} lse=True at a "
+            f"rank's share T={T} over {k.shape[1]} slots (B={PROD_B}, "
+            f"bf16, route {route}, n_split {n_split}): "
+            f"{_spread(t)} ms; the whole cache's {2 * k.shape[1]} slots "
+            f"without partials {whole_ms:.4f} ms; SDPA on the share "
+            f"{_spread(lt)} ms; plain {plain_ms:.4f} ms; the merge of two "
+            f"ranks' partials {merge_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del q, k, v, kw, vw, parts
+        _free(torch)
+    ops.launches.update(n0)      # timing launches are not a path's
+    return out
+
+
 def prod_rank(rank: int, world: int, device, out_dir: str) -> None:
-    """A rank of the production train-step check (two gloo ranks on the
-    card): each arch of ``PROD_TRAIN`` stepped at tp = 2 (``_prod_train``,
+    """A rank of the production layout's checks on ranks (two gloo ranks
+    on the card): (d) the cached steps at tp = 2 (``_prod_cached``); then
+    (c) each arch of ``PROD_TRAIN`` stepped at tp = 2 (``_prod_train``,
     this rank's pieces kept on the host), then the same at tp = 1 on each
     rank in turn, the other idle with its memory freed, cut to this
     rank's pieces on the card and held to them there (``_prod_gaps``);
@@ -5545,6 +5973,9 @@ def prod_rank(rank: int, world: int, device, out_dir: str) -> None:
     one_ctx = dataclasses.replace(two_ctx, group=None, tp_size=1, rank=0,
                                   host_group=None)
     out = {"stamps": [("start", time.time())]}
+    out["cached"] = _prod_cached(torch, np, rank, world, device, out_dir)
+    dist.barrier()
+    out["stamps"].append((f"cached steps tp={world}", time.time()))
     for arch, layers in PROD_TRAIN:
         cfg = dataclasses.replace(_arch_cfg(arch, layers), dtype="float32")
         two = _prod_train(torch, np, cfg, two_ctx, device, keep=lambda t: (
@@ -5625,25 +6056,33 @@ def _prod_checks(arch, ranks) -> dict:
 
 
 def production_phase(torch, np) -> dict:
-    """The phase "production layout": (a) ``production_steps``, (b)
-    ``prefill_kernels_check`` and ``prefill_kernels_time``, (c)
-    ``prod_rank`` in two gloo ranks on the card (the train step at tp = 2
-    against tp = 1: ``_prod_checks``), with rank 0's stages timed."""
+    """The phase "production layout": (a) ``production_steps`` (saved for
+    (d)), (b) ``prefill_kernels_check`` and ``prefill_kernels_time``, K1
+    / K2's partials at a rank's share (``share_kernels_check``,
+    ``share_kernels_time``), then ``prod_rank`` in two gloo ranks on the
+    card: (d) the cached steps at tp = 2 against (a)
+    (``_prod_cached_checks``) and (c) the train step at tp = 2 against
+    tp = 1 (``_prod_checks``), with rank 0's stages timed."""
     import pickle
     import tempfile
 
     from repro_torch.launch.mesh import spawn
-    rep = {"steps": production_steps(torch, np, TP_DEVICE)}
-    log("  K1 at the production prefill's widths")
-    rep["k1_checks"] = prefill_kernels_check(torch, np)
-    rep["k1_time"] = prefill_kernels_time(torch, np)
-    rep["tree_time"] = tree_kernels_time(
-        torch, np, B=PROD_B, S=PROD_S, T=7,
-        live=np.full(PROD_B, rep["steps"]["tree_live"]))
-    log_verify_time("tree_verify (production tree step)", rep["tree_time"])
-    t0, clock0 = time.perf_counter(), time.time()
     ranks = []
     with tempfile.TemporaryDirectory(prefix="prod_") as tmp:
+        rep = {"steps": production_steps(torch, np, TP_DEVICE, save_to=tmp)}
+        log("  K1 at the production prefill's widths")
+        rep["k1_checks"] = prefill_kernels_check(torch, np)
+        rep["k1_time"] = prefill_kernels_time(torch, np)
+        rep["tree_time"] = tree_kernels_time(
+            torch, np, B=PROD_B, S=PROD_S, T=7,
+            live=np.full(PROD_B, rep["steps"]["tree_live"]))
+        log_verify_time("tree_verify (production tree step)",
+                        rep["tree_time"])
+        log(f"  K1 / K2 partials (lse=True) at a rank's share of (d)'s "
+            f"cache")
+        rep["share_checks"] = share_kernels_check(torch, np)
+        rep["share_time"] = share_kernels_time(torch, np)
+        t0, clock0 = time.perf_counter(), time.time()
         spawn(prod_rank, TP, backend="gloo", device=TP_DEVICE, args=(tmp,))
         clock1 = time.time()
         for r in range(TP):
@@ -5656,6 +6095,20 @@ def production_phase(torch, np) -> dict:
     stamps = [("spawn", clock0)] + ranks[0]["stamps"] + [("exit", clock1)]
     rep["train_stages_s"] = {name: b - a for (_, a), (name, b) in zip(
         stamps, stamps[1:])}
+    c = rep["cached"] = _prod_cached_checks(ranks)
+    g = c["gaps"]
+    log(f"  (d) granite-3-8b ({c['layers']} layers, full width, bf16) "
+        f"cached steps at tp={TP} ({c['piece']} of {PROD_S} slots a rank) "
+        f"against (a)'s one-rank run: {c['equal_held']} of {c['held']} "
+        f"greedy tokens above the margin ({PROD_MARGIN} of scale) equal, "
+        f"{c['other_equal']} of the {c['other']} others; logits' scaled "
+        f"gap max {max(c['logit_gaps']):.3e}; gathered cache after the "
+        f"prefill {g['prefill']}, at the end {g['final']} (K/V limit "
+        f"{PROD_CACHE_TOL}); a rank's launches " + ", ".join(
+            f"{k_} {v_}" for k_, v_ in sorted(c["launches"].items()) if v_)
+        + f", no plain call; walls prefill {c['walls']['prefill']:.2f} s, "
+        f"the other steps {c['walls']['steps']:.2f} s; planted faults: "
+        + "; ".join(f"{n} {f_}" for n, f_ in c["faults"].items()))
     rep["train"] = {}
     for arch, _ in PROD_TRAIN:
         r = rep["train"][arch] = _prod_checks(arch, ranks)
@@ -5843,8 +6296,8 @@ def main() -> int:
     phase_done("kernel checks")
 
     log(f"production layout: granite-3-8b ({PROD_LAYERS} layers) "
-        f"cached steps on one rank, K1 at the prefill widths "
-        f"{[t for t, _ in PROD_K1_WIDTHS]}, the train step of "
+        f"cached steps on one rank and at tp={TP}, K1 at the prefill "
+        f"widths {[t for t, _ in PROD_K1_WIDTHS]}, the train step of "
         + ", ".join(f"{a} ({n} layers)" for a, n in PROD_TRAIN)
         + f" at tp={TP} (two gloo ranks on {TP_DEVICE}) against tp=1, f32")
     _free(torch)
@@ -6028,7 +6481,7 @@ def main() -> int:
         "open-loop workloads on granite-3-8b")
     del params
     _free(torch)
-    cfg, params = build_model(torch)
+    cfg, params = build_model(torch, layers=LINEAR_LAYERS)
     srv = serving_phase(torch, np, cfg, params)
     report["serving_phase"] = srv
     del params
@@ -6555,6 +7008,22 @@ def main() -> int:
                        "library_backward_ms"),
         prod_flash_row("flash_attention_dkdv", "dkdv", "plain_backward_ms",
                        "library_backward_ms")]
+    # (d): K1 / K2 with partials on rank 0's half of the cache, timed at
+    # a rank's share (the prefill's width; the tree step's)
+    sh_, cd_ = prod["share_time"], prod["cached"]["launches"]
+    rows += [
+        kernel_row(f"spec_verify/production/tp{TP}", SPEC_VERIFY_TPU,
+                   f"granite-3-8b production layout tp={TP}, rank 0: the "
+                   "cached steps on its half of the cache (lse=True)",
+                   cd_["spec_verify"],
+                   checks_of(prod["share_checks"], "granite-3-8b/share"),
+                   sh_[f"k1_T{PROD_PREFILL}"]),
+        kernel_row(f"tree_verify/production/tp{TP}", TREE_VERIFY_TPU,
+                   f"granite-3-8b production layout tp={TP}, rank 0: the "
+                   "tree verify step on its half of the cache (lse=True)",
+                   cd_["tree_verify"],
+                   checks_of(prod["share_checks"],
+                             "granite-3-8b/share/tree"), sh_["tree_T7"])]
 
     phase_done("timing")
 
@@ -6602,8 +7071,17 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    print(f"chip_smoke: started at {time.time():.1f}", file=sys.stderr,
+          flush=True)
     try:
-        sys.exit(main())
+        rc = main()
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         sys.exit(1)
+    print(f"chip_smoke: done at {time.time():.1f}", file=sys.stderr,
+          flush=True)
+    sys.stdout.flush()
+    # every process it started has been joined: the interpreter's
+    # teardown of this one (the CUDA context, the profiler's state) is
+    # skipped, as it took minutes after a whole run on the card
+    os._exit(rc)

@@ -82,6 +82,12 @@
 //     the heads asks for the unsharded call's, so each head's shares,
 //     and its output, are the unsharded call's).
 //
+// Partials (`lse` given): every route also writes each row's f32
+// log-sum-exp of its visible scores, lse = m + log l (-inf for a row that
+// sees no key, whose output is 0), and writes the output in f32: a
+// caller that holds only a share of the slots (a rank of the production
+// layout's sequence-split cache) merges the shares' (o, lse) itself.
+//
 // Both routes: only tiles some row may see are loaded (empty slots, slots
 // in the future or outside the window are not), so a half-empty cache
 // costs what its live slots cost; no atomics and a fixed reduction order,
@@ -227,15 +233,16 @@ __device__ __forceinline__ void load_vec(const T* p, float (&f)[N]) {
 }
 
 // kTree = false: K1 (tree_mask unused); true: K2.  With n_split == 1 the
-// CTA writes `out`; otherwise its share's (acc, m, l) go to `part` for
-// merge_splits.
+// CTA writes `out` (T, or f32 with `lse`, which it writes too); otherwise
+// its share's (acc, m, l) go to `part` for merge_splits.
 template <typename T, int D, bool kTree, int R>
 __global__ void __launch_bounds__(kThreads, R <= 4 ? 2 : 1)
 verify_cores(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ q_pos,
              const int* __restrict__ k_pos,
              const unsigned char* __restrict__ tree_mask,
-             T* __restrict__ out, float* __restrict__ part, int n_t, int S,
+             void* __restrict__ out, float* __restrict__ lse,
+             float* __restrict__ part, int n_t, int S,
              int Hq, int Hk, long long kv_b_stride, long long kpos_b_stride,
              long long tm_b_stride, long long tm_t_stride, int window,
              float scale) {
@@ -478,9 +485,17 @@ verify_cores(const T* __restrict__ q, const T* __restrict__ k,
     const long long row = ((long long)b * n_t + t) * Hq + h;
     if (n_split == 1) {
       const float l = fmaxf(l_run[rr], 1e-30f);
-      T* o = out + row * D + lane * NDW;
+      if (lse != nullptr) {
+        float* o = static_cast<float*>(out) + row * D + lane * NDW;
 #pragma unroll
-      for (int e = 0; e < NDW; ++e) store_out(o + e, acc[rr][e] / l);
+        for (int e = 0; e < NDW; ++e) o[e] = acc[rr][e] / l;
+        if (lane == 0)
+          lse[row] = l_run[rr] > 0.f ? m_run[rr] + logf(l_run[rr]) : -INFINITY;
+      } else {
+        T* o = static_cast<T*>(out) + row * D + lane * NDW;
+#pragma unroll
+        for (int e = 0; e < NDW; ++e) store_out(o + e, acc[rr][e] / l);
+      }
     } else {
       const long long pr = split * n_all + row;
       float* pa = part + pr * D + lane * NDW;
@@ -497,11 +512,12 @@ verify_cores(const T* __restrict__ q, const T* __restrict__ k,
 
 // The splits of each row, in split order: out = sum_s acc_s e^(m_s - M) /
 // sum_s l_s e^(m_s - M), M = max_s m_s; 0 where no split saw a key (every
-// l_s = 0).  One warp per row, four rows per CTA.
+// l_s = 0).  With `lse`: out in f32, and lse = M + log sum_s l_s e^(m_s -
+// M) (-inf where no split saw a key).  One warp per row, four rows per CTA.
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
-merge_splits(const float* __restrict__ part, T* __restrict__ out,
-             long long n_all, int n_split) {
+merge_splits(const float* __restrict__ part, void* __restrict__ out,
+             float* __restrict__ lse, long long n_all, int n_split) {
   constexpr int NDW = D / 32;
   const long long row = (long long)blockIdx.x * 4 + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
@@ -519,10 +535,18 @@ merge_splits(const float* __restrict__ part, T* __restrict__ out,
 #pragma unroll
     for (int i = 0; i < NDW; ++i) acc[i] += part[pr * D + lane + 32 * i] * c;
   }
+  if (lse != nullptr && lane == 0)
+    lse[row] = l > 0.f ? m + logf(l) : -INFINITY;
   l = fmaxf(l, 1e-30f);
+  if (lse != nullptr) {
+    float* o = static_cast<float*>(out) + row * D;
+#pragma unroll
+    for (int i = 0; i < NDW; ++i) o[lane + 32 * i] = acc[i] / l;
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < NDW; ++i)
-    store_out(out + row * D + lane + 32 * i, acc[i] / l);
+    store_out(static_cast<T*>(out) + row * D + lane + 32 * i, acc[i] / l);
 }
 
 // ===========================================================================
@@ -543,6 +567,7 @@ constexpr int kKeys = 64;                // slots of one K/V tile
 constexpr int kBox = kRows * kRowBytes;  // one box: 64 rows x 128 bytes
 constexpr int kMaskBox = kKeys * 64;     // K2: (64 slots, <= 64 positions)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // byte offsets in shared memory; two stages at D 128, four at D 64, so
 // that two CTAs fit on an SM
@@ -643,6 +668,17 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* dst,
         pack_bf16(d[4 * j + 2 * i] * mul, d[4 * j + 2 * i + 1] * mul);
 }
 
+// store_row in f32 (the partials' output)
+template <int D>
+__device__ __forceinline__ void store_row_f32(float* dst,
+                                              const float (&d)[D / 2], int i,
+                                              float mul) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    *reinterpret_cast<float2*>(dst + 8 * j) =
+        make_float2(d[4 * j + 2 * i] * mul, d[4 * j + 2 * i + 1] * mul);
+}
+
 // the visible elements of a masked tile as bits e = 4 j + 2 i + c: row
 // row + 8 i (position qp[i]) against slot 8 j + 2 quad + c of the tile
 // (positions kps, -1 for empty slots and slots past S), and for K2 the
@@ -676,8 +712,8 @@ verify_wgmma(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_v,
              const __grid_constant__ CUtensorMap tm_mask,
              const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-             __nv_bfloat16* __restrict__ out, int n_t, int S, int Hq, int Hk,
-             int gshift, long long kpos_b_stride, int window,
+             void* __restrict__ out, float* __restrict__ lse, int n_t, int S,
+             int Hq, int Hk, int gshift, long long kpos_b_stride, int window,
              float scale_log2) {
   using L = Layout<D, kTree>;
   constexpr int kChunks = L::kChunks, kStages = L::kStages;
@@ -880,8 +916,17 @@ verify_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int r = row + 8 * i, pos = p0 + (r >> gshift);
     if (pos >= n_t) continue;
     const int h = h0 + (r & (Gt - 1));
-    store_row<D>(out + (((long long)b * n_t + pos) * Hq + h) * D + 2 * quad, o,
-                 i, lt > 0.f ? 1.f / lt : 0.f);
+    const long long orow = ((long long)b * n_t + pos) * Hq + h;
+    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+    if (lse != nullptr) {
+      // m is in the log2 domain of the scaled scores
+      store_row_f32<D>(static_cast<float*>(out) + orow * D + 2 * quad, o, i,
+                       inv);
+      if (quad == 0) lse[orow] = lt > 0.f ? m[i] * kLn2 + logf(lt) : -INFINITY;
+    } else {
+      store_row<D>(static_cast<__nv_bfloat16*>(out) + orow * D + 2 * quad, o,
+                   i, inv);
+    }
   }
 }
 
@@ -895,7 +940,8 @@ verify_wgmma(const __grid_constant__ CUtensorMap tm_q,
 struct Args {
   const void *q, *k, *v, *q_pos, *k_pos;
   const unsigned char* tree_mask;  // null for K1
-  void* out;
+  void* out;    // q's dtype, or f32 when lse is given
+  float* lse;   // (B, T, Hq) f32 log-sum-exp, or null
   float* part;  // the split workspace (null when n_split == 1)
   int B, n_t, S, Hq, Hk;
   long long kv_b_stride, kpos_b_stride, tm_b_stride, tm_t_stride;
@@ -963,14 +1009,14 @@ cudaError_t launch_cores(const Args& a, int n_split) {
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.q_pos),
-      static_cast<const int*>(a.k_pos), a.tree_mask, static_cast<T*>(a.out),
+      static_cast<const int*>(a.k_pos), a.tree_mask, a.out, a.lse,
       a.part, a.n_t, a.S, a.Hq, a.Hk, a.kv_b_stride, a.kpos_b_stride,
       a.tm_b_stride, a.tm_t_stride, a.window, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const long long n_all = (long long)a.B * a.n_t * a.Hq;
   merge_splits<T, D><<<(unsigned)((n_all + 3) / 4), 128, 0, a.stream>>>(
-      a.part, static_cast<T*>(a.out), n_all, n_split);
+      a.part, a.out, a.lse, n_all, n_split);
   return cudaGetLastError();
 }
 
@@ -1030,9 +1076,8 @@ cudaError_t launch_tc(const Args& a) {
   const dim3 grid((a.n_t + P - 1) / P, a.B * a.Hk, G / Gt);
   kern<<<grid, 160, smem, a.stream>>>(
       tq, tk, tv, tm, static_cast<const int*>(a.q_pos),
-      static_cast<const int*>(a.k_pos),
-      static_cast<__nv_bfloat16*>(a.out), a.n_t, a.S, a.Hq, a.Hk, gshift,
-      a.kpos_b_stride, a.window, a.scale * kLog2e);
+      static_cast<const int*>(a.k_pos), a.out, a.lse, a.n_t, a.S, a.Hq,
+      a.Hk, gshift, a.kpos_b_stride, a.window, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -1083,16 +1128,18 @@ extern "C" int spec_verify_splits(int dtype, int D, int B, int T, int Hq,
 // q/out contiguous (B,T,Hq,D); k/v (B,S,Hk,D) with contiguous (S,Hk,D)
 // rows, batch stride kv_b_stride and 16-byte aligned rows; q_pos
 // contiguous (B,T) int32; k_pos (B,S) int32 with batch stride
-// kpos_b_stride.  Returns the cudaError_t of the launch (0 = launched).
+// kpos_b_stride.  `lse`: null, or a contiguous (B,T,Hq) f32 buffer for the
+// rows' log-sum-exp, and then out is f32.  Returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int spec_verify_launch(int dtype, const void* q, const void* k,
                                   const void* v, const void* q_pos,
-                                  const void* k_pos, void* out, void* part,
-                                  int B, int n_t, int S, int Hq, int Hk,
-                                  int D, long long kv_b_stride,
+                                  const void* k_pos, void* out, void* lse,
+                                  void* part, int B, int n_t, int S, int Hq,
+                                  int Hk, int D, long long kv_b_stride,
                                   long long kpos_b_stride, int window,
                                   float scale, int route, int n_split,
                                   void* stream) {
-  const Args a{q, k, v, q_pos, k_pos, nullptr, out,
+  const Args a{q, k, v, q_pos, k_pos, nullptr, out, static_cast<float*>(lse),
                static_cast<float*>(part), B, n_t, S, Hq, Hk, kv_b_stride,
                kpos_b_stride, 0, 0, window, scale,
                static_cast<cudaStream_t>(stream)};
@@ -1105,8 +1152,8 @@ extern "C" int spec_verify_launch(int dtype, const void* q, const void* k,
 extern "C" int tree_verify_launch(int dtype, const void* q, const void* k,
                                   const void* v, const void* q_pos,
                                   const void* k_pos, const void* tree_mask,
-                                  void* out, void* part, int B, int n_t,
-                                  int S, int Hq, int Hk, int D,
+                                  void* out, void* lse, void* part, int B,
+                                  int n_t, int S, int Hq, int Hk, int D,
                                   long long kv_b_stride,
                                   long long kpos_b_stride,
                                   long long tm_b_stride,
@@ -1115,7 +1162,8 @@ extern "C" int tree_verify_launch(int dtype, const void* q, const void* k,
                                   void* stream) {
   const Args a{q, k, v, q_pos, k_pos,
                static_cast<const unsigned char*>(tree_mask), out,
-               static_cast<float*>(part), B, n_t, S, Hq, Hk, kv_b_stride,
+               static_cast<float*>(lse), static_cast<float*>(part), B, n_t,
+               S, Hq, Hk, kv_b_stride,
                kpos_b_stride, tm_b_stride, tm_t_stride, window, scale,
                static_cast<cudaStream_t>(stream)};
   return launch_any<true>(dtype, D, route, n_split, a);

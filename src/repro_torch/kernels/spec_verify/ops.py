@@ -21,6 +21,12 @@ unsharded call's n_split: a head's shares depend only on its row tile,
 the cache and n_split, so each head's output is bitwise the unsharded
 call's.
 
+``lse=True`` asks every route for the softmax's partials: the output in
+f32 and each row's log-sum-exp (B, T, Hq) f32, -inf where a row sees no
+key (its output 0).  A rank that holds a share of the cache's slots
+(the production layout) merges the ranks' partials with
+``ref.merge_lse``.
+
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``, into
 ``repro_torch/kernels/_build/`` (listed in ``.gitignore``; see
@@ -61,12 +67,12 @@ _ROUTE_CODES = {None: 0, "cuda_cores": 1, "tensor_cores": 2}
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.spec_verify_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64,
-        i64, i32, ctypes.c_float, i32, i32, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+        i64, i64, i32, ctypes.c_float, i32, i32, vp]
     lib.spec_verify_launch.restype = i32
     lib.tree_verify_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-        i64, i64, i64, i64, i32, ctypes.c_float, i32, i32, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+        i32, i64, i64, i64, i64, i32, ctypes.c_float, i32, i32, vp]
     lib.tree_verify_launch.restype = i32
     lib.spec_verify_route.argtypes = [i32] * 6
     lib.spec_verify_route.restype = i32
@@ -200,17 +206,22 @@ def check_tree_mask(q, k, tree_mask) -> None:
 
 
 def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window,
-            route: str = None, n_split: int = None):
+            route: str = None, n_split: int = None, lse: bool = False):
     """Launch K1 (``tree_mask`` None) or K2 on q's current stream, on the
     table's route or on ``route``, in the table's shares or ``n_split``;
-    raise on what that route cannot take and on a refused launch."""
+    raise on what that route cannot take and on a refused launch.  With
+    ``lse``: (out in f32, the rows' log-sum-exp (B, T, Hq) f32)."""
     B, T, Hq, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
     how, n_split = plan(q.dtype, B, T, Hq, Hk, D, S, route, n_split)
     if how == "tensor_cores":
         check_tensor_cores(q, tree_mask)
     lib = build()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if lse else q.dtype,
+                      device=q.device)
+    lse_t = (torch.empty((B, T, Hq), dtype=torch.float32, device=q.device)
+             if lse else None)
+    lse_p = None if lse_t is None else lse_t.data_ptr()
     # the splits' (acc, m, l) in f32, merged into out by the second launch
     ws = (torch.empty(n_split * B * T * Hq * (D + 2), dtype=torch.float32,
                       device=q.device) if n_split > 1 else None)
@@ -223,57 +234,62 @@ def _launch(name: str, q, k, v, q_pos, k_pos, tree_mask, window,
                 q_pos.data_ptr(), k_pos.data_ptr())
         if tree_mask is None:
             err = lib.spec_verify_launch(
-                *head, out.data_ptr(), part, B, T, S, Hq, Hk, D, k.stride(0),
+                *head, out.data_ptr(), lse_p, part, B, T, S, Hq, Hk, D,
+                k.stride(0),
                 k_pos.stride(0), int(window), scale, code, n_split, stream)
         else:
             err = lib.tree_verify_launch(
-                *head, tree_mask.data_ptr(), out.data_ptr(), part, B, T, S,
-                Hq, Hk, D, k.stride(0), k_pos.stride(0), tree_mask.stride(0),
+                *head, tree_mask.data_ptr(), out.data_ptr(), lse_p, part, B,
+                T, S, Hq, Hk, D, k.stride(0), k_pos.stride(0),
+                tree_mask.stride(0),
                 tree_mask.stride(1), int(window), scale, code, n_split,
                 stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.spec_verify_error_string(err).decode())
     launches[name] += 1
-    return out
+    return out if lse_t is None else (out, lse_t)
 
 
 def spec_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-                window: int = 0, split_like=None) -> torch.Tensor:
+                window: int = 0, split_like=None, lse: bool = False):
     """K1.  q (B,T,Hq,D); k, v (B,S,Hk,D); q_pos (B,T), k_pos (B,S)
     int32; ``split_like`` (Hq, Hk) of the unsharded layer when q, k, v
-    are a rank's head shard."""
+    are a rank's head shard.  ``lse``: returns (out f32, log-sum-exp
+    (B,T,Hq) f32)."""
     if q.device.type == "cpu":
-        return spec_verify_ref(q, k, v, q_pos, k_pos, window=window)
+        return spec_verify_ref(q, k, v, q_pos, k_pos, window=window, lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"spec_verify: no kernel for device {q.device}")
     check_inputs(q, k, v, q_pos, k_pos)
     return _launch("spec_verify", q, k, v, q_pos, k_pos, None, window,
                    n_split=split_of(q.dtype, q.shape[0], q.shape[1],
-                                    q.shape[3], k.shape[1], split_like))
+                                    q.shape[3], k.shape[1], split_like),
+                   lse=lse)
 
 
 def tree_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_pos: torch.Tensor, k_pos: torch.Tensor,
                 tree_mask: torch.Tensor, *,
-                window: int = 0, split_like=None) -> torch.Tensor:
+                window: int = 0, split_like=None, lse: bool = False):
     """K2: K1's arguments plus ``tree_mask`` (B,T,S) bool or uint8, ANDed
     into the positional mask."""
     if q.device.type == "cpu":
         return tree_verify_ref(q, k, v, q_pos, k_pos, tree_mask,
-                               window=window)
+                               window=window, lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"tree_verify: no kernel for device {q.device}")
     check_inputs(q, k, v, q_pos, k_pos)
     check_tree_mask(q, k, tree_mask)
     return _launch("tree_verify", q, k, v, q_pos, k_pos, tree_mask, window,
                    n_split=split_of(q.dtype, q.shape[0], q.shape[1],
-                                    q.shape[3], k.shape[1], split_like))
+                                    q.shape[3], k.shape[1], split_like),
+                   lse=lse)
 
 
 def launch_on_route(route: str, q, k, v, q_pos, k_pos, tree_mask=None, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, lse: bool = False):
     """K1 (or K2, given ``tree_mask``) on CUDA tensors on ``route``
     whatever the table says: for checking both routes of a shape on the
     card and timing one against the other.  The port never calls it."""
@@ -281,4 +297,5 @@ def launch_on_route(route: str, q, k, v, q_pos, k_pos, tree_mask=None, *,
     if tree_mask is not None:
         check_tree_mask(q, k, tree_mask)
     name = "spec_verify" if tree_mask is None else "tree_verify"
-    return _launch(name, q, k, v, q_pos, k_pos, tree_mask, window, route)
+    return _launch(name, q, k, v, q_pos, k_pos, tree_mask, window, route,
+                   lse=lse)

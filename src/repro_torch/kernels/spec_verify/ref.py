@@ -14,7 +14,9 @@ slot-cache path, which compute the same functions.  Contract:
 Mask: (k_pos >= 0) & (k_pos <= q_pos) & (k_pos > q_pos - window if
 window); K2 ANDs a (B, T, S) ``tree_mask`` into it.  Scores and the
 softmax are f32; rows with no visible key give 0; the output has q's
-dtype.  This follows ``_plain`` op for op (scale
+dtype (f32 with ``lse=True``, which also returns each row's log-sum-exp
+of its visible scores (B, T, Hq) f32, -inf where it sees none).  This
+follows ``_plain`` op for op (scale
 ``1/sqrt(float32(D))`` on the f32 query), so on the CPU the port's
 forward matches the JAX package's.
 
@@ -23,7 +25,9 @@ plain pieces: ``split_partials`` cuts the attention of each row into
 ``n_split`` shares of its slots, as the kernel cuts its list of needed
 32-slot tiles, and keeps each share's (m, l, unnormalised acc) in f32;
 ``merge_partials`` merges them in share order, as the merge launch does.
-``split_verify_ref`` is the two together.
+``split_verify_ref`` is the two together.  ``merge_lse`` merges the
+``lse=True`` partials of shares of the slots held apart (the ranks of the
+production layout's sequence-split cache), in share order.
 """
 from __future__ import annotations
 
@@ -55,24 +59,24 @@ def pos_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 def spec_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, lse: bool = False):
     calls["spec_verify"] += 1
-    return _masked_ref(q, k, v, pos_mask(q_pos, k_pos, window))
+    return _masked_ref(q, k, v, pos_mask(q_pos, k_pos, window), lse)
 
 
 def tree_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
                     tree_mask: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, lse: bool = False):
     """K2: K1 with ``tree_mask`` (B, T, S), bool or uint8 (0 = hidden),
     ANDed into the positional mask — a draft-tree node sees the committed
     prefix and its own ancestors, never a sibling at its position."""
     calls["tree_verify"] += 1
     return _masked_ref(q, k, v,
-                       pos_mask(q_pos, k_pos, window) & tree_mask.bool())
+                       pos_mask(q_pos, k_pos, window) & tree_mask.bool(), lse)
 
 
-def _masked_ref(q, k, v, mask):
+def _masked_ref(q, k, v, mask, lse=False):
     B, T, Hq, D = q.shape
     Hk = k.shape[2]
     G = Hq // Hk
@@ -82,8 +86,12 @@ def _masked_ref(q, k, v, mask):
     s = torch.where(m, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(m.any(dim=-1, keepdim=True), p, 0.0)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, T, Hq, D).to(q.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).reshape(B, T, Hq, D)
+    if not lse:
+        return o.to(q.dtype)
+    seen = m.any(dim=-1)                                     # (B,Hk,G,T)
+    lse_t = torch.where(seen, torch.logsumexp(s, dim=-1), -torch.inf)
+    return o, lse_t.permute(0, 3, 1, 2).reshape(B, T, Hq)
 
 
 SPLIT_TILE = 32   # slots per tile of the kernels' split route
@@ -167,3 +175,22 @@ def split_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = mask & tree_mask.bool()
     return merge_partials(*split_partials(q, k, v, mask, n_split)).to(
         q.dtype)
+
+
+def merge_lse(parts) -> torch.Tensor:
+    """The ``lse=True`` partials ``[(o_r, lse_r), ...]`` of shares of the
+    slots merged in share order: out = sum_r o_r e^(lse_r - M) / sum_r
+    e^(lse_r - M), M the max of the lse_r; a share that saw no key
+    (lse -inf) weighs exactly 0, and a row no share saw is 0, never NaN.
+    o_r (..., D) and lse_r (...) f32; f32 out."""
+    mx = parts[0][1]
+    for _, lse in parts[1:]:
+        mx = torch.maximum(mx, lse)
+    mx = torch.where(mx == -torch.inf, 0.0, mx)
+    num = torch.zeros_like(parts[0][0])
+    den = torch.zeros_like(mx)
+    for o, lse in parts:
+        w = torch.exp(lse - mx)
+        num = num + o * w[..., None]
+        den = den + w
+    return num / torch.clamp(den, min=1e-30)[..., None]

@@ -21,8 +21,9 @@ the process group that carries its ``model`` axis.  Only that axis runs
 over ranks in this port: a ``Mesh`` built by hand with larger ``data``
 or ``pod`` axes is a shape for the pure placement functions
 (``sharding``, ``launch.steps``), and the mesh functions refuse a
-process group that would run such an axis over ranks (data parallelism
-with the embedding rows split over ``data`` is the next slice's).
+process group that would run such an axis over ranks (data parallelism,
+with FSDP of the ``embed`` axis over ``data``, is slice 16's:
+``launch.steps.NEXT_SLICE``).
 :func:`make_production_mesh` raises, as the reference's
 ``_check_devices`` does, when the process group has too few ranks.
 """
@@ -119,10 +120,8 @@ def _mesh(shape, axes, what: str) -> Mesh:
     if needed == 1:
         return Mesh(tuple(shape), tuple(axes))
     if needed != model:
-        raise NotImplementedError(
-            f"{what}: a data axis over ranks (data parallelism, FSDP of the "
-            "embedding rows) is slice 15's; the port runs the model axis "
-            "over ranks")
+        from repro_torch.launch.steps import NEXT_SLICE
+        raise NotImplementedError(f"{what}: {NEXT_SLICE}")
     import torch.distributed as dist
     if dist.get_world_size() != model:
         raise ValueError(f"{what}: the model axis ({model}) runs on a "

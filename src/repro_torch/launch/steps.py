@@ -54,12 +54,15 @@ The step builders are plain functions over a rank's shards:
 global norm taken over the whole model), :func:`build_prefill_step`
 (the contiguous prefill), :func:`build_serve_step` (one greedy token),
 :func:`build_verify_step` (γ+1 greedy targets) and
-:func:`build_tree_verify_step` (through K2).  The train step runs on k
-ranks; the cached steps hold no KV cache across ranks, so they run on a
-one-rank production context (or none) and refuse a larger one: the
-cache split along its sequence is the next slice's.  ``lower_pair``
-(and ``launch/dryrun.py``) lower the steps to HLO for TPU pod meshes and
-have no counterpart: a PyTorch program has no HLO to lower.
+:func:`build_tree_verify_step` (through K2), all on k ranks.  The cached
+steps run on a rank's piece of the cache (:func:`init_cache`,
+:func:`cache_shards`; :func:`gather_cache` is the inverse), laid out as
+:func:`cache_shardings` places it: ``k`` / ``v`` and ``slot_pos`` split
+along the sequence, each rank attending its own slots through K1 / K2
+and the ranks merging the softmax partials (``sharding.merge_ranks``).
+``lower_pair`` (and ``launch/dryrun.py``) lower the steps to HLO for TPU
+pod meshes and have no counterpart: a PyTorch program has no HLO to
+lower.
 """
 from __future__ import annotations
 
@@ -72,6 +75,11 @@ from repro_torch.sharding import (HeadShard, ShardCtx, all_gather,
                                   all_gather_parts, all_reduce,
                                   exact_col_spec, head_shard,
                                   logical_to_spec, param_rules, split_range)
+
+# the key of a production cache piece's span: an int64 CPU tensor
+# [lo, hi, S], the rank's slots [lo, hi) of a cache of S (read on the
+# host, no device sync)
+SEQ_SPAN = "seq_span"
 
 # cache and blob leaves split by KV head (head axis -2 of every one)
 HEAD_LEAVES = ("k", "v", "cross_k", "cross_v")
@@ -359,8 +367,16 @@ def cache_shardings(cfg: ModelConfig, sctx: ShardCtx, cache_tree: dict
                     ) -> dict:
     """The production prefill / serve cache's spec per leaf name (the
     reference's ``cache_shardings``): batch over the data axes and the
-    cache's sequence on ``model``.  A placement only: the cached steps
-    hold no cache across ranks in this slice."""
+    cache's sequence on ``model``.  :func:`cache_shards` cuts the pieces
+    of the ``model`` axis as these specs place them, with two
+    differences: ``conv`` and ``ssm`` stay whole on every rank, where the
+    reference splits them by channel and by head, because the Mamba2
+    weights are whole on every rank (``param_rules`` leaves them
+    replicated) and each rank runs the blocks whole; and ``cross_k`` /
+    ``cross_v`` hold the rank's KV heads (whole where the heads do not
+    divide the group), where the reference replicates them, because a
+    rank's cross block attends on its own heads, which its own ``wk`` /
+    ``wv`` columns make."""
     dp = tuple(sctx.dp)
 
     def spec_for(key, shape):
@@ -564,19 +580,150 @@ def production_global_norm(cfg: ModelConfig, grads: dict,
 
 
 # ---------------------------------------------------------------------------
+# the production layout: the KV cache across ranks
+# ---------------------------------------------------------------------------
+
+
+def production(sctx: Optional[ShardCtx]) -> bool:
+    """Whether ``sctx`` is the production layout's context over more than
+    one rank."""
+    return sctx is not None and not sctx.exact and sctx.tp_size > 1
+
+
+def seq_piece(S: int, sctx: Optional[ShardCtx]) -> tuple:
+    """(lo, hi): the slots of a cache of S a rank holds: its
+    ``split_range`` where S divides the group, else all of them (the
+    reference's guard replicates the cache there)."""
+    if not production(sctx) or S % sctx.tp_size:
+        return 0, S
+    return split_range(S, sctx.tp_size, sctx.rank)
+
+
+def cross_heads(cfg: ModelConfig, sctx: Optional[ShardCtx]) -> tuple:
+    """(lo, hi): the KV heads of the cross-attention memory a rank
+    holds under the production layout: its own where attention splits,
+    all where it runs whole."""
+    if not production(sctx) or attn_whole(cfg, sctx):
+        return 0, cfg.num_kv_heads
+    hs = heads_of(cfg, sctx)
+    return hs.kv_lo, hs.kv_hi
+
+
+def span_of(cache: dict) -> tuple:
+    """(lo, hi, S) of a cache: a piece's span, or the whole of a cache
+    with none (every rank holds it whole)."""
+    span = cache.get(SEQ_SPAN)
+    if span is not None:
+        lo, hi, S = (int(x) for x in span)
+        return lo, hi, S
+    S = cache["slot_pos"].shape[1]
+    return 0, S, S
+
+
+def _with_scratch_copy(t: torch.Tensor, dim: int, fill) -> torch.Tensor:
+    """A copy of ``t`` in a buffer one slot wider along ``dim`` (the
+    scratch slot, set to ``fill``), as ``transformer.init_cache`` lays a
+    cache out: the view of its first slots."""
+    shape = list(t.shape)
+    shape[dim] += 1
+    buf = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+    view = buf.narrow(dim, 0, t.shape[dim])
+    view.copy_(t)
+    return view
+
+
+# what a piece's scratch slot holds: no key, an empty position
+_FILL = {"k": 0, "v": 0, "slot_pos": -1}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               sctx: Optional[ShardCtx], dtype=None, device=None) -> dict:
+    """A rank's empty piece of the production cache of ``max_len``
+    positions (:func:`cache_shards` of ``transformer.init_cache``'s):
+    its slots [lo, hi) of ``k`` / ``v`` (every KV head) and ``slot_pos``,
+    with its own scratch slot past its last real one; ``conv`` / ``ssm``
+    whole; ``cross_k`` / ``cross_v`` on the rank's KV heads; the span
+    under :data:`SEQ_SPAN`.  Without a production context over ranks,
+    ``transformer.init_cache`` itself."""
+    from repro_torch.models import transformer
+    if not production(sctx):
+        return transformer.init_cache(cfg, batch, max_len, dtype, device,
+                                      sctx)
+    S = transformer.cache_len_for(cfg, max_len)
+    lo, hi = seq_piece(S, sctx)
+    cache = transformer.init_cache(cfg, batch, hi - lo, dtype, device)
+    h0, h1 = cross_heads(cfg, sctx)
+    for name in ("cross_k", "cross_v"):
+        if name in cache and h1 - h0 != cfg.num_kv_heads:
+            cache[name] = cache[name][..., h0:h1, :].contiguous()
+    if "slot_pos" in cache:
+        cache[SEQ_SPAN] = torch.tensor([lo, hi, S], dtype=torch.int64)
+    return cache
+
+
+def cache_shards(cfg: ModelConfig, cache: dict, sctx: Optional[ShardCtx]
+                 ) -> dict:
+    """This rank's piece of a whole cache (``transformer.init_cache``'s
+    layout, the one-device cache), a copy: :func:`init_cache`'s layout
+    holding the cache's values.  Without a production context over
+    ranks, the cache itself."""
+    from repro_torch.models.transformer import POSITION_DIM
+    if not production(sctx):
+        return cache
+    out = {}
+    span = None
+    if "slot_pos" in cache:
+        S = cache["slot_pos"].shape[1]
+        lo, hi = seq_piece(S, sctx)
+        span = torch.tensor([lo, hi, S], dtype=torch.int64)
+    h0, h1 = cross_heads(cfg, sctx)
+    for name, t in cache.items():
+        if name in POSITION_DIM:
+            dim = POSITION_DIM[name]
+            out[name] = _with_scratch_copy(t.narrow(dim, lo, hi - lo), dim,
+                                           _FILL[name])
+        elif name in ("cross_k", "cross_v"):
+            out[name] = t[..., h0:h1, :].contiguous()
+        elif name != SEQ_SPAN:
+            out[name] = t.clone()
+    if span is not None:
+        out[SEQ_SPAN] = span
+    return out
+
+
+def gather_cache(cfg: ModelConfig, shards: dict, sctx: Optional[ShardCtx]
+                 ) -> dict:
+    """The whole cache from every rank's piece (the inverse of
+    :func:`cache_shards`, a collective): ``k`` / ``v`` / ``slot_pos``
+    gathered along the sequence in rank order, the cross-attention
+    memory along its heads, in ``transformer.init_cache``'s layout
+    (scratch slots included); ``conv`` / ``ssm`` as they are.  A cache
+    held whole on every rank comes back as it is."""
+    from repro_torch.models.transformer import POSITION_DIM
+    if not production(sctx):
+        return shards
+    out = {}
+    lo, hi, S = span_of(shards) if "slot_pos" in shards else (0, 0, 0)
+    h0, h1 = cross_heads(cfg, sctx)
+    for name, t in shards.items():
+        if name in POSITION_DIM:
+            dim = POSITION_DIM[name]
+            whole = t if hi - lo == S else all_gather(t, dim, sctx)
+            out[name] = _with_scratch_copy(whole, dim, _FILL[name])
+        elif name in ("cross_k", "cross_v") and h1 - h0 != cfg.num_kv_heads:
+            out[name] = all_gather(t, -2, sctx)
+        elif name != SEQ_SPAN:
+            out[name] = t
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the production layout: step builders
 # ---------------------------------------------------------------------------
 
-NEXT_SLICE = ("the cached steps at tp > 1 under the production layout "
-              "(the KV cache split along its sequence, K1 / K2 softmax "
-              "partials merged across ranks) are slice 15's")
-
-
-def check_cached(sctx: Optional[ShardCtx]) -> None:
-    """Refuse a cached step on a production context of more than one
-    rank."""
-    if sctx is not None and not sctx.exact and sctx.tp_size > 1:
-        raise NotImplementedError(NEXT_SLICE)
+NEXT_SLICE = ("a data axis over ranks (data parallelism, FSDP of the "
+              "`embed` axis over `data`) is slice 16's; the port runs the "
+              "model axis over ranks")
 
 
 def build_train_step(cfg: ModelConfig, sctx: Optional[ShardCtx], gcfg=None,
@@ -611,9 +758,11 @@ def build_train_step(cfg: ModelConfig, sctx: Optional[ShardCtx], gcfg=None,
 def build_prefill_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
     """``prefill_step(params, tokens, positions, cache, **aux) -> cache``:
     the production prefill, every row writing slots [start, start+T) of
-    the cache (``forward(contiguous_update=True)``), in place."""
+    the cache (``forward(contiguous_update=True)``), in place.  On k
+    ranks ``params`` are the rank's :func:`param_shards` and ``cache`` its
+    piece (:func:`init_cache`, :func:`cache_shards`), as for every cached
+    builder below."""
     from repro_torch.models.transformer import forward
-    check_cached(sctx)
 
     @torch.no_grad()
     def prefill_step(params, tokens, positions, cache, **aux):
@@ -633,7 +782,6 @@ def build_serve_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
     """``serve_step(params, tokens, positions, cache) -> (next token (B,)
     int32, cache)``: one token appended, the greedy next one."""
     from repro_torch.models.transformer import forward
-    check_cached(sctx)
 
     @torch.no_grad()
     def serve_step(params, tokens, positions, cache):
@@ -649,7 +797,6 @@ def build_verify_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
     int32, cache)``: γ+1 candidates scored in one forward, the greedy
     target at each."""
     from repro_torch.models.transformer import forward
-    check_cached(sctx)
 
     @torch.no_grad()
     def verify_step(params, tokens, positions, cache):
@@ -666,7 +813,6 @@ def build_tree_verify_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
     in one forward (``slot_index`` their slots, ``within`` (B, T, T)
     each node's ancestors, ``mask`` the live nodes), through K2."""
     from repro_torch.models.transformer import forward
-    check_cached(sctx)
 
     @torch.no_grad()
     def tree_verify_step(params, tokens, positions, slot_index, mask, within,

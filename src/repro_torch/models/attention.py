@@ -35,7 +35,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               softcap: float = 0.0,
               allowed_mask: Optional[torch.Tensor] = None,
               contiguous: bool = False,
-              split_like: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+              split_like: Optional[Tuple[int, int]] = None,
+              lse: bool = False):
     """q: (B,T,Hq,D); k,v: (B,S,Hk,D); q_pos (B,T) and k_pos (B,S)
     absolute positions -> (B,T,Hq,D).
 
@@ -60,11 +61,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``split_like`` (Hq, Hk): q, k, v hold a rank's shard of a layer of Hq
     query and Hk KV heads; K1 / K2 then cut the cache into the shares the
     unsharded call would, so each head's result does not depend on the
-    tensor-parallel degree."""
+    tensor-parallel degree.
+
+    ``lse=True`` (the slot-cache path): K1 / K2's partials, (o f32, the
+    rows' log-sum-exp (B,T,Hq) f32, -inf where a row sees no key), for a
+    merge across shares of the slots (``sharding.merge_ranks``)."""
     if softcap:
         raise NotImplementedError(
             "attention softcap is not on a ported path")
     if contiguous:
+        if lse:
+            raise NotImplementedError("lse is the slot-cache path's")
         if kv_valid is not None or allowed_mask is not None:
             raise NotImplementedError(
                 "kv_valid / allowed_mask on the cache-free path are not "
@@ -75,6 +82,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "the slot-cache path is causal with kv_valid = k_pos >= 0")
     if allowed_mask is not None:
         return tree_verify(q, k, v, q_pos, k_pos, allowed_mask,
-                           window=window, split_like=split_like)
+                           window=window, split_like=split_like, lse=lse)
     return spec_verify(q, k, v, q_pos, k_pos, window=window,
-                       split_like=split_like)
+                       split_like=split_like, lse=lse)

@@ -212,7 +212,7 @@ def moe_capacity(x: torch.Tensor, p: dict, cfg, sctx):
     x's gradient comes back whole on every rank (the ranks' partials
     summed).  A data axis in the context (``dp_size`` > 1, only a
     hand-built ``ShardCtx``: ``launch.mesh`` runs no data axis over
-    ranks until slice 15) takes each data shard's batch rows one after
+    ranks until slice 16) takes each data shard's batch rows one after
     another, each with its own C, as the reference does on its (2, 2)
     meshes, against which the tests hold this loop."""
     B, S, d = x.shape

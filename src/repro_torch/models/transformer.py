@@ -32,8 +32,11 @@ otherwise be sharded, so the logits, and the sampled tokens, are
 bitwise the one-device ones.  The production (Megatron) layout's
 context: the cache-free forward on the rank's ``param_shards``, with
 row-parallel ``wo`` / ``wd`` and the residual stream split along the
-sequence (``_Layout``), and the contiguous prefill of the production
-steps (one rank).
+sequence (``_Layout``), and the cached steps on the same layout, each
+rank holding a piece of the KV cache split along its sequence
+(``launch.steps.init_cache``): the step's q and new K/V gathered to
+every head, each rank writing and attending its own slots through K1 /
+K2's partials, the ranks' partials merged (``sharding.merge_ranks``).
 
 The cache is updated in place, which replaces JAX's buffer donation:
 ``forward`` writes this step's K/V rows and slot positions into the
@@ -61,9 +64,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.launch.steps import (NEXT_SLICE, attn_whole,
-                                      engine_param_shards, kv_heads,
-                                      mlp_whole, vocab_whole)
+from repro_torch.launch import steps as _steps
+from repro_torch.launch.steps import (attn_whole, engine_param_shards,
+                                      heads_of, kv_heads, mlp_whole,
+                                      production, span_of, vocab_whole)
 from repro_torch.models.attention import attention
 from repro_torch.models.common import apply_rope, lin, rms_norm
 from repro_torch.models.mamba2 import init_mamba_block, mamba_block
@@ -230,10 +234,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     audio models: the cross-attention memory ``cross_k`` / ``cross_v``
     ``(n_cross,B,Tm,Hk,D)`` in ``dtype``, zero until
     :func:`build_cross_cache` fills it.  Neither has a position axis or
-    a scratch slot: nothing writes them by position.  With ``sctx`` the
-    K/V and cross-attention leaves hold this rank's KV heads only
-    (``launch.steps.kv_heads``)."""
+    a scratch slot: nothing writes them by position.  With the engine's
+    exact ``sctx`` the K/V and cross-attention leaves hold this rank's KV
+    heads only (``launch.steps.kv_heads``); with the production layout's
+    over ranks, the rank's piece (``launch.steps.init_cache``)."""
     check_arch(cfg)
+    if production(sctx):
+        return _steps.init_cache(cfg, batch, max_len, sctx, dtype, device)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     S = cache_len_for(cfg, max_len)
@@ -470,8 +477,13 @@ def encode_audio(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     (B, Tf, d): each ``enc_layers`` layer attends the frames to each
     other at positions 0..Tf-1 (RoPE included), non-causal, through K3,
     then its MLP.  Without gradients (serving); the cache-free forward
-    runs the same layers under autograd.  Under ``sctx`` each layer runs
-    on this rank's heads and ``ff`` columns with the exact gathers."""
+    runs the same layers under autograd.  Under the engine's exact
+    ``sctx`` each layer runs on this rank's heads and ``ff`` columns with
+    the exact gathers; under the production layout's over ranks, on the
+    rank's pieces (``_Layout``, the frames whole on every rank)."""
+    if production(sctx):
+        return _encode_audio(cfg, params, frames, lay=_Layout(
+            cfg, sctx, frames.shape[1], False, seq=False))
     return _encode_audio(cfg, params, frames, sctx=sctx)
 
 
@@ -483,7 +495,8 @@ def build_cross_cache(cfg: ModelConfig, params: dict,
     ``cfg.dtype``, from the modality embeddings (B, Tm, d): the image
     embeddings themselves, or the audio encoder's output over the
     frames.  With a rank's shard of the params (``sctx``), Hk is that
-    rank's KV heads."""
+    rank's KV heads (all of them where the production layout runs
+    attention whole): its own ``wk`` / ``wv`` columns make them."""
     if cfg.arch_type == "vlm":
         blocks = [cell["cross"] for cell in params["cells"]]
     elif cfg.arch_type == "audio":
@@ -574,18 +587,23 @@ class _Layout:
 _ONE = _Layout(None, None, 0, False)
 
 
-def _attn_block(p, x, cfg, positions, lay, causal=True):
+def _attn_block(p, x, cfg, positions, lay, causal=True, kv=None):
     """A self-attention sub-layer of the cache-free forward (positions
     0..T-1 whole), through K3; under a split layout on the rank's heads
-    with the row-parallel ``wo``."""
+    with the row-parallel ``wo``.  ``kv`` (a :class:`_Cached` step, the
+    layer's K and V pieces): the cached step's attention on this rank's
+    slots instead (:meth:`_Cached.attend`)."""
     if lay.attn_whole:
         return lay.whole_out(_attn_block(p, lay.whole_in(x), cfg, positions,
-                                         _ONE, causal))
+                                         _ONE, causal, kv))
     xn = rms_norm(x, lay.norm(p["ln"]), cfg.rms_eps)
     q, k, v = _project_qkv(p, lay.enter(xn), cfg, positions)
-    o = attention(q, k, v, positions, positions, causal=causal,
-                  window=cfg.sliding_window,
-                  softcap=cfg.attn_logit_softcap, contiguous=True)
+    if kv is None:
+        o = attention(q, k, v, positions, positions, causal=causal,
+                      window=cfg.sliding_window,
+                      softcap=cfg.attn_logit_softcap, contiguous=True)
+    else:
+        o = kv[0].attend(q, k, v, kv[1], kv[2], lay)
     B, T = o.shape[:2]
     return x + lay.leave(lin(o.reshape(B, T, -1), p["wo"]))
 
@@ -599,35 +617,43 @@ def _mlp_block(p, x, cfg, lay):
     return x + lay.leave(lin(_swiglu(p, xg), p["wd"]))
 
 
-def _dense_block(p, x, cfg, positions, lay):
-    x = _attn_block(p["attn"], x, cfg, positions, lay)
+def _dense_block(p, x, cfg, positions, lay, kv=None):
+    x = _attn_block(p["attn"], x, cfg, positions, lay, kv=kv)
     return _mlp_block(p["mlp"], x, cfg, lay)
 
 
-def _moe_block(p, x, cfg, positions, lay):
+def _moe_block(p, x, cfg, positions, lay, kv=None):
     """Attention, then the MoE layer on the normed stream, whole on every
     rank (``moe_forward``: dense with no context, the capacity dispatch
     under the production one, which hands back the rank's rows under
     ``sp``)."""
-    x = _attn_block(p["attn"], x, cfg, positions, lay)
+    x = _attn_block(p["attn"], x, cfg, positions, lay, kv=kv)
     xn = rms_norm(x, lay.norm(p["ln2"]), cfg.rms_eps)
     y, aux = moe_forward(lay.whole_in(xn), p["moe"], cfg, lay.moe_sctx)
     return x + y, aux
 
 
-def _cross_block(p, x, cfg, mem, lay):
-    """A cross block over the memory (B, Tm, d), whole on every rank;
-    under a split layout on the rank's heads."""
+def _cross_block(p, x, cfg, mem, lay, kv=None):
+    """A cross block over the memory (B, Tm, d), whole on every rank,
+    through K3; under a split layout on the rank's heads.  ``kv``: the
+    cached memory's K and V (the rank's KV heads of ``cross_k`` /
+    ``cross_v``) instead, through K1 at zero positions
+    (``_cross_attn``)."""
     if lay.attn_whole:
         return lay.whole_out(_cross_block(p, lay.whole_in(x), cfg, mem,
-                                          _ONE))
+                                          _ONE, kv))
     xg = lay.enter(rms_norm(x, lay.norm(p["ln"]), cfg.rms_eps))
     B, T, _ = xg.shape
     q = lin(xg, p["wq"]).reshape(B, T, -1, cfg.head_dim)
-    k, v = _cross_kv(p, lay.memory(mem), cfg)
-    o = attention(q, k, v, _zero_positions(B, T, q.device),
-                  _zero_positions(B, k.shape[1], q.device), causal=False,
-                  contiguous=True)
+    if kv is None:
+        k, v = _cross_kv(p, lay.memory(mem), cfg)
+        o = attention(q, k, v, _zero_positions(B, T, q.device),
+                      _zero_positions(B, k.shape[1], q.device),
+                      causal=False, contiguous=True)
+    else:
+        k, v = kv
+        o = attention(q, k, v, _zero_positions(B, T, q.device),
+                      _zero_positions(B, k.shape[1], q.device))
     return x + lay.leave(lin(o.reshape(B, T, -1), p["wo"]))
 
 
@@ -823,25 +849,71 @@ def _allowed_mask(cfg, positions, slots, slot_pos, within_mask):
     return out
 
 
-def _contiguous_slots(positions, slot_pos, ring):
+def _contiguous_slots(positions, slot_pos, ring, span):
     """The contiguous prefill's slots: writes ``slot_pos`` and returns
     the (T,) slot index every row writes, [start, start + T) with start
     = ``positions[0, 0]`` clamped to [0, S - T] (the JAX package's
     dynamic update slice), built on the device; or, for a ring cache's
     whole-window prefill (T >= S), rolls the last S positions into
-    ``slot_pos`` and returns None."""
-    S = slot_pos.shape[1]
+    ``slot_pos`` and returns None.  ``span`` (lo, hi, S): ``slot_pos`` is
+    a rank's piece, slots [lo, hi) of S; the index is then local, and a
+    slot the piece does not hold goes to its scratch slot (hi - lo), so
+    no rank needs to know how much of the window it holds."""
+    lo, hi, S = span
+    n = hi - lo
     T = positions.shape[1]
     if ring:
-        slot_pos.copy_(torch.roll(positions[:, T - S:], (T - S) % S, 1))
+        slot_pos.copy_(torch.roll(positions[:, T - S:], (T - S) % S,
+                                  1)[:, lo:hi])
         return None
     if T > S:
         raise ValueError(f"a contiguous prefill of {T} tokens does not fit "
                          f"a cache of {S} slots")
     start = positions[0, 0].long().clamp(0, S - T)
-    idx = start + torch.arange(T, device=positions.device)
-    slot_pos.index_copy_(1, idx, positions.to(slot_pos.dtype))
+    idx = start - lo + torch.arange(T, device=positions.device)
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    with_scratch(slot_pos, 1).index_copy_(1, idx,
+                                          positions.to(slot_pos.dtype))
     return idx
+
+
+def _step_slots(cfg, positions, slot_pos, span, contiguous_update,
+                slot_index, token_mask, within_mask):
+    """One step's writes to ``slot_pos`` (in place) and what its
+    attention layers need: (positions, bidx, slots, slot_pos, allowed).
+    The contiguous prefill: bidx None, slots its (T,) index (None for the
+    ring roll).  Else the per-row scatter: bidx (B, 1), slots (B, T) with
+    masked tokens and writes past a non-ring cache at the scratch slot,
+    and ``allowed`` the tree step's mask.  ``span`` (lo, hi, S): slot
+    indices are local to a rank's piece [lo, hi) of S slots, and a slot
+    it does not hold goes to its scratch slot too."""
+    lo, hi, S = span
+    n = hi - lo
+    B, T = positions.shape
+    ring = cfg.sliding_window > 0
+    if contiguous_update and token_mask is None and (not ring or T >= S):
+        return (positions, None,
+                _contiguous_slots(positions, slot_pos, ring, span),
+                slot_pos, None)
+    if slot_index is not None:
+        slots = slot_index.long()
+    else:
+        slots = positions.long()
+        if ring:
+            slots = slots % S
+    keep = slots < S
+    if token_mask is not None:
+        keep = keep & token_mask
+    if n != S:
+        slots = slots - lo
+        keep = keep & (slots >= 0) & (slots < n)
+    slots = torch.where(keep, slots, n)
+    bidx = torch.arange(B, device=positions.device)[:, None]
+    with_scratch(slot_pos, 1)[bidx, slots] = positions
+    allowed = None
+    if within_mask is not None:
+        allowed = _allowed_mask(cfg, positions, slots, slot_pos, within_mask)
+    return positions, bidx, slots, slot_pos, allowed
 
 
 def _ssm_stack(cfg, blocks, x, token_mask, cache, rec, first):
@@ -906,6 +978,134 @@ def _audio_stack(cfg, params, x, cache, attn_args, sctx=None):
     return x
 
 
+class _Cached:
+    """One cached step of the production layout on this rank's piece of
+    the KV cache: the step's slots (``_step_slots``, local to the piece)
+    and, where the ranks hold shares of the slots, the context whose
+    ranks' partials are merged."""
+
+    def __init__(self, cfg, attn_args, span, sctx):
+        self.cfg = cfg
+        self.positions, self.bidx, self.slots, self.slot_pos, \
+            self.allowed = attn_args
+        self.lo, hi, self.S = span
+        self.merge = sctx if hi - self.lo != self.S else None
+
+    def attend(self, q, k, v, ck, cv, lay):
+        """The attention output on q's heads (the rank's, or all where
+        attention runs whole, ``lay`` then ``_ONE``): q and the new k, v
+        gathered to every head (``sharding.gather_heads``), this step's
+        K/V written to the slots the rank holds (the rest to its scratch
+        slot), then K1 / K2 over its slots; with a merge, their partials
+        (``lse=True``) merged over the ranks in rank order
+        (``sharding.merge_ranks``), which hands back q's heads.  The ring
+        roll of a whole-window prefill keeps the rank's slots of the
+        rolled tail and attends the step's own K/V through K3, as one
+        device does: nothing to merge."""
+        cfg = self.cfg
+        pos = self.positions
+        qa, ka, va = sharding.gather_heads((q, k, v), lay.sctx)
+        if self.bidx is None and self.slots is None:
+            T, S, n = ka.shape[1], self.S, ck.shape[1]
+            shift = (T - S) % S
+            for c, t in ((ck, ka), (cv, va)):
+                c.copy_(torch.roll(t[:, T - S:].to(c.dtype), shift,
+                                   1)[:, self.lo:self.lo + n])
+            return attention(q, k, v, pos, pos, window=cfg.sliding_window,
+                             softcap=cfg.attn_logit_softcap, contiguous=True)
+        for c, t in ((ck, ka), (cv, va)):
+            if self.bidx is None:
+                with_scratch(c, 1).index_copy_(1, self.slots, t.to(c.dtype))
+            else:
+                with_scratch(c, 1)[self.bidx, self.slots] = t.to(c.dtype)
+        heads = None
+        if lay.sctx is not None:
+            hs = heads_of(cfg, lay.sctx)
+            heads = (hs.q_lo, hs.q_hi)
+        if self.merge is None:
+            o = attention(qa, ck, cv, pos, self.slot_pos,
+                          window=cfg.sliding_window,
+                          softcap=cfg.attn_logit_softcap,
+                          allowed_mask=self.allowed)
+            return o if heads is None else o[:, :, heads[0]:heads[1]]
+        o, lse = attention(qa, ck, cv, pos, self.slot_pos,
+                           window=cfg.sliding_window,
+                           softcap=cfg.attn_logit_softcap,
+                           allowed_mask=self.allowed, lse=True)
+        return sharding.merge_ranks(o, lse, self.merge, heads).to(q.dtype)
+
+
+def _mamba_cached(blocks, x, cfg, lay, token_mask, cache, rec, first):
+    """Mamba2 blocks over the cache's recurrent state, whole on the whole
+    step on every rank (``_ssm_stack``)."""
+    if not blocks:
+        return x
+    x = _ssm_stack(cfg, blocks, lay.whole_in(x), token_mask, cache, rec,
+                   first)
+    return lay.whole_out(x)
+
+
+def _forward_ranks(cfg, params, tokens, cache, attn_args, token_mask, rec,
+                   logits, sctx):
+    """The cached forward of the production layout over ranks: the
+    cache-free forward's layout (``_Layout``) with each attention layer
+    on the rank's piece of the cache (:class:`_Cached`) and each cross
+    block on its heads of the cached memory.  -> (logits, cache, aux)."""
+    T = tokens.shape[1]
+    lay = _Layout(cfg, sctx, T, False)
+    x = _embed_nocache(cfg, params, tokens, lay)
+    step = None
+    if attn_args is not None:
+        positions = attn_args[0]
+        step = _Cached(cfg, attn_args, span_of(cache), sctx)
+
+    def kv(i):
+        return step, cache["k"][i], cache["v"][i]
+
+    def mem(i):
+        return cache["cross_k"][i], cache["cross_v"][i]
+
+    aux = 0.0
+    at = cfg.arch_type
+    if at in ("dense", "moe"):
+        dense, moe = params["layers"], []
+        if at == "moe":
+            dense, moe = params.get("dense_layers", []), params["layers"]
+        for i, p in enumerate(dense + moe):
+            if i < len(dense):
+                x = _dense_block(p, x, cfg, positions, lay, kv(i))
+            else:
+                x, a = _moe_block(p, x, cfg, positions, lay, kv(i))
+                aux = aux + a
+    elif at == "ssm":
+        x = _mamba_cached(params["layers"], x, cfg, lay, token_mask, cache,
+                          rec, 0)
+    elif at == "hybrid":
+        every = cfg.hybrid_attn_every
+        for c, cell in enumerate(params["cells"]):
+            x = _mamba_cached(cell["ssm"], x, cfg, lay, token_mask, cache,
+                              rec, c * every)
+            x = _attn_block(params["shared_attn"], x, cfg, positions, lay,
+                            kv=kv(c))
+            x = _mlp_block(params["shared_mlp"], x, cfg, lay)
+        x = _mamba_cached(params.get("tail", []), x, cfg, lay, token_mask,
+                          cache, rec, len(params["cells"]) * every)
+    elif at == "vlm":
+        every = cfg.cross_attn_every
+        for c, cell in enumerate(params["cells"]):
+            for j, p in enumerate(cell["self"]):
+                x = _dense_block(p, x, cfg, positions, lay, kv(c * every + j))
+            x = _cross_block(cell["cross"], x, cfg, None, lay, mem(c))
+    else:
+        for i, p in enumerate(params["dec_layers"]):
+            x = _attn_block(p["attn"], x, cfg, positions, lay, kv=kv(i))
+            x = _cross_block(p["cross"], x, cfg, None, lay, mem(i))
+            x = _mlp_block(p["mlp"], x, cfg, lay)
+    if not logits:
+        return None, cache, aux
+    return _unembed_nocache(cfg, params, x, lay), cache, aux
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor, cache: Optional[dict] = None, *,
             aux_inputs: Optional[dict] = None,
@@ -964,23 +1164,27 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     ``sctx`` without ``exact`` (the production Megatron layout,
     ``launch.mesh.make_shard_ctx``): ``params`` are this rank's
-    ``launch.steps.param_shards``.  The cache-free forward runs on any
-    number of ranks (``_Layout``: the vocabulary-parallel embedding,
-    the residual stream split along the sequence in training, column-
-    then row-parallel sub-layers with their sums, Mamba2 blocks whole on
-    the gathered sequence, logits gathered whole), its MoE layers
-    through the capacity dispatch.  With a cache it runs on one rank
-    (MoE layers on the capacity dispatch); on more it raises: the KV
-    cache split along its sequence is the next slice's."""
+    ``launch.steps.param_shards``, on any number of ranks (``_Layout``:
+    the vocabulary-parallel embedding, the residual stream split along
+    the sequence in training or where the context's ``seq_shard`` and T
+    allow, column- then row-parallel sub-layers with their sums, Mamba2
+    blocks whole on the gathered sequence, logits gathered whole), its
+    MoE layers through the capacity dispatch.  With a cache on more than
+    one rank (no gradients) ``cache`` is the rank's piece
+    (``launch.steps.init_cache`` / ``cache_shards``: ``k`` / ``v`` and
+    ``slot_pos`` split along the sequence, ``conv`` / ``ssm`` whole,
+    ``cross_k`` / ``cross_v`` on the rank's KV heads); each attention
+    layer gathers the step's q and new K/V to every head, writes the
+    slots the rank holds (the rest to its scratch slot), runs K1 / K2's
+    partials over its slots and merges the ranks' in rank order
+    (:class:`_Cached`); a cache held whole on every rank (S does not
+    divide the group) is attended whole, with no merge."""
     check_arch(cfg)
-    if sctx is not None and sctx.tp_size > 1:
-        if sctx.exact and cache is None:
-            raise NotImplementedError(
-                "the cache-free forward runs the production layout "
-                "(exact=False); the engine's exact context is a cached "
-                "path")
-        if not sctx.exact and cache is not None:
-            raise NotImplementedError(NEXT_SLICE)
+    if sctx is not None and sctx.tp_size > 1 and sctx.exact \
+            and cache is None:
+        raise NotImplementedError(
+            "the cache-free forward runs the production layout "
+            "(exact=False); the engine's exact context is a cached path")
     if cache is None:
         if token_mask is not None or slot_index is not None \
                 or within_mask is not None or contiguous_update:
@@ -993,41 +1197,17 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         return logits_, None, aux
     if (slot_index is None) != (within_mask is None):
         raise ValueError("slot_index and within_mask come together")
-    B, T = tokens.shape
-    dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dtype)
-
     attn_args = None
     if "slot_pos" in cache:
-        slot_pos = cache["slot_pos"]
-        S = slot_pos.shape[1]
-        ring = cfg.sliding_window > 0
-        contiguous = contiguous_update and token_mask is None and \
-            (not ring or T >= S)
-        if contiguous:
-            attn_args = (positions, None,
-                         _contiguous_slots(positions, slot_pos, ring),
-                         slot_pos, None)
-        else:
-            if slot_index is not None:
-                slots = slot_index.long()
-            else:
-                slots = positions.long()
-                if ring:
-                    slots = slots % S
-            keep = slots < S
-            if token_mask is not None:
-                keep = keep & token_mask
-            slots = torch.where(keep, slots, S)
-            bidx = torch.arange(B, device=tokens.device)[:, None]
-            with_scratch(slot_pos, 1)[bidx, slots] = positions
-            allowed = None
-            if within_mask is not None:
-                allowed = _allowed_mask(cfg, positions, slots, slot_pos,
-                                        within_mask)
-            attn_args = (positions, bidx, slots, slot_pos, allowed)
-
+        attn_args = _step_slots(cfg, positions, cache["slot_pos"],
+                                span_of(cache), contiguous_update,
+                                slot_index, token_mask, within_mask)
     rec = cache if rec_out is None else rec_out
+    if production(sctx):
+        return _forward_ranks(cfg, params, tokens, cache, attn_args,
+                              token_mask, rec, logits, sctx)
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dtype)
     aux = 0.0
     if cfg.arch_type in ("dense", "moe"):
         x, aux = _decoder_stack(cfg, params, x, cache, attn_args, sctx)

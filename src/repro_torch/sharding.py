@@ -43,6 +43,13 @@ and, for a region every rank computes whole, :func:`gather_whole`
 (all-gather, whose backward keeps the rank's piece) and
 :func:`split_seq` (the rank's piece, whose backward all-gathers).  Each
 call adds its bytes to :data:`traffic`.
+
+The production layout's cached steps (no backward) hold the KV cache
+split along its sequence while the weights split by heads:
+:func:`gather_heads` moves a step's q and new K/V from the rank's heads
+to all of them (one all-gather), and :func:`merge_ranks` merges the
+ranks' attention partials (K1 / K2's ``lse=True`` outputs over each
+rank's slots) in rank order and hands each rank its heads.
 """
 from __future__ import annotations
 
@@ -265,7 +272,7 @@ def split_range(n: int, tp_size: int, rank: int) -> Tuple[int, int]:
 # them (its input as sent)
 traffic = {"all_gather": 0, "all_gather_bytes": 0, "lockstep": 0,
            "all_reduce": 0, "all_reduce_bytes": 0, "reduce_scatter": 0,
-           "reduce_scatter_bytes": 0}
+           "reduce_scatter_bytes": 0, "head_gather": 0, "merge_ranks": 0}
 
 
 def reset_traffic() -> None:
@@ -450,6 +457,53 @@ def split_seq(t: torch.Tensor, sctx: Optional[ShardCtx], dim: int = 1
     """This rank's piece, along ``dim``, of a ``t`` every rank holds
     whole; the backward all-gathers the pieces' gradients."""
     return _collective(t, "piece", "gather", dim, sctx)
+
+
+def _no_grad(what: str, *ts: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{what} has no backward: the cached steps run "
+                           "under torch.no_grad")
+
+
+def gather_heads(ts, sctx: Optional[ShardCtx]) -> list:
+    """Each of ``ts`` (..., h_r, D) tensors of one dtype holding this
+    rank's heads, whole: every rank's heads in rank order along dim -2
+    (one all-gather for all of them; ``ts`` themselves on one rank or no
+    context).  Under ``torch.no_grad`` only."""
+    ts = list(ts)
+    if sctx is None or sctx.tp_size == 1:
+        return ts
+    _no_grad("gather_heads", *ts)
+    widths = [t.shape[-2] for t in ts]
+    parts = all_gather_parts(torch.cat(ts, dim=-2), sctx)
+    traffic["head_gather"] += 1
+    pieces = [p.split(widths, dim=-2) for p in parts]
+    return [torch.cat([pc[i] for pc in pieces], dim=-2)
+            for i in range(len(ts))]
+
+
+def merge_ranks(o: torch.Tensor, lse: torch.Tensor, sctx: Optional[ShardCtx],
+                heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The attention of every rank's share of the slots from each rank's
+    partials, o (B, T, H, D) f32 and its log-sum-exp (B, T, H) f32 (K1 /
+    K2 with ``lse=True`` on all H heads over this rank's slots): merged
+    in rank order (``spec_verify.ref.merge_lse``), so a head's result
+    does not depend on the rank that merges it.  ``heads`` (lo, hi): the
+    heads this rank keeps (its query heads; all when None, where
+    attention runs whole on every rank).  f32 out.  One all-gather of the
+    partials; under ``torch.no_grad`` only."""
+    from repro_torch.kernels.spec_verify.ref import merge_lse
+    if heads is not None:
+        lo, hi = heads
+    else:
+        lo, hi = 0, o.shape[2]
+    if sctx is None or sctx.tp_size == 1:
+        return o[:, :, lo:hi]
+    _no_grad("merge_ranks", o, lse)
+    parts = all_gather_parts(torch.cat([o, lse[..., None]], dim=-1), sctx)
+    traffic["merge_ranks"] += 1
+    return merge_lse([(p[:, :, lo:hi, :-1], p[:, :, lo:hi, -1])
+                      for p in parts])
 
 
 def batch_digest(*arrays: np.ndarray) -> int:

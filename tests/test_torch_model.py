@@ -207,17 +207,19 @@ def test_unported_paths_raise():
     tok = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         forward(cfg, params, tok, tok, None)
-    # the contiguous prefill runs (tests/test_torch_production_steps.py);
-    # what stays refused on it is a cached forward under the production
-    # layout's context across ranks (its KV cache split along the
-    # sequence is slice 15's), the contiguous prefill included
-    from repro_torch.sharding import ShardCtx
-    cache = init_cache(cfg, 1, 8, device="cpu")
-    for contiguous in (True, False):
-        with pytest.raises(NotImplementedError, match="slice 15"):
-            forward(cfg, params, tok, tok, cache,
-                    contiguous_update=contiguous,
-                    sctx=ShardCtx(tp_size=2, exact=False))
+    # the contiguous prefill and the cached forward under the production
+    # layout's context across ranks run (tests/test_torch_production_
+    # steps.py, test_torch_production_cache.py); what stays refused of
+    # that layout is a data axis over ranks (slice 16's), which its
+    # meshes refuse before any rank runs
+    from repro_torch.launch import mesh
+    orig = mesh._world
+    mesh._world = lambda: 4
+    try:
+        with pytest.raises(NotImplementedError, match="slice 16"):
+            mesh.small_mesh(2)
+    finally:
+        mesh._world = orig
     # VLM and audio models: their cache-free forward needs the image
     # embeddings or audio frames, and RLTrainer refuses them, as the
     # reference's fails on them (its batch carries neither)

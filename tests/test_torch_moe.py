@@ -121,8 +121,10 @@ def test_tensor_parallel_and_training_refused(models):
     the engine's exact one) runs now, on one rank too, where it keeps
     every token at the default capacity and equals the dense combine
     (tests/test_torch_production.py holds it to the reference's on 1, 2
-    and 2 x 2 ranks); what stays refused is a cached MoE forward under
-    that context across ranks (slice 15).  Training is not refused
+    and 2 x 2 ranks), and a cached MoE forward under that context across
+    ranks runs too (tests/test_torch_production_cache.py); what stays
+    refused is a data axis over ranks (slice 16), which the production
+    meshes refuse before any rank runs.  Training is not refused
     either: the cache-free forward gives logits and the router's aux
     loss, and ``RLTrainer`` takes the model
     (tests/test_torch_train_archs.py and test_torch_train_loop.py hold
@@ -139,10 +141,14 @@ def test_tensor_parallel_and_training_refused(models):
     np.testing.assert_allclose(to_numpy(y), to_numpy(dense_y), rtol=1e-5,
                                atol=1e-5)
     assert float(aux) == float(dense_aux)
-    pos = torch.arange(2, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="slice 15"):
-        forward(tcfg, tp, pos, pos, init_cache(tcfg, 1, 8, device="cpu"),
-                sctx=ShardCtx(tp_size=2, exact=False))
+    from repro_torch.launch import mesh
+    orig = mesh._world
+    mesh._world = lambda: 4
+    try:
+        with pytest.raises(NotImplementedError, match="slice 16"):
+            mesh.make_shard_ctx(mesh.small_mesh(2), train=False)
+    finally:
+        mesh._world = orig
     pos = torch.arange(2, dtype=torch.int32)[None]
     logits, cache, aux = forward(tcfg, tp, pos, pos, None)
     assert cache is None and logits.shape == (1, 2, tcfg.vocab_size)

@@ -1,8 +1,8 @@
 """The production layout's one-rank paths against the JAX package:
 ``forward(contiguous_update=True)`` (the production prefill) and the four
-cached step builders of ``launch/steps.py``, and the refusals that
-remain (a cached forward or builder under the production context across
-ranks: slice 15).
+cached step builders of ``launch/steps.py`` on one rank, and what
+remains refused (a data axis over ranks: slice 16).  The cached paths
+across ranks are ``tests/test_torch_production_cache.py``'s.
 
 Tiny configs at f32 with the reference's weights (``init_params(cfg,
 PRNGKey(1))`` through the bridge), caches from each package's
@@ -256,24 +256,31 @@ def test_cached_builders_match_reference(ctx):
         np.testing.assert_array_equal(a, b)
 
 
-def test_cached_paths_refused_across_ranks():
-    """What the production layout still refuses: a cached forward (the
-    contiguous prefill included) and the four cached builders on more
-    than one rank; their message names slice 15.  The cache-free
-    forward under the engine's exact context is no path either."""
+def test_cached_paths_refused_across_ranks(monkeypatch):
+    """The four cached builders take a production context over ranks
+    now (``tests/test_torch_production_cache.py`` runs them on 2 and 4),
+    and ``init_cache`` under it allocates a rank's piece: half the slots
+    of each of ``k``, ``v`` and ``slot_pos`` and a scratch slot past
+    them, every KV head, its span.  What the production layout still
+    refuses is a data axis over ranks: a mesh whose process group would
+    run one names slice 16.  The cache-free forward under the engine's
+    exact context is no path either."""
     cfg = tcfgs.get_tiny_config("granite-3-8b")
     params = init_params_tiny(cfg)
     tok = torch.arange(4, dtype=torch.int32)[None]
-    prod = ShardCtx(tp_size=2, exact=False)
-    cache = init_cache(cfg, 1, 8, device="cpu")
-    for contiguous in (True, False):
-        with pytest.raises(NotImplementedError, match="slice 15"):
-            forward(cfg, params, tok, tok, cache, sctx=prod,
-                    contiguous_update=contiguous)
+    prod = ShardCtx(tp_size=2, rank=1, exact=False)
     for build in (tsteps.build_prefill_step, tsteps.build_serve_step,
                   tsteps.build_verify_step, tsteps.build_tree_verify_step):
-        with pytest.raises(NotImplementedError, match="slice 15"):
-            build(cfg, prod)
+        assert callable(build(cfg, prod))
+    piece = init_cache(cfg, 1, 8, device="cpu", sctx=prod)
+    assert piece["k"].shape[2] == 4 and piece["slot_pos"].shape == (1, 4)
+    assert piece["k"].shape[3] == cfg.num_kv_heads
+    assert piece[tsteps.SEQ_SPAN].tolist() == [4, 8, 8]
+    assert (with_scratch(piece["slot_pos"], 1) == -1).all()
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(mesh, "_world", lambda: 4)
+    with pytest.raises(NotImplementedError, match="slice 16"):
+        mesh.small_mesh(2)
     with pytest.raises(NotImplementedError, match="exact"):
         forward(cfg, params, tok, tok, None,
                 sctx=ShardCtx(tp_size=2, exact=True))
