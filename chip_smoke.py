@@ -68,7 +68,7 @@ Phases, in this order:
    ``scaled_check`` (``cross_bwd_check``);
 3b. production layout (``production_phase``), after the kernel checks:
    (a) the four cached step builders of ``launch/steps.py`` on a
-   one-rank production context, granite-3-8b at full width and 4 of 40
+   one-rank production context, granite-3-8b at full width and 2 of 40
    layers, bf16, 8 x 2048 slots: a 512-token contiguous prefill (K/V
    bitwise and ``slot_pos`` equal to the engine's scatter forward on
    the same inputs), 16 greedy decodes, a verify of 9 and a three-path
@@ -81,7 +81,7 @@ Phases, in this order:
    one, the empty slots let in) must fail; each width timed beside its
    plain version, SDPA and its bound; (c) ``prod_rank`` in two gloo
    ranks on the card: the production ``build_train_step`` of
-   granite-3-8b and moonshot-v1-16b-a3b (4 layers each, full width, f32)
+   granite-3-8b and moonshot-v1-16b-a3b (2 and 3 layers, full width, f32)
    at tp = 2 against the same at tp = 1 on each rank: loss, grad norm,
    every gradient leaf and the update (in units of lr) within
    ``PROD_TOL``, the MoE layers' capacity drops equal, every dispatch's
@@ -99,12 +99,26 @@ Phases, in this order:
    (prefill at ``PROD_START``): every greedy token equal where (a)'s
    top-2 margin exceeds ``PROD_MARGIN`` of scale, the cache gathered
    after the prefill and at the end (``slot_pos`` exactly, K/V within
-   ``PROD_CACHE_TOL`` of scale), K1 4 x 18 and K2 4 launches a rank and
+   ``PROD_CACHE_TOL`` of scale), K1 2 x 18 and K2 2 launches a rank and
    no plain call; two planted faults must fail the cache check (the last
    rank's partial left out of the merge, a rank's writes on another
-   rank's slots);
+   rank's slots); (c) and (d) run on the first model group of four gloo
+   ranks laid out as a (2, 2) mesh (``PROD_DATA`` x ``TP``), which then
+   run (e): the four cached builders on the mesh, each data rank on its
+   half of (a)'s rows and each model rank on its half of the slots,
+   held to (a) as (d) is (K1 2 x 18 and K2 2 launches a rank), and the
+   production ``build_train_step`` of both archs on the mesh (FSDP of
+   the ``embed`` axis over ``data``, 2 of the 4 rows a data rank)
+   against one rank on a hand-built context with the data axis and no
+   group (the MoE layers' capacity from each data shard's rows, the
+   shards one after another), run on each rank in turn and held at
+   ``PROD_TOL`` as (c) is; two planted faults (the gradient of the
+   leaves whole on ``data`` left unsummed, the loss's denominator left
+   local) must fail that gate; each rank's bytes into the data axes'
+   collectives printed; K3 timed at a data rank's rows and K1 / K2's
+   partials at its share of the cache;
 4. linear slice: a full-width granite-3-8b Seer rollout at
-   ``LINEAR_LAYERS`` (20) of its 40 layers (random weights from a seed,
+   ``LINEAR_LAYERS`` (10) of its 40 layers (random weights from a seed,
    bf16) on two instances
    through the port's entry points, with its checks: every group finishes, every
    cached attention launched K1, at most one host sync per engine step,
@@ -126,7 +140,7 @@ Phases, in this order:
 7. serving, faults and tracing: the reference's own real-engine
    workloads (``bench_engine_faults``, ``bench_observability`` and
    ``bench_serving`` of ``benchmarks/common.py``) on granite-3-8b at
-   ``LINEAR_LAYERS`` (20) of its 40 layers, every dispatch under sync
+   ``LINEAR_LAYERS`` (10) of its 40 layers, every dispatch under sync
    debug 'error'
    (``serving_phase``).  Faults: a warm no-fault oracle, then the bench's
    schedule (a crash, a short stall, a long stall the watchdog escalates,
@@ -178,10 +192,10 @@ Phases, in this order:
    step, dispatch free of host syncs; then the hybrid engine phase, the
    fused step against the sync oracle from the same state, bitwise
    (``rec_engine_check``);
-10. SSM slice: the same for a full-width mamba2-370m at 16 of its 48
+10. SSM slice: the same for a full-width mamba2-370m at 8 of its 48
    blocks (no attention), 4 groups x 4, 64 new tokens;
-11. MoE slice: a full-width moonshot-v1-16b-a3b Seer rollout at 8 of
-   its 48 layers (one dense, 7 MoE of 64 experts top-6 and 2 shared, each
+11. MoE slice: a full-width moonshot-v1-16b-a3b Seer rollout at 4 of
+   its 48 layers (one dense, 3 MoE of 64 experts top-6 and 2 shared, each
    expert run on every token as the reference serves; 16/16 heads of 128;
    random bf16 weights from seed 0, the router in f32) with the linear
    slice's settings on caches of 1024 positions: a cold pass, its
@@ -251,13 +265,13 @@ Phases, in this order:
    (``repro_torch.launch.mesh.spawn``, the backend named: NCCL refuses
    two ranks on one device), started after every model above is freed
    and every kernel library built.  At full width and a cut depth
-   (``TP_MODELS``), bf16, 4 groups x 4, 64 new tokens: granite-3-8b (4
+   (``TP_MODELS``), bf16, 4 groups x 4, 64 new tokens: granite-3-8b (2
    of 40 layers), moonshot-v1-16b-a3b (3 of 48: one dense, two MoE) and
    zamba2-1.2b (its ``CUT_LAYERS`` depth), each at tp=None and tp=1 on
    rank 0 (the whole weights) and twice at tp=2 on both ranks (each
    rank's shard drawn layer by layer from the same seed); granite also a
    tree pass and a pass with every column-parallel product sliced from
-   the unsharded one (``ColumnProducts``); then granite at 4 layers in
+   the unsharded one (``ColumnProducts``); then granite at 2 layers in
    f32 with TF32 off.  Gates: tp=1 bitwise tp=None (tokens, logprobs,
    engine steps, host syncs, launches); each rank's tp=2 repeat bitwise
    and the ranks equal (tokens, logprobs, lockstep digests); one host
@@ -332,10 +346,11 @@ GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
 TRAIN_LAYERS, TRAIN_PROMPT = 12, 384
 # the linear and tree slices' depth (the tree engine's and, since the KV
 # cache across ranks joined the production phase, the serving, faults and
-# tracing phase's too): 20 of granite-3-8b's 40 layers (the script's time
-# limit on a slow host: ~80 s less than 40 for the slices, ~50 s for the
-# serving phase, whose counters the workloads fix, not the depth)
-LINEAR_LAYERS = 20
+# tracing phase's too): 10 of granite-3-8b's 40 layers (the script's time
+# limit on a slow host: 20 took ~80 s less than 40 for the slices, ~50 s
+# for the serving phase, whose counters the workloads fix, not the depth;
+# 10 since the data axis's stage joined the production phase, ~90 s)
+LINEAR_LAYERS = 10
 # the SSM slice's rollout (mamba2-370m): 4 groups of 4, 64 new tokens
 SSM_GROUPS, SSM_NEW_TOKENS = 4, 64
 # K1's head shapes on each path that runs it: Hq, Hk, D, window; and of
@@ -355,10 +370,10 @@ MOE_ARCH, MOE_CACHE_LEN, MOE_NEW_TOKENS = "moonshot-v1-16b-a3b", 1024, 64
 # limit (the host's eager dispatch makes a pass's time grow with depth):
 # zamba2-1.2b keeps two cells of 6 blocks and the 2-block
 # tail of its 38 (the shared attention's second application and the
-# state offsets past the first cell), mamba2-370m 16 of 48 blocks,
-# moonshot-v1-16b-a3b 8 of 48 layers (one dense, 7 MoE: ~20 s less than
-# 16)
-CUT_LAYERS = {"zamba2-1.2b": 14, "mamba2-370m": 16, MOE_ARCH: 8}
+# state offsets past the first cell), mamba2-370m 8 of 48 blocks,
+# moonshot-v1-16b-a3b 4 of 48 layers (one dense, 3 MoE; 16 and 8 until
+# the data axis's stage joined the production phase)
+CUT_LAYERS = {"zamba2-1.2b": 14, "mamba2-370m": 8, MOE_ARCH: 4}
 # the configs whose heads K1 / K2 are checked at beside granite's
 NEW_HEADS = ("moonshot-v1-16b-a3b", "yi-6b", "phi4-mini-3.8b",
              "whisper-tiny")
@@ -4429,15 +4444,16 @@ def serving_phase(torch, np, cfg, params) -> dict:
 # runs twice; each tp=2 pass of 4 layers took ~36 s on a slow host),
 # zamba2-1.2b at its CUT_LAYERS depth; caches of 2048 positions
 # (moonshot 1024); 4 groups x 4, 64 new tokens, bf16, two tp=2 passes of
-# each (the repeat gate); then granite at 4 layers in f32 (TF32 off), 32
-# new tokens
+# each (the repeat gate); then granite at TP_F32_LAYERS in f32 (TF32 off),
+# 32 new tokens.  Granite's 4 layers became 2 when the data axis's stage
+# joined the production phase, which runs at this depth too
 TP = 2
 TP_GROUPS, TP_NEW_TOKENS = 4, 64
-TP_GRANITE_LAYERS = 4
+TP_GRANITE_LAYERS = 2
 TP_MODELS = (("granite-3-8b", TP_GRANITE_LAYERS, 2048),
              (MOE_ARCH, 3, MOE_CACHE_LEN),
              ("zamba2-1.2b", CUT_LAYERS["zamba2-1.2b"], 2048))
-TP_F32_LAYERS, TP_F32_NEW_TOKENS = 4, 32
+TP_F32_LAYERS, TP_F32_NEW_TOKENS = TP_GRANITE_LAYERS, 32
 # the card both ranks run on
 TP_DEVICE = "cuda:0"
 NOT_A_SPEED = ("two ranks sharing one card over gloo (every collective "
@@ -5173,7 +5189,12 @@ PROD_K1_WIDTHS = ((512, 2048), (2048, 2560))
 # width, and its batch (rows x tokens) drawn from this many distinct token
 # ids (repeated tokens crowd the MoE layers' experts, so that capacity
 # drops happen on random weights)
-PROD_TRAIN = (("granite-3-8b", 4), (MOE_ARCH, 4))
+PROD_TRAIN = (("granite-3-8b", PROD_LAYERS), (MOE_ARCH, 3))
+# (e) the data axis over ranks: a (PROD_DATA, TP) mesh of four gloo ranks
+# on the card runs (a)'s cached steps, each data rank on its rows, and
+# PROD_TRAIN's train steps with FSDP of the embed axis over data
+PROD_DATA = 2
+PROD_MESH = f"({PROD_DATA}, {TP})"
 PROD_TRAIN_B, PROD_TRAIN_S, PROD_TRAIN_VOCAB = 4, 256, 16
 # tp = 2 against tp = 1 in f32 (row-parallel and sequence-sharded sums in
 # other orders): loss 1e-5 of max(|loss|, 1) (the on-policy GRPO loss
@@ -5447,37 +5468,62 @@ def _prod_batch(torch, np, cfg, device):
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
-def _prod_train(torch, np, cfg, sctx, device, keep) -> dict:
+def _prod_pieces(torch, cfg, sctx, device, stagger=False) -> dict:
+    """This rank's pieces (``steps.param_shards`` under ``sctx``) of
+    ``cfg``'s seed-0 f32 weights.  ``stagger``: the ranks of the process
+    group draw the whole weights and cut their pieces one after another,
+    so that no two hold the whole model on the card at once."""
+    import torch.distributed as dist
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    turns = range(dist.get_world_size()) if stagger else (None,)
+    for turn in turns:
+        if turn is None or turn == dist.get_rank():
+            gen = torch.Generator(device=device)
+            gen.manual_seed(0)
+            whole = init_params(cfg, gen, device=device, dtype="float32")
+            pieces = steps.param_shards(cfg, whole, sctx)
+            del whole
+            _free(torch)
+        if turn is not None:
+            dist.barrier()
+    return pieces
+
+
+def _prod_train(torch, np, cfg, sctx, device, keep, pieces=None) -> dict:
     """One ``build_train_step`` step of one arch under ``sctx`` (this
-    rank's pieces of the seed-0 f32 weights): its loss and metrics, the
-    MoE layers' capacity drops summed over the ranks, the kernel launches
-    of the step, the dispatch records' disagreements with the plain slot
-    rule (``_slot_rule_misses``), and ``keep`` of two trees of this
-    rank's pieces: the gradient, as AdamW's first moment after one step
-    holds it ((1 - beta1) x the clipped gradient), and the update
-    (parameters after the step less before)."""
+    rank's pieces of the seed-0 f32 weights, ``_prod_pieces``, or a copy
+    of ``pieces`` when given; its rows of the batch): its loss and
+    metrics, the MoE layers' capacity drops summed over the ranks, the
+    kernel launches of the step, the dispatch records' disagreements
+    with the plain slot rule (``_slot_rule_misses``), and ``keep`` of two
+    trees of this rank's pieces: the gradient, as AdamW's first moment
+    after one step holds it ((1 - beta1) x the clipped gradient), and
+    the update (parameters after the step less before)."""
     from repro_torch import sharding
     from repro_torch.launch import steps
-    from repro_torch.models import init_params, moe
+    from repro_torch.models import moe
     from repro_torch.training.optim import (init_opt_state, tree_items,
                                             tree_map)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    whole = init_params(cfg, gen, device=device, dtype="float32")
-    params = steps.param_shards(cfg, whole, sctx)
-    del whole
+    if pieces is None:
+        params = _prod_pieces(torch, cfg, sctx, device)
+    else:
+        params = tree_map(lambda t: t.detach().clone(), pieces)
     params = tree_map(lambda t: t.requires_grad_(), params)
-    batch = _prod_batch(torch, np, cfg, device)
+    batch = steps.batch_shards(cfg, sctx, _prod_batch(torch, np, cfg,
+                                                      device))
     step = steps.build_train_step(cfg, sctx)
     state = init_opt_state(params)
     before = tree_map(lambda t: t.detach().clone(), params)
     _reset_launches()
     plain0 = _plain_calls()
     moe.DISPATCH_LOG = []
+    sharding.reset_traffic()
     t0 = time.perf_counter()
     params, state, loss, met = step(params, state, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    traffic = dict(sharding.traffic)
     launches = _launches()
     launches["plain_calls"] = _plain_calls() - plain0
     drops = torch.zeros((), dtype=torch.int64, device=device)
@@ -5487,14 +5533,15 @@ def _prod_train(torch, np, cfg, sctx, device, keep) -> dict:
         routed += r["ids"].numel()
     misses = _slot_rule_misses(np, moe.DISPATCH_LOG, cfg.num_experts)
     moe.DISPATCH_LOG = None
-    drops = int(sharding.all_reduce(drops, sctx))
+    drops = int(sharding.all_reduce(sharding.all_reduce(drops, sctx),
+                                    sctx.over("dp")))
     for (_, b), (_, a) in zip(tree_items(before), tree_items(params)):
         torch.sub(a.detach(), b, out=b)          # the update, in place
     update = before
     out = {"loss": float(loss), "grad_norm": float(met["grad_norm"]),
            "aux_loss": float(met["aux_loss"]), "lr": float(met["lr"]),
            "drops": drops, "routed": routed, "slot_rule_misses": misses,
-           "launches": launches, "step_wall_s": wall,
+           "launches": launches, "step_wall_s": wall, "traffic": traffic,
            "grads": keep(state.mu), "update": keep(update)}
     del params, state, update
     _free(torch)
@@ -5588,29 +5635,39 @@ def _cache_gaps(torch, got, want, device) -> dict:
     return out
 
 
-def _prod_cached(torch, np, rank, world, device, tmp) -> dict:
-    """(d) The four cached builders at tp = ``world`` on this rank's
-    pieces of granite-3-8b (``PROD_LAYERS`` layers, full width, bf16, the
-    seed-0 weights of (a)) and of the ``PROD_B`` x ``PROD_S`` cache
-    (``steps.init_cache``: ``PROD_S`` / ``world`` slots a rank), on (a)'s
-    inputs (``prod_a.pt``): each kernel's launches and the plain calls
+# the names of each cached step's inputs in (a)'s record, as
+# ``steps.batch_shards`` cuts their rows
+PROD_STEP_INPUTS = {"prefill": ("tokens", "positions"),
+                    "serve": ("tokens", "positions"),
+                    "verify": ("tokens", "positions"),
+                    "tree": ("tokens", "positions", "slot_index", "mask",
+                             "within")}
+
+
+def _prod_cached(torch, np, rank, device, tmp, sctx, faults=True) -> dict:
+    """(d) The four cached builders under ``sctx`` (the production
+    context of the model axis at tp = ``TP``; in (e) also of the data
+    axis) on this rank's pieces of granite-3-8b (``PROD_LAYERS`` layers,
+    full width, bf16, the seed-0 weights of (a)) and of the ``PROD_B`` x
+    ``PROD_S`` cache (``steps.init_cache``: ``PROD_S`` / tp slots of its
+    rows a rank), on its rows of (a)'s inputs (``prod_a.pt``,
+    ``steps.batch_shards``): each kernel's launches and the plain calls
     counted from zero over the builder calls alone, the greedy tokens and
-    the builders' logits, the cache gathered whole (``gather_cache``)
-    after the prefill and at the end; then two planted faults, each a
-    prefill on a fresh piece gathered the same way: the last rank's
-    partial left out of the merge, and this rank's writes landing on
-    another rank's slots (its span swapped).  On rank 0 the gaps to (a)
-    are taken on the card; the checks are ``_prod_cached_checks``'."""
+    the builders' logits against (a)'s on the same rows, the cache
+    gathered whole (``gather_cache``) after the prefill and at the end;
+    then, with ``faults``, two planted faults, each a prefill on a fresh
+    piece gathered the same way: the last rank's partial left out of the
+    merge, and this rank's writes landing on another rank's slots (its
+    span swapped).  On rank 0 the cache's gaps to (a) are taken on the
+    card; the checks are ``_prod_cached_checks``'."""
     import dataclasses
     from repro_torch import sharding
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_shard_ctx, small_mesh
     from repro_torch.models import init_params, transformer
     a = torch.load(os.path.join(tmp, "prod_a.pt"))
     cfg = dataclasses.replace(get_config("granite-3-8b"),
                               num_layers=PROD_LAYERS)
-    sctx = make_shard_ctx(small_mesh(world), train=False)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     whole = init_params(cfg, gen, device=device)
@@ -5633,8 +5690,13 @@ def _prod_cached(torch, np, rank, world, device, tmp) -> dict:
                  "tree": steps.build_tree_verify_step(cfg, sctx)}
     finally:
         transformer.forward = real
-    inputs = [(kind, [x.to(device) for x in inp]) for kind, inp in
-              a["inputs"]]
+    lo_b, hi_b = steps.batch_piece(PROD_B, sctx)
+    inputs = []
+    for kind, inp in a["inputs"]:
+        names = PROD_STEP_INPUTS[kind]
+        mine = steps.batch_shards(cfg, sctx, dict(zip(
+            names, (x.to(device) for x in inp))))
+        inputs.append((kind, [mine[n] for n in names]))
 
     def prefill(cache):
         return build["prefill"](params, *inputs[0][1], cache)
@@ -5668,28 +5730,40 @@ def _prod_cached(torch, np, rank, world, device, tmp) -> dict:
     gaps["final"] = (_cache_gaps(torch, whole_c, a["final"], device)
                      if rank == 0 else None)
     del whole_c, cache
-    # tokens against (a)'s where (a)'s top-2 margin is above PROD_MARGIN
-    # of the step's largest |logit|; each step's logits' scaled gap
+    # tokens against (a)'s on the rank's rows where (a)'s top-2 margin is
+    # above PROD_MARGIN of the step's largest |logit|; each step's
+    # logits' scaled gap
     held = equal_held = other = other_equal = 0
     logit_gaps = []
     for got, want, wl, gl in zip(tokens, a["tokens"], a["logits"],
                                  logits):
-        wl = wl.to(device)
+        wl = wl[lo_b:hi_b].to(device)
         if gl.dim() == 3 and wl.dim() == 2:
             gl = gl[:, -1]
         logit_gaps.append(_scaled_gap(gl, wl))
         top2 = wl.topk(2, dim=-1).values
         sure = (top2[..., 0] - top2[..., 1]) > PROD_MARGIN * float(
             wl.abs().max())
-        same = got == want.to(device)
+        same = got == want[lo_b:hi_b].to(device)
         held += int(sure.sum())
         equal_held += int((same & sure).sum())
         other += int((~sure).sum())
         other_equal += int((same & ~sure).sum())
     del logits, tokens
     _free(torch)
+    out = {"layers": cfg.num_layers, "piece": piece, "rows": hi_b - lo_b,
+           "launches": launches, "plain_calls": plain, "walls": walls,
+           "traffic": traffic, "gaps": gaps, "faults": {},
+           "logit_gaps": logit_gaps, "held": held,
+           "equal_held": equal_held, "other": other,
+           "other_equal": other_equal,
+           "want": {"spec_verify": cfg.num_layers * (2 + PROD_DECODES),
+                    "tree_verify": cfg.num_layers}}
+    if not faults:
+        del params, a
+        _free(torch)
+        return out
     # the planted faults: a prefill each on a fresh piece, gathered
-    faults = {}
     merge = sharding.merge_ranks
 
     def left_out(o, lse, ctx, heads=None):
@@ -5702,52 +5776,51 @@ def _prod_cached(torch, np, rank, world, device, tmp) -> dict:
             cfg, PROD_B, PROD_S, sctx, device=device)), sctx)
     finally:
         sharding.merge_ranks = merge
-    faults["the last rank's partial left out of the merge"] = (
+    out["faults"]["the last rank's partial left out of the merge"] = (
         _cache_gaps(torch, whole_c, a["after_prefill"], device)
         if rank == 0 else None)
     del whole_c
     fresh = steps.init_cache(cfg, PROD_B, PROD_S, sctx, device=device)
     span = fresh[steps.SEQ_SPAN]
-    other_rank = dataclasses.replace(sctx, rank=(rank + 1) % world)
+    other_rank = dataclasses.replace(sctx, rank=(sctx.rank + 1)
+                                     % sctx.tp_size)
     lo, hi = steps.seq_piece(PROD_S, other_rank)
     fresh[steps.SEQ_SPAN] = torch.tensor([lo, hi, PROD_S])
     fresh = prefill(fresh)
     fresh[steps.SEQ_SPAN] = span
     whole_c = steps.gather_cache(cfg, fresh, sctx)
-    faults["writes on another rank's slots"] = (
+    out["faults"]["writes on another rank's slots"] = (
         _cache_gaps(torch, whole_c, a["after_prefill"], device)
         if rank == 0 else None)
     del whole_c, fresh, params, a
     _free(torch)
-    return {"layers": cfg.num_layers, "piece": piece, "launches": launches,
-            "plain_calls": plain, "walls": walls, "traffic": traffic,
-            "gaps": gaps, "faults": faults, "logit_gaps": logit_gaps,
-            "held": held, "equal_held": equal_held, "other": other,
-            "other_equal": other_equal,
-            "want": {"spec_verify": cfg.num_layers * (2 + PROD_DECODES),
-                     "tree_verify": cfg.num_layers}}
+    return out
 
 
-def _prod_cached_checks(ranks) -> dict:
-    """(d)'s gates over the ranks: each rank's launches those derived
-    from the config (K1 a layer for the prefill, each decode and the
-    verify; K2 a layer for the tree) and no plain call; every held token
-    equal to (a)'s; the gathered ``slot_pos`` equal and K/V within
-    ``PROD_CACHE_TOL`` after the prefill and at the end; each planted
-    fault off (a)'s cache past those bounds."""
-    r0 = ranks[0]["cached"]
+def _prod_cached_checks(ranks, key="cached", what=f"tp={TP}",
+                        row_ranks=(0,)) -> dict:
+    """(d)'s gates over the ranks (and (e)'s, ``key`` "cached_e"): each
+    rank's launches those derived from the config (K1 a layer for the
+    prefill, each decode and the verify; K2 a layer for the tree) and no
+    plain call; every held token equal to (a)'s; the gathered
+    ``slot_pos`` equal and K/V within ``PROD_CACHE_TOL`` after the
+    prefill and at the end; each planted fault off (a)'s cache past
+    those bounds.  The token counts returned are summed over
+    ``row_ranks``, whose rows make the batch; the logits' gaps are the
+    largest over the ranks."""
+    r0 = ranks[0][key]
     for r, rank in enumerate(ranks):
-        c = rank["cached"]
+        c = rank[key]
         for k_, v_ in c["want"].items():
             check(c["launches"][k_] == v_, f"production cached steps at "
-                  f"tp={TP}, rank {r}: {k_} launches {c['launches'][k_]} "
+                  f"{what}, rank {r}: {k_} launches {c['launches'][k_]} "
                   f"!= {v_}")
-        check(c["plain_calls"] == 0, f"production cached steps at tp={TP}, "
+        check(c["plain_calls"] == 0, f"production cached steps at {what}, "
               f"rank {r}: {c['plain_calls']} plain attention calls")
         check(c["traffic"] == r0["traffic"], "production cached steps: the "
               "ranks ran different collectives")
         check(c["equal_held"] == c["held"], f"production cached steps at "
-              f"tp={TP}, rank {r}: {c['held'] - c['equal_held']} of "
+              f"{what}, rank {r}: {c['held'] - c['equal_held']} of "
               f"{c['held']} greedy tokens above the margin differ from "
               "the one-rank run's")
 
@@ -5755,17 +5828,23 @@ def _prod_cached_checks(ranks) -> dict:
         return g["slot_pos_diff"] == 0 and max(g["k"], g["v"]) \
             <= PROD_CACHE_TOL
     for when, g in r0["gaps"].items():
-        check(ok(g), f"production cached steps at tp={TP}: the gathered "
+        check(ok(g), f"production cached steps at {what}: the gathered "
               f"cache after the {when} off the one-rank run's: {g}")
     for name, g in r0["faults"].items():
         check(not ok(g), f"production cached steps: the planted fault "
               f"'{name}' passes the cache check: {g}")
-    return r0
+    out = dict(r0)
+    for k_ in ("held", "equal_held", "other", "other_equal"):
+        out[k_] = sum(ranks[r][key][k_] for r in row_ranks)
+    out["logit_gaps"] = [max(g) for g in zip(*(rank[key]["logit_gaps"]
+                                               for rank in ranks))]
+    return out
 
 
-def _share_inputs(torch, np, T, seed, tree=False):
+def _share_inputs(torch, np, T, seed, tree=False, B=PROD_B):
     """A rank's share of (d)'s cache, bf16 at granite's heads: B =
-    ``PROD_B`` rows of ``PROD_S`` / ``TP`` slots, the second half's
+    ``B`` rows (default ``PROD_B``; (e)'s data rank holds ``PROD_B`` /
+    ``PROD_DATA``) of ``PROD_S`` / ``TP`` slots, the second half's
     (positions ``PROD_S`` / 2 .. of a window from ``PROD_START``), its
     first slots live up to the step's queries; queries at the last T
     positions, so that a prefill's early rows see no key of the share.
@@ -5774,16 +5853,16 @@ def _share_inputs(torch, np, T, seed, tree=False):
     S = PROD_S // TP
     lo = PROD_S // TP
     end = PROD_START + PROD_PREFILL + (PROD_DECODES if T <= 8 else 0)
-    q, k, v = _normals(torch, seed, "bfloat16", (PROD_B, T, hq, d),
-                       (PROD_B, S, hk, d), (PROD_B, S, hk, d))
+    q, k, v = _normals(torch, seed, "bfloat16", (B, T, hq, d),
+                       (B, S, hk, d), (B, S, hk, d))
     qp = (end - T + torch.arange(T, dtype=torch.int32, device="cuda")
-          ).expand(PROD_B, T).contiguous()
-    kp = torch.full((PROD_B, S), -1, dtype=torch.int32, device="cuda")
+          ).expand(B, T).contiguous()
+    kp = torch.full((B, S), -1, dtype=torch.int32, device="cuda")
     n = end - lo
     kp[:, :n] = lo + torch.arange(n, dtype=torch.int32, device="cuda")
     tm = None
     if tree:
-        tm = torch.ones((PROD_B, T, S), dtype=torch.bool, device="cuda")
+        tm = torch.ones((B, T, S), dtype=torch.bool, device="cuda")
         tm[:, :, n - T:n] = torch.tril(torch.ones((T, T), dtype=torch.bool,
                                                   device="cuda"))
     return q, k, v, qp, kp, tm
@@ -5798,7 +5877,7 @@ def _first_half(torch, kp):
     return torch.where(pos >= PROD_START, pos, -1).contiguous()
 
 
-def share_kernels_check(torch, np) -> list:
+def share_kernels_check(torch, np, B=PROD_B) -> list:
     """K1 (T = 1 and ``PROD_PREFILL``) and K2 (the tree step's 7) with
     ``lse=True`` at a rank's share of (d)'s cache (``_share_inputs``), on
     every route each takes, launched twice: o (f32) and the log-sum-exp
@@ -5812,7 +5891,7 @@ def share_kernels_check(torch, np) -> list:
                                                      tree_verify_ref)
     rows = []
     for T, tree in ((1, False), (PROD_PREFILL, False), (7, True)):
-        q, k, v, qp, kp, tm = _share_inputs(torch, np, T, 31 + T, tree)
+        q, k, v, qp, kp, tm = _share_inputs(torch, np, T, 31 + T, tree, B)
         plain = (spec_verify_ref(q, k, v, qp, kp, lse=True) if tm is None
                  else tree_verify_ref(q, k, v, qp, kp, tm, lse=True))
         blind = torch.isneginf(plain[1])
@@ -5853,14 +5932,14 @@ def share_kernels_check(torch, np) -> list:
         check(e_m <= TOL["bfloat16"], f"{name} (rank share T={T}): the "
               f"ranks' merged partials off the whole cache's call by "
               f"{e_m:.3e}")
-        log(f"  {name} lse=True at a rank's share (B={PROD_B}, T={T}, "
+        log(f"  {name} lse=True at a rank's share (B={B}, T={T}, "
             f"{PROD_S // TP} slots): max|err| " + ", ".join(
                 f"{r} {e:.3e}" for r, e in errs.items())
             + f" (o and lse; tol {TOL['bfloat16']}); {int(blind.sum())} "
             f"blind rows (0, -inf) on every route; repeats bitwise; two "
             f"shares merged vs the whole cache {e_m:.3e}")
         rows.append({"shape": f"granite-3-8b/share{'/tree' if tree else ''}",
-                     "B": PROD_B, "T": T, "S": PROD_S // TP,
+                     "B": B, "T": T, "S": PROD_S // TP,
                      "errs_by_route": errs, "max_abs_err": max(errs.values()),
                      "merge_err": e_m, "blind_rows": int(blind.sum()),
                      "tol": TOL["bfloat16"]})
@@ -5869,7 +5948,7 @@ def share_kernels_check(torch, np) -> list:
     return rows
 
 
-def share_kernels_time(torch, np) -> dict:
+def share_kernels_time(torch, np, B=PROD_B) -> dict:
     """K1 with ``lse=True`` at a rank's share (T = 1 and
     ``PROD_PREFILL`` over ``PROD_S`` / ``TP`` slots, ``_share_inputs``)
     beside its plain version, SDPA on the same share (boolean mask), the
@@ -5890,7 +5969,7 @@ def share_kernels_time(torch, np) -> dict:
     n0 = dict(ops.launches)
     out = {}
     for T, tree in ((1, False), (PROD_PREFILL, False), (7, True)):
-        q, k, v, qp, kp, tm = _share_inputs(torch, np, T, 31 + T, tree)
+        q, k, v, qp, kp, tm = _share_inputs(torch, np, T, 31 + T, tree, B)
         if tm is None:
             def call():
                 return ops.spec_verify(q, k, v, qp, kp, lse=True)
@@ -5936,7 +6015,7 @@ def share_kernels_time(torch, np) -> dict:
                     "merge_ms": merge_ms, "bound_ms": b_ms,
                     "bound_by": b_by}
         log(f"  {'tree_verify' if tree else 'spec_verify'} lse=True at a "
-            f"rank's share T={T} over {k.shape[1]} slots (B={PROD_B}, "
+            f"rank's share T={T} over {k.shape[1]} slots (B={B}, "
             f"bf16, route {route}, n_split {n_split}): "
             f"{_spread(t)} ms; the whole cache's {2 * k.shape[1]} slots "
             f"without partials {whole_ms:.4f} ms; SDPA on the share "
@@ -5949,15 +6028,96 @@ def share_kernels_time(torch, np) -> dict:
     return out
 
 
+def _model_axis(ctx):
+    """``ctx`` (a context of the (``PROD_DATA``, ``TP``) mesh) with its
+    data axes dropped: the production context of its model group alone,
+    (c)'s and (d)'s."""
+    import dataclasses
+    return dataclasses.replace(ctx, dp=(), axis_sizes=(), coords=(),
+                               dp_group=None, fsdp_group=None,
+                               pod_group=None)
+
+
+def _on_data(torch, cfg, sctx):
+    """``keep`` of (e)'s faulted steps: the leaves whole on ``data`` of a
+    tree of this rank's pieces, on the host, by path."""
+    from repro_torch.launch import steps
+    from repro_torch.training.optim import tree_items
+
+    def keep(t):
+        whole = steps.walk_leaves(t, lambda x, kind, name: steps.data_piece(
+            cfg, kind, name, sctx) is None)
+        return {path: x.detach().cpu() for (path, x), (_, w) in zip(
+            tree_items(t), tree_items(whole)) if w}
+    return keep
+
+
+def _data_faults(torch):
+    """(e)'s planted faults: (name, a context manager that plants it)."""
+    import contextlib
+
+    from repro_torch import sharding
+    from repro_torch.training import grpo
+
+    @contextlib.contextmanager
+    def patched(module, name, fn):
+        real = getattr(module, name)
+        setattr(module, name, fn(real))
+        try:
+            yield
+        finally:
+            setattr(module, name, real)
+
+    def local_denom(real):
+        def sums(terms, sctx):
+            out = real(terms, sctx)
+            return torch.cat([torch.stack(terms)[:1], out[1:]])
+        return sums
+    return (("the gradient of each leaf whole on data left unsummed over "
+             "data", lambda: patched(sharding, "data_whole",
+                                     lambda real: lambda t, sctx: t)),
+            ("the loss's denom left local",
+             lambda: patched(grpo, "_global_sums", local_denom)))
+
+
+def _fault_gaps(one, fault, device) -> dict:
+    """A faulted step of (e) against the oracle's (``one``, this rank's
+    pieces on ``device``): loss and grad norm, and each kept gradient
+    leaf's largest gap against its largest value; ``passes`` whether
+    ``PROD_TOL`` holds them all (it must not)."""
+    from repro_torch.training.optim import tree_items
+    grads = dict(tree_items(one["grads"]))
+    worst = 0.0
+    for path, g in fault["grads"].items():
+        want = grads[path]
+        top = float(want.abs().max())
+        worst = max(worst, float((g.to(device) - want).abs().max())
+                    / max(top, 1e-30))
+    loss_ok = abs(fault["loss"] - one["loss"]) <= PROD_TOL["loss"] * max(
+        abs(one["loss"]), 1.0)
+    norm_ok = abs(fault["grad_norm"] - one["grad_norm"]) \
+        <= PROD_TOL["grad_norm"] * one["grad_norm"]
+    return {"loss": fault["loss"], "grad_norm": fault["grad_norm"],
+            "leaves": len(fault["grads"]), "grad_rel_err": worst,
+            "passes": loss_ok and norm_ok and worst <= PROD_TOL["grads"]}
+
+
 def prod_rank(rank: int, world: int, device, out_dir: str) -> None:
-    """A rank of the production layout's checks on ranks (two gloo ranks
-    on the card): (d) the cached steps at tp = 2 (``_prod_cached``); then
-    (c) each arch of ``PROD_TRAIN`` stepped at tp = 2 (``_prod_train``,
-    this rank's pieces kept on the host), then the same at tp = 1 on each
-    rank in turn, the other idle with its memory freed, cut to this
-    rank's pieces on the card and held to them there (``_prod_gaps``);
-    writes ``out_dir/prod{rank}.pkl``, with the wall clock at the start
-    and at the end of each stage (``stamps``)."""
+    """A rank of the production layout's checks on ranks: four gloo
+    ranks on the card laid out as a (``PROD_DATA``, ``TP``) mesh.  On
+    its first model group (ranks 0 and 1; the others wait): (d) the
+    cached steps at tp = 2 (``_prod_cached``), then per arch of
+    ``PROD_TRAIN`` (c) the step at tp = 2 (``_prod_train``, this rank's
+    pieces kept on the host).  On all four, (e): the cached steps on the
+    mesh (each data rank on its rows), then per arch the step on the
+    mesh, with FSDP, granite's also with each planted fault
+    (``_data_faults``); then on each rank in turn, the others idle with
+    their memory freed, the oracles: the one-rank step on a hand-built
+    context with the data axis and no group (the MoE layers' data shards
+    one after another; for a dense arch the tp = 1 step too), cut to this
+    rank's pieces on the card and held to them there (``_prod_gaps``,
+    ``_fault_gaps``); writes ``out_dir/prod{rank}.pkl``, with rank 0's
+    wall clock at the start and the end of each stage (``stamps``)."""
     import dataclasses
     import pickle
 
@@ -5965,109 +6125,193 @@ def prod_rank(rank: int, world: int, device, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_shard_ctx, small_mesh
+    from repro_torch.launch.mesh import make_mesh, make_shard_ctx
+    from repro_torch.sharding import ShardCtx
     from repro_torch.training.optim import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    two_ctx = make_shard_ctx(small_mesh(world), train=True)
+    mesh = make_mesh((PROD_DATA, TP), ("data", "model"))
+    train4 = make_shard_ctx(mesh, train=True)
+    two_ctx = _model_axis(train4)
     one_ctx = dataclasses.replace(two_ctx, group=None, tp_size=1, rank=0,
                                   host_group=None)
+    data_ctx = ShardCtx(tp_size=1, dp=("data",), exact=False,
+                        axis_sizes=(("data", PROD_DATA),))
+    first = mesh.index("data") == 0
     out = {"stamps": [("start", time.time())]}
-    out["cached"] = _prod_cached(torch, np, rank, world, device, out_dir)
+
+    out["peak_gb"] = {}
+
+    def stamp(name):
+        out["stamps"].append((name, time.time()))
+        if torch.cuda.is_available():
+            out["peak_gb"][name] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+    serve4 = make_shard_ctx(mesh, train=False)
+    if first:
+        out["cached"] = _prod_cached(torch, np, rank, device, out_dir,
+                                     _model_axis(serve4))
     dist.barrier()
-    out["stamps"].append((f"cached steps tp={world}", time.time()))
+    stamp(f"(d) cached steps tp={TP}")
+    out["cached_e"] = _prod_cached(torch, np, rank, device, out_dir, serve4,
+                                   faults=False)
+    dist.barrier()
+    stamp(f"(e) cached steps {PROD_MESH}")
+
+    def host(t):
+        return tree_map(lambda x: x.detach().cpu(), t)
     for arch, layers in PROD_TRAIN:
         cfg = dataclasses.replace(_arch_cfg(arch, layers), dtype="float32")
-        two = _prod_train(torch, np, cfg, two_ctx, device, keep=lambda t: (
-            tree_map(lambda x: x.detach().cpu(), t)))
+        two = (_prod_train(torch, np, cfg, two_ctx, device, keep=host)
+               if first else None)
+        _free(torch)
+        dist.barrier()
+        stamp(f"(c) {arch} tp={TP}")
+        base = _prod_pieces(torch, cfg, train4, device, stagger=True)
+        four = _prod_train(torch, np, cfg, train4, device, keep=host,
+                           pieces=base)
+        _free(torch)
+        dist.barrier()
+        stamp(f"(e) {arch} {PROD_MESH}")
+        faults = {}
+        if not cfg.num_experts:
+            for name, plant in _data_faults(torch):
+                with plant():
+                    faults[name] = _prod_train(
+                        torch, np, cfg, train4, device,
+                        keep=_on_data(torch, cfg, train4), pieces=base)
+                _free(torch)
+            dist.barrier()
+            stamp(f"(e) {arch} planted faults")
+        del base
         for r in range(world):
             dist.barrier()
             if rank == r:
-                one = _prod_train(torch, np, cfg, one_ctx, device,
-                                  keep=lambda t: steps.param_shards(
-                                      cfg, t, two_ctx))
-                out[arch] = _prod_gaps(one, two, device)
-                out[arch].update(layers=cfg.num_layers,
-                                 want=_train_step_want(cfg))
+                both = first and not cfg.num_experts
+                one = _prod_train(torch, np, cfg, data_ctx, device,
+                                  keep=lambda t: {
+                                      "e": steps.param_shards(cfg, t, train4),
+                                      "c": steps.param_shards(cfg, t, two_ctx)
+                                      if both else None})
+                mine = dict(one, grads=one["grads"]["e"],
+                            update=one["update"]["e"])
+                out[arch + "/data"] = _prod_gaps(mine, four, device)
+                out[arch + "/data"].update(
+                    layers=cfg.num_layers, want=_train_step_want(cfg),
+                    traffic_e=four["traffic"],
+                    faults={n: _fault_gaps(mine, f, device)
+                            for n, f in faults.items()})
+                if first:
+                    if not both:
+                        del one, mine
+                        _free(torch)
+                        one = _prod_train(
+                            torch, np, cfg, one_ctx, device,
+                            keep=lambda t: {"c": steps.param_shards(
+                                cfg, t, two_ctx)})
+                    out[arch] = _prod_gaps(dict(
+                        one, grads=one["grads"]["c"],
+                        update=one["update"]["c"]), two, device)
+                    out[arch].update(layers=cfg.num_layers,
+                                     want=_train_step_want(cfg))
                 del one
             _free(torch)
-            if r == 0:
-                out["stamps"].append((f"{arch} tp={world}", time.time()))
-        del two
+        del two, four, faults
         _free(torch)
         dist.barrier()
-        out["stamps"].append((f"{arch} tp=1 on each rank", time.time()))
+        stamp(f"{arch} oracles on each rank")
     with open(os.path.join(out_dir, f"prod{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
-def _prod_checks(arch, ranks) -> dict:
-    """tp = 2 against tp = 1 at ``PROD_TOL`` over both ranks' pieces:
-    losses, grad norm, aux loss, every gradient leaf (its largest gap
-    against its largest value, over the ranks), the update of the
-    elements the gradient check holds (``_prod_gaps``), equal capacity
-    drops, every rank's dispatch at tp = 1 and tp = 2 equal to the plain
-    slot rule, and each rank's launches those of a train step."""
-    r0 = ranks[0][arch]
+def _prod_checks(arch, ranks, key=None, what=f"tp={TP}",
+                 oracle="tp=1") -> dict:
+    """(c) tp = 2 against tp = 1 at ``PROD_TOL`` over both ranks' pieces
+    (and (e), ``key`` "<arch>/data": the mesh against its one-rank
+    oracle over the four ranks' pieces): losses, grad norm, aux loss,
+    every gradient leaf (its largest gap against its largest value, over
+    the ranks), the update of the elements the gradient check holds
+    (``_prod_gaps``), equal capacity drops, every rank's dispatch in both
+    runs equal to the plain slot rule, and each rank's launches those of
+    a train step."""
+    key = key or arch
+    r0 = ranks[0][key]
     one, two = r0["one"], r0["two"]
     for r in ranks:
-        check(r[arch]["two"] == two, f"{arch}: the ranks' tp=2 losses, "
+        check(r[key]["two"] == two, f"{arch}: the ranks' {what} losses, "
               "norms or drops differ")
-        for k_, v_ in r[arch]["want"].items():
-            got = r[arch]["launches"].get(k_, 0)
-            check(got == v_, f"{arch} production train step at tp={TP}: "
+        for k_, v_ in r[key]["want"].items():
+            got = r[key]["launches"].get(k_, 0)
+            check(got == v_, f"{arch} production train step at {what}: "
                   f"{k_} {got} != {v_}")
     for k_ in ("loss", "aux_loss"):
         check(abs(two[k_] - one[k_]) <= PROD_TOL["loss"] * max(
-            abs(one[k_]), 1.0), f"{arch}: {k_} tp=2 {two[k_]} vs tp=1 "
+            abs(one[k_]), 1.0), f"{arch}: {k_} {what} {two[k_]} vs {oracle} "
             f"{one[k_]}")
     check(abs(two["grad_norm"] - one["grad_norm"]) <= PROD_TOL["grad_norm"]
-          * one["grad_norm"], f"{arch}: grad norm tp=2 {two['grad_norm']} "
-          f"vs tp=1 {one['grad_norm']}")
-    check(two["drops"] == one["drops"], f"{arch}: capacity drops tp=2 "
-          f"{two['drops']} vs tp=1 {one['drops']}")
+          * one["grad_norm"], f"{arch}: grad norm {what} {two['grad_norm']} "
+          f"vs {oracle} {one['grad_norm']}")
+    check(two["drops"] == one["drops"], f"{arch}: capacity drops {what} "
+          f"{two['drops']} vs {oracle} {one['drops']}")
     worst = 0.0
     for path in r0["grads"]:
-        err = max(r[arch]["grads"][path][0] for r in ranks)
-        scale = max(r[arch]["grads"][path][1] for r in ranks)
+        err = max(r[key]["grads"][path][0] for r in ranks)
+        scale = max(r[key]["grads"][path][1] for r in ranks)
         check(scale > 0, f"{arch}: gradient {path} is zero")
         check(err <= PROD_TOL["grads"] * scale, f"{arch}: gradient {path} "
               f"off by {err:.3e} of scale {scale:.3e}")
         worst = max(worst, err / scale)
-    misses = [r[arch]["slot_rule_misses"] for r in ranks]
+    misses = [r[key]["slot_rule_misses"] for r in ranks]
     check(all(m == (0, 0) for m in misses), f"{arch}: (token, k) pairs "
           f"whose drop or slot differs from the plain slot rule, "
-          f"(tp=1, tp=2) a rank: {misses}")
-    gap = max(r[arch]["update_gap_lr"] for r in ranks)
-    moved = min(r[arch]["update_moved_lr"] for r in ranks)
-    held = sum(r[arch]["update_held"] for r in ranks)
-    total = sum(r[arch]["update_total"] for r in ranks)
+          f"({oracle}, {what}) a rank: {misses}")
+    gap = max(r[key]["update_gap_lr"] for r in ranks)
+    moved = min(r[key]["update_moved_lr"] for r in ranks)
+    held = sum(r[key]["update_held"] for r in ranks)
+    total = sum(r[key]["update_total"] for r in ranks)
     check(held > 0, f"{arch}: no update element held")
-    check(gap <= PROD_TOL["update"], f"{arch}: tp=2's update off tp=1's "
+    check(gap <= PROD_TOL["update"], f"{arch}: {what}'s update off {oracle}'s "
           f"by {gap:.3e} lr")
-    check(moved >= PROD_TOL["moved"], f"{arch}: tp=1's update moved an "
+    check(moved >= PROD_TOL["moved"], f"{arch}: {oracle}'s update moved an "
           f"element held by only {moved:.3e} lr")
     return {"layers": r0["layers"], "one": one, "two": two,
             "grad_rel_err": worst, "update_gap_lr": gap,
             "update_moved_lr": moved, "update_held": held,
             "update_total": total,
             "launches": r0["launches"], "launches_tp1": r0["launches_tp1"],
-            "step_wall_s": [r[arch]["step_wall_s"] for r in ranks]}
+            "step_wall_s": [r[key]["step_wall_s"] for r in ranks]}
+
+
+def _data_bytes(traffic) -> str:
+    """A rank's bytes into the data axes' collectives, from
+    ``sharding.traffic``."""
+    names = (("data_all_gather", "FSDP gathers"),
+             ("data_reduce_scatter", "reduce-scatters over data"),
+             ("dp_all_reduce", "all-reduces over the data-parallel group"),
+             ("data_all_reduce", "all-reduces over data"))
+    return ", ".join(f"{traffic[k_ + '_bytes'] / 1e9:.3f} GB in "
+                     f"{traffic[k_]} {what}" for k_, what in names
+                     if traffic[k_])
 
 
 def production_phase(torch, np) -> dict:
     """The phase "production layout": (a) ``production_steps`` (saved for
-    (d)), (b) ``prefill_kernels_check`` and ``prefill_kernels_time``, K1
-    / K2's partials at a rank's share (``share_kernels_check``,
-    ``share_kernels_time``), then ``prod_rank`` in two gloo ranks on the
-    card: (d) the cached steps at tp = 2 against (a)
+    (d) and (e)), (b) ``prefill_kernels_check`` and
+    ``prefill_kernels_time``, K1 / K2's partials at a rank's share
+    (``share_kernels_check``, ``share_kernels_time``) of (d) and of (e),
+    then ``prod_rank`` in four gloo ranks on the card (a (``PROD_DATA``,
+    ``TP``) mesh): (d) the cached steps at tp = 2 against (a)
     (``_prod_cached_checks``) and (c) the train step at tp = 2 against
-    tp = 1 (``_prod_checks``), with rank 0's stages timed."""
+    tp = 1 (``_prod_checks``) on the first model group, (e) the cached
+    steps on the mesh against (a) and its train step against the
+    one-rank oracle with the data axis, whose planted faults must fail;
+    with rank 0's stages timed."""
     import pickle
     import tempfile
 
     from repro_torch.launch.mesh import spawn
     ranks = []
+    world = PROD_DATA * TP
     with tempfile.TemporaryDirectory(prefix="prod_") as tmp:
         rep = {"steps": production_steps(torch, np, TP_DEVICE, save_to=tmp)}
         log("  K1 at the production prefill's widths")
@@ -6078,24 +6322,32 @@ def production_phase(torch, np) -> dict:
             live=np.full(PROD_B, rep["steps"]["tree_live"]))
         log_verify_time("tree_verify (production tree step)",
                         rep["tree_time"])
-        log(f"  K1 / K2 partials (lse=True) at a rank's share of (d)'s "
-            f"cache")
+        log("  K1 / K2 partials (lse=True) at a rank's share of (d)'s "
+            "cache and of (e)'s (its data rank's rows)")
         rep["share_checks"] = share_kernels_check(torch, np)
         rep["share_time"] = share_kernels_time(torch, np)
+        rows_e = PROD_B // PROD_DATA
+        rep["share_checks_e"] = share_kernels_check(torch, np, B=rows_e)
+        rep["share_time_e"] = share_kernels_time(torch, np, B=rows_e)
+        _free(torch)
         t0, clock0 = time.perf_counter(), time.time()
-        spawn(prod_rank, TP, backend="gloo", device=TP_DEVICE, args=(tmp,))
+        spawn(prod_rank, world, backend="gloo", device=TP_DEVICE,
+              args=(tmp,))
         clock1 = time.time()
-        for r in range(TP):
+        for r in range(world):
             with open(os.path.join(tmp, f"prod{r}.pkl"), "rb") as f:
                 ranks.append(pickle.load(f))
     rep["train_wall_s"] = time.perf_counter() - t0
-    # rank 0's stages on the wall clock: its start after the spawn, each
-    # arch's tp = 2 step (weights made, stepped, pieces to the host), its
-    # tp = 1 steps (one on each rank in turn, gaps on the card), the exit
+    # rank 0's stages on the wall clock: its start after the spawn, (d),
+    # (e)'s cached steps, then per arch (c)'s tp = 2 step and (e)'s on
+    # the mesh (weights made, stepped, pieces to the host), (e)'s planted
+    # faults, the oracles (one on each rank in turn, gaps on the card),
+    # the exit
     stamps = [("spawn", clock0)] + ranks[0]["stamps"] + [("exit", clock1)]
     rep["train_stages_s"] = {name: b - a for (_, a), (name, b) in zip(
         stamps, stamps[1:])}
-    c = rep["cached"] = _prod_cached_checks(ranks)
+    first = ranks[:TP]
+    c = rep["cached"] = _prod_cached_checks(first)
     g = c["gaps"]
     log(f"  (d) granite-3-8b ({c['layers']} layers, full width, bf16) "
         f"cached steps at tp={TP} ({c['piece']} of {PROD_S} slots a rank) "
@@ -6109,9 +6361,23 @@ def production_phase(torch, np) -> dict:
         + f", no plain call; walls prefill {c['walls']['prefill']:.2f} s, "
         f"the other steps {c['walls']['steps']:.2f} s; planted faults: "
         + "; ".join(f"{n} {f_}" for n, f_ in c["faults"].items()))
-    rep["train"] = {}
+    e = rep["cached_e"] = _prod_cached_checks(
+        ranks, key="cached_e", what=PROD_MESH,
+        row_ranks=tuple(range(0, world, TP)))
+    g = e["gaps"]
+    log(f"  (e) the same cached steps on the {PROD_MESH} mesh ({e['rows']} "
+        f"of {PROD_B} rows and {e['piece']} of {PROD_S} slots a rank) "
+        f"against (a): {e['equal_held']} of {e['held']} greedy tokens "
+        f"above the margin equal, {e['other_equal']} of the {e['other']} "
+        f"others; logits' scaled gap max {max(e['logit_gaps']):.3e}; "
+        f"gathered cache after the prefill {g['prefill']}, at the end "
+        f"{g['final']}; a rank's launches " + ", ".join(
+            f"{k_} {v_}" for k_, v_ in sorted(e["launches"].items()) if v_)
+        + f", no plain call; walls prefill {e['walls']['prefill']:.2f} s, "
+        f"the other steps {e['walls']['steps']:.2f} s")
+    rep["train"], rep["train_e"] = {}, {}
     for arch, _ in PROD_TRAIN:
-        r = rep["train"][arch] = _prod_checks(arch, ranks)
+        r = rep["train"][arch] = _prod_checks(arch, first)
         one, two = r["one"], r["two"]
         log(f"  {arch} ({r['layers']} layers, full width, f32) train step "
             f"at tp={TP} against tp=1: loss {two['loss']:.6e} / "
@@ -6127,14 +6393,57 @@ def production_phase(torch, np) -> dict:
                 f"{k_} {v_}" for k_, v_ in sorted(r["launches"].items())
                 if v_) + f"; step walls (tp=1, tp={TP}) "
             f"{r['step_wall_s'][0]}")
-    # K3 at a rank's granite heads and the train step's shape, f32
+        key = arch + "/data"
+        r = rep["train_e"][arch] = _prod_checks(
+            arch, ranks, key=key, what=PROD_MESH,
+            oracle="the one-rank oracle")
+        one, two = r["one"], r["two"]
+        faults = {n: [rk[key]["faults"][n] for rk in ranks]
+                  for n in ranks[0][key]["faults"]}
+        for n, per_rank in faults.items():
+            check(not any(f_["passes"] for f_ in per_rank),
+                  f"{arch} on the {PROD_MESH} mesh: the planted fault "
+                  f"'{n}' passes the train step's gate: {per_rank}")
+        r["faults"] = faults
+        r["traffic"] = ranks[0][key]["traffic_e"]
+        log(f"  (e) {arch} train step on the {PROD_MESH} mesh (FSDP of "
+            f"embed over data, {PROD_TRAIN_B // PROD_DATA} of "
+            f"{PROD_TRAIN_B} rows a data rank) against the one-rank oracle "
+            f"with the data axis: loss {two['loss']:.6e} / "
+            f"{one['loss']:.6e}, grad norm {two['grad_norm']:.6e} / "
+            f"{one['grad_norm']:.6e}, gradients within "
+            f"{r['grad_rel_err']:.2e} of each leaf's scale, the update "
+            f"within {r['update_gap_lr']:.2e} lr on the "
+            f"{r['update_held']} of {r['update_total']} elements held; "
+            f"capacity drops {two['drops']} / {one['drops']}, every "
+            f"pair's drop and slot the plain rule's; a rank's launches "
+            + ", ".join(f"{k_} {v_}" for k_, v_ in sorted(
+                r["launches"].items()) if v_)
+            + f"; rank 0 sent {_data_bytes(r['traffic'])}; step walls "
+            f"(oracle, mesh) {r['step_wall_s'][0]}"
+            + "".join(f"; planted fault '{n}': loss {f_[0]['loss']:.6e}, "
+                      f"grad norm {f_[0]['grad_norm']:.6e}, gradients of "
+                      f"{f_[0]['leaves']} leaves whole on data within "
+                      f"{max(x['grad_rel_err'] for x in f_):.2e} of "
+                      f"scale: fails" for n, f_ in faults.items()))
+    # K3 at a rank's granite heads and the train step's shape, f32: (c)'s
+    # and (e)'s (a data rank's rows)
     hq, hk, d, _ = K1_SHAPES["granite-3-8b"]
     rep["flash_time"] = flash_kernels_time(
         torch, np, B=PROD_TRAIN_B, T=PROD_TRAIN_S, Hq=hq // TP, Hk=hk // TP,
         D=d, dtype="float32", iters=20)
+    rep["flash_time_e"] = flash_kernels_time(
+        torch, np, B=PROD_TRAIN_B // PROD_DATA, T=PROD_TRAIN_S, Hq=hq // TP,
+        Hk=hk // TP, D=d, dtype="float32", iters=20)
+    rep["peak_gb"] = [r_["peak_gb"] for r_ in ranks]
+    log("  each rank's peak device memory a stage (GB): " + "; ".join(
+        f"rank {i}: " + ", ".join(f"{k_} {v_:.1f}" for k_, v_ in p_.items())
+        for i, p_ in enumerate(rep["peak_gb"])))
     log(f"  ranks {rep['train_wall_s']:.1f} s (" + ", ".join(
         f"{k_} {v_:.1f}" for k_, v_ in rep["train_stages_s"].items())
-        + f" s) — {NOT_A_SPEED}")
+        + f" s) — {world} ranks sharing one card over gloo (every "
+        "collective staged through host memory) are no measure of the "
+        "layout's speed")
     return rep
 
 
@@ -6299,7 +6608,9 @@ def main() -> int:
         f"cached steps on one rank and at tp={TP}, K1 at the prefill "
         f"widths {[t for t, _ in PROD_K1_WIDTHS]}, the train step of "
         + ", ".join(f"{a} ({n} layers)" for a, n in PROD_TRAIN)
-        + f" at tp={TP} (two gloo ranks on {TP_DEVICE}) against tp=1, f32")
+        + f" at tp={TP} against tp=1, f32, and (e) the cached and train "
+        f"steps on a {PROD_MESH} mesh (data x model; FSDP over data) "
+        f"against one rank (four gloo ranks on {TP_DEVICE})")
     _free(torch)
     prod = report["production"] = production_phase(torch, np)
     phase_done("production layout")
@@ -6976,16 +7287,19 @@ def main() -> int:
     # the production layout: K1 through the one-rank cached steps (timed
     # at the prefill's width), K2 through its tree step, K3 through rank
     # 0's gradient of granite at tp=2 (timed at a rank's heads, f32)
-    pl_, fl_ = prod["steps"]["launches"], prod["flash_time"]
-    g_launch = prod["train"]["granite-3-8b"]["launches"]
+    pl_ = prod["steps"]["launches"]
 
-    def prod_flash_row(name, which, plain, library):
+    def prod_flash_row(name, which, plain, library, e=False):
+        fl_ = prod["flash_time_e" if e else "flash_time"]
+        train = prod["train_e" if e else "train"]["granite-3-8b"]
         errs = [{"max_abs_err": max(fl_["check"]["errs"][o]
                                     for o in outputs[which])}]
+        where = (f"on the {PROD_MESH} mesh (FSDP over data)" if e
+                 else f"tp={TP}")
         return kernel_row(
-            f"{name}/production", FLASH_TPU,
-            f"granite-3-8b production train step tp={TP}, rank 0, one "
-            "step", g_launch[name], errs,
+            f"{name}/production" + (f"/{PROD_DATA}x{TP}" if e else ""),
+            FLASH_TPU, f"granite-3-8b production train step {where}, "
+            "rank 0, one step", train["launches"][name], errs,
             {"ms": fl_[f"{which}_ms"], "plain_ms": fl_[plain],
              "bound_ms": fl_[f"{which}_bound_ms"],
              "bound_by": fl_[f"{which}_bound_by"],
@@ -7024,6 +7338,30 @@ def main() -> int:
                    cd_["tree_verify"],
                    checks_of(prod["share_checks"],
                              "granite-3-8b/share/tree"), sh_["tree_T7"])]
+    # (e): K3 through rank 0's gradient of granite on the mesh (timed at
+    # a data rank's rows), K1 / K2 with partials through its cached steps
+    # on its rows and half of the cache (timed at that share)
+    she, ce_ = prod["share_time_e"], prod["cached_e"]["launches"]
+    mesh_ = f"{PROD_DATA}x{TP}"
+    rows += [
+        prod_flash_row("flash_attention", "forward", "plain_forward_ms",
+                       "library_forward_ms", e=True),
+        prod_flash_row("flash_attention_dq", "dq", "plain_backward_ms",
+                       "library_backward_ms", e=True),
+        prod_flash_row("flash_attention_dkdv", "dkdv", "plain_backward_ms",
+                       "library_backward_ms", e=True),
+        kernel_row(f"spec_verify/production/{mesh_}", SPEC_VERIFY_TPU,
+                   f"granite-3-8b production layout on the {PROD_MESH} "
+                   "mesh, rank 0: the cached steps on its rows and half "
+                   "of the cache (lse=True)", ce_["spec_verify"],
+                   checks_of(prod["share_checks_e"], "granite-3-8b/share"),
+                   she[f"k1_T{PROD_PREFILL}"]),
+        kernel_row(f"tree_verify/production/{mesh_}", TREE_VERIFY_TPU,
+                   f"granite-3-8b production layout on the {PROD_MESH} "
+                   "mesh, rank 0: the tree verify step on its rows and "
+                   "half of the cache (lse=True)", ce_["tree_verify"],
+                   checks_of(prod["share_checks_e"],
+                             "granite-3-8b/share/tree"), she["tree_T7"])]
 
     phase_done("timing")
 

@@ -16,14 +16,18 @@ device).
 
 The production (Megatron) layout's half: :func:`make_production_mesh`,
 :func:`small_mesh` and :func:`make_shard_ctx`.  A :class:`Mesh` here is
-the shape of the reference's JAX mesh (its axis names and sizes) plus
-the process group that carries its ``model`` axis.  Only that axis runs
-over ranks in this port: a ``Mesh`` built by hand with larger ``data``
-or ``pod`` axes is a shape for the pure placement functions
-(``sharding``, ``launch.steps``), and the mesh functions refuse a
-process group that would run such an axis over ranks (data parallelism,
-with FSDP of the ``embed`` axis over ``data``, is slice 16's:
-``launch.steps.NEXT_SLICE``).
+the shape of the reference's JAX mesh (its axis names and sizes) laid
+over the ranks of this process group, as
+``jax.sharding.Mesh(np.array(devices).reshape(shape), axes)`` lays
+devices: rank r sits at the row-major coordinates of r, ``model``
+fastest (:func:`rank_coords`).  It carries one process group per axis
+as this rank sees it: the ``model`` group (the ranks that differ only in
+their ``model`` index), the ``data`` group (the FSDP group), the
+``pod`` group, and the data-parallel group over ``pod`` and ``data``
+(the ranks with this rank's ``model`` index), which sums the batch's
+terms and the gradients.  Every rank creates every group in the same
+order, as ``torch.distributed.new_group`` requires.  The mesh functions
+take a process group of exactly the mesh's ranks and raise otherwise;
 :func:`make_production_mesh` raises, as the reference's
 ``_check_devices`` does, when the process group has too few ranks.
 """
@@ -96,45 +100,121 @@ def make_engine_shard_ctx(group, tp_size: int, rank: int, *,
 
 class Mesh(NamedTuple):
     """A production mesh: ``shape`` the size of each axis of
-    ``axis_names`` (the reference's ``jax.make_mesh`` arguments), and the
-    process group of the ``model`` axis as this rank sees it."""
+    ``axis_names`` (the reference's mesh arguments), and as this rank
+    sees it: ``group`` the process group of the ``model`` axis and
+    ``rank`` this rank's index in it, ``coords`` its index on every axis,
+    ``data_group`` / ``pod_group`` the groups along ``data`` / ``pod``,
+    ``dp_group`` the data-parallel group over both and ``dp_rank`` this
+    rank's place in it (row-major).  A group is None where its axes span
+    one rank."""
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     group: object = None
     rank: int = 0
     backend: str = "gloo"
+    coords: Tuple[int, ...] = ()
+    data_group: object = None
+    pod_group: object = None
+    dp_group: object = None
+    dp_rank: int = 0
 
     def size(self, axis: str) -> int:
         return dict(zip(self.axis_names, self.shape)).get(axis, 1)
 
+    def index(self, axis: str) -> int:
+        """This rank's index on ``axis``."""
+        return dict(zip(self.axis_names, self.coords)).get(axis, 0)
+
+
+def rank_coords(shape, rank: int) -> Tuple[int, ...]:
+    """Rank ``rank``'s index on each axis of a mesh of ``shape``:
+    row-major, the last axis fastest, as a JAX mesh built from
+    ``np.array(devices).reshape(shape)`` places device ``rank``."""
+    out = []
+    for n in reversed(tuple(shape)):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def axis_groups(shape, axes, along) -> list:
+    """The ranks of a mesh of ``shape`` on ``axes`` grouped along the
+    axes ``along``: each group the ranks that share every other index,
+    in increasing order (row-major over ``along``); the groups in the
+    order of their first rank."""
+    along = [axes.index(a) for a in along if a in axes]
+    world = 1
+    for n in shape:
+        world *= n
+    groups: dict = {}
+    for r in range(world):
+        c = rank_coords(shape, r)
+        key = tuple(x for i, x in enumerate(c) if i not in along)
+        groups.setdefault(key, []).append(r)
+    return list(groups.values())
+
 
 def _mesh(shape, axes, what: str) -> Mesh:
-    """A mesh of ``shape`` over this process group, whose ``model`` axis
-    is the whole group; a group that would also run another axis over
-    ranks is refused."""
+    """A mesh of ``shape`` over this process group, which must have
+    exactly its ranks."""
     needed = 1
     for n in shape:
         needed *= n
     _check_ranks(needed, what)
-    model = dict(zip(axes, shape))["model"]
     if needed == 1:
-        return Mesh(tuple(shape), tuple(axes))
-    if needed != model:
-        from repro_torch.launch.steps import NEXT_SLICE
-        raise NotImplementedError(f"{what}: {NEXT_SLICE}")
+        return Mesh(tuple(shape), tuple(axes), coords=(0,) * len(shape))
+    if _world() != needed:
+        raise ValueError(f"{what}: a mesh of {needed} ranks runs on a "
+                         f"process group of exactly {needed} ranks, not "
+                         f"{_world()}")
+    return _groups(tuple(shape), tuple(axes))
+
+
+@lru_cache(maxsize=None)
+def _groups(shape, axes) -> Mesh:
+    """The mesh with this rank's group along each axis, made once per
+    shape: every rank creates every group of more than one rank, in the
+    same order (a group of the whole process group is the world's own);
+    groups of the same ranks are one group."""
     import torch.distributed as dist
-    if dist.get_world_size() != model:
-        raise ValueError(f"{what}: the model axis ({model}) runs on a "
-                         f"process group of exactly {model} ranks, not "
-                         f"{dist.get_world_size()}")
-    return Mesh(tuple(shape), tuple(axes), dist.group.WORLD,
-                dist.get_rank(), dist.get_backend())
+    me = dist.get_rank()
+    world = dist.get_world_size()
+    made: dict = {}
+
+    def mine(along):
+        found = None
+        for ranks in axis_groups(shape, axes, along):
+            if len(ranks) == 1:
+                continue
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = (dist.group.WORLD if len(ranks) == world
+                             else dist.new_group(list(ranks)))
+            if me in ranks:
+                found = made[key]
+        return found
+    coords = rank_coords(shape, me)
+    at = dict(zip(axes, coords))
+    dp_rank = 0
+    for a in ("pod", "data"):
+        if a in axes:
+            dp_rank = dp_rank * shape[axes.index(a)] + at[a]
+    return Mesh(shape, axes, mine(("model",)), at.get("model", 0),
+                dist.get_backend(), coords, mine(("data",)), mine(("pod",)),
+                mine(("pod", "data")), dp_rank)
+
+
+def make_mesh(shape, axes) -> Mesh:
+    """A mesh of ``shape`` on the axes ``axes`` (of "pod", "data",
+    "model") over this process group, which must have exactly its ranks
+    (the reference's ``jax.sharding.Mesh`` of as many devices)."""
+    return _mesh(tuple(shape), tuple(axes), f"mesh {tuple(shape)}")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's pod mesh, (data=16, model=16), or with ``multi_pod``
     (pod=2, data=16, model=16): 256 or 512 ranks, which this process
-    group must have (and then its data axes are refused: ``_mesh``)."""
+    group must have."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _mesh(shape, axes, f"production mesh {shape}")
@@ -153,10 +233,10 @@ def small_mesh(n_model: Optional[int] = None) -> Mesh:
 def make_shard_ctx(mesh: Mesh, *, train: bool,
                    seq_shard_prefill: bool = False) -> ShardCtx:
     """The production context on ``mesh``: batch over its ``pod`` /
-    ``data`` axes, tensor parallelism on ``model``, the embedding rows
-    on ``data`` in training (FSDP), and the residual stream split along
-    the sequence in training (or in prefill with
-    ``seq_shard_prefill``)."""
+    ``data`` axes (the data-parallel group), tensor parallelism on
+    ``model``, the ``embed`` axis on ``data`` in training (FSDP, with the
+    ``data`` group), and the residual stream split along the sequence in
+    training (or in prefill with ``seq_shard_prefill``)."""
     dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     return ShardCtx(group=mesh.group, tp_size=mesh.size("model"),
                     rank=mesh.rank,
@@ -164,7 +244,11 @@ def make_shard_ctx(mesh: Mesh, *, train: bool,
                     backend=mesh.backend, dp=dp, tp="model",
                     fsdp="data" if train else None,
                     seq_shard=train or seq_shard_prefill, exact=False,
-                    axis_sizes=tuple((a, mesh.size(a)) for a in dp))
+                    axis_sizes=tuple((a, mesh.size(a)) for a in dp),
+                    coords=tuple((a, mesh.index(a)) for a in dp),
+                    dp_group=mesh.dp_group, dp_rank=mesh.dp_rank,
+                    fsdp_group=mesh.data_group if train else None,
+                    pod_group=mesh.pod_group)
 
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,

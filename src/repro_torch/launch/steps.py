@@ -45,21 +45,28 @@ whose query or KV heads do not divide the group is replicated whole
 (every rank runs it whole), where the reference's guard would split
 ``wk`` mid-head or replicate only the KV leaves; so is an MLP whose
 ``ff`` does not divide, and the embedding when the vocabulary does not.
-The ``embed`` rows' FSDP over ``data`` (``param_rules(train=True)``)
-is a placement only: a data axis runs on no ranks in this slice.
-:func:`gather_params` is the inverse (a collective).
+In training the ``embed`` axis (d_model) of every leaf that has one is
+then cut on the rank's ``data`` index (FSDP, ``param_rules(train=True)``:
+:func:`data_piece`); each block gathers its pieces whole over ``data``
+as it runs (``transformer._Layout.weights``).  :func:`gather_params` is
+the inverse (a collective).  With the data axes over ranks a step's
+inputs are the rank's rows (:func:`batch_shards`, their span under
+:data:`BATCH_SPAN`, as :func:`batch_shardings` places them), and so are
+the cache's (:func:`init_cache`).
 
-The step builders are plain functions over a rank's shards:
-:func:`build_train_step` (GRPO loss, its gradient, AdamW with the
-global norm taken over the whole model), :func:`build_prefill_step`
+The step builders are plain functions over a rank's shards and rows:
+:func:`build_train_step` (GRPO loss over the whole batch, its gradient
+summed over the data-parallel group, AdamW with the global norm taken
+over the whole model), :func:`build_prefill_step`
 (the contiguous prefill), :func:`build_serve_step` (one greedy token),
 :func:`build_verify_step` (γ+1 greedy targets) and
 :func:`build_tree_verify_step` (through K2), all on k ranks.  The cached
 steps run on a rank's piece of the cache (:func:`init_cache`,
 :func:`cache_shards`; :func:`gather_cache` is the inverse), laid out as
-:func:`cache_shardings` places it: ``k`` / ``v`` and ``slot_pos`` split
-along the sequence, each rank attending its own slots through K1 / K2
-and the ranks merging the softmax partials (``sharding.merge_ranks``).
+:func:`cache_shardings` places it: every leaf's rows over the data
+axes, ``k`` / ``v`` and ``slot_pos`` split along the sequence over
+``model``, each rank attending its own slots through K1 / K2 and the
+ranks merging the softmax partials (``sharding.merge_ranks``).
 ``lower_pair`` (and ``launch/dryrun.py``) lower the steps to HLO for TPU
 pod meshes and have no counterpart: a PyTorch program has no HLO to
 lower.
@@ -80,6 +87,17 @@ from repro_torch.sharding import (HeadShard, ShardCtx, all_gather,
 # [lo, hi, S], the rank's slots [lo, hi) of a cache of S (read on the
 # host, no device sync)
 SEQ_SPAN = "seq_span"
+# the key of the span of a batch's (or a cache's) rows where a rank holds
+# a piece of them (the data axes over ranks): an int64 CPU tensor [lo,
+# hi, B], the rows [lo, hi) of B
+BATCH_SPAN = "batch_span"
+SPANS = (SEQ_SPAN, BATCH_SPAN)
+# the step inputs split by rows (``batch_shards``)
+ROW_INPUTS = ("tokens", "loss_mask", "old_logprobs", "positions",
+              "advantages", "image_embeds", "audio_frames", "staleness",
+              "slot_index", "mask", "within")
+# the rows' dim of each cache leaf (1 where not listed)
+ROW_DIM = {"slot_pos": 0}
 
 # cache and blob leaves split by KV head (head axis -2 of every one)
 HEAD_LEAVES = ("k", "v", "cross_k", "cross_v")
@@ -101,6 +119,8 @@ def _block_kind(block: dict) -> str:
         return "attn"
     if "wd" in block:
         return "mlp"
+    if "in_proj" in block:
+        return "mamba"
     return "other"
 
 
@@ -505,72 +525,126 @@ def piece_of(cfg: ModelConfig, kind: str, name: str,
     return None
 
 
-def _cut(t: torch.Tensor, pc: Piece) -> torch.Tensor:
+# the dim of the ``embed`` logical axis (d_model) in each leaf of the
+# port's layout that has one: the FSDP cut of training
+_EMBED_DIM = {("attn", "wq"): 0, ("attn", "wk"): 0, ("attn", "wv"): 0,
+              ("attn", "wo"): 1, ("mlp", "wg"): 0, ("mlp", "wu"): 0,
+              ("mlp", "wd"): 1, ("moe", "router"): 0, ("moe", "wg"): 0,
+              ("moe", "wu"): 0, ("moe", "wd"): 2, ("moe", "sg"): 0,
+              ("moe", "su"): 0, ("moe", "sd"): 1, ("mamba", "in_proj"): 0,
+              ("mamba", "out_proj"): 1, ("top", "embed"): 1,
+              ("top", "unembed"): 0}
+
+
+def fsdp_size(sctx: Optional[ShardCtx]) -> int:
+    """The ranks an ``embed`` dim is split over: the FSDP axis's size
+    where it runs over ranks (a training context of ``launch.mesh``),
+    else 1."""
+    if sctx is None or sctx.fsdp is None or sctx.fsdp_group is None:
+        return 1
+    return sctx.axis_size(sctx.fsdp)
+
+
+def data_piece(cfg: ModelConfig, kind: str, name: str,
+               sctx: Optional[ShardCtx]) -> Optional[Piece]:
+    """Rank ``sctx``'s piece of the ``embed`` dim of leaf ``name`` of a
+    block of ``kind`` (FSDP: ``param_rules(train=True)`` puts ``embed``
+    on ``data``, guarded on d_model dividing it), on its index on the
+    FSDP axis; None where the leaf has no such dim, or it stays whole."""
+    dim = _EMBED_DIM.get((kind, name))
+    n = fsdp_size(sctx)
+    if dim is None or n == 1 or cfg.d_model % n:
+        return None
+    lo, hi = split_range(cfg.d_model, n, sctx.axis_index(sctx.fsdp))
+    return Piece(dim, lo, hi)
+
+
+def _cut(t: torch.Tensor, pc: Optional[Piece]) -> torch.Tensor:
+    """The piece ``pc`` of ``t``, a copy of its own (a view would keep
+    the whole leaf's storage alive)."""
+    if pc is None:
+        return t
     if pc.groups:
         d = t.shape[0]
         return t.reshape(d, pc.groups, -1)[:, :, pc.lo:pc.hi].reshape(
             d, -1).contiguous()
-    return t.narrow(pc.dim, pc.lo, pc.hi - pc.lo).contiguous()
+    return t.narrow(pc.dim, pc.lo, pc.hi - pc.lo).clone(
+        memory_format=torch.contiguous_format)
 
 
-def _walk_pieces(cfg, tree, sctx, fn, top=True):
-    """``tree`` with ``fn(leaf, piece)`` applied to every leaf."""
+def walk_leaves(tree, fn, top: bool = True):
+    """``tree`` with ``fn(leaf, kind, name)`` applied to every leaf, the
+    kind of the block that holds it ("attn", "mlp", "moe", "mamba",
+    "other"; "top" for the leaves of a whole tree's root, ``top``)."""
     if isinstance(tree, list):
-        return [_walk_pieces(cfg, x, sctx, fn, False) for x in tree]
+        return [walk_leaves(x, fn, False) for x in tree]
     kind = _block_kind(tree)
     if kind == "other" and top:
         kind = "top"
-    return {n: _walk_pieces(cfg, v, sctx, fn, False)
-            if isinstance(v, (dict, list))
-            else fn(v, piece_of(cfg, kind, n, sctx))
-            for n, v in tree.items()}
+    return {n: walk_leaves(v, fn, False) if isinstance(v, (dict, list))
+            else fn(v, kind, n) for n, v in tree.items()}
 
 
 def param_shards(cfg: ModelConfig, params: dict, sctx: Optional[ShardCtx]
                  ) -> dict:
     """This rank's pieces of a whole parameter tree under the production
-    rules (:func:`piece_of`); whole leaves are the same tensors."""
-    return _walk_pieces(cfg, params, sctx,
-                        lambda t, pc: t if pc is None else _cut(t, pc))
+    rules: the ``model`` cut (:func:`piece_of`), then in training the
+    ``embed`` dim's cut on the rank's ``data`` index
+    (:func:`data_piece`); whole leaves are the same tensors."""
+    return walk_leaves(params, lambda t, kind, name: _cut(
+        _cut(t, piece_of(cfg, kind, name, sctx)),
+        data_piece(cfg, kind, name, sctx)))
+
+
+def _gather_piece(t: torch.Tensor, pc: Optional[Piece], sctx) -> torch.Tensor:
+    if pc is None:
+        return t
+    if not pc.groups:
+        return all_gather(t, pc.dim, sctx)
+    d = t.shape[0]
+    return all_gather(t.reshape(d, pc.groups, 1, -1), 2, sctx).reshape(d, -1)
 
 
 def gather_params(cfg: ModelConfig, shards: dict, sctx: Optional[ShardCtx]
                   ) -> dict:
     """The whole tree from every rank's :func:`param_shards` (a
-    collective; whole leaves are returned as they are)."""
-    def one(t, pc):
-        if pc is None:
-            return t
-        t = t.detach()
-        if not pc.groups:
-            return all_gather(t, pc.dim, sctx)
-        d = t.shape[0]
-        parts = all_gather(t.reshape(d, pc.groups, 1, -1), 2, sctx)
-        return parts.reshape(d, -1)
-    return _walk_pieces(cfg, shards, sctx, one)
+    collective: the ``embed`` pieces gathered over ``data``, then the
+    ``model`` pieces; whole leaves are returned as they are)."""
+    data = None if sctx is None else sctx.over("data")
+    return walk_leaves(shards, lambda t, kind, name: _gather_piece(
+        _gather_piece(t.detach(), data_piece(cfg, kind, name, sctx), data),
+        piece_of(cfg, kind, name, sctx), sctx))
 
 
 def split_leaves(cfg: ModelConfig, params: dict, sctx: Optional[ShardCtx]
                  ) -> dict:
-    """The tree with True at every leaf a rank holds only a piece of."""
-    return _walk_pieces(cfg, params, sctx, lambda t, pc: pc is not None)
+    """The tree with, at every leaf, the set of axes ("model", "data") on
+    which a rank holds only a piece of it (empty where it is whole)."""
+    return walk_leaves(params, lambda t, kind, name: frozenset(
+        axis for axis, pc in (("model", piece_of(cfg, kind, name, sctx)),
+                              ("data", data_piece(cfg, kind, name, sctx)))
+        if pc is not None))
 
 
 def production_global_norm(cfg: ModelConfig, grads: dict,
                            sctx: Optional[ShardCtx]) -> torch.Tensor:
     """The global norm of the whole model's gradient from this rank's
-    pieces: every split leaf's sum of squares is summed over the ranks
-    (one all-reduce), whole leaves count once; summed in the JAX leaf
-    order as ``optim.global_norm`` sums."""
+    pieces: a leaf's sum of squares is summed over every group it is
+    split on (one all-reduce over ``model`` of the leaves split there,
+    then one over ``data`` of the FSDP pieces), whole leaves count once
+    (``pod`` holds copies); summed in the JAX leaf order as
+    ``optim.global_norm`` sums."""
     from repro_torch.training.optim import _jax_order, jax_leaf, tree_items
     split = dict(tree_items(split_leaves(cfg, grads, sctx)))
     items = _jax_order(grads)
     sq = [torch.sum(torch.square(x.float())) for _, x in items]
-    cut = [i for i, (path, _) in enumerate(items) if split[path]]
-    if cut:
-        summed = all_reduce(torch.stack([sq[i] for i in cut]), sctx)
-        for j, i in enumerate(cut):
-            sq[i] = summed[j]
+    for axis, ctx in (("model", sctx),
+                      ("data", None if sctx is None else sctx.over("data"))):
+        cut = [i for i, (path, _) in enumerate(items) if axis in split[path]]
+        if cut:
+            summed = all_reduce(torch.stack([sq[i] for i in cut]), ctx)
+            for j, i in enumerate(cut):
+                sq[i] = summed[j]
     groups: dict = {}
     for (path, _), s in zip(items, sq):
         groups.setdefault(jax_leaf(path), []).append(s)
@@ -586,8 +660,58 @@ def production_global_norm(cfg: ModelConfig, grads: dict,
 
 def production(sctx: Optional[ShardCtx]) -> bool:
     """Whether ``sctx`` is the production layout's context over more than
-    one rank."""
-    return sctx is not None and not sctx.exact and sctx.tp_size > 1
+    one rank (a ``model`` axis, or data axes, over ranks)."""
+    return sctx is not None and not sctx.exact and (
+        sctx.tp_size > 1 or sctx.dp_group is not None)
+
+
+def batch_piece(B: int, sctx: Optional[ShardCtx]) -> tuple:
+    """(lo, hi): the rows of a batch of B a rank holds: its even share on
+    its place in the data-parallel group where the data axes run over
+    ranks and divide B (the reference's ``_guard``), else all of them
+    (the reference replicates the batch there)."""
+    if sctx is None or sctx.dp_group is None:
+        return 0, B
+    n = sctx.dp_size()
+    if n == 1 or B % n:
+        return 0, B
+    return split_range(B, n, sctx.dp_rank)
+
+
+def rows_ctx(sctx: Optional[ShardCtx], pieces: dict) -> Optional[ShardCtx]:
+    """The context a step runs ``pieces`` (a batch, or a cache) under:
+    ``sctx`` where they hold a piece of the batch's rows
+    (:data:`BATCH_SPAN`), else ``sctx.rows_whole()``: the rows are whole
+    on every rank, and nothing is summed over the data-parallel
+    group."""
+    if sctx is None or sctx.dp_group is None:
+        return sctx
+    span = pieces.get(BATCH_SPAN)
+    if span is not None and int(span[1]) - int(span[0]) != int(span[2]):
+        return sctx
+    return sctx.rows_whole()
+
+
+def batch_shards(cfg: ModelConfig, sctx: Optional[ShardCtx], batch: dict
+                 ) -> dict:
+    """This rank's rows of a step's inputs (``batch``: name -> tensor
+    with the rows first), as :func:`batch_shardings` places them: the
+    rows :func:`batch_piece` gives of ``tokens``, ``loss_mask``,
+    ``old_logprobs``, ``positions``, ``advantages`` and the modality
+    inputs, and of ``staleness`` (which the reference replicates and
+    GSPMD cuts where it meets the mask) and the tree-verify step's
+    ``slot_index``, ``mask`` and ``within`` (``lower_pair`` places them
+    on the batch axes); every other input whole.  The rows' span is put
+    under :data:`BATCH_SPAN`.  Where the rows are whole on every rank,
+    ``batch`` as it is."""
+    B = batch["tokens"].shape[0]
+    lo, hi = batch_piece(B, sctx)
+    if hi - lo == B:
+        return batch
+    out = {k: (v[lo:hi] if k in ROW_INPUTS else v)
+           for k, v in batch.items()}
+    out[BATCH_SPAN] = torch.tensor([lo, hi, B], dtype=torch.int64)
+    return out
 
 
 def seq_piece(S: int, sctx: Optional[ShardCtx]) -> tuple:
@@ -638,12 +762,14 @@ _FILL = {"k": 0, "v": 0, "slot_pos": -1}
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                sctx: Optional[ShardCtx], dtype=None, device=None) -> dict:
-    """A rank's empty piece of the production cache of ``max_len``
-    positions (:func:`cache_shards` of ``transformer.init_cache``'s):
-    its slots [lo, hi) of ``k`` / ``v`` (every KV head) and ``slot_pos``,
-    with its own scratch slot past its last real one; ``conv`` / ``ssm``
-    whole; ``cross_k`` / ``cross_v`` on the rank's KV heads; the span
-    under :data:`SEQ_SPAN`.  Without a production context over ranks,
+    """A rank's empty piece of the production cache of ``batch`` rows and
+    ``max_len`` positions (:func:`cache_shards` of
+    ``transformer.init_cache``'s): its rows (:func:`batch_piece`, every
+    leaf), its slots [lo, hi) of ``k`` / ``v`` (every KV head) and
+    ``slot_pos``, with its own scratch slot past its last real one;
+    ``conv`` / ``ssm`` whole but for the rows; ``cross_k`` / ``cross_v``
+    on the rank's KV heads; the spans under :data:`SEQ_SPAN` and
+    :data:`BATCH_SPAN`.  Without a production context over ranks,
     ``transformer.init_cache`` itself."""
     from repro_torch.models import transformer
     if not production(sctx):
@@ -651,13 +777,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                       sctx)
     S = transformer.cache_len_for(cfg, max_len)
     lo, hi = seq_piece(S, sctx)
-    cache = transformer.init_cache(cfg, batch, hi - lo, dtype, device)
+    b0, b1 = batch_piece(batch, sctx)
+    cache = transformer.init_cache(cfg, b1 - b0, hi - lo, dtype, device)
     h0, h1 = cross_heads(cfg, sctx)
     for name in ("cross_k", "cross_v"):
         if name in cache and h1 - h0 != cfg.num_kv_heads:
             cache[name] = cache[name][..., h0:h1, :].contiguous()
     if "slot_pos" in cache:
         cache[SEQ_SPAN] = torch.tensor([lo, hi, S], dtype=torch.int64)
+    if b1 - b0 != batch:
+        cache[BATCH_SPAN] = torch.tensor([b0, b1, batch], dtype=torch.int64)
     return cache
 
 
@@ -672,47 +801,62 @@ def cache_shards(cfg: ModelConfig, cache: dict, sctx: Optional[ShardCtx]
         return cache
     out = {}
     span = None
+    name0 = next(n for n in cache if n not in SPANS)
+    B = cache[name0].shape[ROW_DIM.get(name0, 1)]
+    b0, b1 = batch_piece(B, sctx)
     if "slot_pos" in cache:
         S = cache["slot_pos"].shape[1]
         lo, hi = seq_piece(S, sctx)
         span = torch.tensor([lo, hi, S], dtype=torch.int64)
     h0, h1 = cross_heads(cfg, sctx)
     for name, t in cache.items():
+        if name in SPANS:
+            continue
+        t = t.narrow(ROW_DIM.get(name, 1), b0, b1 - b0)
         if name in POSITION_DIM:
             dim = POSITION_DIM[name]
             out[name] = _with_scratch_copy(t.narrow(dim, lo, hi - lo), dim,
                                            _FILL[name])
         elif name in ("cross_k", "cross_v"):
             out[name] = t[..., h0:h1, :].contiguous()
-        elif name != SEQ_SPAN:
+        else:
             out[name] = t.clone()
     if span is not None:
         out[SEQ_SPAN] = span
+    if b1 - b0 != B:
+        out[BATCH_SPAN] = torch.tensor([b0, b1, B], dtype=torch.int64)
     return out
 
 
 def gather_cache(cfg: ModelConfig, shards: dict, sctx: Optional[ShardCtx]
                  ) -> dict:
     """The whole cache from every rank's piece (the inverse of
-    :func:`cache_shards`, a collective): ``k`` / ``v`` / ``slot_pos``
-    gathered along the sequence in rank order, the cross-attention
-    memory along its heads, in ``transformer.init_cache``'s layout
-    (scratch slots included); ``conv`` / ``ssm`` as they are.  A cache
-    held whole on every rank comes back as it is."""
+    :func:`cache_shards`, a collective): the rows gathered over the
+    data-parallel group, ``k`` / ``v`` / ``slot_pos`` along the sequence
+    in rank order, the cross-attention memory along its heads, in
+    ``transformer.init_cache``'s layout (scratch slots included);
+    ``conv`` / ``ssm`` but for their rows as they are.  A cache held
+    whole on every rank comes back as it is."""
     from repro_torch.models.transformer import POSITION_DIM
     if not production(sctx):
         return shards
     out = {}
     lo, hi, S = span_of(shards) if "slot_pos" in shards else (0, 0, 0)
+    rows = BATCH_SPAN in shards
+    dp = sctx.over("dp")
     h0, h1 = cross_heads(cfg, sctx)
     for name, t in shards.items():
+        if name in SPANS:
+            continue
+        if rows:
+            t = all_gather(t, ROW_DIM.get(name, 1), dp)
         if name in POSITION_DIM:
             dim = POSITION_DIM[name]
             whole = t if hi - lo == S else all_gather(t, dim, sctx)
             out[name] = _with_scratch_copy(whole, dim, _FILL[name])
         elif name in ("cross_k", "cross_v") and h1 - h0 != cfg.num_kv_heads:
             out[name] = all_gather(t, -2, sctx)
-        elif name != SEQ_SPAN:
+        else:
             out[name] = t
     return out
 
@@ -721,21 +865,21 @@ def gather_cache(cfg: ModelConfig, shards: dict, sctx: Optional[ShardCtx]
 # the production layout: step builders
 # ---------------------------------------------------------------------------
 
-NEXT_SLICE = ("a data axis over ranks (data parallelism, FSDP of the "
-              "`embed` axis over `data`) is slice 16's; the port runs the "
-              "model axis over ranks")
-
 
 def build_train_step(cfg: ModelConfig, sctx: Optional[ShardCtx], gcfg=None,
                      ocfg=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss,
     metrics)`` over this rank's pieces (:func:`param_shards` of f32
-    masters that require gradients, ``optim.init_opt_state`` of them):
-    ``grpo_loss`` under ``sctx``, its gradient (each piece's own, the
-    whole leaves' complete on every rank: the forward's collectives
-    carry their adjoints), then AdamW in place, clipped by the whole
-    model's gradient norm.  The reference's step returns (params,
-    opt_state, loss); ``metrics`` adds grad_norm and lr."""
+    masters that require gradients, ``optim.init_opt_state`` of them)
+    and its rows of the batch (:func:`batch_shards`): ``grpo_loss`` under
+    ``sctx``, its gradient (each piece's own, the whole leaves' complete
+    on every rank: the forward's collectives carry their adjoints, and
+    with the data axes over ranks each block's FSDP gather
+    reduce-scatters its gradient over ``data`` and each leaf whole on
+    ``data`` sums its own over the data-parallel group), then AdamW on
+    the rank's pieces in place, clipped by the whole model's gradient
+    norm (:func:`production_global_norm`).  The reference's step returns
+    (params, opt_state, loss); ``metrics`` adds grad_norm and lr."""
     from repro_torch.training.grpo import GRPOConfig, grpo_loss
     from repro_torch.training.optim import (OptConfig, adamw_update,
                                             tree_items, tree_rebuild)
@@ -758,10 +902,12 @@ def build_train_step(cfg: ModelConfig, sctx: Optional[ShardCtx], gcfg=None,
 def build_prefill_step(cfg: ModelConfig, sctx: Optional[ShardCtx]):
     """``prefill_step(params, tokens, positions, cache, **aux) -> cache``:
     the production prefill, every row writing slots [start, start+T) of
-    the cache (``forward(contiguous_update=True)``), in place.  On k
-    ranks ``params`` are the rank's :func:`param_shards` and ``cache`` its
-    piece (:func:`init_cache`, :func:`cache_shards`), as for every cached
-    builder below."""
+    the cache (``forward(contiguous_update=True)``; start is the first
+    row's, which every row shares), in place.  On k ranks ``params`` are
+    the rank's :func:`param_shards` and ``cache`` its piece
+    (:func:`init_cache`, :func:`cache_shards`), and with the data axes
+    over ranks the inputs are the rank's rows (:func:`batch_shards`), as
+    for every cached builder below."""
     from repro_torch.models.transformer import forward
 
     @torch.no_grad()

@@ -23,9 +23,12 @@ reference has no kernel on this layer), the k-loop combine sums in f32,
 and the shared expert (its ``ff`` split over the ranks) is added before
 the ranks' partial outputs are summed — all-reduced, or reduce-scattered
 along the sequence when the context shards it.  The router's aux loss
-is averaged over the ranks.  A data axis of the context (the reference's
-``dp``) splits the batch into its shards, each with its own capacity, run
-one after another on the model group.
+is averaged over the ranks.  The data axes of the context (the
+reference's ``dp``) split the batch into its shards, each with its own
+capacity: where they run over ranks each rank's rows are its shard, and
+the aux loss is averaged over the data-parallel group too; a hand-built
+context with a larger data axis and no group runs the shards one after
+another on the model group.
 
 Layout: ``wg`` and ``wu`` are stored as ``(d, E * eff)``, expert ``e``
 in columns ``e * eff .. (e + 1) * eff - 1`` (the reference's
@@ -206,15 +209,18 @@ def _moe_body(xf: torch.Tensor, router: torch.Tensor, p: dict, cfg,
 def moe_capacity(x: torch.Tensor, p: dict, cfg, sctx):
     """The production layout's capacity-bounded dispatch (the reference's
     ``shard_map`` branches of ``moe_forward``): x (B, S, d) whole on every
-    rank, ``p`` this rank's pieces (``launch.steps.param_shards``) ->
-    (y, aux).  y is the summed output (B, S, d), or this rank's piece
-    (B, S / tp, d) when the context shards the sequence and S divides.
-    x's gradient comes back whole on every rank (the ranks' partials
-    summed).  A data axis in the context (``dp_size`` > 1, only a
-    hand-built ``ShardCtx``: ``launch.mesh`` runs no data axis over
-    ranks until slice 16) takes each data shard's batch rows one after
-    another, each with its own C, as the reference does on its (2, 2)
-    meshes, against which the tests hold this loop."""
+    rank of the model group, ``p`` this rank's pieces
+    (``launch.steps.param_shards``) -> (y, aux).  y is the summed output
+    (B, S, d), or this rank's piece (B, S / tp, d) when the context
+    shards the sequence and S divides.  x's gradient comes back whole on
+    every rank (the ranks' partials summed).  With the data axes over
+    ranks (``sctx.dp_group``) x is this rank's data shard: one dispatch
+    with C from its rows, aux averaged over the data-parallel group, then
+    over ``model``, as the reference's ``pmean``s average it.  A
+    hand-built context with a data axis and no group (``dp_size`` > 1)
+    takes each data shard's rows of x one after another, each with its
+    own C, as the reference does on its (2, 2) meshes, against which the
+    tests hold this loop."""
     B, S, d = x.shape
     E, tp = cfg.num_experts, sctx.tp_size
     ep = E % tp == 0
@@ -223,7 +229,7 @@ def moe_capacity(x: torch.Tensor, p: dict, cfg, sctx):
                                 and cfg.num_shared_experts * eff % tp)):
         raise ValueError(f"{E} experts of hidden dim {eff} split over "
                          f"{tp} ranks neither by expert nor by eff")
-    dp = sctx.dp_size()
+    dp = 1 if sctx.dp_group is not None else sctx.dp_size()
     if B % dp:
         dp = 1
     E_loc = E // tp if ep else E
@@ -238,6 +244,8 @@ def moe_capacity(x: torch.Tensor, p: dict, cfg, sctx):
         auxes.append(aux)
     y = torch.cat(ys) if dp > 1 else ys[0]
     aux = torch.stack(auxes).mean() if dp > 1 else auxes[0]
+    if sctx.dp_group is not None:
+        aux = sharding.dp_sum(aux, sctx) / sctx.dp_size()
     if sctx.seq_shard and S % tp == 0:
         y = sharding.scatter_seq(y, sctx, dim=1)
     else:

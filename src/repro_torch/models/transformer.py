@@ -32,7 +32,9 @@ otherwise be sharded, so the logits, and the sampled tokens, are
 bitwise the one-device ones.  The production (Megatron) layout's
 context: the cache-free forward on the rank's ``param_shards``, with
 row-parallel ``wo`` / ``wd`` and the residual stream split along the
-sequence (``_Layout``), and the cached steps on the same layout, each
+sequence (``_Layout``), each rank on its rows of the batch with the
+data axes over ranks (each block's FSDP pieces gathered over ``data``
+as it runs), and the cached steps on the same layout, each
 rank holding a piece of the KV cache split along its sequence
 (``launch.steps.init_cache``): the step's q and new K/V gathered to
 every head, each rank writing and attending its own slots through K1 /
@@ -65,9 +67,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.launch import steps as _steps
-from repro_torch.launch.steps import (attn_whole, engine_param_shards,
-                                      heads_of, kv_heads, mlp_whole,
-                                      production, span_of, vocab_whole)
+from repro_torch.launch.steps import (attn_whole, data_piece,
+                                      engine_param_shards, heads_of,
+                                      kv_heads, mlp_whole, production,
+                                      span_of, vocab_whole)
 from repro_torch.models.attention import attention
 from repro_torch.models.common import apply_rope, lin, rms_norm
 from repro_torch.models.mamba2 import init_mamba_block, mamba_block
@@ -546,12 +549,22 @@ class _Layout:
     so its weight's gradient is summed over the ranks (:meth:`norm`).  A
     whole sub-layer (Mamba2 blocks; attention, MLP or vocabulary that
     does not divide) runs on every rank on the whole sequence, as on one
-    rank (``_ONE``), between :meth:`whole_in` and :meth:`whole_out`."""
+    rank (``_ONE``), between :meth:`whole_in` and :meth:`whole_out`.
+
+    The data axes (``data``: the context's data-parallel or FSDP group;
+    also on one ``model`` rank): each rank runs its rows of the batch,
+    and a block's weights enter it through :meth:`weights`, which
+    gathers each FSDP piece whole over ``data`` and sums the gradient of
+    each leaf whole on ``data`` over the data-parallel group."""
 
     def __init__(self, cfg, sctx, T, train, seq=True):
         multi = sctx is not None and sctx.tp_size > 1
         self.sctx = sctx if multi else None
         self.moe_sctx = sctx
+        self.cfg = cfg
+        self.data = sctx if sctx is not None and (
+            sctx.fsdp_group is not None
+            or (train and sctx.dp_group is not None)) else None
         self.sp = (multi and seq and (train or T > 1)
                    and sharding.seq_axis(sctx, T) is not None)
         self.attn_whole = multi and attn_whole(cfg, sctx)
@@ -581,6 +594,34 @@ class _Layout:
         """Cross-attention memory, whole on every rank, entering the
         rank's ``wk`` / ``wv`` columns (its gradient summed)."""
         return sharding.copy_to_ranks(mem, self.sctx)
+
+    def leaf(self, t, kind, name):
+        """One weight as a sub-layer uses it: an FSDP piece gathered over
+        ``data`` (``sharding.fsdp_gather``), a leaf whole on ``data``
+        with its gradient summed over the data-parallel group
+        (``sharding.data_whole``)."""
+        if self.data is None:
+            return t
+        pc = data_piece(self.cfg, kind, name, self.data)
+        if pc is not None:
+            return sharding.fsdp_gather(t, pc.dim, self.data)
+        return sharding.data_whole(t, self.data)
+
+    def weights(self, tree, top=False):
+        """A block's weight tree (with ``top``, a whole parameter tree)
+        with each leaf as :meth:`leaf` gives it; the tree itself without
+        data axes over ranks."""
+        if self.data is None:
+            return tree
+        return _steps.walk_leaves(tree, self.leaf, top=top)
+
+    def root(self, params):
+        """The parameter tree's own leaves (the embedding, ``unembed``,
+        ``final_ln``) as :meth:`leaf` gives them."""
+        if self.data is None:
+            return params
+        return {k: self.leaf(v, "top", k) for k, v in params.items()
+                if not isinstance(v, (dict, list))}
 
 
 # the layout of one rank: every collective the identity
@@ -703,15 +744,26 @@ def _encode_audio(cfg, params, frames, train=False, sctx=None, lay=None):
         if lay is None:
             x = _remat(_enc_layer_nocache, train, p, x, cfg, pos, sctx)
         else:
-            x = _remat(_enc_block, train, p, x, cfg, pos, lay)
+            x = _remat(_enc_block, train, p, x, cfg, pos, lay, lay=lay)
     return x
 
 
-def _remat(fn, train, *args):
-    """``fn(*args)``, recomputed in the backward when ``train``."""
+def _remat(fn, train, *args, lay=None, weights=1):
+    """``fn(*args)``, recomputed in the backward when ``train``.  Under a
+    layout with data axes over ranks (``lay``) the first ``weights``
+    arguments (weight trees) pass through ``lay.weights`` inside the
+    recomputed region: a block's FSDP pieces are gathered whole as it
+    runs, dropped after it, and gathered again in its recompute (in the
+    same order on every rank)."""
+    if lay is not None and lay.data is not None:
+        fn = functools.partial(_with_weights, fn, lay, weights)
     if train:
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def _with_weights(fn, lay, n, *args):
+    return fn(*[lay.weights(a) for a in args[:n]], *args[n:])
 
 
 def _modality(aux_inputs, name):
@@ -759,7 +811,8 @@ def _forward_nocache(cfg, params, tokens, positions, train, aux_inputs,
             "the cache-free forward takes positions 0..T-1 in every row "
             "(the contiguous layout of the flash-attention kernel)")
     lay = _Layout(cfg, sctx, T, train)
-    x = _embed_nocache(cfg, params, tokens, lay)
+    top = lay.root(params)
+    x = _embed_nocache(cfg, top, tokens, lay)
     aux = 0.0
     at = cfg.arch_type
     if at in ("dense", "moe"):
@@ -767,43 +820,45 @@ def _forward_nocache(cfg, params, tokens, positions, train, aux_inputs,
         if at == "moe":
             dense, moe = params.get("dense_layers", []), params["layers"]
         for p in dense:
-            x = _remat(_dense_block, train, p, x, cfg, positions, lay)
+            x = _remat(_dense_block, train, p, x, cfg, positions, lay,
+                       lay=lay)
         auxes = []
         for p in moe:
-            x, a = _remat(_moe_block, train, p, x, cfg, positions, lay)
+            x, a = _remat(_moe_block, train, p, x, cfg, positions, lay,
+                          lay=lay)
             auxes.append(a)
         if auxes:
             aux = torch.stack(auxes).sum()
     elif at == "ssm":
         x = lay.whole_in(x)
         for p in params["layers"]:
-            x = _remat(_mamba_nocache, train, p, x, cfg)
+            x = _remat(_mamba_nocache, train, p, x, cfg, lay=lay)
         x = lay.whole_out(x)
     elif at == "hybrid":
         for cell in params["cells"]:
             x = _remat(_hybrid_cell_nocache, train, cell,
                        params["shared_attn"], params["shared_mlp"], x, cfg,
-                       positions, lay)
+                       positions, lay, lay=lay, weights=3)
         tail = params.get("tail", [])
         if tail:
             x = lay.whole_in(x)
             for p in tail:
-                x = _remat(_mamba_nocache, train, p, x, cfg)
+                x = _remat(_mamba_nocache, train, p, x, cfg, lay=lay)
             x = lay.whole_out(x)
     elif at == "vlm":
         embeds = _modality(aux_inputs, "image_embeds").to(
             torch_dtype(cfg.dtype))
         for cell in params["cells"]:
             x = _remat(_vlm_cell_nocache, train, cell, x, cfg, positions,
-                       embeds, lay)
+                       embeds, lay, lay=lay)
     else:
         frames = _modality(aux_inputs, "audio_frames")
         enc_out = _encode_audio(cfg, params, frames, train, lay=_Layout(
             cfg, sctx, frames.shape[1], train, seq=False))
         for p in params["dec_layers"]:
             x = _remat(_audio_layer_nocache, train, p, x, cfg, positions,
-                       enc_out, lay)
-    return _unembed_nocache(cfg, params, x, lay), aux
+                       enc_out, lay, lay=lay)
+    return _unembed_nocache(cfg, top, x, lay), aux
 
 
 def _unembed(cfg, params, x, sctx=None):
@@ -1053,7 +1108,8 @@ def _forward_ranks(cfg, params, tokens, cache, attn_args, token_mask, rec,
     block on its heads of the cached memory.  -> (logits, cache, aux)."""
     T = tokens.shape[1]
     lay = _Layout(cfg, sctx, T, False)
-    x = _embed_nocache(cfg, params, tokens, lay)
+    top = params = lay.weights(params, top=True)
+    x = _embed_nocache(cfg, top, tokens, lay)
     step = None
     if attn_args is not None:
         positions = attn_args[0]
@@ -1103,7 +1159,7 @@ def _forward_ranks(cfg, params, tokens, cache, attn_args, token_mask, rec,
             x = _mlp_block(p["mlp"], x, cfg, lay)
     if not logits:
         return None, cache, aux
-    return _unembed_nocache(cfg, params, x, lay), cache, aux
+    return _unembed_nocache(cfg, top, x, lay), cache, aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -1169,9 +1225,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     the sequence in training or where the context's ``seq_shard`` and T
     allow, column- then row-parallel sub-layers with their sums, Mamba2
     blocks whole on the gathered sequence, logits gathered whole), its
-    MoE layers through the capacity dispatch.  With a cache on more than
-    one rank (no gradients) ``cache`` is the rank's piece
-    (``launch.steps.init_cache`` / ``cache_shards``: ``k`` / ``v`` and
+    MoE layers through the capacity dispatch; with the data axes over
+    ranks, ``tokens`` are the rank's rows of the batch
+    (``launch.steps.batch_shards``) and its MoE layers take C from them.
+    With a cache on more than one rank (no gradients) ``cache`` is the
+    rank's piece (``launch.steps.init_cache`` / ``cache_shards``: its
+    rows over the data axes, ``k`` / ``v`` and
     ``slot_pos`` split along the sequence, ``conv`` / ``ssm`` whole,
     ``cross_k`` / ``cross_v`` on the rank's KV heads); each attention
     layer gathers the step's q and new K/V to every head, writes the
@@ -1205,7 +1264,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     rec = cache if rec_out is None else rec_out
     if production(sctx):
         return _forward_ranks(cfg, params, tokens, cache, attn_args,
-                              token_mask, rec, logits, sctx)
+                              token_mask, rec, logits,
+                              _steps.rows_ctx(sctx, cache))
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
     aux = 0.0

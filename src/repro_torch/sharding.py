@@ -44,6 +44,17 @@ and, for a region every rank computes whole, :func:`gather_whole`
 :func:`split_seq` (the rank's piece, whose backward all-gathers).  Each
 call adds its bytes to :data:`traffic`.
 
+The data axes (``pod``, ``data``) over ranks add three, each over the
+group of its axis (``ShardCtx.over``): :func:`fsdp_gather` (an FSDP
+piece of a parameter gathered whole over ``data``; its backward
+reduce-scatters the gradient over ``data`` and sums it over ``pod``),
+:func:`data_whole` (a parameter whole on ``data``; its backward sums
+the gradient over the data-parallel group) and :func:`dp_sum` (a term
+of the loss summed over the data-parallel group; its backward is the
+identity).  Where a step's batch is whole on every rank
+(``ShardCtx.rows_whole``) no sum runs over the data axes and an FSDP
+gather's backward keeps the rank's piece.
+
 The production layout's cached steps (no backward) hold the KV cache
 split along its sequence while the weights split by heads:
 :func:`gather_heads` moves a step's q and new K/V from the rank's heads
@@ -54,7 +65,7 @@ rank's slots) in rank order and hands each rank its heads.
 from __future__ import annotations
 
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -87,7 +98,22 @@ class ShardCtx:
     the reference; ``axis_sizes`` gives the size of each mesh axis the
     production rules may name (``{"model": tp_size}`` by default), so the
     pure placement functions can be held to the reference's on any
-    mesh shape."""
+    mesh shape.
+
+    The data axes over ranks (``launch.mesh``): ``coords`` this rank's
+    index on each of them; ``dp_group`` the data-parallel group, the
+    ranks that share this one's ``model`` index (the reference's ``dp``
+    axes, ``pod`` then ``data``), which sums the batch's terms and the
+    gradients, ``dp_rank`` this rank's place in it (row-major over
+    ``dp``); ``fsdp_group`` the ranks along the FSDP axis (``data``: the
+    same ``pod`` and ``model`` index), set in training only, whose ranks
+    hold the pieces of each ``embed`` dim; ``pod_group`` the ranks along
+    ``pod``.  None where an axis runs on no ranks: a hand-built context
+    with a larger ``data`` axis and no group is a shape for the pure
+    placement functions, and a MoE layer under it runs the data shards
+    one after another (``models.moe.moe_capacity``).  A step whose batch
+    is whole on every rank runs under :meth:`rows_whole` (no
+    ``dp_group``: nothing to sum)."""
     group: object = None
     tp_size: int = 1
     rank: int = 0
@@ -99,17 +125,57 @@ class ShardCtx:
     seq_shard: bool = True
     exact: bool = False
     axis_sizes: Tuple[Tuple[str, int], ...] = ()
+    coords: Tuple[Tuple[str, int], ...] = ()
+    dp_group: object = None
+    dp_rank: int = 0
+    fsdp_group: object = None
+    pod_group: object = None
 
     def axis_size(self, axis: str) -> int:
         if axis == self.tp:
             return self.tp_size
         return dict(self.axis_sizes).get(axis, 1)
 
+    def axis_index(self, axis: str) -> int:
+        """This rank's index on ``axis`` (0 where it runs on no ranks)."""
+        if axis == self.tp:
+            return self.rank
+        return dict(self.coords).get(axis, 0)
+
     def dp_size(self) -> int:
         s = 1
         for a in self.dp:
             s *= self.axis_size(a)
         return s
+
+    def over(self, axis: str) -> "ShardCtx":
+        """The context of this rank's group along one data axis, for the
+        collectives: "dp" (the data-parallel group), "data" (the FSDP
+        group) or "pod".  Its ``tp`` names the axis (the key of its
+        :data:`traffic`), ``tp_size`` is the group's size (1, nothing
+        sent, where the axis runs on no ranks), ``rank`` this rank's
+        place in it."""
+        if axis == "dp":
+            group, size, index = self.dp_group, self.dp_size(), self.dp_rank
+        elif axis == "pod":
+            group, size, index = (self.pod_group, self.axis_size("pod"),
+                                  self.axis_index("pod"))
+        else:
+            group = self.fsdp_group
+            size = self.axis_size(self.fsdp) if self.fsdp else 1
+            index = self.axis_index(self.fsdp) if self.fsdp else 0
+        if group is None:
+            size, index = 1, 0
+        return ShardCtx(group=group, tp_size=size, rank=index,
+                        backend=self.backend, tp=axis)
+
+    def rows_whole(self) -> "ShardCtx":
+        """This context for a batch whole on every rank (the reference's
+        guard replicates a batch that the data axes do not divide):
+        every rank computes the whole loss and gradient, so no sum runs
+        over ``dp`` and an FSDP gather's backward keeps the rank's
+        piece."""
+        return replace(self, dp_group=None)
 
 
 def _mesh_axis_size(sctx: ShardCtx, axes) -> int:
@@ -269,15 +335,28 @@ def split_range(n: int, tp_size: int, rank: int) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 # collectives since the last reset, and the bytes each rank sent into
-# them (its input as sent)
+# them (its input as sent): those of the model axis unprefixed, those of
+# a data axis (``ShardCtx.over``) under its name, "data_all_gather",
+# "dp_all_reduce_bytes", ...
+_OPS = ("all_gather", "all_reduce", "reduce_scatter")
 traffic = {"all_gather": 0, "all_gather_bytes": 0, "lockstep": 0,
            "all_reduce": 0, "all_reduce_bytes": 0, "reduce_scatter": 0,
            "reduce_scatter_bytes": 0, "head_gather": 0, "merge_ranks": 0}
+traffic.update({f"{axis}_{op}{unit}": 0 for axis in ("data", "pod", "dp")
+                for op in _OPS for unit in ("", "_bytes")})
 
 
 def reset_traffic() -> None:
     for name in traffic:
         traffic[name] = 0
+
+
+def _count(op: str, sctx: ShardCtx, t: torch.Tensor) -> None:
+    """One collective ``op`` of ``sctx``'s axis, ``t`` the tensor this
+    rank sent into it."""
+    key = op if sctx.tp == TP_AXIS else f"{sctx.tp}_{op}"
+    traffic[key] += 1
+    traffic[key + "_bytes"] += t.numel() * t.element_size()
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
@@ -307,8 +386,7 @@ def all_gather(t: torch.Tensor, dim: int, sctx: Optional[ShardCtx]
     out = torch.cat(parts, dim=dim)
     if staged:
         out = out.to(t.device)
-    traffic["all_gather"] += 1
-    traffic["all_gather_bytes"] += src.numel() * src.element_size()
+    _count("all_gather", sctx, src)
     return out.view(t.dtype) if out.dtype != t.dtype else out
 
 
@@ -351,8 +429,7 @@ def all_reduce(t: torch.Tensor, sctx: Optional[ShardCtx]) -> torch.Tensor:
     src, staged = _host_or_card(t, sctx)
     out = src.clone() if src is t else src
     dist.all_reduce(out, group=sctx.group)
-    traffic["all_reduce"] += 1
-    traffic["all_reduce_bytes"] += out.numel() * out.element_size()
+    _count("all_reduce", sctx, out)
     return out.to(t.device) if staged else out
 
 
@@ -366,8 +443,7 @@ def reduce_scatter(t: torch.Tensor, dim: int, sctx: Optional[ShardCtx]
     src, staged = _host_or_card(t.movedim(dim, 0), sctx)
     out = src.new_empty((src.shape[0] // sctx.tp_size,) + src.shape[1:])
     dist.reduce_scatter_tensor(out, src, group=sctx.group)
-    traffic["reduce_scatter"] += 1
-    traffic["reduce_scatter_bytes"] += src.numel() * src.element_size()
+    _count("reduce_scatter", sctx, src)
     out = out.movedim(0, dim)
     return out.to(t.device) if staged else out
 
@@ -457,6 +533,43 @@ def split_seq(t: torch.Tensor, sctx: Optional[ShardCtx], dim: int = 1
     """This rank's piece, along ``dim``, of a ``t`` every rank holds
     whole; the backward all-gathers the pieces' gradients."""
     return _collective(t, "piece", "gather", dim, sctx)
+
+
+def fsdp_gather(t: torch.Tensor, dim: int, sctx: ShardCtx) -> torch.Tensor:
+    """A parameter's pieces of its ``embed`` dim ``dim`` (FSDP), gathered
+    whole over the ``data`` axis in rank order, for the sub-layer that
+    uses it.  The backward: each rank's gradient of the whole leaf (a
+    partial, over its rows of the batch) reduce-scattered, summed, back
+    to the rank's piece over ``data``, then summed over ``pod``.  Where
+    the batch is whole on every rank (no ``dp_group``: each rank holds
+    the whole gradient), the rank's piece of it, as :func:`gather_whole`
+    keeps."""
+    data = sctx.over("data")
+    if sctx.dp_group is None:
+        return _collective(t, "gather", "piece", dim, data)
+    t = copy_to_ranks(t, sctx.over("pod"))
+    return _collective(t, "gather", "scatter", dim, data)
+
+
+def data_whole(t: torch.Tensor, sctx: Optional[ShardCtx]) -> torch.Tensor:
+    """A parameter whole on the data axes (a norm, or a leaf whose
+    ``embed`` dim the ``data`` axis does not divide): itself; its
+    gradient, a partial over this rank's rows, summed over the
+    data-parallel group (the identity where the batch is whole on every
+    rank)."""
+    if sctx is None:
+        return t
+    return copy_to_ranks(t, sctx.over("dp"))
+
+
+def dp_sum(t: torch.Tensor, sctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The sum over the data-parallel group of each rank's ``t`` (a term
+    of the batch's loss over the rank's rows: the loss becomes the global
+    batch's); the gradient passes to each rank as it is.  ``t`` itself
+    where the batch is whole on every rank."""
+    if sctx is None:
+        return t
+    return reduce_from_ranks(t, sctx.over("dp"))
 
 
 def _no_grad(what: str, *ts: torch.Tensor) -> None:

@@ -70,7 +70,17 @@ def grpo_loss(cfg: ModelConfig, params, batch: dict, *,
     backward, as the JAX package's ``train=True`` forward does.
     ``sctx``: the production layout's context, passed to the forward
     (``params`` are then this rank's ``launch.steps.param_shards``; the
-    logits come back whole, so the loss is the same on every rank)."""
+    logits come back whole on the model group).  With the data axes over
+    ranks, ``batch`` holds this rank's rows (``launch.steps.batch_shards``,
+    their span under ``launch.steps.BATCH_SPAN``): the loss's sums — the
+    mask's (``denom``), the surrogate's, the KL term's and the metrics'
+    — are summed over the data-parallel group (one all-reduce, whose
+    backward is the identity), so the loss and metrics are those of the
+    whole batch on every rank; ``mean_adv`` too.  A batch without a span
+    is whole on every rank, and nothing is summed."""
+    from repro_torch.launch.steps import BATCH_SPAN, rows_ctx
+    if sctx is not None:
+        sctx = rows_ctx(sctx, batch)
     tokens = batch["tokens"]
     mask = batch["loss_mask"][:, 1:]
     adv = batch["advantages"][:, None]
@@ -95,23 +105,41 @@ def grpo_loss(cfg: ModelConfig, params, batch: dict, *,
     ratio = torch.exp(lp - old_lp)
     clipped = torch.clamp(ratio, 1.0 - gcfg.clip_eps, 1.0 + gcfg.clip_eps)
     pg = -torch.minimum(ratio * adv, clipped * adv)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = (pg * mask).sum() / denom
+    zero = torch.zeros((), device=tokens.device)
+    kl = zero
     if gcfg.kl_coef:
-        kl = (torch.exp(old_lp - lp) - 1.0) - (old_lp - lp)
-        loss = loss + gcfg.kl_coef * (kl * mask).sum() / denom
+        kl = (((torch.exp(old_lp - lp) - 1.0) - (old_lp - lp)) * mask).sum()
+    with torch.no_grad():
+        seen = [(ratio * mask).sum(),
+                ((torch.abs(ratio - 1.0) > gcfg.clip_eps) * mask).sum(),
+                adv.sum()]
+    sums = _global_sums([mask.sum(), (pg * mask).sum(), kl] + seen, sctx)
+    denom = torch.clamp(sums[0], min=1.0)
+    loss = sums[1] / denom
+    if gcfg.kl_coef:
+        loss = loss + gcfg.kl_coef * sums[2] / denom
     if cfg.num_experts:
         loss = loss + gcfg.aux_coef * aux
+    span = batch.get(BATCH_SPAN)
+    rows = int(span[2]) if span is not None and sctx is not None \
+        and sctx.dp_group is not None else B
     with torch.no_grad():
         metrics = {
-            "pg_loss": (pg * mask).sum() / denom,
-            "aux_loss": torch.zeros((), device=tokens.device) + aux,
-            "mean_ratio": (ratio * mask).sum() / denom,
-            "clip_frac": ((torch.abs(ratio - 1.0) > gcfg.clip_eps) * mask
-                          ).sum() / denom,
-            "mean_adv": adv.mean(),
+            "pg_loss": sums[1] / denom,
+            "aux_loss": zero + aux,
+            "mean_ratio": sums[3] / denom,
+            "clip_frac": sums[4] / denom,
+            "mean_adv": sums[5] / rows,
         }
     return loss, metrics
+
+
+def _global_sums(terms: list, sctx) -> torch.Tensor:
+    """The loss's per-rank sums, stacked and summed over the data-parallel
+    group (``sharding.dp_sum``: one all-reduce; the gradient passes to
+    each rank's terms as it is)."""
+    from repro_torch import sharding
+    return sharding.dp_sum(torch.stack(terms), sctx)
 
 
 def pack_experience(cfg: ModelConfig, responses: dict, prompts: dict,

@@ -209,14 +209,14 @@ def test_unported_paths_raise():
         forward(cfg, params, tok, tok, None)
     # the contiguous prefill and the cached forward under the production
     # layout's context across ranks run (tests/test_torch_production_
-    # steps.py, test_torch_production_cache.py); what stays refused of
-    # that layout is a data axis over ranks (slice 16's), which its
-    # meshes refuse before any rank runs
+    # steps.py, test_torch_production_cache.py), and so do its data axes
+    # over ranks (tests/test_torch_data_axis*.py); what its meshes refuse
+    # is a process group whose size is not the mesh's
     from repro_torch.launch import mesh
     orig = mesh._world
-    mesh._world = lambda: 4
+    mesh._world = lambda: 3
     try:
-        with pytest.raises(NotImplementedError, match="slice 16"):
+        with pytest.raises(ValueError, match="exactly 2 ranks, not 3"):
             mesh.small_mesh(2)
     finally:
         mesh._world = orig

@@ -122,9 +122,13 @@ def test_tensor_parallel_and_training_refused(models):
     every token at the default capacity and equals the dense combine
     (tests/test_torch_production.py holds it to the reference's on 1, 2
     and 2 x 2 ranks), and a cached MoE forward under that context across
-    ranks runs too (tests/test_torch_production_cache.py); what stays
-    refused is a data axis over ranks (slice 16), which the production
-    meshes refuse before any rank runs.  Training is not refused
+    ranks runs too (tests/test_torch_production_cache.py).  A data axis
+    over ranks is not refused either: with a data-parallel group the
+    layer takes its rows as the rank's data shard, one dispatch with C
+    from them and the aux loss averaged over the group, where a context
+    with the data axis and no group runs the shards one after another
+    (tests/test_torch_data_axis.py holds both to the reference's meshes).
+    Training is not refused
     either: the cache-free forward gives logits and the router's aux
     loss, and ``RLTrainer`` takes the model
     (tests/test_torch_train_archs.py and test_torch_train_loop.py hold
@@ -141,14 +145,29 @@ def test_tensor_parallel_and_training_refused(models):
     np.testing.assert_allclose(to_numpy(y), to_numpy(dense_y), rtol=1e-5,
                                atol=1e-5)
     assert float(aux) == float(dense_aux)
-    from repro_torch.launch import mesh
-    orig = mesh._world
-    mesh._world = lambda: 4
+    from repro_torch import sharding
+    x2 = torch.cat([x, x.flip(1)])
+    summed = []
+    orig = sharding.dp_sum
+    sharding.dp_sum = lambda t, ctx: summed.append(float(t)) or t * 2
     try:
-        with pytest.raises(NotImplementedError, match="slice 16"):
-            mesh.make_shard_ctx(mesh.small_mesh(2), train=False)
+        runs = {}
+        for name, group in (("loop", None), ("ranks", object())):
+            tmoe.DISPATCH_LOG = []
+            ctx = ShardCtx(tp_size=1, exact=False, dp=("data",),
+                           axis_sizes=(("data", 2),), dp_group=group)
+            with torch.no_grad():
+                runs[name] = tmoe.moe_forward(x2, block, tcfg, sctx=ctx)
+            runs[name] += ([r["C"] for r in tmoe.DISPATCH_LOG],)
     finally:
-        mesh._world = orig
+        sharding.dp_sum = orig
+        tmoe.DISPATCH_LOG = None
+    C = tmoe._capacity
+    k, E, cf = tcfg.moe_top_k, tcfg.num_experts, tcfg.capacity_factor
+    assert runs["loop"][2] == [C(2, k, E, cf)] * 2
+    assert runs["ranks"][2] == [C(4, k, E, cf)]
+    assert len(summed) == 1
+    assert float(runs["ranks"][1]) == summed[0]
     pos = torch.arange(2, dtype=torch.int32)[None]
     logits, cache, aux = forward(tcfg, tp, pos, pos, None)
     assert cache is None and logits.shape == (1, 2, tcfg.vocab_size)

@@ -1,8 +1,9 @@
 """The production layout's one-rank paths against the JAX package:
 ``forward(contiguous_update=True)`` (the production prefill) and the four
-cached step builders of ``launch/steps.py`` on one rank, and what
-remains refused (a data axis over ranks: slice 16).  The cached paths
-across ranks are ``tests/test_torch_production_cache.py``'s.
+cached step builders of ``launch/steps.py`` on one rank, and the
+meshes' refusal of a process group of another size.  The cached paths
+across ranks are ``tests/test_torch_production_cache.py``'s, with the
+data axes over ranks ``tests/test_torch_data_axis_cache.py``'s.
 
 Tiny configs at f32 with the reference's weights (``init_params(cfg,
 PRNGKey(1))`` through the bridge), caches from each package's
@@ -261,10 +262,10 @@ def test_cached_paths_refused_across_ranks(monkeypatch):
     now (``tests/test_torch_production_cache.py`` runs them on 2 and 4),
     and ``init_cache`` under it allocates a rank's piece: half the slots
     of each of ``k``, ``v`` and ``slot_pos`` and a scratch slot past
-    them, every KV head, its span.  What the production layout still
-    refuses is a data axis over ranks: a mesh whose process group would
-    run one names slice 16.  The cache-free forward under the engine's
-    exact context is no path either."""
+    them, every KV head, its span; under data axes over ranks, the
+    rank's rows too.  The meshes take a process group of exactly their
+    ranks: one of another size raises.  The cache-free forward under the
+    engine's exact context is no path."""
     cfg = tcfgs.get_tiny_config("granite-3-8b")
     params = init_params_tiny(cfg)
     tok = torch.arange(4, dtype=torch.int32)[None]
@@ -277,10 +278,15 @@ def test_cached_paths_refused_across_ranks(monkeypatch):
     assert piece["k"].shape[3] == cfg.num_kv_heads
     assert piece[tsteps.SEQ_SPAN].tolist() == [4, 8, 8]
     assert (with_scratch(piece["slot_pos"], 1) == -1).all()
+    rows = init_cache(cfg, 4, 8, device="cpu", sctx=replace(
+        prod, dp=("data",), axis_sizes=(("data", 2),),
+        coords=(("data", 1),), dp_group=object(), dp_rank=1))
+    assert rows["k"].shape[1] == 2 and rows["slot_pos"].shape == (2, 4)
+    assert rows[tsteps.BATCH_SPAN].tolist() == [2, 4, 4]
     from repro_torch.launch import mesh
     monkeypatch.setattr(mesh, "_world", lambda: 4)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        mesh.small_mesh(2)
+    with pytest.raises(ValueError, match="exactly 2 ranks, not 4"):
+        mesh.make_mesh((1, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="exact"):
         forward(cfg, params, tok, tok, None,
                 sctx=ShardCtx(tp_size=2, exact=True))
