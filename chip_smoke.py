@@ -65,7 +65,17 @@ Phases, in this order:
    repeat calls bitwise equal, bf16 under ``scaled_check``'s measure
    with planted faults fed through each route (``ssd_bwd_check``); K3's
    backward at the cross blocks' training shapes under
-   ``scaled_check`` (``cross_bwd_check``);
+   ``scaled_check`` (``cross_bwd_check``); row invariance, the rule
+   that a row's bits depend only on the row (``kernels/row_gemm``): the
+   row-invariant product (``row_gemm``, mma.sync in bf16, FMAs in f32)
+   against its plain version at granite-3-8b's products on 2048 rows,
+   its rows bitwise across 1, 2, 8, 9, 64, 256 and 2048 rows, alone and
+   on tp=2's column halves, its batched form at moonshot's experts
+   (``row_gemm_check``); the row reductions (``row_reduce``: RMSNorm,
+   the logits' log-sum-exp) likewise (``row_reduce_check``); K1 and K2's
+   first query of each row bitwise at B 1 / 4 / 8 and T 1 / 9 / 33 /
+   512, bf16 and f32 (``verify_row_check``); and PyTorch's own matmul,
+   RMSNorm and log-sum-exp row by row, printed (``library_row_probe``);
 3b. production layout (``production_phase``), after the kernel checks:
    (a) the four cached step builders of ``launch/steps.py`` on a
    one-rank production context, granite-3-8b at full width and 2 of 40
@@ -123,9 +133,20 @@ Phases, in this order:
    through the port's entry points, with its checks: every group finishes, every
    cached attention launched K1, at most one host sync per engine step,
    dispatch free of host syncs under
-   ``torch.cuda.set_sync_debug_mode("error")``, and a repeat run
+   ``torch.cuda.set_sync_debug_mode("error")``, every product through
+   ``row_gemm`` (7 a layer and the unembedding), every norm and
+   log-sum-exp through ``row_reduce``, no plain call, and a repeat run
    bit-identical; then a third pass on the second rollout, its group
-   suffix trees warm from the pass before;
+   suffix trees warm from the pass before, whose responses must equal
+   the cold pass's (other batches and step widths, the same tokens), and
+   a fourth at ``SHIFT_TEMPERATURE``, the tree slice's yardstick; then
+   the row probe
+   (``row_probe``): the cached forward's every product, norm, RoPE,
+   attention and routing output of a slot alone equal to that slot's in
+   an 8-slot step, and a decode's to the first position of a verify of
+   9, bitwise, each op that differs printed (the same probe with
+   PyTorch's operations in their place is printed, not gated); moonshot
+   likewise in the MoE slice (phase 11);
 5. tree engine: one full-width tree-mode ``Instance`` driven with
    branching drafts (a bad trunk, a good side branch); at each step the
    fused tree step is held against the sync oracle run from the same
@@ -133,10 +154,11 @@ Phases, in this order:
    equal K/V at every committed slot), with one host sync and one K2
    launch per layer per fused step, and dispatch free of host syncs;
 6. tree slice: the linear slice's rollout with ``spec_mode="tree"`` and
-   three draft paths, a warm pass then a measured one drafting from the
-   warm group suffix trees (every attention through K2, none through K1,
-   at most one host sync per step, drafts accepted, branching trees
-   verified), set beside the linear slice's warm pass;
+   three draft paths, a warm pass at temperature 1.0 then a measured one
+   at ``SHIFT_TEMPERATURE`` drafting from the warm group suffix trees
+   (every attention through K2, none through K1, at most one host sync
+   per step, drafts accepted, branching trees verified), set beside the
+   linear slice's shifted pass;
 7. serving, faults and tracing: the reference's own real-engine
    workloads (``bench_engine_faults``, ``bench_observability`` and
    ``bench_serving`` of ``benchmarks/common.py``) on granite-3-8b at
@@ -168,8 +190,9 @@ Phases, in this order:
    no plain attention, the rollout on the pushed weights, a bitwise
    repeat of a train step, K3 against the plain attention); then the
    crash gap: the same granite, two sync iterations of a small rollout
-   without and with one crash, the differences in losses, grad norms and
-   rollout logprobs printed (``crash_gap_phase``); then the training of
+   without and with one crash, gated bitwise: responses and rewards
+   equal, loss and grad-norm gaps 0.0, no rollout logprob differing
+   (``crash_gap_phase``); then the training of
    every other arch the reference trains, at full width: one sync
    ``RLTrainer`` iteration of moonshot-v1-16b-a3b (at
    ``moe_train_layers()``: 1 dense + 3 MoE layers), mamba2-370m and
@@ -236,8 +259,13 @@ Phases, in this order:
    audio encoder), with their route, n_split,
    both routes' times at those widths, three rounds each (min,
    median, max of the round medians) and the wrapper's host time per
-   call, and a check that T = 1 runs the split CUDA cores and T = 64 the
-   tensor cores; K3 also at zamba2-1.2b's head shape, with each entry's
+   call, and a check that every bf16 width runs the tensor cores (one
+   route per dtype and head dim); ``row_gemm`` at granite's products
+   (wq, wk, wg, wd, the unembedding) on 8, 256 and 2048 rows and the
+   linear slice's commonest width, beside ``torch.matmul`` (cuBLAS) and
+   its plain version, and the row reductions at that width
+   (``row_gemm_time``, ``row_reduce_time``); K3 also at zamba2-1.2b's
+   head shape, with each entry's
    TFLOP/s and share of its bound.  Every time is taken by
    ``_time_rounds``: CUDA events around each call after an L2 flush, the
    device spinning (``torch.cuda._sleep``) before the start event for
@@ -253,7 +281,8 @@ Phases, in this order:
    the whisper cold pass's rollout; K4: the hybrid and the SSM cold
    passes; K4's backward: the zamba2 and mamba2 train steps, timed at
    their shape, 16 x 448, on both routes with each of its kernels'
-   profiled time, by ``ssd_bwd_time``) and
+   profiled time, by ``ssd_bwd_time``; ``row_gemm`` and the two row
+   reductions: the linear slice's cold pass) and
    that path's shape's timing; K4 also at fixed
    widths (``ssd_time_table``: T = 1, 3, 5, 9, 33, 64 and each SSM slice's
    cold and warm commonest, both models' heads on 8 slots) with route,
@@ -284,10 +313,12 @@ Phases, in this order:
    sliced probe (every gathered activation of a prefill chunk and a
    decode step, ``tp_probe``) bitwise tp=None, so that any difference the
    port's own code makes (a gather's order, the head and K/V shards, K1's
-   split, sampling) fails.  tp=2 against tp=None in bf16 and f32 is
-   printed, with each rank's column products against the same columns of
-   the unsharded product on the same input: what differs there is
-   cuBLAS's, an open fault.
+   split, sampling) fails; and with the row-invariant products, granite's
+   tp=2 rollouts (bf16 and f32) equal to that oracle in every response,
+   each rank's column products bitwise the unsharded product's columns,
+   the f32 probe's gathered activations bitwise tp=None's.  moonshot's
+   and zamba2's tp=2 against tp=None, and tp's schedule against
+   tp=None's, are printed.
    Per-rank walls and collectives per step are printed as what they
    are: two ranks on one card are no measure of tp's speed.  K1 / K2 are
    timed at rank 0's heads (the ``*/tp2`` rows of the ``kernels``
@@ -344,6 +375,13 @@ GROUPS, GROUP_SIZE, NEW_TOKENS, CHUNK_SIZE = 8, 4, 128, 32
 # masters, gradients and AdamW moments of all 40 layers would need 131 GB),
 # prompts of BOS + 383 copy-task tokens
 TRAIN_LAYERS, TRAIN_PROMPT = 12, 384
+# the tree slice's measured pass and its linear yardstick sample at this
+# temperature from group suffix trees of passes at 1.0, as a later RL
+# iteration's policy partly follows and partly leaves the responses of
+# earlier ones: with the engine row-invariant, a pass at the trees' own
+# temperature replays them exactly (a linear warm pass accepts ~99.8% of
+# its drafts) and proposes one path a context, no branching tree
+SHIFT_TEMPERATURE = 0.9
 # the linear and tree slices' depth (the tree engine's and, since the KV
 # cache across ranks joined the production phase, the serving, faults and
 # tracing phase's too): 10 of granite-3-8b's 40 layers (the script's time
@@ -1138,16 +1176,12 @@ def verify_time_table(torch, np, *, B, S, extra=(), zamba_extra=(),
     for name, rows in out.items():
         for tm in rows:
             log_verify_time(name, tm)
-    # the routes the table gives the engine's shapes: decode on the split
-    # CUDA cores, wide steps on the tensor cores
-    for name in ("spec_verify", "tree_verify"):
-        by_t = {tm["T"]: tm for tm in out[name][-len(VERIFY_WIDTHS):]}
-        check(by_t[1]["route"] == "cuda_cores" and by_t[1]["n_split"] > 1,
-              f"{name} at T=1: route {by_t[1]['route']}, n_split "
-              f"{by_t[1]['n_split']} (want the split CUDA cores)")
-        check(by_t[64]["route"] == "tensor_cores",
-              f"{name} at T=64: route {by_t[64]['route']} (want the tensor "
-              f"cores)")
+    # the route the table gives the engine's bf16 shapes: the tensor cores
+    # at every width (one route per dtype and head dim, decode included)
+    for name, rows in out.items():
+        wrong = [(tm["T"], tm["route"]) for tm in rows
+                 if tm["route"] != "tensor_cores"]
+        check(not wrong, f"{name}: widths off the tensor cores {wrong}")
     return out
 
 
@@ -1601,19 +1635,24 @@ def make_rollout(cfg, params, cache_len=2048, device="cuda", **kw):
 
 
 def _plain_calls() -> int:
-    """Calls of the plain attention and SSD versions so far."""
+    """Calls of the plain attention, SSD, product and row-reduction
+    versions so far."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.row_gemm import ref as rg_ref
+    from repro_torch.kernels.row_reduce import ref as rr_ref
     from repro_torch.kernels.spec_verify import ref as sv_ref
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    return sum(sv_ref.calls.values()) + sum(ssd_ref.calls.values()) + \
-        sum(fa_ref.calls.values())
+    return sum(sum(m.calls.values())
+               for m in (sv_ref, ssd_ref, fa_ref, rg_ref, rr_ref))
 
 
 def _counters():
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.row_gemm import ops as rg_ops
+    from repro_torch.kernels.row_reduce import ops as rr_ops
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    return ops, ssd_ops, fa_ops
+    return ops, ssd_ops, fa_ops, rg_ops, rr_ops
 
 
 def _reset_launches() -> None:
@@ -1622,7 +1661,8 @@ def _reset_launches() -> None:
 
 
 def _launches() -> dict:
-    """Launches of K1, K2, K4 and K3 (forward, dQ, dK/dV) so far."""
+    """Launches of K1, K2, K4, K3 (forward, dQ, dK/dV), the row-invariant
+    product (row_gemm) and row reductions (rms_norm, logsumexp) so far."""
     out = {}
     for mod in _counters():
         out.update(mod.launches)
@@ -1630,8 +1670,9 @@ def _launches() -> dict:
 
 
 def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
-                new_tokens=NEW_TOKENS):
-    """One ``ro.run`` over the slice's groups, its launch counts set to 0
+                new_tokens=NEW_TOKENS, temperature=1.0):
+    """One ``ro.run`` over the slice's groups (sampled at
+    ``temperature``), its launch counts set to 0
     just before and read just after; also its plain-version calls, its
     recurrent-state replays, its peak device memory, its KV blobs
     (slots exported and imported, bytes exported, host seconds spent
@@ -1640,7 +1681,7 @@ def run_rollout(torch, ro, prompts, group_size=GROUP_SIZE,
     from repro_torch.core import make_groups
     groups = make_groups(prompts, group_size=group_size,
                          max_new_tokens=new_tokens, seed=3,
-                         temperature=1.0)
+                         temperature=temperature)
     st = ro.steps
     inv0, hs0, rp0 = st.invocations, st.host_syncs, st.replays
     by0 = dict(st.invocations_by_kind)
@@ -3551,6 +3592,17 @@ def _crash_run(torch, cfg, task, crash: bool) -> dict:
         sampled.extend(groups)
         return groups
     tr._sample_groups = keep
+    # each train step under deterministic algorithms, as the training
+    # phase's repeat runs it: the same batch must give the same update
+    step = tr.train_step
+
+    def deterministic_step(*args):
+        torch.use_deterministic_algorithms(True)
+        try:
+            return step(*args)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    tr.train_step = deterministic_step
     hist = tr.run()
     torch.cuda.synchronize()
     out = {"losses": [h.loss for h in hist],
@@ -3574,8 +3626,13 @@ def crash_gap_phase(torch, np) -> dict:
     chunks of 8, no drafting) without and with one crash of inst0 at
     tick 4; the differences in losses, grad norms and rollout logprobs,
     and whether the responses and rewards are equal.  The crash replay
-    keeps the logprobs its tokens were recorded with.  Checks: the crash
-    happened and every group finished."""
+    keeps the logprobs its tokens were recorded with, and the engine
+    path's products, norms and attention are row-invariant, so the
+    rebatching after the crash changes no bit.  Gates: the crash happened
+    and every group finished; responses and rewards equal, the loss and
+    grad-norm gaps 0.0 and no rollout logprob differing, in both
+    iterations (the reference asserts this of itself,
+    tests/test_faults.py)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.tasks import make_task
@@ -3634,6 +3691,15 @@ def crash_gap_phase(torch, np) -> dict:
             f"{sorted(it['first_differing'])}); over the tokens both runs "
             f"share, {it['logprobs_differing']} of {it['logprobs']} "
             f"logprobs differ, by at most {it['logprob_max_gap']:.3e}")
+    check(out["responses_equal"] and out["rewards_equal"],
+          "crash gap: the crash changed the responses or the rewards")
+    check(all(g == 0.0 for g in out["loss_gaps"] + out["grad_norm_gaps"]),
+          f"crash gap: loss gaps {out['loss_gaps']}, grad-norm gaps "
+          f"{out['grad_norm_gaps']} (want 0.0)")
+    check(len(per_iter) == 2 and not any(
+        it["logprobs_differing"] or it["responses_differing"]
+        for it in per_iter.values()),
+          f"crash gap: logprobs or responses differ: {per_iter}")
     return out
 
 
@@ -4426,6 +4492,533 @@ def serving_phase(torch, np, cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# row invariance: the engine path's products (row_gemm) and reductions
+# (row_reduce), K1 / K2 at every width, and the cached forward's rows
+# ---------------------------------------------------------------------------
+
+ROW_GEMM_SRC = "src/repro_torch/kernels/row_gemm/csrc/row_gemm.cu"
+ROW_REDUCE_SRC = "src/repro_torch/kernels/row_reduce/csrc/row_reduce.cu"
+# the JAX package computes these with XLA, no Pallas kernel: its sites
+LIN_REF = "src/repro/models/common.py:97"
+RMS_NORM_REF = "src/repro/models/common.py:102"
+LOGSUMEXP_REF = "src/repro/engine/sampling.py:131"
+ROW_GEMM_MMA = r"\d(gemm_bf16)ILb([01])E"
+# granite-3-8b's products (K, N): the attention's, the MLP's and the tied
+# unembedding (W = embed^T, its K contiguous)
+ROW_GEMM_SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024),
+                   "wg": (4096, 12800), "wd": (12800, 4096),
+                   "unembed": (4096, 49155)}
+# rows of a product: a decode of 8 slots, a mixed chunk of 32 on 8 slots,
+# the production prefill; and every row count the invariance is held at
+ROW_GEMM_TIME_M = (8, 256, 2048)
+ROW_GEMM_CHECK_M = (1, 2, 8, 9, 64, 256, 2048)
+# moonshot-v1-16b-a3b's experts: E, d, eff
+MOE_EXPERT_SHAPE = (64, 2048, 1408)
+
+
+def _row_weight(torch, K, N, dtype, seed, k_major=False):
+    """A (K, N) weight on the card at 1/sqrt(K), its columns contiguous,
+    or (``k_major``) its rows: the transpose of an (N, K) tensor, as the
+    tied unembedding's ``embed.T``."""
+    (w,) = _normals(torch, seed, "float32", (N, K) if k_major else (K, N))
+    w = (w * K ** -0.5).to(getattr(torch, dtype))
+    return w.T if k_major else w
+
+
+def _scale_err(got, want) -> tuple:
+    """(max |got - want|, the tensor's scale max(1, max |want|))."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()), max(1.0, float(w.abs().max()))
+
+
+def row_gemm_check(torch, np) -> list:
+    """``row_gemm`` against its plain version at granite-3-8b's product
+    shapes (``ROW_GEMM_SHAPES``, K x N; the unembedding's W k-contiguous)
+    on 2048 rows, in bf16 and f32, within TOL of the tensor's scale; then
+    bitwise: the first M rows of products of M in ``ROW_GEMM_CHECK_M``
+    rows equal those of the 2048-row product, a sample of rows computed
+    alone (M = 1) equal theirs, and ``x @ W[:, cols]`` equals
+    ``(x @ W)[:, cols]`` for tp=2's column halves; the batched form at
+    moonshot-v1-16b-a3b's experts (E 64, d 2048, eff 1408: the up and down
+    products on the MoE layer's strided views, 8 and 72 tokens against
+    each token alone) and the experts' combine ((T, 1, E) x (T, E, d) on a
+    transposed view)."""
+    from repro_torch.kernels.row_gemm import ops as rg
+    from repro_torch.kernels.row_gemm import ref as rg_ref
+    out = []
+    n0 = dict(rg.launches)
+    for dtype in ("bfloat16", "float32"):
+        tol = TOL[dtype]
+        for i, (name, (K, N)) in enumerate(ROW_GEMM_SHAPES.items()):
+            W = _row_weight(torch, K, N, dtype, 40 + i, name == "unembed")
+            (A,) = _normals(torch, 60 + i, dtype, (max(ROW_GEMM_CHECK_M), K))
+            check(rg.build().row_gemm_splits(int(dtype == "bfloat16"), K)
+                  == rg.n_split(A.dtype, K), f"row_gemm: the library's "
+                  f"split table and ops.n_split differ at K={K}")
+            full = rg.row_gemm(A, W)
+            want = rg_ref.row_gemm_ref(A, W)
+            err, scale = _scale_err(full, want)
+            check(err <= tol * scale, f"row_gemm {name} {dtype}: max|err| "
+                  f"{err:.3e} > {tol} x scale {scale:.3e}")
+            rows = [r for r in (0, 1, 7, 8, 63, 255, 2047)
+                    if r < A.shape[0]]
+            alone = {r: rg.row_gemm(A[r:r + 1], W) for r in rows}
+            bad = []
+            for M in ROW_GEMM_CHECK_M:
+                part = rg.row_gemm(A[:M], W)
+                if not torch.equal(part, full[:M]):
+                    bad.append(f"M={M}")
+                bad += [f"row {r} alone vs M={M}" for r in rows
+                        if r < M and not torch.equal(part[r:r + 1],
+                                                     alone[r])]
+            half = N // 2
+            for lo, hi in ((0, half), (half, N)):
+                Wc = W[:, lo:hi].contiguous()
+                for M in (8, 256):
+                    if not torch.equal(rg.row_gemm(A[:M], Wc),
+                                       full[:M, lo:hi]):
+                        bad.append(f"columns [{lo}, {hi}) at M={M}")
+            check(not bad, f"row_gemm {name} {dtype} not row-invariant: "
+                  f"{bad[:6]}")
+            out.append({"shape": f"granite-3-8b/{name}", "dtype": dtype,
+                        "K": K, "N": N, "max_abs_err": err, "scale": scale,
+                        "row_invariant": True})
+            del W, A, full, want, alone
+        E, d, eff = MOE_EXPERT_SHAPE
+        wg = _row_weight(torch, d, E * eff, dtype, 80)
+        wd = (_row_weight(torch, eff, E * d, dtype, 81)
+              .reshape(eff, E, d).transpose(0, 1).contiguous())
+        (x,) = _normals(torch, 82, dtype, (72, d))
+        bad = []
+        errs = []
+        for T in (8, 72):
+            xe = x[:T].expand(E, T, d)
+            h = rg.row_bmm(xe, wg.view(d, E, eff).transpose(0, 1))
+            y = rg.row_bmm(h, wd)
+            for got, want in (
+                    (h, rg_ref.row_bmm_ref(xe, wg.view(d, E, eff)
+                                           .transpose(0, 1))),
+                    (y, rg_ref.row_bmm_ref(h, wd))):
+                errs.append(_scale_err(got, want))
+            for t in (0, T - 1):
+                ht = rg.row_bmm(x[t:t + 1].expand(E, 1, d),
+                                wg.view(d, E, eff).transpose(0, 1))
+                yt = rg.row_bmm(ht, wd)
+                if not (torch.equal(ht, h[:, t:t + 1])
+                        and torch.equal(yt, y[:, t:t + 1])):
+                    bad.append(f"token {t} of {T}")
+        (comb,) = _normals(torch, 83, dtype, (72, 1, E))
+        y_all = y.transpose(0, 1)                      # (T, E, d), a view
+        mix = rg.row_bmm(comb, y_all)
+        errs.append(_scale_err(mix, rg_ref.row_bmm_ref(comb, y_all)))
+        if not torch.equal(rg.row_bmm(comb[:8], y_all[:8]), mix[:8]):
+            bad.append("the combine at 8 tokens")
+        for err, scale in errs:
+            check(err <= tol * scale, f"row_bmm {dtype}: max|err| {err:.3e} "
+                  f"> {tol} x scale {scale:.3e}")
+        check(not bad, f"row_bmm {dtype} not row-invariant: {bad}")
+        out.append({"shape": f"{MOE_ARCH}/experts", "dtype": dtype,
+                    "max_abs_err": max(e for e, _ in errs),
+                    "scale": max(s for _, s in errs),
+                    "row_invariant": True})
+        del wg, wd, x, h, y, comb, mix
+        _free(torch)
+    rg.launches.update(n0)
+    for c in out:
+        log(f"  row_gemm {c['shape']} {c['dtype']}: max|err| "
+            f"{c['max_abs_err']:.3e} (scale {c['scale']:.3e}); rows bitwise "
+            f"across M {list(ROW_GEMM_CHECK_M)}, alone and column halves")
+    return out
+
+
+def row_reduce_check(torch, np) -> list:
+    """``rms_norm`` (granite's d 4096, moonshot's 2048; bf16 and f32) and
+    ``logsumexp`` (vocabularies 49155 and 163840, f32) against their
+    plain versions within TOL of scale, and bitwise across the call's rows
+    (1, 8, 72, 264, 2048 rows against the first 8 alone)."""
+    from repro_torch.kernels.row_reduce import ops as rr
+    from repro_torch.kernels.row_reduce import ref as rr_ref
+    n0 = dict(rr.launches)
+    out = []
+    for name, d, dtype in (("rms_norm", 4096, "bfloat16"),
+                           ("rms_norm", 2048, "bfloat16"),
+                           ("rms_norm", 4096, "float32"),
+                           ("logsumexp", 49155, "float32"),
+                           ("logsumexp", 163840, "float32")):
+        (x,) = _normals(torch, 90 + d % 97, dtype, (2048, d))
+        if name == "rms_norm":
+            (w,) = _normals(torch, 91, "float32", (d,))
+
+            def fn(t):
+                return rr.rms_norm(t, w, 1e-5)
+            want = rr_ref.rms_norm_ref(x, w, 1e-5)
+        else:
+            x = x * 4.0
+
+            def fn(t):
+                return rr.logsumexp(t)
+            want = rr_ref.logsumexp_ref(x)
+        full = fn(x)
+        err, scale = _scale_err(full, want)
+        check(err <= TOL[dtype] * scale, f"{name} d={d} {dtype}: max|err| "
+              f"{err:.3e} > {TOL[dtype]} x scale {scale:.3e}")
+        bad = [M for M in (1, 8, 72, 264, 2048)
+               if not torch.equal(fn(x[:M]), full[:M])]
+        bad += [f"row {r} alone" for r in range(8)
+                if not torch.equal(fn(x[r:r + 1]), full[r:r + 1])]
+        check(not bad, f"{name} d={d} {dtype} not row-invariant: {bad}")
+        out.append({"shape": f"{name}/{d}", "dtype": dtype,
+                    "max_abs_err": err, "scale": scale,
+                    "row_invariant": True})
+        log(f"  {name} d={d} {dtype}: max|err| {err:.3e} (scale "
+            f"{scale:.3e}); rows bitwise across 1-2048 rows and alone")
+        del x, full, want
+    rr.launches.update(n0)
+    return out
+
+
+LIBRARY_PROBE_M = (1, 72, 264, 2048)
+
+
+def library_row_probe(torch, np) -> list:
+    """What PyTorch's own operations do with a row as the call's row count
+    changes (the cause the row-invariant kernels remove; printed, not
+    gated): ``torch.matmul`` (cuBLAS) at granite's wq, wk, wg and the
+    tied unembedding, a ``torch.mean``-based RMSNorm and
+    ``torch.logsumexp`` over granite's vocabulary: the first 8 rows of
+    calls of ``LIBRARY_PROBE_M`` rows (1: each row alone) against the
+    same rows of an 8-row call, how many differ and by how much."""
+    from repro_torch.kernels.row_reduce.ref import rms_norm_rows
+    out = []
+    d = ROW_GEMM_SHAPES["wq"][0]
+    (x,) = _normals(torch, 97, "bfloat16", (max(LIBRARY_PROBE_M), d))
+    (w,) = _normals(torch, 98, "float32", (d,))
+    weights = {n: _row_weight(torch, *ROW_GEMM_SHAPES[n], "bfloat16", 40 + i,
+                              n == "unembed")
+               for i, n in enumerate(ROW_GEMM_SHAPES) if n != "wd"}
+    logits = (x.float() @ weights["unembed"].float()) * 0.5
+    cases = [(f"torch.matmul {n}", x, lambda t, W=W: t @ W)
+             for n, W in weights.items()]
+    cases += [("RMSNorm (torch.mean)", x, lambda t: rms_norm_rows(t, w)),
+              ("torch.logsumexp", logits,
+               lambda t: torch.logsumexp(t, dim=-1))]
+    for name, x, fn in cases:
+        eight = fn(x[:8])
+        rec = {"op": name}
+        gap = 0.0
+        for M in LIBRARY_PROBE_M:
+            got = (torch.cat([fn(x[r:r + 1]) for r in range(8)]) if M == 1
+                   else fn(x[:M])[:8])
+            rec[f"rows_differing_at_{M}"] = int(
+                (got != eight).reshape(8, -1).any(dim=1).sum())
+            gap = max(gap, float((got.float() - eight.float()).abs().max()))
+        rec["max_gap"] = gap
+        out.append(rec)
+        log(f"  {name}: of 8 rows, differing from the 8-row call's at "
+            + ", ".join(f"{M} rows {rec[f'rows_differing_at_{M}']}"
+                        for M in LIBRARY_PROBE_M) + f" (max gap {gap:.3e})")
+    return out
+
+
+def verify_row_check(torch, np) -> list:
+    """K1 and K2 through the wrappers at granite-3-8b's heads (S 2048,
+    bf16 on the tensor cores, f32 on the CUDA cores in shares of S): each
+    batch row's first query, at T in {1, 9, 33, 512} and B in {1, 4, 8},
+    bitwise the B = 8, T = 1 call's (K2 with the first query's mask row
+    the same in every call, random mask rows after it)."""
+    from repro_torch.kernels.spec_verify import ops
+    Hq, Hk, D, _ = K1_SHAPES["granite-3-8b"]
+    S, Bmax, Tmax = 2048, 8, 512
+    n0 = dict(ops.launches)
+    out = []
+    rng = np.random.default_rng(21)
+    live = rng.integers(300, S - Tmax, size=Bmax)
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = _normals(torch, 23, dtype, (Bmax, Tmax, Hq, D),
+                           (Bmax, S, Hk, D), (Bmax, S, Hk, D))
+        k_pos = np.full((Bmax, S), -1, np.int32)
+        for b in range(Bmax):
+            n = int(live[b]) + Tmax
+            slots = rng.permutation(S)[:n] if b % 2 else np.arange(n)
+            k_pos[b, slots] = np.arange(n)
+        kp = torch.from_numpy(k_pos).to("cuda")
+        qp = torch.from_numpy((live[:, None] + np.arange(Tmax)[None])
+                              .astype(np.int32)).to("cuda")
+        tm = torch.from_numpy(rng.random((Bmax, Tmax, S)) < 0.9).to("cuda")
+        tm[:, 0] = torch.from_numpy(rng.random((Bmax, S)) < 0.9).to("cuda")
+        for name in ("spec_verify", "tree_verify"):
+            def call(B, T):
+                args = (q[:B, :T].contiguous(), k[:B], v[:B],
+                        qp[:B, :T].contiguous(), kp[:B])
+                if name == "tree_verify":
+                    return ops.tree_verify(*args, tm[:B, :T].contiguous())
+                return ops.spec_verify(*args)
+            base = call(Bmax, 1)[:, 0]
+            bad = [(B, T) for B in (1, 4, 8) for T in (1, 9, 33, Tmax)
+                   if not torch.equal(call(B, T)[:, 0], base[:B])]
+            route = ops.plan(q.dtype, Bmax, 1, Hq, Hk, D, S)
+            check(not bad, f"{name} {dtype} ({route[0]}): a first query "
+                  f"differs from the B=8, T=1 call's at (B, T) {bad}")
+            out.append({"kernel": name, "dtype": dtype, "route": route[0],
+                        "n_split": route[1], "row_invariant": True})
+            log(f"  {name} {dtype} ({route[0]}, n_split {route[1]}): each "
+                f"row's first query bitwise at B 1/4/8 x T 1/9/33/{Tmax}")
+        del q, k, v, tm
+    ops.launches.update(n0)
+    return out
+
+
+def probe_forward(torch, cfg, params, tokens, positions, cache, mask=None,
+                  library=False) -> list:
+    """One cached ``forward`` with the output of every product, norm,
+    RoPE, attention and routing call of the stack recorded in order, as
+    [(op, tensor)], then the logits and their log-sum-exp.  ``library``:
+    with PyTorch's own operations in place of the row-invariant ones
+    (``torch.matmul``, ``torch.bmm``, the ``torch.mean`` RMSNorm,
+    ``torch.logsumexp``), to name what they change."""
+    from repro_torch.kernels.row_reduce import ops as rr
+    from repro_torch.kernels.row_reduce.ref import rms_norm_rows
+    from repro_torch.models import forward, moe, transformer
+    rec, saved = [], []
+
+    def patch(mod, name, fn=None):
+        inner = getattr(mod, name)
+        use = fn or inner
+
+        def recorded(*a, **kw):
+            y = use(*a, **kw)
+            # the stack's outputs are laid out (B, T, ...); the MoE layer's
+            # flattened (tokens, ...), its experts' products (E, tokens,
+            # ...) (their combine, (tokens, 1, E) x (tokens, E, d), not)
+            layout = "batched" if mod is transformer else "flat"
+            if name == "bmm" and not (a[0].shape[1] == 1 and
+                                      a[0].shape[2] == cfg.num_experts):
+                layout = "experts"
+            rec.append((name, y, layout))
+            return y
+        saved.append((mod, name, inner))
+        setattr(mod, name, recorded)
+    lin = (lambda x, w: x @ w.to(x.dtype)) if library else None
+    patch(transformer, "lin", lin)
+    patch(transformer, "rms_norm", rms_norm_rows if library else None)
+    patch(transformer, "apply_rope")
+    patch(transformer, "attention")
+    patch(moe, "lin", lin)
+    patch(moe, "bmm", torch.bmm if library else None)
+    patch(moe, "_route")
+    try:
+        logits, cache, _ = forward(cfg, params, tokens, positions, cache,
+                                   token_mask=mask)
+    finally:
+        for mod, name, inner in reversed(saved):
+            setattr(mod, name, inner)
+    lf = logits.float()
+    rec.append(("logits", logits, "batched"))
+    rec.append(("logsumexp", torch.logsumexp(lf, dim=-1) if library
+                else rr.logsumexp(lf), "batched"))
+    return rec
+
+
+def _slot_part(t, B, T, rows, keep, layout):
+    """The part of an op's output that belongs to batch rows ``rows`` and
+    their first ``keep`` positions, in (row, position, ...) order, from
+    its ``layout``: "batched" (B, T, ...), "flat" (B * T, ...) or
+    "experts" (E, B * T, ...)."""
+    if layout == "experts":
+        x = t.reshape(t.shape[0], B, T, *t.shape[2:]).movedim(0, 2)
+    elif layout == "flat":
+        x = t.reshape(B, T, *t.shape[1:])
+    else:
+        x = t
+    check(tuple(x.shape[:2]) == (B, T), f"row probe: a {layout} output "
+          f"{tuple(t.shape)} of a forward of {B} x {T}")
+    return x[rows, :keep]
+
+
+def _probe_diffs(torch, a, b, parts_a, parts_b) -> list:
+    """Ops of two recorded forwards whose parts differ: (index, op, max
+    gap); the two must have run the same ops."""
+    check([n for n, _, _ in a] == [n for n, _, _ in b],
+          "row probe: the two forwards ran different ops")
+    out = []
+    for i, ((name, x, ts), (_, y, _)) in enumerate(zip(a, b)):
+        xs = x if isinstance(x, tuple) else (x,)
+        ys = y if isinstance(y, tuple) else (y,)
+        for xt, yt in zip(xs, ys):
+            px, py = parts_a(xt, ts), parts_b(yt, ts)
+            if not torch.equal(px, py):
+                gap = float((px.float() - py.float()).abs().max()) \
+                    if px.is_floating_point() else float("nan")
+                out.append((i, name, gap))
+                break
+    return out
+
+
+def probe_inputs(np, cfg, B: int, seed: int) -> tuple:
+    """``row_probe``'s steps as numpy arrays: the prefill (tokens,
+    positions, token mask: prompts of 20-99 tokens), then the pending
+    token and 8 drafts of each row, and their positions."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(20, 100, size=B)
+    T0 = int(lens.max())
+    tok = rng.integers(0, cfg.vocab_size, (B, T0)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(T0, dtype=np.int32), (B, T0)).copy()
+    mask = np.arange(T0)[None] < lens[:, None]
+    pending = rng.integers(0, cfg.vocab_size, (B, 9)).astype(np.int32)
+    vpos = (lens[:, None] + np.arange(9)[None]).astype(np.int32)
+    return tok, pos, mask, pending, vpos
+
+
+def row_probe(torch, np, cfg, params, device="cuda", B=8, S=256, seed=5,
+              library=False) -> dict:
+    """The cached forward's rows (``probe_forward``): 8 slots prefilled
+    with prompts of 20-100 tokens, then (a) a decode step of the 8 slots
+    against each slot's step alone on a copy of its own cache row (rows
+    0 and B - 1), and (b) that decode (T = 1) against the first position
+    of a verify of 9 tokens from the same state (``probe_inputs``).
+    Returns each comparison's differing ops in order ((index, op, max
+    gap)), the count of ops recorded and the decode's logits; the
+    engine's path must differ in none."""
+    from repro_torch.models import forward, init_cache
+    from repro_torch.models.transformer import clone_cache
+    steps = [torch.from_numpy(x).to(device)
+             for x in probe_inputs(np, cfg, B, seed)]
+    tok, pos, mask, pending, vpos = steps
+    nxt = vpos[:, 0]
+    cache = init_cache(cfg, B, S, device=device)
+    forward(cfg, params, tok, pos, cache, token_mask=mask)
+    dec = probe_forward(torch, cfg, params, pending[:, :1].contiguous(),
+                        nxt[:, None].contiguous(), clone_cache(cache),
+                        library=library)
+    ver = probe_forward(torch, cfg, params, pending, vpos.contiguous(),
+                        clone_cache(cache), library=library)
+    out = {"ops": len(dec), "logits": dec[-2][1], "verify": _probe_diffs(
+        torch, dec, ver,
+        lambda t, ts: _slot_part(t, B, 1, slice(None), 1, ts),
+        lambda t, ts: _slot_part(t, B, 9, slice(None), 1, ts)),
+        "alone": []}
+    for b in (0, B - 1):
+        one = init_cache(cfg, 1, S, device=device)
+        for name, leaf in cache.items():
+            bdim = 0 if name == "slot_pos" else 1
+            one[name].copy_(leaf.narrow(bdim, b, 1))
+        alone = probe_forward(torch, cfg, params,
+                              pending[b:b + 1, :1].contiguous(),
+                              nxt[b:b + 1, None].contiguous(), one,
+                              library=library)
+        out["alone"] += [(b, *d) for d in _probe_diffs(
+            torch, dec, alone,
+            lambda t, ts: _slot_part(t, B, 1, b, 1, ts),
+            lambda t, ts: _slot_part(t, 1, 1, 0, 1, ts))]
+    return out
+
+
+def log_row_probe(name, pr, gate=True) -> None:
+    """Print a ``row_probe``'s differing ops; with ``gate`` fail on any."""
+    for what, key in (("a slot alone against the 8-slot step", "alone"),
+                      ("a decode against the first position of a verify "
+                       "of 9", "verify")):
+        diffs = pr[key]
+        log(f"  row probe {name}: {what}: {len(diffs)} of {pr['ops']} "
+            f"recorded ops differ" + ("" if not diffs else ": " + ", ".join(
+                f"{d[-3]}#{d[-2]} ({d[-1]:.2e})" for d in diffs[:8])))
+        if gate:
+            check(not diffs, f"row probe {name}: {what}: ops differ "
+                  f"{diffs[:8]}")
+
+
+def _row_gemm_bound_ms(M, K, N, dtype) -> tuple:
+    es = 2 if dtype == "bfloat16" else 4
+    t_bytes = es * (M * K + K * N + M * N) / HBM_BYTES_PER_S
+    t_ops = 2.0 * M * N * K / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def row_gemm_time(torch, np, shapes=None, Ms=ROW_GEMM_TIME_M,
+                  iters=30) -> list:
+    """``row_gemm`` in bf16 at granite-3-8b's products and the given row
+    counts: its time, the plain version's and ``torch.matmul``'s (cuBLAS,
+    the yardstick, never called on the engine path), each first held to
+    the plain version; the bound (bytes or operations), L2 flushed before
+    each call."""
+    from repro_torch.kernels.row_gemm import ops as rg
+    from repro_torch.kernels.row_gemm import ref as rg_ref
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    n0 = dict(rg.launches)
+    out = []
+    for i, (name, (K, N)) in enumerate((shapes or ROW_GEMM_SHAPES).items()):
+        W = _row_weight(torch, K, N, "bfloat16", 40 + i, name == "unembed")
+        for M in Ms:
+            (A,) = _normals(torch, 70 + M % 89, "bfloat16", (M, K))
+            got = rg.row_gemm(A, W)
+            err, scale = _scale_err(got, rg_ref.row_gemm_ref(A, W))
+            check(err <= TOL["bfloat16"] * scale,
+                  f"row_gemm timing {name} M={M}: max|err| {err:.3e}")
+            t = _time_rounds(torch, lambda: rg.row_gemm(A, W), iters,
+                             scratch.zero_)
+            lib = _time_rounds(torch, lambda: torch.matmul(A, W), iters,
+                               scratch.zero_)
+            plain = _time_ms(torch, lambda: rg_ref.row_gemm_ref(A, W),
+                             max(iters // 5, 5), scratch.zero_)
+            bound_ms, bound_by = _row_gemm_bound_ms(M, K, N, "bfloat16")
+            out.append({"shape": name, "M": M, "K": K, "N": N,
+                        "n_split": rg.n_split(torch.bfloat16, K),
+                        "ms": t["median"], "ms_spread": t,
+                        "library_ms": lib["median"], "library_spread": lib,
+                        "plain_ms": plain, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "max_abs_err": err})
+            tm = out[-1]
+            log(f"  row_gemm timing {name} M={M} K={K} N={N} bf16 (n_split "
+                f"{tm['n_split']}): {_spread(t)} ms; torch.matmul (cuBLAS) "
+                f"{_spread(lib)} ms; plain {plain:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / tm['ms']:.3f} "
+                f"of it")
+            del A, got
+        del W
+    rg.launches.update(n0)
+    return out
+
+
+def row_reduce_time(torch, np, M, iters=50) -> dict:
+    """``rms_norm`` at (M, 4096) bf16 and ``logsumexp`` at (M, 49155) f32
+    (granite's), each beside its plain version and one PyTorch call
+    (``torch.nn.functional.rms_norm``, ``torch.logsumexp``), bound by
+    bytes, L2 flushed before each."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.row_reduce import ops as rr
+    from repro_torch.kernels.row_reduce import ref as rr_ref
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    n0 = dict(rr.launches)
+    (x,) = _normals(torch, 99, "bfloat16", (M, 4096))
+    (w,) = _normals(torch, 91, "float32", (4096,))
+    (lg,) = _normals(torch, 100, "float32", (M, 49155))
+    out = {}
+    for name, fn, plain, lib, nbytes in (
+            ("rms_norm", lambda: rr.rms_norm(x, w),
+             lambda: rr_ref.rms_norm_ref(x, w),
+             (lambda: F.rms_norm(x, (4096,), w.to(x.dtype), 1e-5))
+             if hasattr(F, "rms_norm") else None, 4 * M * 4096 + 4 * 4096),
+            ("logsumexp", lambda: rr.logsumexp(lg),
+             lambda: rr_ref.logsumexp_ref(lg),
+             lambda: torch.logsumexp(lg, dim=-1), 4 * M * 49155 + 4 * M)):
+        err, scale = _scale_err(fn(), plain())
+        check(err <= 3e-2 * scale, f"{name} timing: max|err| {err:.3e}")
+        t = _time_rounds(torch, fn, iters, scratch.zero_)
+        lt = _time_ms(torch, lib, iters, scratch.zero_) if lib else None
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        out[name] = {"M": M, "ms": t["median"], "ms_spread": t,
+                     "plain_ms": _time_ms(torch, plain, iters,
+                                          scratch.zero_),
+                     "library_ms": lt, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "max_abs_err": err}
+        r = out[name]
+        log(f"  {name} timing M={M}: {_spread(t)} ms; plain "
+            f"{r['plain_ms']:.4f} ms; library "
+            + (f"{lt:.4f}" if lt is not None else "none") + f" ms; bound "
+            f"{bound_ms:.4f} ms (bytes)")
+    rr.launches.update(n0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4954,14 +5547,16 @@ def tp_phase(torch, np) -> dict:
     library already built, so no rank builds), then, in this process,
     the gates (``_tp_gates``), K1 / K2 at the shard shapes
     (``tp_kernels_check``), the bf16 and f32 comparisons of tp=2 with
-    tp=None, and the K1 / K2 timings at the shard shapes.  A difference
-    the port's own code makes fails: granite's tp=2 passes (bf16, f32)
-    with every column product sliced from the unsharded one
-    (``ColumnProducts``) must equal tp=None run under tp=2's cost model
-    (``_schedule_of``) bitwise, and the f32 probe so sliced tp=None's.
-    What remains is the rank's own column products, each held to the
-    unsharded product's columns on the same input and printed by shape
-    and gap, and tp's schedule: open faults, not gated."""
+    tp=None, and the K1 / K2 timings at the shard shapes.  The engine
+    path's products are row- and column-invariant (``row_gemm``), so
+    granite's tp=2 rollouts, bf16 and f32, must equal tp=None run under
+    tp=2's cost model (``_schedule_of``) in every response, each rank's
+    column products the unsharded product's columns on the same input
+    bitwise, and the f32 probe's gathered activations tp=None's bitwise;
+    the passes with every column product sliced from the unsharded one
+    (``ColumnProducts``) must equal that oracle bitwise too.  tp's
+    schedule itself (its cost model changes MBA's budgets and so the
+    batches) and the MoE and hybrid models are printed, not gated."""
     import pickle
     import tempfile
 
@@ -5028,6 +5623,10 @@ def tp_phase(torch, np) -> dict:
                 "sliced_products": sl["sliced_products"],
                 "wall_s": sl["wall_s"]}
             s_ = m["same_schedule"]
+            check(s_["tp2_responses_equal_to_oracle"] == m["requests"],
+                  f"tp {arch} bf16: tp={TP} equals tp=None under its "
+                  f"schedule in {s_['tp2_responses_equal_to_oracle']} of "
+                  f"{m['requests']} responses")
             log(f"    tp={TP}'s cost model changes the draft budgets and so "
                 f"the batches: tp=None under tp={TP}'s schedule "
                 f"{orc['fused_steps']} engine steps (tp=None "
@@ -5128,6 +5727,13 @@ def tp_phase(torch, np) -> dict:
         # needs a differing product at or before it
         check(bool(feeding), "tp f32: an activation differs from tp=None "
               "but no column product feeding it does: the port's own fault")
+    check(n_bad == 0 and not bad, f"tp f32: {n_bad} of {n_prod} column "
+          f"products not bitwise the unsharded product's columns, "
+          f"{len(bad)} gathered activations differ from tp=None's")
+    check(rep["f32"]["tp2_responses_equal_to_oracle"] ==
+          rep["f32"]["requests"], f"tp f32: tp={TP} equals tp=None under "
+          f"its schedule in {rep['f32']['tp2_responses_equal_to_oracle']} "
+          f"of {rep['f32']['requests']} responses")
     rep["open_fault"] = bool(f32_diff or bad or n_bad or any(
         m_["bf16_first_difference"] for m_ in rep["models"].values()))
 
@@ -6472,6 +7078,8 @@ def main() -> int:
     import numpy as np
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.row_gemm import ops as rg_ops
+    from repro_torch.kernels.row_reduce import ops as rr_ops
     from repro_torch.kernels.spec_verify import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -6498,7 +7106,7 @@ def main() -> int:
         t_phase[0] = now
 
     libs = (ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY,
-            ssd_ops.BWD_LIBRARY)
+            ssd_ops.BWD_LIBRARY, rg_ops.LIBRARY, rr_ops.LIBRARY)
     build.build_all(libs)
     log("build (one nvcc each, in parallel): " + ", ".join(
         f"{lib.source.name} -> sm_90a in {lib.seconds:.1f} s"
@@ -6516,7 +7124,10 @@ def main() -> int:
             # K4's tensor-core route runs mma.sync (HMMA in SASS)
             "K4": (ssd_ops.LIBRARY, SSD_MMA, "HMMA",
                    [f"ssd_tensor_cores<{n},{pt}>"
-                    for n, pt in ssd_ops.TC_INSTANCES])}
+                    for n, pt in ssd_ops.TC_INSTANCES]),
+            # row_gemm's bf16 kernel runs mma.sync too
+            "row_gemm": (rg_ops.LIBRARY, ROW_GEMM_MMA, "HMMA",
+                         ["gemm_bf16<0>", "gemm_bf16<1>"])}
     for kname, (lib, pattern, opcode, names) in want.items():
         hgmma = hgmma_counts(lib.path(), pattern, opcode)
         report[f"{kname.lower().replace('/', '_')}_hgmma"] = hgmma
@@ -6580,6 +7191,19 @@ def main() -> int:
     report["tree_kernel_checks"] = tree_kernels_check(
         torch, np, B=B, S=S, T_list=CHECK_WIDTHS)
 
+    log("kernels: row_gemm (the engine path's products) against its plain "
+        "version, and row by row")
+    report["row_gemm_checks"] = row_gemm_check(torch, np)
+    log("kernels: row_reduce (RMSNorm, the logits' log-sum-exp) against "
+        "their plain versions, and row by row")
+    report["row_reduce_checks"] = row_reduce_check(torch, np)
+    log("kernels: K1 / K2 row by row: each row's first query at every "
+        "width and batch")
+    report["verify_row_checks"] = verify_row_check(torch, np)
+    log("PyTorch's own operations row by row (what the row-invariant "
+        "kernels remove; printed, not gated)")
+    report["library_row_probe"] = library_row_probe(torch, np)
+
     if args.tp_only:
         tensor_parallel()
         return finish_kernels_only()
@@ -6592,6 +7216,8 @@ def main() -> int:
         report["ssd_time"] = ssd_time_table(torch, np)
         log("K4's backward timing at the trainers' shape")
         report["ssd_bwd_time"] = ssd_bwd_time_table(torch, np)
+        log("row_gemm timing at granite-3-8b's products")
+        report["row_gemm_time"] = row_gemm_time(torch, np)
         return finish_kernels_only()
 
     log("kernels: flash_attention (K3) forward, dQ and dK/dV against "
@@ -6628,10 +7254,13 @@ def main() -> int:
         ro = make_rollout(cfg, params)
         runs.append(run_rollout(torch, ro, prompts))
     # a third pass on the second rollout, its group CSTs warm from the
-    # second pass: the like-for-like yardstick of the tree slice's
-    # measured pass (same method, linear drafts)
+    # second pass (a replay of its responses: gated equal below), then a
+    # fourth at SHIFT_TEMPERATURE, the like-for-like yardstick of the tree
+    # slice's measured pass (same method, linear drafts)
     ro.reset_acceptance_profile()
     lw = run_rollout(torch, ro, prompts)
+    ro.reset_acceptance_profile()
+    lsh = run_rollout(torch, ro, prompts, temperature=SHIFT_TEMPERATURE)
     del ro
     r = runs[0]
     st = r["stats"]
@@ -6649,6 +7278,14 @@ def main() -> int:
           "repeat rollout not bit-identical")
     check(runs[1]["launches"] == r["launches"],
           "repeat rollout launched K1 a different number of times")
+    want_rows = {"row_gemm": 7 * L + 1, "rms_norm": 2 * L + 1,
+                 "logsumexp": 1}
+    for k_, per in want_rows.items():
+        check(r["launches"][k_] == r["fused_steps"] * per,
+              f"{k_} launches {r['launches'][k_]} != cached forwards "
+              f"{r['fused_steps']} x {per}")
+    check(r["plain_calls"] == 0, f"the linear slice made {r['plain_calls']} "
+          "plain calls on the card")
     lens = [len(x) for x in r["responses"].values()]
     check(all(n == NEW_TOKENS for n in lens),
           f"response lengths {sorted(set(lens))}")
@@ -6670,6 +7307,11 @@ def main() -> int:
           "linear warm pass: K1 launches != steps x layers")
     check(lw["host_syncs"] <= lwst.steps, "linear warm pass: host syncs > "
           "steps")
+    # the warm pass batches other rows and step widths than the cold one
+    # (drafts verified, other migrations), and the engine is row-invariant
+    check(sum(lw["responses"][k] == v for k, v in r["responses"].items())
+          == len(lens), "linear warm pass: responses differ from the cold "
+          "pass's")
     slice_rep["warm"] = {
         "fused_steps": lw["fused_steps"],
         "tokens_per_step": lwst.tokens / lw["fused_steps"],
@@ -6678,14 +7320,29 @@ def main() -> int:
         "tokens_per_s": lwst.tokens / lw["wall_s"],
         "same_responses": sum(lw["responses"][k] == v
                               for k, v in r["responses"].items())}
+    shst = lsh["stats"]
+    check(lsh["finished"] and lsh["launches"]["spec_verify"] ==
+          lsh["fused_steps"] * L and lsh["host_syncs"] <= shst.steps,
+          "linear shifted pass: unfinished, or K1 launches or host syncs "
+          "off")
+    slice_rep["shifted"] = {
+        "temperature": SHIFT_TEMPERATURE,
+        "fused_steps": lsh["fused_steps"],
+        "tokens_per_step": shst.tokens / lsh["fused_steps"],
+        "drafted": shst.drafted, "accepted": shst.accepted,
+        "mean_acceptance": shst.mean_acceptance, "wall_s": lsh["wall_s"],
+        "tokens_per_s": shst.tokens / lsh["wall_s"]}
     report["slice"] = slice_rep
     log(f"  tokens {st.tokens}, steps {st.steps}, chunks {st.chunks}, "
         f"migrations {st.migrations}, drafted {st.drafted}, accepted "
         f"{st.accepted} (mean acceptance {st.mean_acceptance:.4f}), "
         f"tokens per engine step {slice_rep['tokens_per_step']:.3f}")
     log(f"  K1 launches {k1_launches} = {r['fused_steps']} cached "
-        f"forwards x {L}; host syncs {r['host_syncs']} "
-        f"<= steps {st.steps}; fused steps by T {r['by_kind']}")
+        f"forwards x {L}; row_gemm {r['launches']['row_gemm']} = x "
+        f"(7 x {L} + 1), rms_norm {r['launches']['rms_norm']} = x (2 x {L} "
+        f"+ 1), logsumexp {r['launches']['logsumexp']}; no plain call; host "
+        f"syncs {r['host_syncs']} <= steps {st.steps}; fused steps by T "
+        f"{r['by_kind']}")
     log(f"  wall s {[round(x, 3) for x in slice_rep['wall_s']]}, "
         f"tokens/s {[round(x, 1) for x in slice_rep['tokens_per_s']]}, "
         f"repeat bit-identical: True, peak memory "
@@ -6697,6 +7354,12 @@ def main() -> int:
         f"{w_['wall_s']:.3f} s, {w_['tokens_per_s']:.1f} tokens/s, "
         f"responses equal to the cold pass: {w_['same_responses']}/"
         f"{len(lens)}")
+    sh_ = slice_rep["shifted"]
+    log(f"  shifted pass (temperature {SHIFT_TEMPERATURE}, group CSTs from "
+        f"the passes at 1.0): engine steps {sh_['fused_steps']}, tokens per "
+        f"step {sh_['tokens_per_step']:.3f}, drafted {sh_['drafted']}, "
+        f"accepted {sh_['accepted']}, wall {sh_['wall_s']:.3f} s, "
+        f"{sh_['tokens_per_s']:.1f} tokens/s")
     if args.profile:
         report["profile"] = profile_steps(torch, cfg, params, args.profile)
         p = report["profile"]
@@ -6706,6 +7369,15 @@ def main() -> int:
         for k_, t_, n_ in p["top"][:12]:
             log(f"    {t_:10.3f} ms  x{n_:<6d} {k_[:90]}")
 
+    log(f"row probe: granite-3-8b ({L} layers) cached forward row by row: a "
+        "slot alone against the 8-slot step, a decode against a verify's "
+        "first position")
+    report["row_probe"] = {"granite-3-8b": {
+        "port": row_probe(torch, np, cfg, params),
+        "library": row_probe(torch, np, cfg, params, library=True)}}
+    log_row_probe("granite-3-8b", report["row_probe"]["granite-3-8b"]["port"])
+    log_row_probe("granite-3-8b with PyTorch's operations (not gated)",
+                  report["row_probe"]["granite-3-8b"]["library"], gate=False)
     phase_done("linear slice")
 
     log("tree engine: fused tree steps against the sync oracle")
@@ -6721,11 +7393,13 @@ def main() -> int:
 
     phase_done("tree engine")
 
-    log("tree slice: the same rollout with spec_mode='tree', 3 paths")
+    log("tree slice: the same rollout with spec_mode='tree', 3 paths: a "
+        "warm pass at temperature 1.0, then the measured pass at "
+        f"{SHIFT_TEMPERATURE}")
     ro = make_rollout(cfg, params, spec_mode="tree", multipath_top_k=3)
     warm = run_rollout(torch, ro, prompts)
     ro.reset_acceptance_profile()
-    tr = run_rollout(torch, ro, prompts)
+    tr = run_rollout(torch, ro, prompts, temperature=SHIFT_TEMPERATURE)
     del ro
     tst = tr["stats"]
     k2_launches = tr["launches"]["tree_verify"]
@@ -6757,7 +7431,7 @@ def main() -> int:
         "k2_launches": k2_launches, "fused_by_T": tr["by_kind"],
         "wall_s": tr["wall_s"], "tokens_per_s": tst.tokens / tr["wall_s"],
         "same_responses_as_linear": sum(
-            tr["responses"][k] == v for k, v in lw["responses"].items()),
+            tr["responses"][k] == v for k, v in lsh["responses"].items()),
         "warm": {"fused_steps": warm["fused_steps"],
                  "drafted": warm["stats"].drafted,
                  "accepted": warm["stats"].accepted,
@@ -6781,10 +7455,10 @@ def main() -> int:
         f"{warm['stats'].accepted}, branching nodes "
         f"{warm['tree_branch_nodes']}, "
         f"{tree_rep['warm']['tokens_per_s']:.1f} tokens/s")
-    log(f"  against the linear warm pass: tokens per step "
-        f"{tree_rep['tokens_per_step']:.3f} vs {w_['tokens_per_step']:.3f}"
+    log(f"  against the linear shifted pass: tokens per step "
+        f"{tree_rep['tokens_per_step']:.3f} vs {sh_['tokens_per_step']:.3f}"
         f", tokens/s {tree_rep['tokens_per_s']:.1f} vs "
-        f"{w_['tokens_per_s']:.1f}, responses equal "
+        f"{sh_['tokens_per_s']:.1f}, responses equal "
         f"{tree_rep['same_responses_as_linear']}/{len(lens)}")
     phase_done("tree slice")
 
@@ -6915,6 +7589,14 @@ def main() -> int:
     sd = sync_debug_steps(torch, np, mcfg, mparams, cache_len=MOE_CACHE_LEN)
     log(f"  dispatch under sync debug 'error': T per step {sd['step_T']}, "
         f"host syncs {sd['host_syncs_per_step']}")
+    log(f"row probe: {MOE_ARCH} ({mcfg.num_layers} layers) cached forward "
+        "row by row")
+    report["row_probe"][MOE_ARCH] = {
+        "port": row_probe(torch, np, mcfg, mparams),
+        "library": row_probe(torch, np, mcfg, mparams, library=True)}
+    log_row_probe(MOE_ARCH, report["row_probe"][MOE_ARCH]["port"])
+    log_row_probe(f"{MOE_ARCH} with PyTorch's operations (not gated)",
+                  report["row_probe"][MOE_ARCH]["library"], gate=False)
     gc.collect()
     torch.cuda.empty_cache()
     moe = rec_slice(torch, np, mcfg, mparams, groups=GROUPS,
@@ -7164,6 +7846,14 @@ def main() -> int:
         f"ms; SDPA {_spread(enc_t['library_spread'])} ms; bound "
         f"{enc_t['bound_ms']:.4f} ms ({enc_t['bound_by']})")
 
+    # row_gemm at granite's products: a decode of 8 slots, a mixed chunk
+    # of 32 on 8 slots, the production prefill and the linear slice's
+    # commonest width (8 slots x T); the row reductions at that width
+    lin_M = 8 * commonest_T(r["by_kind"])
+    rgt = report["row_gemm_time"] = row_gemm_time(
+        torch, np, Ms=tuple(sorted(set(ROW_GEMM_TIME_M) | {lin_M})))
+    rrt = report["row_reduce_time"] = row_reduce_time(torch, np, lin_M)
+
     def kernel_row(name, tpu, path, launches, checks, tm,
                    source=SPEC_VERIFY_SRC):
         return {"name": name, "route": "cuda", "source": source,
@@ -7283,6 +7973,28 @@ def main() -> int:
                 checks_of(report["ssd_bwd_checks"], name) + [tm], tm,
                 source=SSD_BWD_SRC)
               for name, tm in zip(("zamba2-1.2b", "mamba2-370m"), bwd_t)]]
+
+    # the engine path's products and row reductions, through the linear
+    # slice's cold pass (timed at granite's wg and its commonest width)
+    rr_checks = report["row_reduce_checks"]
+    rows += [
+        kernel_row("row_gemm", LIN_REF, "granite-3-8b linear slice, cold "
+                   "pass (every product of the cached forward)",
+                   r["launches"]["row_gemm"],
+                   report["row_gemm_checks"] + rgt,
+                   next(t for t in rgt if t["shape"] == "wg"
+                        and t["M"] == lin_M), source=ROW_GEMM_SRC),
+        kernel_row("row_reduce/rms_norm", RMS_NORM_REF, "granite-3-8b "
+                   "linear slice, cold pass", r["launches"]["rms_norm"],
+                   [c for c in rr_checks if c["shape"].startswith("rms")]
+                   + [rrt["rms_norm"]], rrt["rms_norm"],
+                   source=ROW_REDUCE_SRC),
+        kernel_row("row_reduce/logsumexp", LOGSUMEXP_REF, "granite-3-8b "
+                   "linear slice, cold pass (the sampled tokens' "
+                   "logprobs)", r["launches"]["logsumexp"],
+                   [c for c in rr_checks if c["shape"].startswith("log")]
+                   + [rrt["logsumexp"]], rrt["logsumexp"],
+                   source=ROW_REDUCE_SRC)]
 
     # the production layout: K1 through the one-rank cached steps (timed
     # at the prefill's width), K2 through its tree step, K3 through rank

@@ -23,6 +23,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.row_reduce import ops as row_reduce
+
 _M32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -168,6 +170,6 @@ def token_logprobs_at(logits: torch.Tensor,
     """log softmax(logits) at ``tokens``; (B,T,V), (B,T) -> (B,T) f32.
     Negative tokens index from the end, as ``jnp.take_along_axis``."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
+    logz = row_reduce.logsumexp(lf)
     idx = tokens.long() % lf.shape[-1]
     return lf.gather(-1, idx[..., None])[..., 0] - logz

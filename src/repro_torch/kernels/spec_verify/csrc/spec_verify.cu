@@ -26,15 +26,19 @@
 // read the K/V rows of the live slots once (B*S_live*Hk*D*2 elements),
 // plus B*T*S mask bytes for K2, and does 4*B*T*Hq*S_live*D flops, far
 // below the card's ~295 flops per byte.  What keeps them from that bound
-// differs with the width of the step, so the route is a fixed table of
-// (dtype, D, T) (route_of), and a shape always takes the same route for
-// K1 and K2:
+// differs with the width of the step, but a row's arithmetic must not
+// (the row-invariance rule of row_gemm.cu: one request's logits may not
+// change with the rows it shares a step with, a decode's T = 1 against
+// the first position of a verify, 8 slots against one), so the route is
+// a fixed table of (dtype, D) alone (route_of), the same at every T and
+// B, and a shape always takes the same route for K1 and K2:
 //
-//   Tensor cores: bf16 at D 64 / 128 from T = 2 up (verify steps, trees,
-//   mixed prefill chunks).  On the CUDA cores every score and P.V term
-//   is an f32 FMA with a shared-memory read, ~30x the bound at T = 64; a
-//   64-row tile, padded where T * Hq/Hk is smaller, beat them at every
-//   width measured from T = 2.  Here one CTA per (64 packed rows, b, KV
+//   Tensor cores: bf16 at D 64 / 128, every T (decode, verify steps,
+//   trees, mixed prefill chunks).  On the CUDA cores every score and P.V
+//   term is an f32 FMA with a shared-memory read, ~30x the bound at
+//   T = 64; a 64-row tile, padded where T * Hq/Hk is smaller, beat them
+//   at every width measured, decode too (VLM self, T = 1: 0.0181 against
+//   0.0224 ms).  Here one CTA per (64 packed rows, b, KV
 //   head) runs one consumer warpgroup of wgmma products (S = Q K^T from
 //   shared memory, O += P V with P as the register A operand) on 64-slot
 //   K/V tiles that a producer warp stages by TMA in a ring completed on
@@ -58,29 +62,28 @@
 //   the rest, nothing is routed elsewhere.
 //
 //   CUDA cores: f32 (tensor cores would be TF32, outside the f32 2e-5
-//   tolerance), bf16 at D 32 / 256, and bf16 decode (T = 1).  At decode
-//   the cost is latency and idle warps, not arithmetic: with 4 query rows
-//   per KV head, warps that divided the rows would leave 7 of 8 idle, and
-//   one CTA per (b, KV head) would walk every live tile in series, 64
-//   CTAs on 132 SMs.  So:
+//   tolerance) and bf16 at D 32 / 256.  At decode the cost is latency and
+//   idle warps, not arithmetic: with 4 query rows per KV head, warps that
+//   divided the rows would leave 7 of 8 idle, and one CTA per (b, KV
+//   head) would walk every live tile in series, 64 CTAs on 132 SMs.  So:
 //     * a CTA holds R = 4 query rows (8 from 5 rows up) and its 8 warps
-//       divide the slots: each warp walks its own 32-slot tiles, lane j
-//       scoring slot j from its K row read straight from device memory,
-//       P V reading each V row as one coalesced warp load; each warp
-//       keeps its own online softmax and the 8 states are merged in
+//       divide the slots: warp w walks the 32-slot tiles t_lo + w,
+//       t_lo + w + 8, ... of its share that some row of the CTA may see,
+//       lane j scoring slot j from its K row read straight from device
+//       memory, P V reading each V row as one coalesced warp load; each
+//       warp keeps its own online softmax and the 8 states are merged in
 //       shared memory in a fixed order;
-//     * when B*Hk*row_tiles would underfill the card, the listed tiles
-//       of a row tile are cut into n_split contiguous shares (as many as
-//       keep the grid within 2 CTAs an SM), one CTA each, which write (m,
-//       l, unnormalised acc) in f32 to a workspace; a second launch
-//       merges the splits in split order.  A row that sees nothing merges
-//       to exactly 0.
-//     n_split is a function of (B, T, Hq, Hk, S) only and each share of
-//     the in-order tile list, so repeats stay bitwise and a step and its
-//     sync oracle, which launch the same (B, T), agree bitwise.  A
+//     * the cache is cut into n_split shares of a fixed number of slots
+//       (kSplitKeys, at most kMaxSplits shares: n_split a function of S
+//       alone), one CTA each, which write (m, l, unnormalised acc) in f32
+//       to a workspace; a second launch merges the splits in split order.
+//       A row that sees nothing merges to exactly 0.
+//     A tile's warp and share follow from its index and S alone, and a
+//     tile a row cannot see (listed for another row of the CTA) leaves
+//     that row's state unchanged (max kept, factor 1, p = 0), so a row's
+//     arithmetic does not depend on T, B or the heads of the call.  A
 //     caller may name n_split instead (a tensor-parallel rank's shard of
-//     the heads asks for the unsharded call's, so each head's shares,
-//     and its output, are the unsharded call's).
+//     the heads asks for the unsharded call's, which is the same).
 //
 // Partials (`lse` given): every route also writes each row's f32
 // log-sum-exp of its visible scores, lse = m + log l (-inf for a row that
@@ -91,8 +94,12 @@
 // Both routes: only tiles some row may see are loaded (empty slots, slots
 // in the future or outside the window are not), so a half-empty cache
 // costs what its live slots cost; no atomics and a fixed reduction order,
-// so repeated runs are bitwise deterministic.  A launch the card refuses
-// returns its error; nothing falls back to another route.
+// so repeated runs are bitwise deterministic; on the tensor cores as on
+// the CUDA cores a tile that one row cannot see but another row of the
+// CTA can is an exact no-op for the first (its max kept, the factor
+// 2^0 = 1, p = 0), so the rows a call holds change no row's bits.  A
+// launch the card refuses returns its error; nothing falls back to
+// another route.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //   -shared -Xcompiler -fPIC; bound to PyTorch through a plain C
@@ -109,17 +116,10 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockK = 32;  // slots per tile of the CUDA-core route
 constexpr float kNegInf = -1e30f;
-// the CUDA-core route cuts a row tile's slots into as many splits as keep
-// the grid within kTargetCtas (two CTAs on each of the H100's 132 SMs, as
-// the decode instances' 128 registers allow: a second wave cost more
-// than the split saved)
-constexpr int kTargetCtas = 2 * 132;
+// the CUDA-core route cuts the cache into shares of kSplitKeys slots (one
+// tile a warp), at most kMaxSplits of them: n_split depends on S alone
+constexpr int kSplitKeys = kWarps * kBlockK;
 constexpr int kMaxSplits = 8;
-// bf16 at D 64 / 128 takes the tensor cores from this step width up:
-// measured, the padded 64-row tile beat the CUDA cores at every width
-// from T = 2 (8 packed rows at granite's heads, 2 at zamba2's); decode
-// (T = 1) stays on the split CUDA cores
-constexpr int kTcMinT = 2;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -187,10 +187,10 @@ __device__ __forceinline__ void list_tiles(const int* need, int n_tiles,
 //
 // One CTA per (R query rows, b * Hk + KV head, split).  Every warp holds
 // all R rows and walks its own 32-slot tiles of the CTA's share (warp w:
-// entries w, w + 8, ... of the in-order tile list), so the 8 warps divide
-// the slots, not the rows.  Lane j scores slot j against the R rows, its
-// K row read straight from device memory as 16-byte vectors (q from
-// shared memory, broadcast); P V reads each V row of the tile as one
+// tiles t_lo + w, t_lo + w + 8, ... that a row may see), so the 8 warps
+// divide the slots, not the rows.  Lane j scores slot j against the R
+// rows, its K row read straight from device memory as 16-byte vectors (q
+// from shared memory, broadcast); P V reads each V row of the tile as one
 // coalesced warp load, lane owning D/32 contiguous dims.  Each warp keeps
 // its own online softmax; the warps' states merge in shared memory in a
 // fixed tree (4-7 into 0-3, 2-3 into 0-1, 1 into 0).
@@ -203,7 +203,7 @@ size_t cores_smem(int S) {
   const int n_tiles = (S + kBlockK - 1) / kBlockK;
   return sizeof(float) * (R * D + kWarps * kBlockK * R +
                           (kWarps / 2) * R * (D + 2)) +
-         sizeof(int) * (R + 2 * n_tiles + 1);
+         sizeof(int) * (R + n_tiles);
 }
 
 // N contiguous elements of T at p (aligned to their size) as floats
@@ -260,7 +260,6 @@ verify_cores(const T* __restrict__ q, const T* __restrict__ k,
   float* mrg = ps + kWarps * kBlockK * R;     // [kWarps / 2][R][D + 2]
   int* qps = reinterpret_cast<int*>(mrg + (kWarps / 2) * R * (D + 2));
   int* need = qps + R;                        // [n_tiles]
-  int* list = need + n_tiles;                 // [n_tiles + 1]
 
   const int G = Hq / Hk;
   const int B = gridDim.y / Hk;
@@ -305,8 +304,8 @@ verify_cores(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // position range of the CTA's rows; the tiles one of them may see, in
-  // order; this CTA's contiguous share of them
+  // position range of the CTA's rows; the tiles one of them may see; this
+  // CTA's share of the cache's tiles
   int q_lo = 0x7fffffff, q_hi = -1;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -328,11 +327,8 @@ verify_cores(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  if (warp == 0) list_tiles(need, n_tiles, lane, list);
-  __syncthreads();
-  const int n_list = list[n_tiles];
-  const int i_lo = (int)((long long)n_list * split / n_split);
-  const int i_hi = (int)((long long)n_list * (split + 1) / n_split);
+  const int t_lo = (int)((long long)n_tiles * split / n_split);
+  const int t_hi = (int)((long long)n_tiles * (split + 1) / n_split);
 
   // this warp's online softmax: m_run the warp's running max, l_run this
   // lane's share of the running sum (summed over the warp after the loop)
@@ -362,8 +358,9 @@ verify_cores(const T* __restrict__ q, const T* __restrict__ k,
   }
   float* psw = ps + warp * kBlockK * R;
 
-  for (int i = i_lo + warp; i < i_hi; i += kWarps) {
-    const int s0 = (list[i] >> 1) * kBlockK;
+  for (int t = t_lo + warp; t < t_hi; t += kWarps) {
+    if (!need[t]) continue;  // uniform over the warp
+    const int s0 = t * kBlockK;
     const int s = s0 + lane;
     const bool in = s < S;
     const int kp = in ? kpb[s] : -1;
@@ -550,7 +547,7 @@ merge_splits(const float* __restrict__ part, void* __restrict__ out,
 }
 
 // ===========================================================================
-// tensor-core route: bf16 at D = 64 and 128, T >= kTcMinT
+// tensor-core route: bf16 at D = 64 and 128, every T
 // ===========================================================================
 //
 // One CTA per (64 packed rows, b * Hk + KV head, head group): a consumer
@@ -950,11 +947,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The route of each shape, and nothing else decides it:
-//   bf16, D 64 / 128, T >= kTcMinT -> the tensor cores;
+// The route of each shape, (dtype, D) and nothing else, at every T:
+//   bf16, D 64 / 128 -> the tensor cores;
 //   f32 (every D; on the tensor cores it would be TF32, outside the f32
-//   tolerance of 2e-5), bf16 at D 32 / 256 and bf16 decode (T = 1) -> the
-//   CUDA cores, split when the grid would underfill the card.
+//   tolerance of 2e-5) and bf16 at D 32 / 256 -> the CUDA cores, the
+//   cache in shares of kSplitKeys slots.
 enum Route { kNoRoute = 0, kCudaCores = 1, kTensorCores = 2 };
 
 bool head_dim_ok(int D) { return D == 32 || D == 64 || D == 128 || D == 256; }
@@ -966,7 +963,7 @@ bool tc_eligible(int dtype, int D) {
 Route route_of(int dtype, int D, int n_t, int Hq, int Hk) {
   if (!head_dim_ok(D) || Hk <= 0 || Hq % Hk || (dtype != 0 && dtype != 1))
     return kNoRoute;
-  if (tc_eligible(dtype, D) && n_t >= kTcMinT) return kTensorCores;
+  if (tc_eligible(dtype, D)) return kTensorCores;
   return kCudaCores;
 }
 
@@ -980,16 +977,10 @@ Route resolve_route(int dtype, int D, int n_t, int Hq, int Hk, int want) {
   return kNoRoute;
 }
 
-// splits of the CUDA-core route: a function of the shape only
-int splits_of(int B, int n_t, int Hq, int Hk, int S) {
-  const int rows = n_t * (Hq / Hk);
-  const int cta = rows_per_cta(rows);
-  const long long ctas = (long long)B * Hk * ((rows + cta - 1) / cta);
-  int n = (int)(kTargetCtas / ctas);
-  n = n < kMaxSplits ? n : kMaxSplits;
-  const int n_tiles = (S + kBlockK - 1) / kBlockK;
-  n = n < n_tiles ? n : n_tiles;
-  return n > 1 ? n : 1;
+// splits of the CUDA-core route: a function of the cache's length only
+int splits_of(int S) {
+  const int n = (S + kSplitKeys - 1) / kSplitKeys;
+  return n < 1 ? 1 : n < kMaxSplits ? n : kMaxSplits;
 }
 
 template <typename Kern>
@@ -1091,7 +1082,7 @@ int launch_any(int dtype, int D, int want, int want_split, const Args& a) {
     case kCudaCores: {
       const int n_split = want_split > 0
                               ? want_split
-                              : splits_of(a.B, a.n_t, a.Hq, a.Hk, a.S);
+                              : splits_of(a.S);
       if (n_split > kMaxSplits) return cudaErrorInvalidValue;
       if (n_split > 1 && a.part == nullptr) return cudaErrorInvalidValue;
       return dtype == 0 ? launch_cores_d<float, kTree>(D, a, n_split)
@@ -1122,7 +1113,7 @@ extern "C" int spec_verify_route(int dtype, int D, int T, int Hq, int Hk,
 extern "C" int spec_verify_splits(int dtype, int D, int B, int T, int Hq,
                                   int Hk, int S, int route) {
   if (resolve_route(dtype, D, T, Hq, Hk, route) != kCudaCores) return 1;
-  return splits_of(B, T, Hq, Hk, S);
+  return splits_of(S);
 }
 
 // q/out contiguous (B,T,Hq,D); k/v (B,S,Hk,D) with contiguous (S,Hk,D)

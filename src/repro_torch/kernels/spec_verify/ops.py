@@ -7,19 +7,20 @@ window=)`` that of ``ref.tree_verify_ref``.  A CPU tensor goes to the
 plain version; a CUDA tensor goes to the hand-written kernels in
 ``csrc/spec_verify.cu`` or the wrapper raises — there is no fallback.
 
-Inside the library the route of a call is a fixed table of its shape
-(dtype, head dim, T), the same for K1 and K2 (:func:`plan`): bf16 at
-D 64 / 128 from T = 2 up on the tensor cores (wgmma on TMA-staged
-tiles); f32, the other head dims and bf16 decode (T = 1) on the CUDA
-cores, where a grid that would underfill the card is split along the
-cache into ``n_split`` shares (a function of the shape, :func:`plan`)
-merged by a second launch in split order.  The wrapper allocates the
-split workspace; a call counts one launch however many kernels it ran.
-A call on a rank's shard of a layer's heads (tensor parallelism) passes
+Inside the library the route of a call is a fixed table of (dtype,
+head dim), the same for K1 and K2 and at every T (:func:`plan`): bf16 at
+D 64 / 128 on the tensor cores (wgmma on TMA-staged tiles); f32 and the
+other head dims on the CUDA cores, where the cache is cut into
+``n_split`` shares of a fixed number of slots (a function of S alone)
+merged by a second launch in split order.  So a query row's arithmetic
+depends only on that row and the cache, never on the call's T, B or
+heads: a decode gives the bits of the first position of a verify, a
+slot alone those it gets among eight (the row-invariance rule of
+``kernels/row_gemm``).  The wrapper allocates the split workspace; a
+call counts one launch however many kernels it ran.  A call on a rank's
+shard of a layer's heads (tensor parallelism) may pass
 ``split_like=(Hq, Hk)``, the unsharded layer's head counts, and gets the
-unsharded call's n_split: a head's shares depend only on its row tile,
-the cache and n_split, so each head's output is bitwise the unsharded
-call's.
+unsharded call's n_split (the same: it depends on S alone).
 
 ``lse=True`` asks every route for the softmax's partials: the output in
 f32 and each row's log-sum-exp (B, T, Hq) f32, -inf where a row sees no
@@ -95,9 +96,10 @@ _PLANS = {}
 
 def plan(dtype: torch.dtype, B: int, T: int, Hq: int, Hk: int, D: int,
          S: int, route: str = None, n_split: int = None) -> tuple:
-    """(route, n_split) of a call of this shape: the library's table, or
-    ``route`` ("cuda_cores" / "tensor_cores") and ``n_split`` where the
-    shape can take them; n_split is 1 on the tensor cores, and at most
+    """(route, n_split) of a call of this shape: the library's table (the
+    route from dtype and D, n_split from S), or ``route``
+    ("cuda_cores" / "tensor_cores") and ``n_split`` where the shape can
+    take them; n_split is 1 on the tensor cores, and at most
     ``MAX_SPLITS`` on the CUDA cores.  Kept per shape, so the hot path
     asks the library once."""
     key = (dtype, B, T, Hq, Hk, D, S, route, n_split)

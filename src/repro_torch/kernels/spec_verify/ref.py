@@ -20,10 +20,25 @@ follows ``_plain`` op for op (scale
 ``1/sqrt(float32(D))`` on the f32 query), so on the CPU the port's
 forward matches the JAX package's.
 
-The split route of the kernels (decode on the CUDA cores) has its own
-plain pieces: ``split_partials`` cuts the attention of each row into
-``n_split`` shares of its slots, as the kernel cuts its list of needed
-32-slot tiles, and keeps each share's (m, l, unnormalised acc) in f32;
+Row invariance (the rule of ``kernels/row_gemm``): on the CPU, where the
+port's engine runs these plain versions, a query row's output depends
+only on that row, the cache and its mask row, never on the call's T, B
+or heads.  A batched product would break that (BLAS's one-row routine
+and PyTorch's plain loop for small batched products sum in other orders
+than a product of many rows), so there both products are elementwise
+products summed over D and over the slots by PyTorch's reductions,
+whose order for one output depends only on the reduction's length; the
+query positions go in chunks that keep the intermediate near
+``CHUNK_ELEMS`` values, which changes no row.  On the card the plain
+versions are the kernels' oracle, held at a tolerance, and take
+batched products (cuBLAS in f32): the elementwise form would move the
+whole (T, S, D) product through memory.
+
+The split route of the kernels (the CUDA cores) has its own plain
+pieces: ``split_partials`` cuts the attention of each row into
+``n_split`` shares of the cache, as the kernel does (share s holds
+32-slot tiles [n_tiles s / n_split, n_tiles (s + 1) / n_split) of all
+n_tiles), and keeps each share's (m, l, unnormalised acc) in f32;
 ``merge_partials`` merges them in share order, as the merge launch does.
 ``split_verify_ref`` is the two together.  ``merge_lse`` merges the
 ``lse=True`` partials of shares of the slots held apart (the ranks of the
@@ -35,6 +50,7 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+CHUNK_ELEMS = 1 << 22   # values of a chunk's (rows x slots x D) product
 # calls of the two plain versions, so that a run on the card can show that
 # its main path never took them
 calls = {"spec_verify": 0, "tree_verify": 0}
@@ -76,22 +92,59 @@ def tree_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        pos_mask(q_pos, k_pos, window) & tree_mask.bool(), lse)
 
 
-def _masked_ref(q, k, v, mask, lse=False):
+def _chunks(T: int, per_position: int):
+    """Slices of the T query positions, each holding near CHUNK_ELEMS
+    values of the products (at least one position)."""
+    step = max(1, CHUNK_ELEMS // max(per_position, 1))
+    return [slice(t0, min(T, t0 + step)) for t0 in range(0, T, step)]
+
+
+def scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The scaled f32 scores (B, T, Hq, S) of q (B, T, Hq, D) against k
+    (B, S, Hk, D), query head h on KV head h // (Hq / Hk): each the sum
+    over D of f32 products, row by row alike on the CPU."""
     B, T, Hq, D = q.shape
-    Hk = k.shape[2]
+    S, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
-    qg = (q.float() * f32_scale(D)).reshape(B, T, Hk, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())    # (B,Hk,G,T,S)
-    m = mask[:, None, None]
-    s = torch.where(m, s, NEG_INF)
+    if q.device.type != "cpu":
+        qg = (q.float() * f32_scale(D)).reshape(B, T, Hk, G, D)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float())
+        return s.reshape(B, T, Hq, S)
+    qg = (q.float() * f32_scale(D)).reshape(B, T, Hk, G, 1, D)
+    kt = k.float().permute(0, 2, 1, 3)[:, None, :, None]     # (B,1,Hk,1,S,D)
+    return torch.cat([(qg[:, c] * kt).sum(-1) for c in
+                      _chunks(T, B * Hq * S * D)], dim=1).reshape(B, T, Hq,
+                                                                   S)
+
+
+def weighted_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """sum over the slots of p (B, T, Hq, S) f32 times v (B, S, Hk, D):
+    (B, T, Hq, D) f32, row by row alike on the CPU."""
+    B, T, Hq, S = p.shape
+    Hk, D = v.shape[2], v.shape[3]
+    G = Hq // Hk
+    if p.device.type != "cpu":
+        o = torch.einsum("bqhgk,bkhd->bqhgd", p.reshape(B, T, Hk, G, S),
+                         v.float())
+        return o.reshape(B, T, Hq, D)
+    pg = p.reshape(B, T, Hk, G, S, 1)
+    vt = v.float().permute(0, 2, 1, 3)[:, None, :, None]     # (B,1,Hk,1,S,D)
+    return torch.cat([(pg[:, c] * vt).sum(-2) for c in
+                      _chunks(T, B * Hq * S * D)], dim=1).reshape(B, T, Hq,
+                                                                   D)
+
+
+def _masked_ref(q, k, v, mask, lse=False):
+    m = mask[:, :, None, :]                                  # (B,T,1,S)
+    s = torch.where(m, scores(q, k), NEG_INF)                # (B,T,Hq,S)
     p = torch.softmax(s, dim=-1)
-    p = torch.where(m.any(dim=-1, keepdim=True), p, 0.0)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).reshape(B, T, Hq, D)
+    seen = m.any(dim=-1)                                     # (B,T,1)
+    p = torch.where(seen[..., None], p, 0.0)
+    o = weighted_values(p, v)
     if not lse:
         return o.to(q.dtype)
-    seen = m.any(dim=-1)                                     # (B,Hk,G,T)
     lse_t = torch.where(seen, torch.logsumexp(s, dim=-1), -torch.inf)
-    return o, lse_t.permute(0, 3, 1, 2).reshape(B, T, Hq)
+    return o, lse_t
 
 
 SPLIT_TILE = 32   # slots per tile of the kernels' split route
@@ -101,48 +154,33 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor, n_split: int,
                    tile: int = SPLIT_TILE) -> tuple:
     """The attention of q over k, v under ``mask`` (B, T, S) cut into
-    ``n_split`` shares: per batch row, the in-order list of ``tile``-slot
-    tiles that some query of the row may see, share s holding entries
-    [n * s // n_split, n * (s + 1) // n_split) of it (empty when n_split
-    exceeds n).  Returns (m, l, acc): m and l (n_split, B, T, Hq) f32 —
-    the share's max score (NEG_INF where it sees no key) and its sum of
-    exp(score - m) — and acc (n_split, B, T, Hq, D) f32, the unnormalised
-    sum of exp(score - m) v.  Each query head's products are computed on
-    their own, at shapes that do not depend on the number of heads, as
-    the kernel's CTAs each take one KV head: a rank's shard of the heads
-    (tensor parallelism) gives bitwise those heads of the whole call."""
-    B, T, Hq, D = q.shape
-    S, Hk = k.shape[1], k.shape[2]
-    G = Hq // Hk
-    qf = q.float() * f32_scale(D)
-    kf, vf = k.float(), v.float()
-    s = torch.stack([torch.einsum("bqd,bkd->bqk", qf[:, :, h].contiguous(),
-                                  kf[:, :, h // G].contiguous())
-                     for h in range(Hq)], dim=2)             # (B,T,Hq,S)
+    ``n_split`` shares of the cache: share s holds the ``tile``-slot
+    tiles [n_tiles s // n_split, n_tiles (s + 1) // n_split) of its
+    n_tiles (none when n_split exceeds n_tiles).  Returns (m, l, acc): m
+    and l (n_split, B, T, Hq) f32 — the share's max score (NEG_INF where
+    it sees no key) and its sum of exp(score - m) — and acc (n_split, B,
+    T, Hq, D) f32, the unnormalised sum of exp(score - m) v.  A row's
+    shares depend on S alone and its products on that row alone
+    (``scores``, ``weighted_values``), so a rank's shard of the heads
+    (tensor parallelism), another T or another B give bitwise those rows
+    of the whole call."""
+    S = k.shape[1]
+    s = scores(q, k)                                         # (B,T,Hq,S)
     n_tiles = -(-S // tile)
-    seen = torch.zeros(B, n_tiles * tile, dtype=torch.bool)
-    seen[:, :S] = mask.any(dim=1).cpu()
-    seen = seen.reshape(B, n_tiles, tile).any(dim=-1)        # (B, n_tiles)
-    share = torch.full((B, S), -1, dtype=torch.long)
-    for b in range(B):
-        listed = torch.nonzero(seen[b]).flatten().tolist()
-        n = len(listed)
-        for sp in range(n_split):
-            for t in listed[n * sp // n_split:n * (sp + 1) // n_split]:
-                share[b, t * tile:(t + 1) * tile] = sp
-    share = share.to(q.device)
+    tile_of = torch.arange(S, device=q.device) // tile
+    starts = torch.tensor([n_tiles * sp // n_split
+                           for sp in range(1, n_split)],
+                          dtype=torch.long, device=q.device)
+    share = (tile_of[:, None] >= starts).sum(dim=1)          # (S,)
     ms, ls, accs = [], [], []
     for sp in range(n_split):
-        vis = mask & (share == sp)[:, None, :]                 # (B,T,S)
-        sv = torch.where(vis[:, :, None, :], s, NEG_INF)
-        m = sv.max(dim=-1).values                              # (B,T,Hq)
-        p = torch.where(vis[:, :, None, :], torch.exp(sv - m[..., None]),
-                        0.0)
+        vis = (mask & (share == sp))[:, :, None, :]          # (B,T,1,S)
+        sv = torch.where(vis, s, NEG_INF)
+        m = sv.max(dim=-1).values                            # (B,T,Hq)
+        p = torch.where(vis, torch.exp(sv - m[..., None]), 0.0)
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.stack(
-            [torch.bmm(p[:, :, h].contiguous(), vf[:, :, h // G].contiguous())
-             for h in range(Hq)], dim=2))                     # (B,T,Hq,D)
+        accs.append(weighted_values(p, v))                   # (B,T,Hq,D)
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 

@@ -6,6 +6,16 @@ exactly: RMSNorm runs in f32 and casts back, RoPE angles are f32, and
 ``lin`` casts the weight to the activation dtype on every call, so a
 weight stored once in the activation dtype computes the same result as
 the JAX package's f32 master weights.
+
+Row invariance.  Off autograd (the engine path: every cached forward,
+the production cached steps, the cross-attention caches) ``lin`` runs
+the row-invariant product (``kernels.row_gemm``) and ``rms_norm`` the
+row-invariant reduction (``kernels.row_reduce``): the bits of one output
+row depend only on that row and the reduction's length, never on the
+call's other rows, its columns or its route, so a request's tokens do
+not change with the rows it shares a step with (a crash's rebatching, a
+verify's width, tp's column shards).  Where autograd records (the train
+step) both stay the PyTorch operations they were.
 """
 from __future__ import annotations
 
@@ -13,19 +23,32 @@ import functools
 
 import torch
 
+from repro_torch.kernels.row_gemm.ops import row_gemm
+from repro_torch.kernels.row_reduce import ops as row_reduce
+from repro_torch.kernels.row_reduce.ref import rms_norm_rows
+
+
+def records_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
 
 def lin(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Matmul with the weight cast to the activation dtype."""
-    return x @ w.to(x.dtype)
+    """Matmul with the weight cast to the activation dtype: the
+    row-invariant product off autograd, ``torch.matmul`` under it."""
+    w = w.to(x.dtype)
+    if records_grad(x, w):
+        return x @ w
+    return row_gemm(x, w)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * weight.float()).to(dt)
+    """RMSNorm in f32, cast back: the row-invariant reduction off
+    autograd, PyTorch's operations under it."""
+    if records_grad(x, weight):
+        return rms_norm_rows(x, weight, eps)
+    return row_reduce.rms_norm(x, weight, eps)
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,7 +18,7 @@ token on every rank, each (token, k) pair takes the next slot of its
 expert in flattened (token, k) order (an exclusive cumsum) and is
 dropped past the capacity C, which is computed from the global E as the
 reference does; the kept tokens are gathered into an (E_loc, C, d)
-buffer, the experts run as batched products (``torch.bmm``: the
+buffer, the experts run as batched products (:func:`bmm`: the
 reference has no kernel on this layer), the k-loop combine sums in f32,
 and the shared expert (its ``ff`` split over the ranks) is added before
 the ranks' partial outputs are summed — all-reduced, or reduce-scattered
@@ -46,7 +46,8 @@ from typing import Optional
 import torch
 
 from repro_torch import sharding
-from repro_torch.models.common import lin
+from repro_torch.kernels.row_gemm.ops import row_bmm
+from repro_torch.models.common import lin, records_grad
 
 
 def init_moe(d: int, eff: int, n_expert: int, n_shared: int, normal):
@@ -68,11 +69,19 @@ def init_moe(d: int, eff: int, n_expert: int, n_shared: int, normal):
     return p
 
 
+def bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, M, K) @ (E, K, N): the row-invariant batched product off
+    autograd (``kernels.row_gemm``), ``torch.bmm`` under it."""
+    if records_grad(a, w):
+        return torch.bmm(a, w)
+    return row_bmm(a, w)
+
+
 def _route(x_f32: torch.Tensor, router: torch.Tensor, top_k: int):
     """x (T, d) f32 -> (weights (T, k), ids (T, k), probs (T, E)).  A
     stable descending sort puts the lower expert first among equal
     probabilities, as ``jax.lax.top_k`` does."""
-    probs = torch.softmax(x_f32 @ router.float(), dim=-1)
+    probs = torch.softmax(lin(x_f32, router), dim=-1)
     w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, ids = w[:, :top_k], ids[:, :top_k]
     w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -128,11 +137,11 @@ def moe_dense_all(x: torch.Tensor, p: dict, cfg, sctx=None):
     u = lin(xf, p["wu"]).view(T, E, -1)
     g = sharding.whole_columns(_silu(h) * u, p["wd"].shape[1],
                                sctx).transpose(0, 1)
-    y_all = torch.bmm(g, p["wd"].to(x.dtype))                # (E, T, d)
+    y_all = bmm(g, p["wd"].to(x.dtype))                      # (E, T, d)
     # each (t, e) holds at most one of the token's k weights: exact
     comb = (onehot * w[..., None]).sum(dim=1)                # (T, E)
-    y = torch.bmm(comb.to(x.dtype)[:, None, :],
-                  y_all.transpose(0, 1))[:, 0]               # (T, d)
+    y = bmm(comb.to(x.dtype)[:, None, :],
+            y_all.transpose(0, 1))[:, 0]                     # (T, d)
     y = y + _shared(xf, p, sctx)
     return y.reshape(B, S, d), aux
 
@@ -192,8 +201,8 @@ def _moe_body(xf: torch.Tensor, router: torch.Tensor, p: dict, cfg,
     dt = xf.dtype
     wg = p["wg"].view(d, E_loc, -1).transpose(0, 1).to(dt)
     wu = p["wu"].view(d, E_loc, -1).transpose(0, 1).to(dt)
-    g = _silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
-    out = torch.bmm(g, p["wd"].to(dt)).reshape(E_loc * C, d)
+    g = _silu(bmm(buf, wg)) * bmm(buf, wu)
+    out = bmm(g, p["wd"].to(dt)).reshape(E_loc * C, d)
     out = torch.cat([out, out.new_zeros((1, d))])
     slot_tk = slot.view(T, k)
     w_tk = torch.where(valid.view(T, k), w, torch.zeros_like(w))

@@ -794,7 +794,7 @@ def _unembed_nocache(cfg, params, x, lay):
         return _unembed(cfg, params, lay.whole_in(x))
     xn = rms_norm(x, lay.norm(params["final_ln"]), cfg.rms_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    part = lay.enter(xn) @ w.to(torch_dtype(cfg.dtype))
+    part = lin(lay.enter(xn), w.to(torch_dtype(cfg.dtype)))
     return sharding.gather_whole(part, lay.sctx, dim=-1)
 
 
@@ -867,8 +867,8 @@ def _unembed(cfg, params, x, sctx=None):
     dtype = torch_dtype(cfg.dtype)
     x = rms_norm(x, params["final_ln"], cfg.rms_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T.to(dtype)
-    return sharding.whole_columns(x @ params["unembed"].to(dtype),
+        return lin(x, params["embed"].T.to(dtype))
+    return sharding.whole_columns(lin(x, params["unembed"].to(dtype)),
                                   cfg.vocab_size, sctx)
 
 

@@ -1,6 +1,6 @@
-"""The split route of K1 and K2 (decode on the CUDA cores) in plain
-PyTorch against the JAX package: the attention of each row cut into
-n_split shares of its needed 32-slot tiles (``split_partials``) and
+"""The split route of K1 and K2 (f32 and D 32 / 256 on the CUDA cores)
+in plain PyTorch against the JAX package: the attention of each row cut into
+n_split shares of the cache's 32-slot tiles (``split_partials``) and
 merged in share order (``merge_partials``, the plain version of the
 merge launch), held against ``spec_verify_ref`` and ``tree_verify_ref``
 on numpy-seeded inputs at the tolerances of ``tests/test_kernels.py``
@@ -135,8 +135,9 @@ def test_split_merge_tree_matches_jax(shape, dtype, n_split):
 
 
 def test_shares_beyond_the_needed_tiles_are_empty():
-    """Live slots in 2 tiles of 32, 8 shares: 6 shares hold no tile, their
-    m is NEG_INF and l and acc 0, and the merge is still exact."""
+    """Live slots in 2 of the cache's 8 tiles of 32, 8 shares: 6 shares
+    hold no live slot, their m is NEG_INF and l and acc 0, and the merge
+    is still exact."""
     case = (1, 3, 256, 4, 2, 64, 0)
     q, k, v, q_pos, k_pos = _inputs(case, 3, empty_rows=False)
     k_pos[:] = -1
